@@ -1,0 +1,244 @@
+"""The port's training runtime against the JAX package's.
+
+A 3-step float32 trajectory of the port's ``Trainer`` (its plain flash
+path on the CPU) against the reference ``loss_fn`` stepped by the
+reference ``TrainConfig.make_optimizer()`` from the same bridged initial
+parameters and the same ``default_rng(seed + step)`` batch stream: losses
+and gradient norms agree to rtol 1e-4. The rest covers the env contract,
+the learning-rate schedules, the checkpoint commit-marker gate and the
+device rule (the card unless the caller asks for the CPU).
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from tfk8s_tpu.models import gpt as jgpt
+from tfk8s_tpu.parallel.sharding import unbox
+from tfk8s_tpu.runtime import train as jtrain
+from tfk8s_tpu_torch import bridge
+from tfk8s_tpu_torch.models import gpt as tgpt
+from tfk8s_tpu_torch.ops import flash_attention as tfa
+from tfk8s_tpu_torch.runtime import train as ttrain
+from tfk8s_tpu_torch.runtime.checkpoint import Checkpointer
+
+SEQ, BATCH, STEPS = 16, 4, 3
+RTOL = 1e-4
+
+
+def _reference_trajectory(params, accum, **train_kw):
+    """Per-step (loss, grad_norm) of the reference loss_fn under the
+    reference optimizer, batches from the reference stream."""
+    task = jgpt.make_task(jgpt.tiny_config(dtype=jnp.float32), seq_len=SEQ, batch_size=BATCH)
+    cfg = jtrain.TrainConfig(steps=STEPS, **train_kw)
+    opt = cfg.make_optimizer()
+    grad_fn = jax.value_and_grad(lambda p, b: task.loss_fn(p, b, jax.random.key(0)),
+                                 has_aux=True)
+
+    @jax.jit
+    def step(params, opt_state, micro):
+        outs = [grad_fn(params, {"input": m}) for m in micro]
+        loss = sum(o[0][0] for o in outs) / accum
+        grads = jax.tree_util.tree_map(lambda *g: sum(g) / accum, *(o[1] for o in outs))
+        updates, opt_state = opt.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state, loss, optax.global_norm(grads)
+
+    rng = np.random.default_rng(cfg.seed)
+    opt_state, out = opt.init(params), []
+    for _ in range(STEPS):
+        ids = task.make_batch(rng, BATCH)["input"]
+        params, opt_state, loss, gnorm = step(params, opt_state, np.split(ids, accum))
+        out.append((float(loss), float(gnorm)))
+    return out
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_three_step_trajectory_matches_reference(accum):
+    train_kw = dict(learning_rate=3e-3, warmup_steps=1, lr_schedule="cosine")
+    jcfg = jgpt.tiny_config(dtype=jnp.float32)
+    ids = jnp.zeros((BATCH, SEQ), jnp.int32)
+    params = unbox(jax.jit(jgpt.GPTLM(jcfg).init)(jax.random.key(0), ids)["params"])
+    params = jax.tree_util.tree_map(np.asarray, params)
+    want = _reference_trajectory(params, accum, **train_kw)
+
+    tcfg = tgpt.tiny_config(dtype=torch.float32)
+    task = tgpt.make_task(tcfg, seq_len=SEQ, batch_size=BATCH, attn_fn=tfa.flash_attention)
+    config = ttrain.TrainConfig(steps=STEPS, log_every=1, grad_accum_steps=accum, **train_kw)
+    trainer = ttrain.Trainer(task, config, torch.device("cpu"))
+    state = trainer.init_state()
+    state.model.load_state_dict(bridge.params_to_state_dict(params, tcfg))
+    _, history = trainer.fit(state=state)
+    got = [(h["loss"], h["grad_norm"]) for h in history]
+    assert [h["step"] for h in history] == [1, 2, 3]
+    np.testing.assert_allclose(np.array(got), np.array(want), rtol=RTOL)
+
+
+@pytest.mark.parametrize("schedule", ["constant", "cosine", "linear"])
+@pytest.mark.parametrize("warmup", [0, 3])
+def test_schedule_matches_optax(schedule, warmup):
+    kw = dict(steps=12, learning_rate=2e-3, warmup_steps=warmup, lr_schedule=schedule,
+              min_lr_ratio=0.1)
+    want = jtrain.TrainConfig(**kw).make_schedule()
+    got = ttrain.TrainConfig(**kw).make_schedule()
+    for step in range(16):
+        np.testing.assert_allclose(got(step), float(want(step)), rtol=1e-6, atol=1e-12)
+    if warmup:
+        assert got(0) == 0.0  # optax reads the count before the update
+
+
+def test_unknown_schedule_raises():
+    with pytest.raises(ValueError, match="unknown lr_schedule"):
+        ttrain.TrainConfig(lr_schedule="step").make_schedule()
+
+
+def _state(value):
+    return {"w": torch.full((3,), float(value)), "step": value}
+
+
+def test_checkpoint_marker_gate(tmp_path):
+    ckpt = Checkpointer(str(tmp_path), max_to_keep=2)
+    for step in (1, 2, 3):
+        ckpt.save(step, _state(step), wait=True)
+    assert ckpt.all_steps() == [2, 3] and ckpt.latest_step() == 3
+    # a write killed before its marker: the directory exists, unmarked
+    torn = tmp_path / "4"
+    torn.mkdir()
+    torch.save(_state(4), torn / "state.pt")
+    assert ckpt.latest_step() == 3
+    assert float(ckpt.restore()["w"][0]) == 3.0
+    # a fresh handle trusts the markers, not the directories
+    assert Checkpointer(str(tmp_path)).all_steps() == [2, 3]
+
+
+def test_checkpoint_without_marker_registry_is_trusted(tmp_path):
+    for step in (5, 7):
+        (tmp_path / str(step)).mkdir()
+        torch.save(_state(step), tmp_path / str(step) / "state.pt")
+    ckpt = Checkpointer(str(tmp_path))
+    assert ckpt.all_steps() == [5, 7]
+    ckpt.save(8, _state(8), wait=True)  # switches the gate on, marking 5 and 7
+    assert ckpt.all_steps() == [5, 7, 8]
+    assert sorted(os.listdir(tmp_path / ".tfk8s_commits")) == ["5", "7", "8"]
+
+
+def _env(tmp_path=None, **kw):
+    env = {
+        "TFK8S_DEVICE": "cpu", "TFK8S_MODEL_PRESET": "tiny", "TFK8S_SEQ_LEN": str(SEQ),
+        "TFK8S_BATCH_SIZE": str(BATCH), "TFK8S_TRAIN_STEPS": "4", "TFK8S_LOG_EVERY": "2",
+        "TFK8S_LEARNING_RATE": "1e-3", "TFK8S_ATTENTION_IMPL": "flash",
+    }
+    if tmp_path is not None:
+        env["TFK8S_CHECKPOINT_DIR"] = str(tmp_path)
+    env.update(kw)
+    return env
+
+
+def test_train_entrypoint_runs_on_cpu_and_resumes(tmp_path):
+    history = tgpt.train(_env(tmp_path, TFK8S_CHECKPOINT_EVERY="2"))
+    assert [h["step"] for h in history] == [2, 4]
+    assert all(np.isfinite(h["loss"]) for h in history)
+    assert Checkpointer(str(tmp_path)).latest_step() == 4
+    # a gang restart resumes from the committed step and trains on
+    history = tgpt.train(_env(tmp_path, TFK8S_TRAIN_STEPS="6", TFK8S_GANG_RESTARTS="1"))
+    assert [h["step"] for h in history] == [6]
+    assert Checkpointer(str(tmp_path)).latest_step() == 6
+
+
+def test_train_raises_without_a_card_unless_the_cpu_is_asked_for(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    env = _env()
+    del env["TFK8S_DEVICE"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tgpt.train(env)
+
+
+class _Drain:
+    drain_requested = True
+
+    def is_set(self):
+        return False
+
+
+def test_drain_commits_a_checkpoint_and_raises_pod_drained(tmp_path):
+    with pytest.raises(ttrain.PodDrained):
+        tgpt.train(_env(tmp_path), stop=_Drain())
+    assert Checkpointer(str(tmp_path)).latest_step() == 0
+
+
+@pytest.mark.parametrize("extra", [
+    {"TFK8S_NUM_EXPERTS": "2"},
+    {"TFK8S_ATTENTION_IMPL": "ring"},
+    {"TFK8S_ATTENTION_IMPL": "ulysses"},
+    {"TFK8S_NUM_PROCESSES": "2"},
+    {"TFK8S_MESH": '{"data": 2}'},
+    {"TFK8S_INPUT_FILES": "part-*.rio"},
+    {"TFK8S_SCAN_STEPS": "4"},
+    {"TFK8S_PROFILE_DIR": "profile"},
+])
+def test_unported_features_raise(extra):
+    with pytest.raises(NotImplementedError):
+        tgpt.train(_env(**extra))
+
+
+def test_remat_raises():
+    with pytest.raises(NotImplementedError, match="remat"):
+        tgpt.GPTLM(tgpt.tiny_config(remat=True))
+
+
+def test_next_token_loss_falls_and_predicts_chain():
+    """The reference's learning check, on the port: the affine-chain data
+    is deterministic except at restarts, so a tiny model learns the
+    transition table."""
+    task = tgpt.make_task(tgpt.tiny_config(), seq_len=32, batch_size=16,
+                          attn_fn=tfa.flash_attention)
+    config = ttrain.TrainConfig(steps=80, learning_rate=3e-3, log_every=40)
+    _, history = ttrain.Trainer(task, config, torch.device("cpu")).fit()
+    assert history[0]["loss"] > history[-1]["loss"]
+    assert history[-1]["next_token_accuracy"] > 0.5, history[-1]
+
+
+def test_tpujob_runs_the_port_entrypoint_through_the_reference_control_plane():
+    """The reference controller and kubelet resolve the port's entrypoint
+    string like any other and drive it to Succeeded."""
+    import threading
+
+    from conftest import wait_for
+    from tfk8s_tpu.api import (
+        ContainerSpec, ObjectMeta, ReplicaSpec, ReplicaType, TPUJob, TPUJobSpec, helpers,
+    )
+    from tfk8s_tpu.client import FakeClientset
+    from tfk8s_tpu.runtime import LocalKubelet
+    from tfk8s_tpu.trainer import TPUJobController
+
+    cs = FakeClientset()
+    ctrl = TPUJobController(cs)
+    stop = threading.Event()
+    LocalKubelet(cs).run(stop)
+    try:
+        assert ctrl.run(workers=2, stop=stop, block=False)
+        worker = ReplicaSpec(replicas=1, template=ContainerSpec(
+            entrypoint="tfk8s_tpu_torch.models.gpt:train", env=_env()))
+        cs.tpujobs().create(TPUJob(
+            metadata=ObjectMeta(name="gpt-torch"),
+            spec=TPUJobSpec(replica_specs={ReplicaType.WORKER: worker})))
+
+        def finished():
+            status = cs.tpujobs().get("gpt-torch").status
+            return helpers.is_succeeded(status) or helpers.is_failed(status)
+
+        assert wait_for(finished, timeout=120)
+        status = cs.tpujobs().get("gpt-torch").status
+        assert helpers.is_succeeded(status), [c.message for c in status.conditions]
+    finally:
+        stop.set()
+        ctrl.controller.shutdown()
+
+
+def test_checkpoint_uris_are_refused():
+    with pytest.raises(NotImplementedError, match="local directories"):
+        Checkpointer("gs://bucket/run")

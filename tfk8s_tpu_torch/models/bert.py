@@ -1,0 +1,65 @@
+"""The shared encoder stack with a tied head, ported from the JAX
+package's ``models/bert.py``: ``BertWithHead`` (``causal=True`` is the GPT
+stack) and the hermetic chain-token stream both families train on. The
+BERT MLM task itself is ROADMAP item 1.7."""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from tfk8s_tpu_torch.models.transformer import (
+    Embedder,
+    EncoderLayer,
+    TransformerConfig,
+    _ln,
+)
+
+MASK_ID = 0  # reserved mask token; chain tokens live in [1, vocab)
+_CHAIN_A, _CHAIN_B = 31, 17
+_RESTART_P = 0.05
+
+
+class BertWithHead(nn.Module):
+    """Encoder + tied-embedding head. ``attn_fn`` swaps the inner
+    attention; ``causal=True`` makes every layer autoregressive, so the
+    same stack serves the BERT and GPT families."""
+
+    def __init__(self, cfg: TransformerConfig, attn_fn: Optional[Callable] = None,
+                 causal: bool = False):
+        super().__init__()
+        cfg.require_ported()
+        self.cfg = cfg
+        self.embed = Embedder(cfg)
+        self.layers = nn.ModuleList(
+            EncoderLayer(cfg, attn_fn=attn_fn, causal=causal)
+            for _ in range(cfg.num_layers)
+        )
+        self.ln_final = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
+
+    def forward(self, ids: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                pos_offset: Optional[int] = None) -> torch.Tensor:
+        x = self.embed(ids, pos_offset=pos_offset)
+        for layer in self.layers:
+            x = layer(x, mask)
+        x = _ln(self.ln_final, x, self.cfg.dtype)
+        return self.embed.logits(x)  # [b, l, vocab], float32
+
+
+def make_chain_tokens(
+    rng: np.random.Generator, batch_size: int, seq_len: int, vocab: int
+) -> np.ndarray:
+    """The hermetic token stream of the BERT and GPT families:
+    ``t[i+1] = (a*t[i] + b) mod V`` with random restarts (a copy of the
+    reference's numpy function: same rng draws, same tokens)."""
+    toks = np.empty((batch_size, seq_len), np.int64)
+    toks[:, 0] = rng.integers(1, vocab, size=batch_size)
+    restarts = rng.random((batch_size, seq_len)) < _RESTART_P
+    fresh = rng.integers(1, vocab, size=(batch_size, seq_len))
+    for i in range(1, seq_len):
+        nxt = (_CHAIN_A * toks[:, i - 1] + _CHAIN_B) % (vocab - 1) + 1
+        toks[:, i] = np.where(restarts[:, i], fresh[:, i], nxt)
+    return toks

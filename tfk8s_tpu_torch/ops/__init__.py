@@ -1,0 +1,1 @@
+"""ops of the PyTorch port (mirrors tfk8s_tpu/ops)."""

@@ -1,0 +1,332 @@
+"""Flash attention for the port: hand-written CUDA kernels for the H100
+(forward, FlashAttention-2 dq, FlashAttention-2 dk/dv) and their plain
+PyTorch versions.
+
+The kernels live in ``csrc/flash_attention.cu`` and replace the Pallas TPU
+kernels of the JAX package's ``ops/flash_attention.py``; they are built
+with ``nvcc`` at first use (``_build.py``). Each of the three functions
+here takes its kernel for a CUDA tensor and its plain version for a CPU
+tensor, and raises for anything else: there is no fallback from the
+kernel to the plain version.
+
+Contract (the JAX package's ``flash_attention``):
+- layout ``[b, l, h, d]``; q arrives pre-scaled by ``1/sqrt(d)``;
+- ``mask`` is ``[b, lk]`` key validity (True = attend); other mask shapes
+  raise ``NotImplementedError``;
+- causal masking is bottom-right aligned (query i sees keys up to
+  ``i + lk - lq``) and needs ``lq <= lk``;
+- a query row whose keys are all masked gives zero output and zero grads.
+
+The forward saves the per-row logsumexp (``[b, h, lq]`` float32) only
+when a backward will follow; the backward recomputes probabilities from
+(q, k, lse) and computes ``D = rowsum(dO * O)`` itself, exactly as the
+reference's kernels do. Unlike the Pallas kernels, the CUDA kernels take
+any sequence length (they mask the ragged edge) and pick their own tiles
+for the H100 (64 rows a block; 64 keys a staged tile, 32 at d=128), so
+this module has no block-size arguments and no ``pick_blocks``.
+
+Each wrapper counts its launches in ``LAUNCHES`` so a run can show that
+its path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from tfk8s_tpu_torch.ops import _build
+
+_NEG = -1e30
+
+# Above this sequence length "auto" attention picks the kernels on the
+# card (the same policy as the JAX package).
+FLASH_SEQ_THRESHOLD = 1024
+
+HEAD_DIMS = (16, 32, 64, 128)  # the head widths the kernels are built for
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# launches of each kernel since the last reset_launches()
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+# -- plain versions (CPU tensors; the card's yardstick) ----------------------
+
+
+def _visible(q, k, mask, causal) -> Optional[torch.Tensor]:
+    """[b or 1, 1, lq, lk] bool of the (query, key) pairs attention may
+    use, or None when every pair is visible."""
+    lq, lk = q.shape[1], k.shape[1]
+    vis = None
+    if causal:
+        vis = torch.ones(lq, lk, dtype=torch.bool, device=q.device).tril(lk - lq)
+        vis = vis[None, None]
+    if mask is not None:
+        m = mask.to(device=q.device, dtype=torch.bool)[:, None, None, :]
+        vis = m if vis is None else vis & m
+    return vis
+
+
+def flash_fwd_plain(q, k, v, mask=None, causal=False, save_lse=True):
+    """The forward kernel's function in PyTorch ops: ``(o, lse or None)``,
+    contiguous like the kernel's, so either feeds either backward."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    vis = _visible(q, k, mask, causal)
+    if vis is not None:
+        s = s.masked_fill(~vis, _NEG)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    if vis is not None:
+        p = p.masked_fill(~vis, 0.0)  # a fully masked row has exp(0) = 1
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vf) / l.permute(0, 2, 1, 3)
+    lse = (m + torch.log(l)).squeeze(-1).contiguous() if save_lse else None
+    return o.to(q.dtype).contiguous(), lse
+
+
+def _probs_and_ds(q, k, v, do, o, lse, mask, causal):
+    """Recomputed probabilities p and ds = p * (dO.V^T - D), float32."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) - lse[..., None])
+    vis = _visible(q, k, mask, causal)
+    if vis is not None:
+        p = p.masked_fill(~vis, 0.0)
+    dsum = (dof * o.float()).sum(-1).permute(0, 2, 1)[..., None]  # [b,h,lq,1]
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    return p, p * (dp - dsum)
+
+
+def flash_bwd_dq_plain(q, k, v, do, o, lse, mask=None, causal=False):
+    """The dq kernel's function in PyTorch ops."""
+    _, ds = _probs_and_ds(q, k, v, do, o, lse, mask, causal)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(q.dtype).contiguous()
+
+
+def flash_bwd_dkv_plain(q, k, v, do, o, lse, mask=None, causal=False):
+    """The dk/dv kernel's function in PyTorch ops: ``(dk, dv)``."""
+    p, ds = _probs_and_ds(q, k, v, do, o, lse, mask, causal)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    return dk.to(k.dtype).contiguous(), dv.to(v.dtype).contiguous()
+
+
+# -- CUDA kernels ------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.tfk8s_flash_fwd.argtypes = [P] * 6 + [I] * 7 + [P]
+    lib.tfk8s_flash_bwd_dq.argtypes = [P] * 8 + [I] * 7 + [P]
+    lib.tfk8s_flash_bwd_dkv.argtypes = [P] * 9 + [I] * 7 + [P]
+    for fn in (lib.tfk8s_flash_fwd, lib.tfk8s_flash_bwd_dq, lib.tfk8s_flash_bwd_dkv):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_cuda(q, k, v, mask, do=None, o=None, lse=None) -> Optional[torch.Tensor]:
+    """Validate the kernels' inputs; returns the mask as contiguous uint8
+    on q's device (or None)."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash attention takes [b, l, h, d] tensors")
+    b, lq, h, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
+        raise ValueError(f"k/v shape {tuple(k.shape)} does not fit q {tuple(q.shape)}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"flash kernels take float32 or bfloat16, got {q.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash kernels are built for head_dim in {HEAD_DIMS}, got {d}")
+    if do is not None and (do.shape != q.shape or o.shape != q.shape):
+        raise ValueError("do and o must have q's shape")
+    if lse is not None and (lse.dtype != torch.float32 or lse.shape != (b, h, lq)):
+        raise ValueError(f"lse must be float32 [b, h, lq], got {lse.dtype} {tuple(lse.shape)}")
+    for t in (q, k, v, do, o, lse):
+        if t is None:
+            continue
+        if t.device != q.device:
+            raise ValueError(f"tensors on {t.device} and {q.device}")
+        if t is not lse and t.dtype != q.dtype:
+            raise TypeError(f"mixed dtypes {t.dtype} and {q.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("flash kernels take contiguous tensors")
+    if mask is None:
+        return None
+    if tuple(mask.shape) != (b, k.shape[1]):
+        raise ValueError(f"mask must be [batch, lk] = {(b, k.shape[1])}, got {tuple(mask.shape)}")
+    if mask.device != q.device:
+        raise ValueError(f"mask on {mask.device}, tensors on {q.device}")
+    return mask.to(torch.uint8).contiguous()
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def flash_fwd_cuda(q, k, v, mask=None, causal=False, save_lse=True):
+    """Launch the forward kernel: ``(o, lse or None)``."""
+    m8 = _check_cuda(q, k, v, mask)
+    b, lq, h, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device) if save_lse else None
+    if o.numel() == 0:
+        return o, lse
+    with torch.cuda.device(q.device):
+        rc = _lib().tfk8s_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(m8), o.data_ptr(), _ptr(lse),
+            b, lq, k.shape[1], h, d, int(causal), _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(rc, "flash_fwd")
+    LAUNCHES["flash_fwd"] += 1
+    return o, lse
+
+
+def flash_bwd_dq_cuda(q, k, v, do, o, lse, mask=None, causal=False):
+    """Launch the dq kernel."""
+    m8 = _check_cuda(q, k, v, mask, do, o, lse)
+    b, lq, h, d = q.shape
+    dq = torch.empty_like(q)
+    if dq.numel() == 0:
+        return dq
+    with torch.cuda.device(q.device):
+        rc = _lib().tfk8s_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), _ptr(m8), dq.data_ptr(),
+            b, lq, k.shape[1], h, d, int(causal), _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(rc, "flash_bwd_dq")
+    LAUNCHES["flash_bwd_dq"] += 1
+    return dq
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, o, lse, mask=None, causal=False):
+    """Launch the dk/dv kernel: ``(dk, dv)``."""
+    m8 = _check_cuda(q, k, v, mask, do, o, lse)
+    b, lq, h, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel() == 0:
+        return dk, dv
+    with torch.cuda.device(q.device):
+        rc = _lib().tfk8s_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), _ptr(m8), dk.data_ptr(), dv.data_ptr(),
+            b, lq, k.shape[1], h, d, int(causal), _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(rc, "flash_bwd_dkv")
+    LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+# -- dispatch: the kernel on the card, the plain version on the CPU -----------
+
+
+def _route(t: torch.Tensor, cuda_fn, plain_fn):
+    if t.is_cuda:
+        return cuda_fn
+    if t.device.type == "cpu":
+        return plain_fn
+    raise ValueError(f"flash attention runs on cuda or cpu tensors, got {t.device}")
+
+
+def flash_fwd(q, k, v, mask=None, causal=False, save_lse=True):
+    return _route(q, flash_fwd_cuda, flash_fwd_plain)(q, k, v, mask, causal, save_lse)
+
+
+def flash_bwd_dq(q, k, v, do, o, lse, mask=None, causal=False):
+    return _route(q, flash_bwd_dq_cuda, flash_bwd_dq_plain)(q, k, v, do, o, lse, mask, causal)
+
+
+def flash_bwd_dkv(q, k, v, do, o, lse, mask=None, causal=False):
+    return _route(q, flash_bwd_dkv_cuda, flash_bwd_dkv_plain)(q, k, v, do, o, lse, mask, causal)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Forward kernel, then the dq and dk/dv kernels as its backward (the
+    reference's ``_flash`` custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, causal):
+        # the logsumexp is a residual: save it only when a backward follows
+        need_grad = any(ctx.needs_input_grad[:3])
+        o, lse = flash_fwd(q, k, v, mask, causal, save_lse=need_grad)
+        if need_grad:
+            ctx.save_for_backward(q, k, v, o, lse, mask)
+            ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, mask = ctx.saved_tensors
+        do = do.contiguous()
+        dq = flash_bwd_dq(q, k, v, do, o, lse, mask, ctx.causal)
+        dk, dv = flash_bwd_dkv(q, k, v, do, o, lse, mask, ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,  # [b, lq, h, d], pre-scaled
+    k: torch.Tensor,  # [b, lk, h, d]
+    v: torch.Tensor,  # [b, lk, h, d]
+    mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+) -> torch.Tensor:
+    """Drop-in for ``models.transformer.dot_product_attention``. ``mask``
+    is ``[batch, lk]`` key validity (True = attend); rows whose keys are
+    ALL masked give zero output and zero grads (the plain attention gives
+    a uniform average there)."""
+    if mask is not None and mask.dim() != 2:
+        raise NotImplementedError(
+            "flash attention: only [batch, lk] key-validity masks are "
+            f"supported, got shape {tuple(mask.shape)}"
+        )
+    if causal and q.shape[1] > k.shape[1]:
+        raise ValueError(
+            f"causal flash attention requires lq <= lk, got lq={q.shape[1]} "
+            f"lk={k.shape[1]}"
+        )
+    return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), mask, causal)
+
+
+def auto_flash_attn_fn(attention_impl: str, seq_len: int, device: torch.device):
+    """The attention-impl policy: explicit ``"flash"`` always wins,
+    ``"full"`` pins the plain ``dot_product_attention``, and ``"auto"``
+    picks flash on the card once the sequence reaches
+    FLASH_SEQ_THRESHOLD. Returns ``flash_attention`` or None (= plain
+    attention). Unknown names raise: a typo must not silently change the
+    attention."""
+    if attention_impl == "flash":
+        return flash_attention
+    if attention_impl == "full":
+        return None
+    if attention_impl != "auto":
+        raise ValueError(
+            f"unknown attention_impl {attention_impl!r}; expected one of "
+            "'auto', 'full', 'flash', 'ring', 'ulysses'"
+        )
+    if torch.device(device).type == "cuda" and seq_len >= FLASH_SEQ_THRESHOLD:
+        return flash_attention
+    return None
+
+
+__all__ = [
+    "FLASH_SEQ_THRESHOLD", "HEAD_DIMS", "KERNELS", "LAUNCHES", "FlashAttention",
+    "auto_flash_attn_fn", "flash_attention", "flash_bwd_dkv",
+    "flash_bwd_dq", "flash_fwd", "reset_launches",
+]

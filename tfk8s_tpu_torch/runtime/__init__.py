@@ -1,0 +1,1 @@
+"""runtime of the PyTorch port (mirrors tfk8s_tpu/runtime)."""

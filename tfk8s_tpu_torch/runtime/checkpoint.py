@@ -1,0 +1,210 @@
+"""Checkpoint/resume over ``torch.save`` — the contract gang restart
+depends on, kept from the JAX package's orbax-backed ``Checkpointer``.
+
+Layout: ``<dir>/<step>/state.pt`` holds one pickled state dict (model,
+optimizer, step). A step only counts as restorable once its commit marker
+``<dir>/.tfk8s_commits/<step>`` exists, and the marker is written strictly
+after the step's file is durably on disk: a kill mid-save leaves an
+unmarked directory that ``latest_step``/``all_steps`` skip, and restore
+falls back to the previous committed step. A directory with no marker
+registry at all is trusted as it is, and the first save into such a
+directory marks the steps already there before it writes its own.
+
+``save_async`` copies the state to host memory at once (training may go
+on changing the parameters) and writes it on a background thread; the
+marker follows in ``wait_until_finished``/``maybe_commit``. Paths are
+local; a URI (``gs://...``) raises.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import shutil
+import threading
+from typing import Any, List, Optional
+
+import torch
+
+from tfk8s_tpu_torch.utils.logging import get_logger
+
+log = get_logger("checkpoint")
+
+_URI_RE = re.compile(r"^[a-z][a-z0-9+.\-]*://")
+_COMMITS_DIRNAME = ".tfk8s_commits"
+_STATE_FILE = "state.pt"
+
+
+def resolve_directory(directory: str) -> str:
+    """Plain paths -> absolute; a URI raises (the port writes local
+    directories only)."""
+    if _URI_RE.match(directory):
+        raise NotImplementedError(
+            f"checkpoint URI {directory!r}: the port writes local directories "
+            "(remote object stores are not ported)"
+        )
+    return os.path.abspath(directory)
+
+
+def _to_host(obj: Any) -> Any:
+    """Deep copy of a state tree with every tensor cloned to the CPU."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+class Checkpointer:
+    """Save/restore a state dict under ``directory/<step>``."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        self.directory = resolve_directory(directory) if directory else ""
+        self.max_to_keep = max_to_keep
+        # steps whose write was started but whose marker is not written
+        self._pending: List[int] = []
+        self._writer: Optional[threading.Thread] = None
+        self._write_error: Optional[BaseException] = None
+        self._commit_dir = (
+            os.path.join(self.directory, _COMMITS_DIRNAME) if self.directory else None
+        )
+        if self.directory:
+            os.makedirs(self.directory, exist_ok=True)
+
+    @property
+    def enabled(self) -> bool:
+        return bool(self.directory)
+
+    # -- step listing -----------------------------------------------------------
+
+    def _step_dirs(self) -> List[int]:
+        try:
+            names = os.listdir(self.directory)
+        except FileNotFoundError:
+            return []
+        return sorted(
+            int(n) for n in names
+            if n.isdigit() and os.path.isfile(os.path.join(self.directory, n, _STATE_FILE))
+        )
+
+    def _committed_only(self, steps: List[int]) -> List[int]:
+        if not os.path.isdir(self._commit_dir):
+            return list(steps)
+        marked = {int(n) for n in os.listdir(self._commit_dir) if n.isdigit()}
+        return [s for s in steps if s in marked]
+
+    def all_steps(self) -> List[int]:
+        """Every retained COMMITTED step, ascending."""
+        if not self.enabled:
+            return []
+        return self._committed_only(self._step_dirs())
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    # -- commit markers -----------------------------------------------------------
+
+    def _write_marker(self, step: int) -> None:
+        with open(os.path.join(self._commit_dir, str(int(step))), "w") as f:
+            f.write("committed\n")
+
+    def _commit_pending(self) -> None:
+        """Mark every pending step, then drop steps past ``max_to_keep``
+        and markers whose step is gone. Only call once the writes are
+        known durable."""
+        if self._write_error is not None:
+            err, self._write_error = self._write_error, None
+            self._pending.clear()
+            raise RuntimeError("checkpoint write failed") from err
+        if not self._pending:
+            return
+        os.makedirs(self._commit_dir, exist_ok=True)
+        for step in self._pending:
+            self._write_marker(step)
+        self._pending.clear()
+        keep = self.all_steps()[-self.max_to_keep:] if self.max_to_keep else self.all_steps()
+        for step in self._step_dirs():
+            if step not in keep:
+                shutil.rmtree(os.path.join(self.directory, str(step)), ignore_errors=True)
+        for n in os.listdir(self._commit_dir):
+            if n.isdigit() and int(n) not in keep:
+                os.remove(os.path.join(self._commit_dir, n))
+
+    # -- save / restore ------------------------------------------------------------
+
+    def _write(self, step: int, host_state: Any) -> None:
+        final = os.path.join(self.directory, str(step))
+        tmp = f"{final}.tmp-{os.getpid()}"
+        try:
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            path = os.path.join(tmp, _STATE_FILE)
+            with open(path, "wb") as f:
+                torch.save(host_state, f)
+                f.flush()
+                os.fsync(f.fileno())
+            shutil.rmtree(final, ignore_errors=True)
+            os.replace(tmp, final)
+        except Exception as e:  # noqa: BLE001 — re-raised at commit
+            self._write_error = e
+
+    def save(self, step: int, state: Any, wait: bool = False) -> None:
+        self.save_async(step, state)
+        if wait:
+            self.wait_until_finished()
+
+    def save_async(self, step: int, state: Any) -> None:
+        """Copy ``state`` to host memory now and write it on a background
+        thread; its marker is written once the write has finished."""
+        if not self.enabled:
+            return
+        if self._pending:
+            # the previous step commits before this one opens its window
+            self.wait_until_finished()
+        if not os.path.isdir(self._commit_dir):
+            # first save here: switch on the strict gate, marking the steps
+            # already present, before this step's directory starts to exist
+            os.makedirs(self._commit_dir, exist_ok=True)
+            for s in self._step_dirs():
+                self._write_marker(s)
+        host_state = _to_host(state)
+        self._pending.append(int(step))
+        self._writer = threading.Thread(
+            target=self._write, args=(int(step), host_state),
+            name="checkpoint-writer", daemon=True,
+        )
+        self._writer.start()
+        log.info("saving checkpoint step=%d -> %s", step, self.directory)
+
+    def saving_in_progress(self) -> bool:
+        return self._writer is not None and self._writer.is_alive()
+
+    def wait_until_finished(self) -> None:
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        self._commit_pending()
+
+    def maybe_commit(self) -> None:
+        """Commit pending markers iff the write has finished — never
+        blocks."""
+        if self._pending and not self.saving_in_progress():
+            self.wait_until_finished()
+
+    def restore(self, step: Optional[int] = None, map_location: Any = "cpu") -> Any:
+        """The state saved at ``step`` (default: the newest committed)."""
+        if not self.enabled:
+            raise RuntimeError("checkpointing is disabled (no directory)")
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {self.directory}")
+        path = os.path.join(self.directory, str(step), _STATE_FILE)
+        state = torch.load(path, map_location=map_location, weights_only=True)
+        log.info("restored checkpoint step=%d from %s", step, self.directory)
+        return state
+
+    def close(self) -> None:
+        self.wait_until_finished()

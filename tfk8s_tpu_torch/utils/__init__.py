@@ -1,0 +1,1 @@
+"""utils of the PyTorch port (mirrors tfk8s_tpu/utils)."""
