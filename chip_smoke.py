@@ -12,31 +12,62 @@ must pass:
 2. build: ``nvcc`` compiles every kernel source of the port from the
    checkout (``tfk8s_tpu_torch/ops/_build.py``), timed, with the ptxas
    register and spill report of the kernels the slice launches;
-3. kernels: each flash-attention kernel (forward, dq, dk/dv) against its
-   plain PyTorch version on the same card inputs: the slice's shape in
-   bfloat16 (atol 2e-2 + rtol 2^-7) and small float32 cases (a key mask with a fully
-   masked row, causal with lq < lk, ragged lengths; atol 1e-5 outputs,
-   1e-4 gradients), each with its time, the plain version's time, its
-   bound and the ``scaled_dot_product_attention`` yardstick (timed here
-   only; the port never calls it);
+3. kernels: each kernel against its plain PyTorch version on the same
+   card inputs, each with its time, the plain version's time, its bound
+   and a one-call PyTorch yardstick (timed here only; the port never
+   calls it):
+   - flash attention (forward, dq, dk/dv): the GPT slice's shape in
+     bfloat16 (atol 2e-2 + rtol 2^-7) and small float32 cases (a key mask
+     with a fully masked row, causal with lq < lk, ragged lengths; atol
+     1e-5 outputs, 1e-4 gradients); yardstick
+     ``scaled_dot_product_attention``;
+   - GroupNorm forward and backward, float32 and bfloat16, at the two
+     largest ResNet-50 norm sites [256,112,112,64] (ReLU) and
+     [256,56,56,256], the widest [256,7,7,2048] (ReLU) and ResNet-50 at
+     width 128's [64,7,7,4096] (ReLU, two channel tiles); float32 atol
+     1e-5 outputs, 1e-4 dx, bfloat16 atol 2e-2 + rtol 2^-7, dscale and
+     dbias atol 1e-2 + rtol 1e-3; yardstick ``F.group_norm`` (+ ``relu``)
+     on the channels-last NCHW view and its autograd backward; then every
+     ResNet-50 norm site's shape once, for the per-step GroupNorm time;
+   - the block copy at [8192, 8192] float32, bit-exact; yardstick
+     ``Tensor.copy_``;
 4. reference: a small float32 GPT on the card through the kernels
    against the same model on the CPU through the plain versions (loss
    and every gradient to atol 1e-4), and the base-width bfloat16 model's
    loss through the kernels against plain attention (atol 2e-2);
-5. train: ``tfk8s_tpu_torch.models.gpt.train(env)``, the ``gpt:train``
+5. resnet reference: a small float32 ResNet-50 (width 8) on the card
+   through the GroupNorm kernels against the same model on the CPU through
+   the plain versions (loss atol 1e-4, gradients 1e-3 relative L2), and
+   ResNet-50 at full width on one input, kernel GroupNorm against plain
+   GroupNorm: in float32, logits within 1e-4 of the largest logit; in
+   bfloat16 within 2%, where a sound variant of the plain GroupNorm must
+   pass that bound and planted faults must fail it;
+6. train: ``tfk8s_tpu_torch.models.gpt.train(env)``, the ``gpt:train``
    entrypoint, at the GPT-2-small base preset (seq 1024, batch 8,
    ``TFK8S_ATTENTION_IMPL=flash``) for a few steps with a checkpoint:
-   finite losses, each kernel launched 12 times a step, the checkpoint
-   committed at the last step. The launch counts are zeroed just before
-   and read just after this run.
+   finite losses, each flash kernel launched 12 times a step, the
+   checkpoint committed at the last step;
+7. resnet train: ``tfk8s_tpu_torch.models.resnet.train(env)``, the
+   ``resnet:train`` entrypoint, at ResNet-50 (depth 50, width 64, batch
+   256, image 224, 1000 classes, bfloat16) for a few steps with a
+   checkpoint: finite losses, each GroupNorm kernel launched 53 times a
+   step, the checkpoint committed; step time, images/s, first step, peak
+   memory, input wait and input-starved steps;
+8. roofline: ``tfk8s_tpu_torch.tools.roofline.run_all()`` at full size
+   (matmul, streams, the block-copy kernel, ResNet-50 forward, GN-ablated
+   step and full step), one JSON line; the copy kernel must launch.
 
-Then it prints the ``kernels`` JSON line and, last, the ``ok`` line. It
-exits non-zero, printing no result, when a phase fails, when no card is
-visible, or when the port's package is not beside it.
+The launch counts are zeroed just before each path (phases 6, 7, 8) and
+read just after it. Then it prints the card line, the ``kernels`` JSON
+line and, last, the ``ok`` line. It exits non-zero, printing no result,
+when a phase fails, when no card is visible, or when the port's package is
+not beside it. ``--only PHASE[,PHASE]`` runs just those phases (and the
+card and build) and prints no result: a development aid.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -64,12 +95,51 @@ F32_OUT_ATOL, F32_GRAD_ATOL = 1e-5, 1e-4
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-REPLACES = {
-    "flash_fwd": "tfk8s_tpu/ops/flash_attention.py:149",
-    "flash_bwd_dq": "tfk8s_tpu/ops/flash_attention.py:233",
-    "flash_bwd_dkv": "tfk8s_tpu/ops/flash_attention.py:290",
+# kernel -> (source in the repo, the TPU kernel it replaces)
+KERNEL_INFO = {
+    "flash_fwd": ("tfk8s_tpu_torch/ops/csrc/flash_attention.cu",
+                  "tfk8s_tpu/ops/flash_attention.py:149"),
+    "flash_bwd_dq": ("tfk8s_tpu_torch/ops/csrc/flash_attention.cu",
+                     "tfk8s_tpu/ops/flash_attention.py:233"),
+    "flash_bwd_dkv": ("tfk8s_tpu_torch/ops/csrc/flash_attention.cu",
+                      "tfk8s_tpu/ops/flash_attention.py:290"),
+    "group_norm_fwd": ("tfk8s_tpu_torch/ops/csrc/group_norm.cu",
+                       "tfk8s_tpu/ops/group_norm.py:68"),
+    "group_norm_bwd": ("tfk8s_tpu_torch/ops/csrc/group_norm.cu",
+                       "tfk8s_tpu/ops/group_norm.py:137"),
+    "block_copy": ("tfk8s_tpu_torch/ops/csrc/block_copy.cu", "tools/roofline.py:124"),
 }
-SOURCE = "tfk8s_tpu_torch/ops/csrc/flash_attention.cu"
+# the resnet:train run: ResNet-50 at its published widths
+RESNET_STEPS = 6
+RESNET_ENV = {
+    "TFK8S_RESNET_DEPTH": "50", "TFK8S_RESNET_WIDTH": "64", "TFK8S_BATCH_SIZE": "256",
+    "TFK8S_IMAGE_SIZE": "224", "TFK8S_NUM_CLASSES": "1000",
+    "TFK8S_TRAIN_STEPS": str(RESNET_STEPS), "TFK8S_LOG_EVERY": "1",
+    "TFK8S_LEARNING_RATE": "1e-3", "TFK8S_SEED": "0",
+}
+RESNET_GN_SITES = 53  # stem + 16 bottlenecks x 3 + 4 projections
+# ResNet-50 at full width, kernel vs plain GroupNorm on one input, as a
+# share of the largest logit. float32 (TF32 off): the two differ only in
+# the order of float32 sums, so 1e-4. bfloat16: the two round the same
+# float32 norm outputs to bfloat16 and may land one step apart; 50 layers
+# whose residual branches carry random unit-scale norms amplify such flips
+# (0.50-0.56% of the logit scale measured), so 2%. A sound variant of the
+# plain GroupNorm (float64 statistics, 0.54%) must stay within the bound and
+# planted faults must exceed it (statistics without a quarter of the
+# positions 3.8%, channels in the wrong group 52%), so the bound sits
+# between a sound reading and a faulty one. An eps or one-pass-variance
+# fault (0.58-0.66%) is below bfloat16 noise here: the card tests hold those.
+RESNET50_F32_LOGIT_RTOL = 1e-4
+RESNET50_BF16_LOGIT_RTOL = 2e-2
+RESNET50_FAULTS_CAUGHT = ("first_quarter_dropped", "groups_mismapped")
+# GroupNorm cases: (name, [B, H, W, C], groups, relu); the line's shape first
+GN_CASES = [
+    ("gn_56x56x256", (256, 56, 56, 256), 32, False),
+    ("gn_112x112x64_relu", (256, 112, 112, 64), 32, True),
+    ("gn_7x7x2048_relu", (256, 7, 7, 2048), 32, True),
+    ("gn_7x7x4096_relu", (64, 7, 7, 4096), 32, True),  # two channel tiles (width 128)
+]
+COPY_SHAPE = (8192, 8192)
 
 
 def log(msg: str) -> None:
@@ -167,6 +237,17 @@ def _library(case: Case):
     return fwd, bwd
 
 
+def _err(pairs, atol, rtol=0.0):
+    """(max |kernel - plain|, whether every element is within
+    atol + rtol * |plain|)"""
+    worst, ok = 0.0, True
+    for a, b in pairs:
+        diff = (a.float() - b.float()).abs()
+        worst = max(worst, float(diff.max()))
+        ok = ok and bool((diff <= atol + rtol * b.float().abs()).all())
+    return worst, ok
+
+
 def check_case(fa, case: Case, iters: int):
     """Each kernel against its plain version on ``case``; returns one
     result dict per kernel."""
@@ -186,21 +267,11 @@ def check_case(fa, case: Case, iters: int):
     dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, o_k, lse_k, mask, causal)
     torch.cuda.synchronize()
 
-    def err(pairs, atol):
-        """(max |kernel - plain|, whether every element is within
-        atol + rtol * |plain|)"""
-        worst, ok = 0.0, True
-        for a, b in pairs:
-            diff = (a.float() - b.float()).abs()
-            worst = max(worst, float(diff.max()))
-            ok = ok and bool((diff <= atol + rtol * b.float().abs()).all())
-        return worst, ok
-
     live = lse_p > -1e29
     errs = {
-        "flash_fwd": err([(o_k, o_p), (lse_k[live], lse_p[live])], out_tol),
-        "flash_bwd_dq": err([(dq_k, dq_p)], grad_tol),
-        "flash_bwd_dkv": err([(dk_k, dk_p), (dv_k, dv_p)], grad_tol),
+        "flash_fwd": _err([(o_k, o_p), (lse_k[live], lse_p[live])], out_tol, rtol),
+        "flash_bwd_dq": _err([(dq_k, dq_p)], grad_tol, rtol),
+        "flash_bwd_dkv": _err([(dk_k, dk_p), (dv_k, dv_p)], grad_tol, rtol),
     }
     tols = {"flash_fwd": out_tol, "flash_bwd_dq": grad_tol, "flash_bwd_dkv": grad_tol}
     for name, t in (("o", o_k), ("dq", dq_k), ("dk", dk_k), ("dv", dv_k)):
@@ -237,6 +308,200 @@ def check_case(fa, case: Case, iters: int):
             raise AssertionError(f"{case.name}/{name}: beyond atol {tols[name]} rtol {rtol}")
         results.append(r)
     return results
+
+
+def _gn_inputs(shape, dtype, seed):
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = (torch.randn(shape, generator=gen, device=DEVICE) * 2 + 0.5).to(dtype)
+    dy = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+    scale = torch.randn(shape[-1], generator=gen, device=DEVICE)
+    bias = torch.randn(shape[-1], generator=gen, device=DEVICE)
+    return x, dy, scale, bias
+
+
+def _gn_bound_ms(n, elt, backward):
+    """Bytes over the memory rate: x in, y out (forward); dy, x in, dx out
+    (backward). The per-(sample, group) statistics and [C] parameters
+    are negligible next to them."""
+    return (3 if backward else 2) * n * elt / HBM_BYTES_PER_S * 1e3
+
+
+def check_group_norm(gn, torch, name, shape, groups, relu, dtype, iters):
+    """Both GroupNorm kernels against their plain versions on one case."""
+    import torch.nn.functional as F
+
+    x, dy, scale, bias = _gn_inputs(shape, dtype, seed=len(name))
+    bf16 = dtype == torch.bfloat16
+    atol_y, atol_dx = (2e-2, 2e-2) if bf16 else (F32_OUT_ATOL, F32_GRAD_ATOL)
+    rtol = BF16_RTOL if bf16 else 0.0
+    y_k, m_k, r_k = gn.group_norm_fwd_cuda(x, scale, bias, groups, relu=relu)
+    y_p, m_p, r_p = gn.group_norm_fwd_plain(x, scale, bias, groups, relu=relu)
+    # both backwards from the kernel's statistics, so the ReLU masks agree
+    dx_k, ds_k, db_k = gn.group_norm_bwd_cuda(dy, x, scale, bias, m_k, r_k, groups, relu)
+    dx_p, ds_p, db_p = gn.group_norm_bwd_plain(dy, x, scale, bias, m_k, r_k, groups, relu)
+    torch.cuda.synchronize()
+    for t in (y_k, dx_k, ds_k, db_k):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"{name}: a group-norm kernel output is not finite")
+    e_fwd = _err([(y_k, y_p)], atol_y, rtol)
+    e_stats = _err([(m_k, m_p), (r_k, r_p)], F32_OUT_ATOL, 1e-5)
+    e_dx = _err([(dx_k, dx_p)], atol_dx, rtol)
+    e_par = _err([(ds_k, ds_p), (db_k, db_p)], 1e-2, 1e-3)
+
+    # the library yardstick: F.group_norm (+ relu) on the channels-last
+    # NCHW view, and its autograd backward
+    xc = x.permute(0, 3, 1, 2).detach().requires_grad_()
+    w_l = scale.to(dtype).requires_grad_()
+    b_l = bias.to(dtype).requires_grad_()
+    dyc = dy.permute(0, 3, 1, 2)
+
+    def lib_fwd():
+        with torch.no_grad():
+            out = F.group_norm(xc, groups, w_l, b_l, eps=1e-6)
+            return F.relu(out) if relu else out
+
+    out_l = F.group_norm(xc, groups, w_l, b_l, eps=1e-6)
+    out_l = F.relu(out_l) if relu else out_l
+
+    def lib_bwd():
+        return torch.autograd.grad(out_l, (xc, w_l, b_l), dyc, retain_graph=True)
+
+    n, elt = x.numel(), x.element_size()
+    runs = {
+        "group_norm_fwd": (
+            lambda: gn.group_norm_fwd_cuda(x, scale, bias, groups, relu=relu),
+            lambda: gn.group_norm_fwd_plain(x, scale, bias, groups, relu=relu),
+            lib_fwd, max(e_fwd[0], e_stats[0]), e_fwd[1] and e_stats[1],
+            _gn_bound_ms(n, elt, False)),
+        "group_norm_bwd": (
+            lambda: gn.group_norm_bwd_cuda(dy, x, scale, bias, m_k, r_k, groups, relu),
+            lambda: gn.group_norm_bwd_plain(dy, x, scale, bias, m_k, r_k, groups, relu),
+            lib_bwd, max(e_dx[0], e_par[0]), e_dx[1] and e_par[1],
+            _gn_bound_ms(n, elt, True)),
+    }
+    results = []
+    for kname, (kern, plain, lib, worst, ok, bound) in runs.items():
+        r = {
+            "case": f"{name}_{str(dtype).replace('torch.', '')}", "kernel": kname,
+            "shape": list(shape), "max_abs_err": worst, "ms": _time_ms(kern, iters),
+            "plain_ms": _time_ms(plain, max(iters // 4, 1)), "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": _time_ms(lib, iters),
+        }
+        log(f"  {json.dumps(r)}")
+        if not ok:
+            raise AssertionError(f"{r['case']}/{kname}: kernel disagrees with its plain version")
+        results.append(r)
+    return results
+
+
+def resnet50_gn_sites(torch, resnet):
+    """(shape [B, H, W, C], groups, relu) of every GroupNorm call of one
+    ResNet-50 forward at batch 256, image 224, recorded on a meta-device
+    pass through the real model code."""
+    sites = []
+    real = resnet.fused_group_norm
+
+    def record(x, scale, bias, groups, eps=1e-6, relu=False):
+        sites.append((tuple(x.shape), groups, relu))
+        return torch.empty_like(x)
+
+    resnet.fused_group_norm = record
+    try:
+        with torch.device("meta"):
+            model = resnet.ResNet(50, 1000, 64)
+            model(torch.empty(256, 224, 224, 3))
+    finally:
+        resnet.fused_group_norm = real
+    return sites
+
+
+def gn_step_sweep(gn, torch, resnet):
+    """Each GroupNorm kernel once at every ResNet-50 norm site's shape
+    (bfloat16, batch 256): its time per training step against its bound
+    per step."""
+    sites = resnet50_gn_sites(torch, resnet)
+    if len(sites) != RESNET_GN_SITES:
+        raise AssertionError(f"{len(sites)} norm sites, want {RESNET_GN_SITES}")
+    by_shape = {}
+    for site in sites:
+        by_shape[site] = by_shape.get(site, 0) + 1
+    tot = {"fwd_ms": 0.0, "bwd_ms": 0.0, "fwd_bound_ms": 0.0, "bwd_bound_ms": 0.0,
+           "elements": 0}
+    for (shape, groups, relu), count in by_shape.items():
+        x, dy, scale, bias = _gn_inputs(shape, torch.bfloat16, seed=7)
+        y, m, r = gn.group_norm_fwd_cuda(x, scale, bias, groups, relu=relu)
+        f = _time_ms(lambda: gn.group_norm_fwd_cuda(x, scale, bias, groups, relu=relu), 5)
+        b = _time_ms(lambda: gn.group_norm_bwd_cuda(dy, x, scale, bias, m, r, groups, relu), 5)
+        tot["fwd_ms"] += count * f
+        tot["bwd_ms"] += count * b
+        tot["fwd_bound_ms"] += count * _gn_bound_ms(x.numel(), 2, False)
+        tot["bwd_bound_ms"] += count * _gn_bound_ms(x.numel(), 2, True)
+        tot["elements"] += count * x.numel()
+        log(f"  site {list(shape)} relu={relu} x{count}: fwd {f:.4f} ms, bwd {b:.4f} ms")
+        del x, dy, y
+    log(f"gn per ResNet-50 step (bf16, batch 256, {len(sites)} sites): {json.dumps(tot)}")
+    return tot
+
+
+def check_copy(bc, torch, iters):
+    """The block copy against ``out.copy_(x)``: bit-exact."""
+    rows, cols = COPY_SHAPE
+    x = torch.randn(rows, cols, device=DEVICE)
+    out_k = torch.full_like(x, float("nan"))
+    bc.block_copy_cuda(x, out_k)
+    out_p = bc.block_copy_plain(x)
+    torch.cuda.synchronize()
+    exact = torch.equal(out_k, out_p)
+    spare = torch.empty_like(x)
+    r = {
+        "case": "copy_8192x8192_f32", "kernel": "block_copy",
+        "max_abs_err": float((out_k - out_p).abs().max()),
+        "ms": _time_ms(lambda: bc.block_copy_cuda(x, spare), iters),
+        "plain_ms": _time_ms(lambda: bc.block_copy_plain(x, spare), iters),
+        "bound_ms": 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": _time_ms(lambda: spare.copy_(x), iters),
+    }
+    log(f"  {json.dumps(r)}")
+    if not exact:
+        raise AssertionError("block copy is not bit-exact")
+    return r
+
+
+# Variants of the plain GroupNorm (``reference_group_norm``) that witness
+# the end-to-end bound: "float64_stats" is sound (statistics rounded
+# otherwise); each other one plants a fault a GroupNorm kernel could have.
+GN_VARIANTS = ("float64_stats", "eps_1e-5", "one_pass_variance", "first_quarter_dropped",
+               "groups_mismapped")
+
+
+def gn_variant(kind: str):
+    import torch
+
+    def norm(x, scale, bias, groups, eps=1e-6, relu=False):
+        b, h, w, c = x.shape
+        xf = x.float().reshape(b, h * w, groups, c // groups)
+        if kind == "eps_1e-5":
+            eps = 1e-5
+        if kind == "first_quarter_dropped":  # one chunk's partials lost in the merge
+            xf = xf[:, (h * w) // 4:]
+        if kind == "float64_stats":
+            xf = xf.double()
+        mean = xf.mean(dim=(1, 3))
+        if kind == "one_pass_variance":
+            var = xf.square().mean(dim=(1, 3)) - mean.square()
+        else:
+            var = (xf - mean[:, None, :, None]).square().mean(dim=(1, 3))
+        mean, rstd = mean.float(), torch.rsqrt(var + eps).float()
+        # the group of each channel: c // (C / G), or c mod G when mismapped
+        ch = torch.arange(c, device=x.device)
+        gidx = ch % groups if kind == "groups_mismapped" else ch // (c // groups)
+        y = (x.float() - mean[:, None, None, gidx]) * rstd[:, None, None, gidx]
+        y = y * scale.float() + bias.float()
+        return (y.clamp_min(0.0) if relu else y).to(x.dtype)
+
+    return norm
 
 
 def phase_card():
@@ -282,13 +547,27 @@ def phase_kernels(fa, torch):
              lengths=[200, 131, 5], seed=4),
         Case("bf16_ragged_d128", 2, 150, 150, 2, 128, torch.bfloat16, causal=True, seed=5),
     ]
-    slice_results = None
+    line = {}
     for i, case in enumerate(cases):
         log(f"case {case.name}:")
         res = check_case(fa, case, iters=20 if i == 0 else 5)
         if i == 0:
-            slice_results = res
-    return slice_results
+            line.update((r["kernel"], r) for r in res)
+    from tfk8s_tpu_torch.models import resnet
+    from tfk8s_tpu_torch.ops import block_copy as bc
+    from tfk8s_tpu_torch.ops import group_norm as gn
+
+    for i, (name, shape, groups, relu) in enumerate(GN_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            log(f"case {name} {dtype}:")
+            res = check_group_norm(gn, torch, name, shape, groups, relu, dtype, iters=10)
+            if i == 0 and dtype == torch.bfloat16:
+                line.update((r["kernel"], r) for r in res)
+            torch.cuda.empty_cache()
+    gn_step_sweep(gn, torch, resnet)
+    log("case copy:")
+    line["block_copy"] = check_copy(bc, torch, iters=20)
+    return line
 
 
 def phase_reference(torch, gpt, fa):
@@ -381,6 +660,151 @@ def phase_train(torch, gpt, fa, ckpt_dir):
     return launches
 
 
+def phase_resnet_reference(torch, resnet, gn):
+    """Small float32 ResNet-50: GroupNorm kernels on the card vs plain
+    versions on the CPU; ResNet-50 at full width in float32 and in
+    bfloat16: kernel GroupNorm vs plain GroupNorm on the card, same input,
+    and in bfloat16 the variants of ``gn_variant`` against the bound."""
+    import copy
+
+    import numpy as np
+
+    from tfk8s_tpu_torch.ops.group_norm import reference_group_norm
+
+    def randomized(width, classes, seed, dtype):
+        """ResNet-50 with a random classifier and last-norm scales (both
+        zero at init, which would leave most gradients zero)."""
+        model = resnet.init_params(resnet.ResNet(50, classes, width, dtype),
+                                   torch.Generator().manual_seed(seed))
+        gen = torch.Generator().manual_seed(seed + 1)
+        with torch.no_grad():
+            model.classifier.weight.normal_(0.0, 0.1, generator=gen)
+            for name in model.block_names:
+                getattr(model, name).norm3.weight.normal_(0.0, 1.0, generator=gen)
+        return model
+
+    # float32 compute throughout (TF32 is off for the card's convs)
+    cpu = randomized(8, 8, 0, torch.float32)
+    card = copy.deepcopy(cpu).to(DEVICE)
+    batch = resnet.make_batch_fn(8, 64)(np.random.default_rng(0), 4)
+    losses, grads = [], []
+    for model, dev in ((cpu, "cpu"), (card, DEVICE)):
+        gn.reset_launches()
+        x = torch.from_numpy(batch["image"]).to(dev)
+        y = torch.from_numpy(batch["label"]).to(dev)
+        logits = model(x)
+        loss, _ = resnet.loss_and_metrics(logits, y)
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
+    if gn.LAUNCHES["group_norm_fwd"] != RESNET_GN_SITES:
+        raise AssertionError(f"card pass launched {dict(gn.LAUNCHES)}")
+    num = sum(float((grads[0][n] - grads[1][n]).square().sum()) for n in grads[0])
+    den = sum(float(grads[0][n].square().sum()) for n in grads[0])
+    g_rel, l_err = math.sqrt(num / den), abs(losses[0] - losses[1])
+    log(f"resnet reference f32 (width 8, image 64): loss cpu {losses[0]:.6f} card "
+        f"{losses[1]:.6f} err {l_err:.2e}, grad rel L2 err {g_rel:.2e} (1e-3)")
+    if not (l_err <= F32_GRAD_ATOL and g_rel <= 1e-3):
+        raise AssertionError("ResNet on the card disagrees with the CPU plain path")
+
+    # ResNet-50 at full width, one input: kernel vs plain GroupNorm in
+    # float32, then in bfloat16 beside variants of the plain GroupNorm
+    batch = resnet.make_batch_fn(1000, 224)(np.random.default_rng(1), 8)
+    x = torch.from_numpy(batch["image"]).to(DEVICE)
+
+    def logits_with(model, norm):
+        resnet.fused_group_norm = norm
+        try:
+            with torch.no_grad():
+                out = model(x)
+        finally:
+            resnet.fused_group_norm = gn.fused_group_norm
+        if not torch.isfinite(out).all() or out.shape != (8, 1000):
+            raise AssertionError(f"resnet50: bad logits {tuple(out.shape)}")
+        return out.float()
+
+    def rel_err(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    model = randomized(64, 1000, 2, torch.float32).to(DEVICE)
+    e32 = rel_err(logits_with(model, gn.fused_group_norm), logits_with(model, reference_group_norm))
+    log(f"resnet reference f32 ResNet-50 (width 64, batch 8): logits max |kernel - plain| "
+        f"{e32:.3e} of max |logit| (bound {RESNET50_F32_LOGIT_RTOL})")
+    if not e32 <= RESNET50_F32_LOGIT_RTOL:
+        raise AssertionError("ResNet-50 f32 logits: kernel GroupNorm disagrees with plain")
+
+    model = randomized(64, 1000, 2, torch.bfloat16).to(DEVICE)
+    plain = logits_with(model, reference_group_norm)
+    rel = {"kernel": rel_err(logits_with(model, gn.fused_group_norm), plain)}
+    for kind in GN_VARIANTS:
+        rel[kind] = rel_err(logits_with(model, gn_variant(kind)), plain)
+    log(f"resnet reference bf16 ResNet-50 (batch 8): logits max |variant - plain| of max "
+        f"|logit| (bound {RESNET50_BF16_LOGIT_RTOL}): {json.dumps(rel)}")
+    for kind in ("kernel", "float64_stats"):
+        if not rel[kind] <= RESNET50_BF16_LOGIT_RTOL:
+            raise AssertionError(f"ResNet-50 bf16 logits: {kind} GroupNorm disagrees with plain")
+    for kind in RESNET50_FAULTS_CAUGHT:
+        if not rel[kind] > RESNET50_BF16_LOGIT_RTOL:
+            raise AssertionError(f"ResNet-50 bf16 logits: the planted fault {kind} passes")
+
+
+def phase_resnet_train(torch, resnet, gn, ckpt_dir):
+    from tfk8s_tpu_torch.runtime import progress
+    from tfk8s_tpu_torch.runtime.checkpoint import Checkpointer
+
+    env = dict(RESNET_ENV, TFK8S_CHECKPOINT_DIR=ckpt_dir)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    progress.clear()
+    gn.reset_launches()
+    t0 = time.perf_counter()
+    history = resnet.train(env)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(gn.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    prog = progress.snapshot()
+    losses = [h["loss"] for h in history]
+    t_first = history[0]["step"] / history[0]["steps_per_s"]
+    t_last = history[-1]["step"] / history[-1]["steps_per_s"]
+    step_s = (t_last - t_first) / (history[-1]["step"] - history[0]["step"])
+    summary = {
+        "steps": RESNET_STEPS, "wall_s": wall, "first_step_s": t_first,
+        "step_ms": step_s * 1e3, "images_per_s": int(env["TFK8S_BATCH_SIZE"]) / step_s,
+        "peak_mem_gib": peak_gib, "first_loss": losses[0], "last_loss": losses[-1],
+        "input_wait_seconds": prog.get("input_wait_seconds"),
+        "input_starved_steps": prog.get("input_starved_steps"),
+        "launches": launches,
+    }
+    log(f"resnet train: {json.dumps(summary)}")
+    if len(losses) != RESNET_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"losses not finite: {losses}")
+    for name in gn.KERNELS:  # one launch per norm site and step
+        if launches[name] != RESNET_GN_SITES * RESNET_STEPS:
+            raise AssertionError(f"{name} launched {launches[name]} times, "
+                                 f"want {RESNET_GN_SITES * RESNET_STEPS}")
+    latest = Checkpointer(ckpt_dir).latest_step()
+    log(f"checkpoint: latest_step {latest}")
+    if latest != RESNET_STEPS:
+        raise AssertionError(f"latest committed step {latest}, want {RESNET_STEPS}")
+    return launches
+
+
+def phase_roofline(torch, bc):
+    from tfk8s_tpu_torch.tools import roofline
+
+    torch.cuda.empty_cache()
+    bc.reset_launches()
+    out = roofline.run_all(small=False, device=DEVICE)
+    launches = dict(bc.LAUNCHES)
+    log(json.dumps(out))
+    if out.get("degraded_probes"):
+        raise AssertionError(f"roofline probes failed: {out['degraded_probes']}")
+    if launches["block_copy"] == 0:
+        raise AssertionError("the copy probe never launched the block-copy kernel")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -392,24 +816,37 @@ def main() -> int:
         print("chip_smoke: the tfk8s_tpu_torch package is not beside this script",
               file=sys.stderr)
         return 2
-    from tfk8s_tpu_torch.models import gpt
+    ap = argparse.ArgumentParser(description="On-card smoke test of the port.")
+    ap.add_argument("--only", default="", help="comma-separated phases (development aid)")
+    only = [p for p in ap.parse_args().only.split(",") if p]
+
+    from tfk8s_tpu_torch.models import gpt, resnet
     from tfk8s_tpu_torch.ops import _build
+    from tfk8s_tpu_torch.ops import block_copy as bc
     from tfk8s_tpu_torch.ops import flash_attention as fa
+    from tfk8s_tpu_torch.ops import group_norm as gn
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
     ckpt_dir = os.path.join(root, "build", "chip_smoke_ckpt")
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
-    failed, slice_results, launches = [], None, None
+    rn_ckpt_dir = os.path.join(root, "build", "chip_smoke_resnet_ckpt")
+    for d in (ckpt_dir, rn_ckpt_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    failed, line, launches = [], None, {}
     card_line = None
     phases = [
         ("card", phase_card),
         ("build", lambda: phase_build(_build)),
         ("kernels", lambda: phase_kernels(fa, torch)),
         ("reference", lambda: phase_reference(torch, gpt, fa)),
+        ("resnet_reference", lambda: phase_resnet_reference(torch, resnet, gn)),
         ("train", lambda: phase_train(torch, gpt, fa, ckpt_dir)),
+        ("resnet_train", lambda: phase_resnet_train(torch, resnet, gn, rn_ckpt_dir)),
+        ("roofline", lambda: phase_roofline(torch, bc)),
     ]
+    if only:
+        phases = [p for p in phases if p[0] in ("card", "build", *only)]
     for name, run in phases:
         log(f"== {name}")
         t0 = time.perf_counter()
@@ -428,20 +865,25 @@ def main() -> int:
             card_line = value
             log(f"card: {card_line}")
         elif name == "kernels":
-            slice_results = value
-        elif name == "train":
-            launches = value
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
+            line = value
+        elif name in ("train", "resnet_train", "roofline"):
+            launches.update(value)
+    for d in (ckpt_dir, rn_ckpt_dir):
+        shutil.rmtree(d, ignore_errors=True)
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
+    if only:
+        print(f"chip_smoke: phases {[p[0] for p in phases]} passed (no result with --only)",
+              file=sys.stderr)
+        return 0
     kernels = []
-    for r in slice_results:
+    for name, (source, replaces) in KERNEL_INFO.items():
+        r = line[name]
         kernels.append({
-            "name": r["kernel"], "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[r["kernel"]], "launches": launches[r["kernel"]],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
     print(card_line)

@@ -60,7 +60,17 @@ def _run(code):
 def test_every_port_module_imports_without_jax_or_the_reference():
     proc = _run(_IMPORT_ALL)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 13  # the slice's modules
+    assert int(proc.stdout.split()[-1]) >= 21  # the modules of both slices
+
+
+@pytest.mark.parametrize("module", [
+    "tfk8s_tpu_torch.ops.group_norm", "tfk8s_tpu_torch.ops.block_copy",
+    "tfk8s_tpu_torch.models.resnet", "tfk8s_tpu_torch.tools.roofline",
+])
+def test_each_resnet_and_roofline_module_imports_on_its_own(module):
+    proc = _run(_BLOCK + f"import {module}\n"
+                "assert not [m for m in sys.modules if forbidden(m)]\n")
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_the_guard_refuses_the_reference_but_not_the_port():

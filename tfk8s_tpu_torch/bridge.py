@@ -15,6 +15,13 @@ The port stores ``nn.Linear`` weights as ``[out, in]``, so every kernel
 is flattened to 2-D and transposed (the same relabel/reshape the
 reference's ``load_hf_gpt2``/``save_hf_gpt2`` do for Hugging Face's
 GPT-2). Values are float32 either way.
+
+The ResNet tree (``models/resnet.py``) maps leaf by leaf under the same
+module names (``stem``, ``stem_norm``, ``stage{s}_block{i}/{conv1,norm1,
+...,proj,proj_norm}``, ``classifier``): a conv ``kernel`` [kh, kw, in,
+out] (HWIO) becomes ``weight`` [out, in, kh, kw] (OIHW), a GroupNorm
+``scale``/``bias`` becomes ``weight``/``bias``, and the classifier's dense
+``kernel`` [in, out] becomes ``weight`` [out, in].
 """
 
 from __future__ import annotations
@@ -94,4 +101,45 @@ def state_dict_to_params(sd: Mapping[str, torch.Tensor], cfg: TransformerConfig)
             "ln_attn": {"scale": a(f"{p}.ln_attn.weight"), "bias": a(f"{p}.ln_attn.bias")},
             "ln_mlp": {"scale": a(f"{p}.ln_mlp.weight"), "bias": a(f"{p}.ln_mlp.bias")},
         }
+    return params
+
+
+def resnet_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """ResNet flax param tree (numpy leaves) -> the port's ``state_dict``."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(tree: Mapping[str, Any], prefix: str) -> None:
+        for key, val in tree.items():
+            if isinstance(val, Mapping):
+                walk(val, f"{prefix}{key}.")
+                continue
+            a = np.asarray(val, dtype=np.float32)
+            if key == "kernel":
+                a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            name = "weight" if key in ("kernel", "scale") else key
+            sd[prefix + name] = torch.from_numpy(np.ascontiguousarray(a).copy())
+
+    walk(params, "")
+    return sd
+
+
+def resnet_state_dict_to_params(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's ResNet ``state_dict`` -> flax param tree (numpy leaves).
+    A 4-D ``weight`` is a conv kernel, a 2-D one the classifier's, a 1-D
+    one a GroupNorm scale."""
+    params: Dict[str, Any] = {}
+    for name, t in sd.items():
+        *path, leaf = name.split(".")
+        a = t.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            if a.ndim == 4:
+                leaf, a = "kernel", a.transpose(2, 3, 1, 0)
+            elif a.ndim == 2:
+                leaf, a = "kernel", a.T
+            else:
+                leaf = "scale"
+        node = params
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = np.ascontiguousarray(a).copy()
     return params
