@@ -16,10 +16,14 @@ must pass:
    card inputs, each with its time, the plain version's time, its bound
    and a one-call PyTorch yardstick (timed here only; the port never
    calls it):
-   - flash attention (forward, dq, dk/dv): the GPT slice's shape in
-     bfloat16 (atol 2e-2 + rtol 2^-7) and small float32 cases (a key mask
-     with a fully masked row, causal with lq < lk, ragged lengths; atol
-     1e-5 outputs, 1e-4 gradients); yardstick
+   - flash attention: in bfloat16 the tensor-core forward, the D
+     pre-pass and the tensor-core dk/dv, and the dq kernel, at the GPT
+     slice's shape, a ragged d=128 case and a masked d=32 case (atol 2e-2
+     + rtol 2^-7; D and lse * log2(e) atol 1e-5); in float32 the CUDA-core
+     forward, dq and dk/dv on small cases (a key mask with a fully masked
+     row, causal with lq < lk, ragged lengths; atol 1e-5 outputs, 1e-4
+     gradients); the slice's FLOPs at d=128 with half the heads; each with
+     its achieved TFLOP/s; yardstick
      ``scaled_dot_product_attention``;
    - GroupNorm forward and backward, float32 and bfloat16, at the two
      largest ResNet-50 norm sites [256,112,112,64] (ReLU) and
@@ -34,7 +38,9 @@ must pass:
 4. reference: a small float32 GPT on the card through the kernels
    against the same model on the CPU through the plain versions (loss
    and every gradient to atol 1e-4), and the base-width bfloat16 model's
-   loss through the kernels against plain attention (atol 2e-2);
+   forward and backward through the kernels against plain attention:
+   loss atol 2e-2, gradients within BASE_GRAD_REL_L2 relative L2, a bound
+   that a planted dk/dv fault (D taken as zero) must exceed;
 5. resnet reference: a small float32 ResNet-50 (width 8) on the card
    through the GroupNorm kernels against the same model on the CPU through
    the plain versions (loss atol 1e-4, gradients 1e-3 relative L2), and
@@ -45,8 +51,9 @@ must pass:
 6. train: ``tfk8s_tpu_torch.models.gpt.train(env)``, the ``gpt:train``
    entrypoint, at the GPT-2-small base preset (seq 1024, batch 8,
    ``TFK8S_ATTENTION_IMPL=flash``) for a few steps with a checkpoint:
-   finite losses, each flash kernel launched 12 times a step, the
-   checkpoint committed at the last step;
+   finite losses, the tensor-core forward, D pre-pass and dk/dv and the
+   dq kernel each launched 12 times a step and the CUDA-core float32
+   kernels never, the checkpoint committed at the last step;
 7. resnet train: ``tfk8s_tpu_torch.models.resnet.train(env)``, the
    ``resnet:train`` entrypoint, at ResNet-50 (depth 50, width 64, batch
    256, image 224, 1000 classes, bfloat16) for a few steps with a
@@ -95,14 +102,22 @@ F32_OUT_ATOL, F32_GRAD_ATOL = 1e-5, 1e-4
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-# kernel -> (source in the repo, the TPU kernel it replaces)
+# bf16 base-width GPT, flash vs plain attention: the relative L2 distance
+# of the key and value projections' gradients (they come from dk and dv
+# alone). Measured 8.2e-3; a dk/dv with D = rowsum(dO * O) taken as zero
+# measured 1.24 and must exceed the bound.
+BASE_GRAD_REL_L2 = 5e-2
+# kernel -> (source in the repo, the TPU kernel it replaces); the kernels
+# of the GPT training path, which runs bfloat16
 KERNEL_INFO = {
-    "flash_fwd": ("tfk8s_tpu_torch/ops/csrc/flash_attention.cu",
-                  "tfk8s_tpu/ops/flash_attention.py:149"),
+    "flash_fwd_wgmma": ("tfk8s_tpu_torch/ops/csrc/flash_attention_sm90.cu",
+                        "tfk8s_tpu/ops/flash_attention.py:149"),
     "flash_bwd_dq": ("tfk8s_tpu_torch/ops/csrc/flash_attention.cu",
                      "tfk8s_tpu/ops/flash_attention.py:233"),
-    "flash_bwd_dkv": ("tfk8s_tpu_torch/ops/csrc/flash_attention.cu",
-                      "tfk8s_tpu/ops/flash_attention.py:290"),
+    "flash_bwd_dsum": ("tfk8s_tpu_torch/ops/csrc/flash_attention_sm90.cu",
+                       "tfk8s_tpu/ops/flash_attention.py:317"),
+    "flash_bwd_dkv_wgmma": ("tfk8s_tpu_torch/ops/csrc/flash_attention_sm90.cu",
+                            "tfk8s_tpu/ops/flash_attention.py:290"),
     "group_norm_fwd": ("tfk8s_tpu_torch/ops/csrc/group_norm.cu",
                        "tfk8s_tpu/ops/group_norm.py:68"),
     "group_norm_bwd": ("tfk8s_tpu_torch/ops/csrc/group_norm.cu",
@@ -194,21 +209,32 @@ class Case:
         self.elt = self.q.element_size()
         self.n_q, self.n_k = b * lq * h * d, b * lk * h * d
         self.n_lse = b * h * lq
+        from tfk8s_tpu_torch.ops.flash_attention import DSUM_PAD
+
+        self.n_pad = b * h * (-(-lq // DSUM_PAD) * DSUM_PAD)  # the D pre-pass's padded rows
         self.d = d
+
+    def work(self, kernel: str):
+        """(bytes, FLOPs) the kernel's function needs on these inputs:
+        each input read once, each output written once."""
+        e, qn, kn, lse, pad = self.elt, self.n_q, self.n_k, 4 * self.n_lse, 4 * self.n_pad
+        if kernel.startswith("flash_fwd"):
+            return e * (qn + 2 * kn + qn) + lse, 4 * self.pairs * self.d  # q k v in; o lse out
+        if kernel == "flash_bwd_dq":
+            # q k v do o lse in; dq out; QK^T, dO V^T, dS K
+            return e * (qn + 2 * kn + 2 * qn + qn) + lse, 6 * self.pairs * self.d
+        if kernel == "flash_bwd_dsum":
+            return e * 2 * qn + lse + 2 * pad, 2 * qn  # do o lse in; D, lse2 out
+        if kernel == "flash_bwd_dkv_wgmma":
+            # q k v do, D and lse2 from the pre-pass in; dk dv out
+            return e * (2 * qn + 4 * kn) + 2 * pad, 8 * self.pairs * self.d
+        # the CUDA-core dk/dv reads o and lse itself
+        return e * (qn + 2 * kn + 2 * qn + 2 * kn) + lse, 8 * self.pairs * self.d
 
     def bound_ms(self, kernel: str):
         """Least time on the card: the larger of bytes over the memory
         rate and FLOPs over the peak rate for the inputs' type."""
-        e, qn, kn, lse = self.elt, self.n_q, self.n_k, 4 * self.n_lse
-        if kernel == "flash_fwd":
-            nbytes = e * (qn + 2 * kn + qn) + lse        # q, k, v in; o, lse out
-            flops = 4 * self.pairs * self.d              # QK^T, PV
-        elif kernel == "flash_bwd_dq":
-            nbytes = e * (qn + 2 * kn + 2 * qn + qn) + lse  # q k v do o lse in; dq out
-            flops = 6 * self.pairs * self.d              # QK^T, dO V^T, dS K
-        else:
-            nbytes = e * (qn + 2 * kn + 2 * qn + 2 * kn) + lse  # ...; dk, dv out
-            flops = 8 * self.pairs * self.d              # QK^T, dO V^T, P^T dO, dS^T Q
+        nbytes, flops = self.work(kernel)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS[self.dtype_name] * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -250,7 +276,8 @@ def _err(pairs, atol, rtol=0.0):
 
 def check_case(fa, case: Case, iters: int):
     """Each kernel against its plain version on ``case``; returns one
-    result dict per kernel."""
+    result dict per kernel. bfloat16 runs the tensor-core kernels,
+    float32 the CUDA-core ones; dq serves both."""
     import torch
 
     bf16 = case.dtype_name == "bfloat16"
@@ -258,7 +285,10 @@ def check_case(fa, case: Case, iters: int):
     grad_tol = BF16_ATOL if bf16 else F32_GRAD_ATOL
     rtol = BF16_RTOL if bf16 else 0.0
     q, k, v, do, mask, causal = case.q, case.k, case.v, case.do, case.mask, case.causal
+    fwd, dkv = ("flash_fwd_wgmma", "flash_bwd_dkv_wgmma") if bf16 else (
+        "flash_fwd_simt", "flash_bwd_dkv_simt")
 
+    fa.reset_launches()
     o_k, lse_k = fa.flash_fwd_cuda(q, k, v, mask, causal)
     o_p, lse_p = fa.flash_fwd_plain(q, k, v, mask, causal)
     dq_k = fa.flash_bwd_dq_cuda(q, k, v, do, o_k, lse_k, mask, causal)
@@ -266,42 +296,65 @@ def check_case(fa, case: Case, iters: int):
     dk_k, dv_k = fa.flash_bwd_dkv_cuda(q, k, v, do, o_k, lse_k, mask, causal)
     dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, o_k, lse_k, mask, causal)
     torch.cuda.synchronize()
+    want = {fwd: 1, "flash_bwd_dq": 1, dkv: 1, "flash_bwd_dsum": int(bf16)}
+    if dict(fa.LAUNCHES) != {**dict.fromkeys(fa.KERNELS, 0), **want}:
+        raise AssertionError(f"{case.name}: launches {dict(fa.LAUNCHES)}, want {want}")
 
     live = lse_p > -1e29
     errs = {
-        "flash_fwd": _err([(o_k, o_p), (lse_k[live], lse_p[live])], out_tol, rtol),
+        fwd: _err([(o_k, o_p), (lse_k[live], lse_p[live])], out_tol, rtol),
         "flash_bwd_dq": _err([(dq_k, dq_p)], grad_tol, rtol),
-        "flash_bwd_dkv": _err([(dk_k, dk_p), (dv_k, dv_p)], grad_tol, rtol),
+        dkv: _err([(dk_k, dk_p), (dv_k, dv_p)], grad_tol, rtol),
     }
-    tols = {"flash_fwd": out_tol, "flash_bwd_dq": grad_tol, "flash_bwd_dkv": grad_tol}
+    tols = {fwd: out_tol, "flash_bwd_dq": grad_tol, dkv: grad_tol}
+    if not torch.equal(lse_k > -1e29, live):
+        raise AssertionError(f"{case.name}: the kernel's fully masked rows differ")
     for name, t in (("o", o_k), ("dq", dq_k), ("dk", dk_k), ("dv", dv_k)):
         if not torch.isfinite(t).all():
             raise AssertionError(f"{case.name}: kernel {name} is not finite")
     if mask is not None and (~mask).all(dim=1).any():
         dead = (~mask).all(dim=1)
-        for name, t in (("o", o_k), ("dq", dq_k)):
+        for name, t in (("o", o_k), ("dq", dq_k), ("dk", dk_k), ("dv", dv_k)):
             if t[dead].abs().max() != 0:
                 raise AssertionError(f"{case.name}: fully masked row gives nonzero {name}")
 
     lib_fwd, lib_bwd = _library(case)
     runs = {
-        "flash_fwd": (lambda: fa.flash_fwd_cuda(q, k, v, mask, causal),
-                      lambda: fa.flash_fwd_plain(q, k, v, mask, causal), lib_fwd),
+        fwd: (lambda: fa.flash_fwd_cuda(q, k, v, mask, causal),
+              lambda: fa.flash_fwd_plain(q, k, v, mask, causal), lib_fwd),
         "flash_bwd_dq": (lambda: fa.flash_bwd_dq_cuda(q, k, v, do, o_k, lse_k, mask, causal),
                          lambda: fa.flash_bwd_dq_plain(q, k, v, do, o_k, lse_k, mask, causal),
                          lib_bwd),
-        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, o_k, lse_k, mask, causal),
-                          lambda: fa.flash_bwd_dkv_plain(q, k, v, do, o_k, lse_k, mask, causal),
-                          lib_bwd),
     }
+    if bf16:
+        # the pre-pass and the tensor-core dk/dv, each alone
+        ds_k, l2_k = fa.flash_bwd_dsum_cuda(do, o_k, lse_k)
+        ds_p, l2_p = fa.flash_bwd_dsum_plain(do, o_k, lse_k)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(l2_p)
+        errs["flash_bwd_dsum"] = _err([(ds_k, ds_p), (l2_k[fin], l2_p[fin])], F32_OUT_ATOL, 1e-6)
+        if not torch.equal(torch.isfinite(l2_k), fin):
+            errs["flash_bwd_dsum"] = (float("inf"), False)
+        tols["flash_bwd_dsum"] = F32_OUT_ATOL
+        runs["flash_bwd_dsum"] = (lambda: fa.flash_bwd_dsum_cuda(do, o_k, lse_k),
+                                  lambda: fa.flash_bwd_dsum_plain(do, o_k, lse_k), None)
+        runs[dkv] = (lambda: fa.flash_bwd_dkv_wgmma_cuda(q, k, v, do, ds_k, l2_k, mask, causal),
+                     lambda: fa.flash_bwd_dkv_plain(q, k, v, do, o_k, lse_k, mask, causal),
+                     lib_bwd)
+    else:
+        runs[dkv] = (lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, o_k, lse_k, mask, causal),
+                     lambda: fa.flash_bwd_dkv_plain(q, k, v, do, o_k, lse_k, mask, causal),
+                     lib_bwd)
     results = []
     for name, (kern, plain, lib) in runs.items():
         bound, by = case.bound_ms(name)
+        ms = _time_ms(kern, iters)
         r = {
             "case": case.name, "kernel": name, "dtype": case.dtype_name,
             "max_abs_err": errs[name][0], "atol": tols[name], "rtol": rtol,
-            "ms": _time_ms(kern, iters), "plain_ms": _time_ms(plain, max(iters // 4, 1)),
-            "bound_ms": bound, "bound_by": by, "library_ms": _time_ms(lib, iters),
+            "ms": ms, "plain_ms": _time_ms(plain, max(iters // 4, 1)),
+            "bound_ms": bound, "bound_by": by, "tflops": case.work(name)[1] / ms * 1e-9,
+            "library_ms": None if lib is None else _time_ms(lib, iters),
         }
         log(f"  {json.dumps(r)}")
         if not errs[name][1]:
@@ -513,11 +566,13 @@ def phase_card():
 
 
 def phase_build(_build):
+    """Build every source; report ptxas's registers and spills for every
+    tensor-core flash instantiation, for the CUDA-core kernels the slice
+    launches (bf16, head_dim 64) and for every instantiation that spills.
+    A tensor-core instantiation that spills at d = 64 or 128 fails."""
     seconds, logs = _build.build_all(verbose=True)
     log(f"build: {seconds:.1f} s for {list(_build.SOURCES)}")
-    # ptxas report of the kernels the slice launches (bf16, head_dim 64)
-    # and every instantiation that spills registers
-    entry = None
+    entry, spilled = None, []
     for line in "\n".join(logs.values()).splitlines():
         m = re.search(r"entry function '([^']+)'", line)
         if m:
@@ -526,13 +581,21 @@ def phase_build(_build):
         if entry is None or not ("registers" in line or "spill" in line):
             continue
         spills = re.search(r"[1-9]\d* bytes spill", line) is not None
-        if "__nv_bfloat16Li64E" in entry or spills:
-            name = re.search(r"tfk8s_\w+?_kernel", entry)
-            inst = re.search(r"I(f|13__nv_bfloat16)Li(\d+)E", entry)
-            tag = f"{name.group(0) if name else entry}"
-            if inst:
-                tag += f"<{'bf16' if inst.group(1) != 'f' else 'f32'}, d={inst.group(2)}>"
+        name = re.search(r"tfk8s_\w+?_kernel", entry)
+        tag = name.group(0) if name else entry
+        wgmma = "wgmma" in tag or "dsum" in tag
+        inst = re.search(r"I(f|13__nv_bfloat16)Li(\d+)E", entry)
+        head_dim = re.search(r"ILi(\d+)EE", entry)
+        if inst:
+            tag += f"<{'bf16' if inst.group(1) != 'f' else 'f32'}, d={inst.group(2)}>"
+        elif head_dim:
+            tag += f"<bf16, d={head_dim.group(1)}>"
+        if wgmma or "__nv_bfloat16Li64E" in entry or spills:
             log(f"  ptxas {tag}: {line.split(':', 1)[-1].strip()}")
+        if spills and wgmma and head_dim and head_dim.group(1) in ("64", "128"):
+            spilled.append(tag)
+    if spilled:
+        raise AssertionError(f"tensor-core kernels spill: {sorted(set(spilled))}")
 
 
 def phase_kernels(fa, torch):
@@ -546,6 +609,11 @@ def phase_kernels(fa, torch):
         Case("f32_ragged_causal_mask", 3, 200, 200, 2, 64, torch.float32, causal=True,
              lengths=[200, 131, 5], seed=4),
         Case("bf16_ragged_d128", 2, 150, 150, 2, 128, torch.bfloat16, causal=True, seed=5),
+        Case("bf16_d32_key_mask", 3, 333, 333, 4, 32, torch.bfloat16,
+             lengths=[333, 120, 0], seed=6),
+        # the slice's FLOPs at d=128 (half the heads, half the scores)
+        Case("slice_bf16_causal_d128", s["b"], s["l"], s["l"], s["h"] // 2, 128, torch.bfloat16,
+             causal=True, seed=7),
     ]
     line = {}
     for i, case in enumerate(cases):
@@ -572,7 +640,8 @@ def phase_kernels(fa, torch):
 
 def phase_reference(torch, gpt, fa):
     """Small f32 GPT: kernels on the card vs plain versions on the CPU;
-    base-width bf16 loss: kernels vs plain attention on the card."""
+    base-width bf16 loss and gradients: kernels vs plain attention on the
+    card, and a planted dk/dv fault that the gradient bound must catch."""
     import copy
 
     import numpy as np
@@ -603,20 +672,55 @@ def phase_reference(torch, gpt, fa):
     ids = torch.from_numpy(
         gpt.make_batch_fn(cfg.vocab_size, seq)(np.random.default_rng(1), batch)["input"]
     ).to(DEVICE)
-    out = {}
-    with torch.no_grad():
-        for impl, fn in (("full", None), ("flash", fa.flash_attention)):
-            for layer in base.layers:
-                layer.attn.attn_fn = fn
+    real_dkv = fa.flash_bwd_dkv
+
+    def dkv_without_d(q, k, v, do, o, lse, mask=None, causal=False):
+        # the planted fault: D = rowsum(dO * O) taken as zero
+        return real_dkv(q, k, v, do, torch.zeros_like(o), lse, mask, causal)
+
+    losses, grads = {}, {}
+    for impl, fn in (("full", None), ("flash", fa.flash_attention), ("fault", fa.flash_attention)):
+        for layer in base.layers:
+            layer.attn.attn_fn = fn
+        base.zero_grad(set_to_none=True)
+        fa.flash_bwd_dkv = dkv_without_d if impl == "fault" else real_dkv
+        try:
             logits = base(ids)
             if not torch.isfinite(logits).all() or logits.shape != (batch, seq, cfg.vocab_size):
                 raise AssertionError(f"base {impl}: bad logits {tuple(logits.shape)}")
-            out[impl] = gpt.lm_loss_and_metrics(logits, ids)[0].item()
-    err = abs(out["full"] - out["flash"])
-    log(f"reference bf16 base: loss full {out['full']:.6f} flash {out['flash']:.6f} "
-        f"err {err:.2e} (atol {BF16_ATOL})")
+            loss = gpt.lm_loss_and_metrics(logits, ids)[0]
+            loss.backward()
+        finally:
+            fa.flash_bwd_dkv = real_dkv
+        losses[impl] = loss.item()
+        grads[impl] = {n: p.grad.float() for n, p in base.named_parameters()}
+
+    def rel_l2(impl, names):
+        num = sum(float((grads[impl][n] - grads["full"][n]).square().sum()) for n in names)
+        return math.sqrt(num / sum(float(grads["full"][n].square().sum()) for n in names))
+
+    # the bound holds the key and value projections, whose gradients come
+    # from dk and dv alone; all parameters together are reported beside
+    kv_names = [n for n in grads["full"] if re.search(r"attn\.(k|v)\.", n)]
+    err = abs(losses["full"] - losses["flash"])
+    rel = {impl: rel_l2(impl, kv_names) for impl in ("flash", "fault")}
+    every = {impl: rel_l2(impl, list(grads["full"])) for impl in ("flash", "fault")}
+    log(f"reference bf16 base: loss full {losses['full']:.6f} flash {losses['flash']:.6f} "
+        f"err {err:.2e} (atol {BF16_ATOL}); k/v projection grads rel L2 vs full "
+        f"({len(kv_names)} tensors): flash {rel['flash']:.3e}, planted fault (D = 0) "
+        f"{rel['fault']:.3e} (bound {BASE_GRAD_REL_L2}); every parameter: flash "
+        f"{every['flash']:.3e}, fault {every['fault']:.3e}")
+    if not kv_names:
+        raise AssertionError("no key/value projection parameters found")
     if not err <= BF16_ATOL:
         raise AssertionError("base-width flash loss disagrees with plain attention")
+    if not rel["flash"] <= BASE_GRAD_REL_L2:
+        raise AssertionError("base-width flash gradients disagree with plain attention")
+    if not rel["fault"] > BASE_GRAD_REL_L2:
+        raise AssertionError("the planted dk/dv fault passes the gradient bound")
+    for layer in base.layers:
+        layer.attn.attn_fn = None
+    del base, grads
 
 
 def phase_train(torch, gpt, fa, ckpt_dir):
@@ -649,10 +753,12 @@ def phase_train(torch, gpt, fa, ckpt_dir):
     log(f"train: {json.dumps(summary)}")
     if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"losses not finite: {losses}")
-    for name in fa.KERNELS:  # one launch per layer and step
-        if launches[name] != layers * TRAIN_STEPS:
-            raise AssertionError(f"{name} launched {launches[name]} times, "
-                                 f"want {layers * TRAIN_STEPS}")
+    # bf16 training: each tensor-core kernel and dq once per layer and
+    # step; the float32 CUDA-core kernels never
+    want = {**dict.fromkeys(fa.SIMT_KERNELS, 0),
+            **dict.fromkeys(fa.TENSOR_CORE_KERNELS + ("flash_bwd_dq",), layers * TRAIN_STEPS)}
+    if launches != want:
+        raise AssertionError(f"flash launches {launches}, want {want}")
     latest = Checkpointer(ckpt_dir).latest_step()
     log(f"checkpoint: latest_step {latest}")
     if latest != TRAIN_STEPS:

@@ -216,14 +216,40 @@ def _bad_inputs(which):
         mask = torch.ones(2, 15, dtype=torch.bool)
     elif which == "lse_dtype":
         lse = lse.double()
+    elif which == "misaligned":  # bf16 one element into its buffer: TMA refuses it
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        q = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:].view(q.shape)
     return q, k, v, mask, lse
 
 
 @pytest.mark.parametrize("which,error", [
     ("dtype", TypeError), ("head_dim", ValueError), ("strides", ValueError),
     ("kv_shape", ValueError), ("mask_shape", ValueError), ("lse_dtype", ValueError),
+    ("misaligned", ValueError),
 ])
 def test_kernel_wrappers_validate_before_launching(which, error):
     q, k, v, mask, lse = _bad_inputs(which)
     with pytest.raises(error):
         tfa._check_cuda(q, k, v, mask, do=q, o=q, lse=lse)
+
+
+@pytest.mark.parametrize("lq", [5, 64, 100])
+def test_dsum_plain_pads_rows_and_marks_the_dead_ones(lq):
+    """The dk/dv pre-pass's function: D = rowsum(dO * O) and lse * log2(e)
+    per (batch, head) row, padded to a multiple of 64; padding rows and
+    fully masked rows (lse <= -1e29) get lse2 = +inf."""
+    rng = np.random.default_rng(lq)
+    b, h, d = 2, 3, 16
+    do, o = (rng.standard_normal((b, lq, h, d)).astype(np.float32) for _ in range(2))
+    lse = rng.standard_normal((b, h, lq)).astype(np.float32)
+    lse[1, 2, 0] = -1e30
+    dsum, lse2 = tfa.flash_bwd_dsum_plain(*(torch.tensor(x) for x in (do, o, lse)))
+    lqp = -(-lq // 64) * 64
+    assert dsum.shape == lse2.shape == (b * h, lqp)
+    want = np.einsum("bqhd,bqhd->bhq", do, o).reshape(b * h, lq)
+    np.testing.assert_allclose(dsum[:, :lq].numpy(), want, atol=1e-5)
+    assert (dsum[:, lq:] == 0).all() and torch.isinf(lse2[:, lq:]).all()
+    flat = lse.reshape(b * h, lq)
+    live = flat > -1e29
+    np.testing.assert_allclose(lse2[:, :lq].numpy()[live], flat[live] * np.log2(np.e), rtol=1e-6)
+    assert torch.isinf(lse2[5, 0]) and lse2[5, 0] > 0

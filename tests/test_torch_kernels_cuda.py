@@ -7,7 +7,12 @@ machine with the card, from the root of a checkout:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernels_cuda.py
 
-float32 inputs (TF32 off): outputs agree to atol 1e-5, gradients to 1e-4.
+float32 inputs (TF32 off) run the CUDA-core flash kernels: outputs agree
+to atol 1e-5, gradients to 1e-4. bfloat16 inputs run the tensor-core
+forward and dk/dv (wgmma, TMA) and the dq kernel: within atol 2e-2 plus
+one bfloat16 rounding step (rtol 2^-7) of the plain version's, which
+computes in float32 from the same bfloat16 inputs; the kernels round P
+and dS to bfloat16 before their second products.
 GroupNorm in bfloat16: outputs and dx within one bfloat16 rounding step
 of the plain version's (atol 2e-2 plus rtol 2^-7), the float32 dscale and
 dbias to atol 1e-2 + rtol 1e-3 (sums over up to 12.8 M values in another
@@ -23,6 +28,7 @@ from tfk8s_tpu_torch.ops import flash_attention as tfa
 from tfk8s_tpu_torch.ops import group_norm as tgn
 
 OUT_ATOL, GRAD_ATOL = 1e-5, 1e-4
+BF16_TOL = dict(atol=2e-2, rtol=2 ** -7)
 RAGGED = 5  # rows past a multiple of 16: the kernels mask the ragged edge
 
 
@@ -57,7 +63,7 @@ def card():
     return torch.device("cuda")
 
 
-def _case(case, d, device, seed=4):
+def _case(case, d, device, seed=4, dtype=torch.float32):
     lq, lk, causal, mask = CASES[case]
     rng = np.random.default_rng(seed)
     b, h = 2, 3
@@ -66,6 +72,7 @@ def _case(case, d, device, seed=4):
     q, k, v, g = (torch.tensor(rng.standard_normal(s).astype(np.float32), device=device)
                   for s in shapes)
     q = q / d ** 0.5
+    q, k, v, g = (t.to(dtype) for t in (q, k, v, g))
     tm = None
     if mask is not None:
         mask = np.pad(mask, ((0, 0), (0, RAGGED)), constant_values=True)
@@ -96,6 +103,30 @@ def test_kernels_match_plain(card, case, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_bf16_kernels_match_plain(card, case, d):
+    """The tensor-core forward, dq fed by it, and the tensor-core dk/dv."""
+    q, k, v, g, tm, causal = _case(case, d, card, dtype=torch.bfloat16)
+    tfa.reset_launches()
+    o_c, lse_c = tfa.flash_fwd_cuda(q, k, v, tm, causal)
+    o_p, lse_p = tfa.flash_fwd_plain(q, k, v, tm, causal)
+    torch.testing.assert_close(o_c.float(), o_p.float(), **BF16_TOL)
+    live = lse_p > -1e29
+    torch.testing.assert_close(lse_c > -1e29, live)
+    torch.testing.assert_close(lse_c[live], lse_p[live], **BF16_TOL)
+    dq_c = tfa.flash_bwd_dq_cuda(q, k, v, g, o_c, lse_c, tm, causal)
+    dq_p = tfa.flash_bwd_dq_plain(q, k, v, g, o_c, lse_c, tm, causal)
+    torch.testing.assert_close(dq_c.float(), dq_p.float(), **BF16_TOL)
+    for got, want in zip(tfa.flash_bwd_dkv_cuda(q, k, v, g, o_c, lse_c, tm, causal),
+                         tfa.flash_bwd_dkv_plain(q, k, v, g, o_c, lse_c, tm, causal)):
+        torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES == {**dict.fromkeys(tfa.KERNELS, 0), **dict.fromkeys(
+        tfa.TENSOR_CORE_KERNELS + ("flash_bwd_dq",), 1)}
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["causal", "fully_masked_row", "causal_lq_lt_lk"])
 def test_autograd_on_the_card_matches_the_cpu_and_counts_launches(card, case):
     q, k, v, g, tm, causal = _case(case, 64, card, seed=5)
@@ -108,9 +139,37 @@ def test_autograd_on_the_card_matches_the_cpu_and_counts_launches(card, case):
         out.backward(g.to(dev))
         outs.append([t.detach().cpu() for t in (out, *(x.grad for x in ts))])
         launches = dict(tfa.LAUNCHES)
-        assert launches == dict.fromkeys(tfa.KERNELS, 1 if dev.type == "cuda" else 0)
+        want = dict.fromkeys(tfa.KERNELS, 0)
+        if dev.type == "cuda":  # float32: the CUDA-core kernels
+            want.update(dict.fromkeys(tfa.SIMT_KERNELS + ("flash_bwd_dq",), 1))
+        assert launches == want
     for got, want in zip(*outs):
         torch.testing.assert_close(got, want, atol=GRAD_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["causal", "fully_masked_row", "causal_lq_lt_lk"])
+def test_bf16_autograd_reaches_only_the_tensor_core_kernels(card, case, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in ("flash_fwd_plain", "flash_bwd_dq_plain", "flash_bwd_dkv_plain",
+                 "flash_bwd_dsum_plain"):
+        monkeypatch.setattr(tfa, name, refuse)
+    q, k, v, g, tm, causal = _case(case, 64, card, seed=5, dtype=torch.bfloat16)
+    ts = [t.detach().requires_grad_() for t in (q, k, v)]
+    tfa.reset_launches()
+    out = tfa.flash_attention(*ts, mask=tm, causal=causal)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES == {**dict.fromkeys(tfa.KERNELS, 0), **dict.fromkeys(
+        tfa.TENSOR_CORE_KERNELS + ("flash_bwd_dq",), 1)}
+    monkeypatch.undo()
+    o_p, lse_p = tfa.flash_fwd_plain(q, k, v, tm, causal)
+    torch.testing.assert_close(out.detach().float(), o_p.float(), **BF16_TOL)
+    for got, want in zip((t.grad for t in ts[1:]),
+                         tfa.flash_bwd_dkv_plain(q, k, v, g, out.detach(), lse_p, tm, causal)):
+        torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
 
 
 @pytest.mark.cuda
@@ -126,6 +185,38 @@ def test_bf16_at_a_training_shape(card):
     dq_c = tfa.flash_bwd_dq_cuda(q, k, v, g, o_c, lse_c, None, True)
     dq_p = tfa.flash_bwd_dq_plain(q, k, v, g, o_c, lse_c, None, True)
     torch.testing.assert_close(dq_c.float(), dq_p.float(), atol=2e-2, rtol=2 ** -7)
+    for got, want in zip(tfa.flash_bwd_dkv_cuda(q, k, v, g, o_c, lse_c, None, True),
+                         tfa.flash_bwd_dkv_plain(q, k, v, g, o_c, lse_c, None, True)):
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2 ** -7)
+
+
+@pytest.mark.cuda
+def test_bf16_dkv_repeats_bit_for_bit(card):
+    gen = torch.Generator(device=card).manual_seed(3)
+    q, k, v, g = (torch.randn(2, 777, 4, 64, generator=gen, device=card).to(torch.bfloat16)
+                  for _ in range(4))
+    mask = torch.arange(777, device=card)[None] < torch.tensor([[777], [500]], device=card)
+    o, lse = tfa.flash_fwd_cuda(q, k, v, mask, True)
+    first = tfa.flash_bwd_dkv_cuda(q, k, v, g, o, lse, mask, True)
+    for _ in range(3):
+        for a, b in zip(first, tfa.flash_bwd_dkv_cuda(q, k, v, g, o, lse, mask, True)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_refuse_misaligned_views(card):
+    """TMA reads 16-byte aligned tensors: a view one element in raises."""
+    n = 2 * 32 * 2 * 64
+    flat = torch.zeros(n + 1, device=card, dtype=torch.bfloat16)
+    bad = flat[1:].view(2, 32, 2, 64)
+    good = torch.zeros(2, 32, 2, 64, device=card, dtype=torch.bfloat16)
+    lse = torch.zeros(2, 2, 32, device=card)
+    with pytest.raises(ValueError, match="aligned"):
+        tfa.flash_fwd_cuda(bad, good, good)
+    with pytest.raises(ValueError, match="aligned"):
+        tfa.flash_bwd_dkv_cuda(good, bad, good, good, good, lse)
+    with pytest.raises(ValueError, match="aligned"):
+        tfa.flash_bwd_dkv_cuda(good, good, good, bad, good, lse)
 
 
 @pytest.mark.cuda

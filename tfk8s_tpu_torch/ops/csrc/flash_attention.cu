@@ -1,11 +1,13 @@
-// Flash attention for Hopper (sm_90a): forward, FlashAttention-2 dq, and
-// FlashAttention-2 dk/dv, behind a plain C interface loaded with ctypes
-// (tfk8s_tpu_torch/ops/_build.py builds this file with nvcc).
+// Flash attention on the CUDA cores (sm_90a): the float32 forward and
+// dk/dv kernels, and the FlashAttention-2 dq kernel for float32 and
+// bfloat16, behind a plain C interface loaded with ctypes
+// (tfk8s_tpu_torch/ops/_build.py builds this file with nvcc). bfloat16's
+// forward and dk/dv run on the tensor cores: flash_attention_sm90.cu.
 //
 // Replaces the Pallas TPU kernels of tfk8s_tpu/ops/flash_attention.py:
-//   tfk8s_fwd_kernel  <- _fwd_kernel     (:149, launched by _flash_fwd_impl :394)
-//   tfk8s_dq_kernel   <- _bwd_dq_kernel  (:233, launched by _flash_bwd_impl :438)
-//   tfk8s_dkv_kernel  <- _bwd_dkv_kernel (:290, launched by _flash_bwd_impl :438)
+//   tfk8s_fwd_simt_kernel <- _fwd_kernel     (:149, launched by _flash_fwd_impl :394), float32
+//   tfk8s_dq_kernel       <- _bwd_dq_kernel  (:233, launched by _flash_bwd_impl :438)
+//   tfk8s_dkv_simt_kernel <- _bwd_dkv_kernel (:290, launched by _flash_bwd_impl :438), float32
 //
 // Contract (the same as the plain PyTorch versions in flash_attention.py):
 // q/k/v/do/o are contiguous [b, l, h, d] tensors, q pre-scaled by
@@ -14,18 +16,17 @@
 // every probability of a masked (query, key) pair is exactly zero, so a
 // row whose keys are all masked gives zero output and zero gradients.
 // lse is the per-row logsumexp, [b, h, lq] float32. All arithmetic is
-// float32; outputs are stored in the input type (float32 or bfloat16).
+// float32; outputs are stored in the input type.
 //
-// What bounds it. At the GPT-2-small training shape (b=8, l=1024, h=12,
-// d=64, causal, bf16) the forward reads/writes ~50 MB (15 us at 3.35 TB/s)
-// for ~12.9 GFLOP of products (13 us on the bf16 tensor cores): both
-// bounds sit near 15 us. This first version computes on the CUDA cores in
-// float32 (no mma/wgmma, no TMA), so it is bound by float32 FMA and
-// shared-memory issue, far above either bound; tensor cores are later
-// work. The design keeps the flash property that matters most: no
-// [lq, lk] matrix ever reaches device memory, each K/V (or Q/dO) tile is
-// staged once per block in shared memory and read by every row of the
-// block, and the tiles above the causal diagonal are never visited.
+// What bounds them. float32 FMA and shared-memory issue on the CUDA cores:
+// they keep float32 exact (TF32 would not be), which is what the float32
+// parity checks hold them to; bfloat16 training takes the tensor-core
+// kernels. dq at GPT-2-small's bf16 shape runs ~45x above its ~23 us bound
+// and is the next kernel to move onto the tensor cores. The design keeps
+// the flash property that matters most: no [lq, lk] matrix ever reaches
+// device memory, each K/V (or Q/dO) tile is staged once per block in
+// shared memory and read by every row of the block, and the tiles above
+// the causal diagonal are never visited.
 //
 // Layout of a block. A block owns 64 rows (query rows in fwd/dq, key rows
 // in dk/dv); each row is held by a group of TPR = d/32 threads (1 for
@@ -157,7 +158,7 @@ __device__ __forceinline__ bool visible(int key, int lk, int qpos, bool causal,
 
 template <typename T, int D>
 __global__ void __launch_bounds__(Cfg<D>::THREADS)
-tfk8s_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+tfk8s_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const uint8_t* __restrict__ mask, T* __restrict__ o, float* __restrict__ lse,
                  int lq, int lk, int h, int causal) {
   using C = Cfg<D>;
@@ -286,7 +287,7 @@ tfk8s_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
 template <typename T, int D>
 __global__ void __launch_bounds__(Cfg<D>::THREADS)
-tfk8s_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+tfk8s_dkv_simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ dout, const T* __restrict__ o,
                  const float* __restrict__ lse, const uint8_t* __restrict__ mask,
                  T* __restrict__ dk, T* __restrict__ dv, int lq, int lk, int h, int causal) {
@@ -360,7 +361,7 @@ template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* mask, void* o,
                        void* lse, int b, int lq, int lk, int h, int causal, cudaStream_t st) {
   dim3 grid(b * h, (lq + kRows - 1) / kRows);
-  tfk8s_fwd_kernel<T, D><<<grid, Cfg<D>::THREADS, 0, st>>>(
+  tfk8s_fwd_simt_kernel<T, D><<<grid, Cfg<D>::THREADS, 0, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const uint8_t*)mask, (T*)o, (float*)lse, lq, lk,
       h, causal);
   return cudaGetLastError();
@@ -382,7 +383,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
                        const void* o, const void* lse, const void* mask, void* dk, void* dv,
                        int b, int lq, int lk, int h, int causal, cudaStream_t st) {
   dim3 grid(b * h, (lk + kRows - 1) / kRows);
-  tfk8s_dkv_kernel<T, D><<<grid, Cfg<D>::THREADS, 0, st>>>(
+  tfk8s_dkv_simt_kernel<T, D><<<grid, Cfg<D>::THREADS, 0, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const T*)o, (const float*)lse,
       (const uint8_t*)mask, (T*)dk, (T*)dv, lq, lk, h, causal);
   return cudaGetLastError();
@@ -392,12 +393,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 #define TFK8S_DISPATCH(FN, ...)                                     \
   do {                                                              \
     if (dtype == 0) {                                               \
-      switch (d) {                                                  \
-        case 16: return (int)FN<float, 16>(__VA_ARGS__);            \
-        case 32: return (int)FN<float, 32>(__VA_ARGS__);            \
-        case 64: return (int)FN<float, 64>(__VA_ARGS__);            \
-        case 128: return (int)FN<float, 128>(__VA_ARGS__);          \
-      }                                                             \
+      TFK8S_DISPATCH_F32(FN, __VA_ARGS__);                          \
     } else if (dtype == 1) {                                        \
       switch (d) {                                                  \
         case 16: return (int)FN<__nv_bfloat16, 16>(__VA_ARGS__);    \
@@ -409,15 +405,28 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
     return (int)cudaErrorInvalidValue;                              \
   } while (0)
 
+#define TFK8S_DISPATCH_F32(FN, ...)                      \
+  do {                                                   \
+    switch (d) {                                         \
+      case 16: return (int)FN<float, 16>(__VA_ARGS__);   \
+      case 32: return (int)FN<float, 32>(__VA_ARGS__);   \
+      case 64: return (int)FN<float, 64>(__VA_ARGS__);   \
+      case 128: return (int)FN<float, 128>(__VA_ARGS__); \
+    }                                                    \
+    return (int)cudaErrorInvalidValue;                   \
+  } while (0)
+
 }  // namespace
 
 // Each entry point returns the cudaError_t of its launch (0 = success).
+// The forward and dk/dv take float32 only.
 extern "C" {
 
-int tfk8s_flash_fwd(const void* q, const void* k, const void* v, const void* mask, void* o,
-                    void* lse, int b, int lq, int lk, int h, int d, int causal, int dtype,
-                    void* stream) {
-  TFK8S_DISPATCH(launch_fwd, q, k, v, mask, o, lse, b, lq, lk, h, causal, (cudaStream_t)stream);
+int tfk8s_flash_fwd_simt(const void* q, const void* k, const void* v, const void* mask, void* o,
+                         void* lse, int b, int lq, int lk, int h, int d, int causal,
+                         void* stream) {
+  TFK8S_DISPATCH_F32(launch_fwd, q, k, v, mask, o, lse, b, lq, lk, h, causal,
+                     (cudaStream_t)stream);
 }
 
 int tfk8s_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -427,12 +436,11 @@ int tfk8s_flash_bwd_dq(const void* q, const void* k, const void* v, const void* 
                  (cudaStream_t)stream);
 }
 
-int tfk8s_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                        const void* o, const void* lse, const void* mask, void* dk, void* dv,
-                        int b, int lq, int lk, int h, int d, int causal, int dtype,
-                        void* stream) {
-  TFK8S_DISPATCH(launch_dkv, q, k, v, dout, o, lse, mask, dk, dv, b, lq, lk, h, causal,
-                 (cudaStream_t)stream);
+int tfk8s_flash_bwd_dkv_simt(const void* q, const void* k, const void* v, const void* dout,
+                             const void* o, const void* lse, const void* mask, void* dk, void* dv,
+                             int b, int lq, int lk, int h, int d, int causal, void* stream) {
+  TFK8S_DISPATCH_F32(launch_dkv, q, k, v, dout, o, lse, mask, dk, dv, b, lq, lk, h, causal,
+                     (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,13 +1,16 @@
 """Flash attention for the port: hand-written CUDA kernels for the H100
-(forward, FlashAttention-2 dq, FlashAttention-2 dk/dv) and their plain
-PyTorch versions.
+and their plain PyTorch versions.
 
-The kernels live in ``csrc/flash_attention.cu`` and replace the Pallas TPU
-kernels of the JAX package's ``ops/flash_attention.py``; they are built
-with ``nvcc`` at first use (``_build.py``). Each of the three functions
-here takes its kernel for a CUDA tensor and its plain version for a CPU
-tensor, and raises for anything else: there is no fallback from the
-kernel to the plain version.
+bfloat16 inputs (the training path) take the tensor-core kernels of
+``csrc/flash_attention_sm90.cu``: a wgmma/TMA forward, a pre-pass for
+``D = rowsum(dO * O)`` and a wgmma/TMA dk/dv. float32 inputs take the
+CUDA-core forward and dk/dv of ``csrc/flash_attention.cu``, which keep
+float32 exact. The FlashAttention-2 dq kernel there serves both types.
+All replace the Pallas TPU kernels of the JAX package's
+``ops/flash_attention.py`` and are built with ``nvcc`` at first use
+(``_build.py``). Each function here takes its kernel for a CUDA tensor
+and its plain version for a CPU tensor, and raises for anything else:
+there is no fallback from one kernel to another or to the plain version.
 
 Contract (the JAX package's ``flash_attention``):
 - layout ``[b, l, h, d]``; q arrives pre-scaled by ``1/sqrt(d)``;
@@ -22,11 +25,12 @@ when a backward will follow; the backward recomputes probabilities from
 (q, k, lse) and computes ``D = rowsum(dO * O)`` itself, exactly as the
 reference's kernels do. Unlike the Pallas kernels, the CUDA kernels take
 any sequence length (they mask the ragged edge) and pick their own tiles
-for the H100 (64 rows a block; 64 keys a staged tile, 32 at d=128), so
-this module has no block-size arguments and no ``pick_blocks``.
+for the H100, so this module has no block-size arguments and no
+``pick_blocks``. The tensor-core kernels read through TMA, which needs
+16-byte aligned tensors; their wrappers raise on any other.
 
 Each wrapper counts its launches in ``LAUNCHES`` so a run can show that
-its path went through the kernels.
+its path went through the kernels, and which ones.
 """
 
 from __future__ import annotations
@@ -40,6 +44,9 @@ import torch
 from tfk8s_tpu_torch.ops import _build
 
 _NEG = -1e30
+LOG2E = 1.4426950408889634
+# the dk/dv pre-pass pads each (batch, head) row of D and lse to this
+DSUM_PAD = 64
 
 # Above this sequence length "auto" attention picks the kernels on the
 # card (the same policy as the JAX package).
@@ -48,7 +55,10 @@ FLASH_SEQ_THRESHOLD = 1024
 HEAD_DIMS = (16, 32, 64, 128)  # the head widths the kernels are built for
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# bfloat16 on the tensor cores; float32 on the CUDA cores (SIMT); dq both
+TENSOR_CORE_KERNELS = ("flash_fwd_wgmma", "flash_bwd_dsum", "flash_bwd_dkv_wgmma")
+SIMT_KERNELS = ("flash_fwd_simt", "flash_bwd_dkv_simt")
+KERNELS = TENSOR_CORE_KERNELS + ("flash_bwd_dq",) + SIMT_KERNELS
 # launches of each kernel since the last reset_launches()
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
@@ -119,17 +129,52 @@ def flash_bwd_dkv_plain(q, k, v, do, o, lse, mask=None, causal=False):
     return dk.to(k.dtype).contiguous(), dv.to(v.dtype).contiguous()
 
 
+def _padded(lq: int) -> int:
+    return -(-lq // DSUM_PAD) * DSUM_PAD
+
+
+def flash_bwd_dsum_plain(do, o, lse):
+    """The dk/dv pre-pass's function: ``(dsum, lse2)``, each
+    ``[b * h, lqp]`` float32 with lqp = lq rounded up to DSUM_PAD.
+    ``dsum = rowsum(dO * O)``; ``lse2 = lse * log2(e)``, and +inf on the
+    padding rows and on fully masked rows (lse <= -1e29), whose
+    probabilities are then exactly zero."""
+    b, lq, h, _ = do.shape
+    pad = _padded(lq) - lq
+    dsum = (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(b * h, lq)
+    lse = lse.reshape(b * h, lq)
+    lse2 = torch.where(lse > -1e29, lse * LOG2E, torch.full_like(lse, float("inf")))
+    dsum = torch.nn.functional.pad(dsum, (0, pad), value=0.0)
+    lse2 = torch.nn.functional.pad(lse2, (0, pad), value=float("inf"))
+    return dsum.contiguous(), lse2.contiguous()
+
+
 # -- CUDA kernels ------------------------------------------------------------
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
+    """The CUDA-core kernels (float32 forward and dk/dv, dq)."""
     lib = _build.load("flash_attention")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.tfk8s_flash_fwd.argtypes = [P] * 6 + [I] * 7 + [P]
+    lib.tfk8s_flash_fwd_simt.argtypes = [P] * 6 + [I] * 6 + [P]
     lib.tfk8s_flash_bwd_dq.argtypes = [P] * 8 + [I] * 7 + [P]
-    lib.tfk8s_flash_bwd_dkv.argtypes = [P] * 9 + [I] * 7 + [P]
-    for fn in (lib.tfk8s_flash_fwd, lib.tfk8s_flash_bwd_dq, lib.tfk8s_flash_bwd_dkv):
+    lib.tfk8s_flash_bwd_dkv_simt.argtypes = [P] * 9 + [I] * 6 + [P]
+    for fn in (lib.tfk8s_flash_fwd_simt, lib.tfk8s_flash_bwd_dq, lib.tfk8s_flash_bwd_dkv_simt):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_sm90() -> ctypes.CDLL:
+    """The tensor-core kernels (bfloat16 forward, D pre-pass, dk/dv)."""
+    lib = _build.load("flash_attention_sm90")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.tfk8s_flash_fwd_wgmma.argtypes = [P] * 6 + [I] * 6 + [P]
+    lib.tfk8s_flash_bwd_dsum.argtypes = [P] * 5 + [I] * 5 + [P]
+    lib.tfk8s_flash_bwd_dkv_wgmma.argtypes = [P] * 9 + [I] * 7 + [P]
+    for fn in (lib.tfk8s_flash_fwd_wgmma, lib.tfk8s_flash_bwd_dsum,
+               lib.tfk8s_flash_bwd_dkv_wgmma):
         fn.restype = ctypes.c_int
     return lib
 
@@ -159,6 +204,8 @@ def _check_cuda(q, k, v, mask, do=None, o=None, lse=None) -> Optional[torch.Tens
             raise TypeError(f"mixed dtypes {t.dtype} and {q.dtype}")
         if not t.is_contiguous():
             raise ValueError("flash kernels take contiguous tensors")
+        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError("the tensor-core flash kernels take 16-byte aligned tensors (TMA)")
     if mask is None:
         return None
     if tuple(mask.shape) != (b, k.shape[1]):
@@ -172,27 +219,32 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
 def flash_fwd_cuda(q, k, v, mask=None, causal=False, save_lse=True):
-    """Launch the forward kernel: ``(o, lse or None)``."""
+    """Launch the forward kernel: ``(o, lse or None)``. bfloat16 takes the
+    tensor-core kernel, float32 the CUDA-core one."""
     m8 = _check_cuda(q, k, v, mask)
     b, lq, h, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device) if save_lse else None
     if o.numel() == 0:
         return o, lse
+    tc = q.dtype == torch.bfloat16
+    name = "flash_fwd_wgmma" if tc else "flash_fwd_simt"
     with torch.cuda.device(q.device):
-        rc = _lib().tfk8s_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(m8), o.data_ptr(), _ptr(lse),
-            b, lq, k.shape[1], h, d, int(causal), _DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on(rc, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+        fn = _lib_sm90().tfk8s_flash_fwd_wgmma if tc else _lib().tfk8s_flash_fwd_simt
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(m8), o.data_ptr(), _ptr(lse),
+                b, lq, k.shape[1], h, d, int(causal), _stream())
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return o, lse
 
 
@@ -207,30 +259,79 @@ def flash_bwd_dq_cuda(q, k, v, do, o, lse, mask=None, causal=False):
         rc = _lib().tfk8s_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
             lse.data_ptr(), _ptr(m8), dq.data_ptr(),
-            b, lq, k.shape[1], h, d, int(causal), _DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream().cuda_stream,
+            b, lq, k.shape[1], h, d, int(causal), _DTYPE_CODES[q.dtype], _stream(),
         )
     _raise_on(rc, "flash_bwd_dq")
     LAUNCHES["flash_bwd_dq"] += 1
     return dq
 
 
-def flash_bwd_dkv_cuda(q, k, v, do, o, lse, mask=None, causal=False):
-    """Launch the dk/dv kernel: ``(dk, dv)``."""
-    m8 = _check_cuda(q, k, v, mask, do, o, lse)
+def flash_bwd_dsum_cuda(do, o, lse):
+    """Launch the dk/dv pre-pass (bfloat16): ``(dsum, lse2)`` as
+    ``flash_bwd_dsum_plain`` gives them."""
+    b, lq, h, d = do.shape
+    _check_cuda(do, do, do, None, do, o, lse)
+    if do.dtype != torch.bfloat16:
+        raise TypeError(f"the D pre-pass takes bfloat16, got {do.dtype}")
+    lqp = _padded(lq)
+    dsum = torch.empty((b * h, lqp), dtype=torch.float32, device=do.device)
+    lse2 = torch.empty_like(dsum)
+    with torch.cuda.device(do.device):
+        rc = _lib_sm90().tfk8s_flash_bwd_dsum(
+            do.data_ptr(), o.data_ptr(), lse.data_ptr(), dsum.data_ptr(), lse2.data_ptr(),
+            b, lq, h, d, lqp, _stream(),
+        )
+    _raise_on(rc, "flash_bwd_dsum")
+    LAUNCHES["flash_bwd_dsum"] += 1
+    return dsum, lse2
+
+
+def flash_bwd_dkv_wgmma_cuda(q, k, v, do, dsum, lse2, mask=None, causal=False):
+    """Launch the tensor-core dk/dv kernel (bfloat16) on the pre-pass's
+    ``(dsum, lse2)``: ``(dk, dv)``."""
+    m8 = _check_cuda(q, k, v, mask, do, do)
     b, lq, h, d = q.shape
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core dk/dv kernel takes bfloat16, got {q.dtype}")
+    lqp = _padded(lq)
+    for t in (dsum, lse2):
+        if t.dtype != torch.float32 or t.shape != (b * h, lqp) or not t.is_contiguous():
+            raise ValueError(f"dsum and lse2 must be contiguous float32 {(b * h, lqp)}")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
     with torch.cuda.device(q.device):
-        rc = _lib().tfk8s_flash_bwd_dkv(
+        rc = _lib_sm90().tfk8s_flash_bwd_dkv_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dsum.data_ptr(),
+            lse2.data_ptr(), _ptr(m8), dk.data_ptr(), dv.data_ptr(),
+            b, lq, k.shape[1], h, d, lqp, int(causal), _stream(),
+        )
+    _raise_on(rc, "flash_bwd_dkv_wgmma")
+    LAUNCHES["flash_bwd_dkv_wgmma"] += 1
+    return dk, dv
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, o, lse, mask=None, causal=False):
+    """Launch dk/dv: ``(dk, dv)``. bfloat16 takes the D pre-pass and the
+    tensor-core kernel, float32 the CUDA-core kernel."""
+    m8 = _check_cuda(q, k, v, mask, do, o, lse)
+    b, lq, h, d = q.shape
+    if q.dtype == torch.bfloat16:
+        if k.numel() == 0 or q.numel() == 0:  # no query sees any key
+            return torch.zeros_like(k), torch.zeros_like(v)
+        dsum, lse2 = flash_bwd_dsum_cuda(do, o, lse)
+        return flash_bwd_dkv_wgmma_cuda(q, k, v, do, dsum, lse2, mask, causal)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel() == 0:
+        return dk, dv
+    with torch.cuda.device(q.device):
+        rc = _lib().tfk8s_flash_bwd_dkv_simt(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
             lse.data_ptr(), _ptr(m8), dk.data_ptr(), dv.data_ptr(),
-            b, lq, k.shape[1], h, d, int(causal), _DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream().cuda_stream,
+            b, lq, k.shape[1], h, d, int(causal), _stream(),
         )
-    _raise_on(rc, "flash_bwd_dkv")
-    LAUNCHES["flash_bwd_dkv"] += 1
+    _raise_on(rc, "flash_bwd_dkv_simt")
+    LAUNCHES["flash_bwd_dkv_simt"] += 1
     return dk, dv
 
 
@@ -326,7 +427,8 @@ def auto_flash_attn_fn(attention_impl: str, seq_len: int, device: torch.device):
 
 
 __all__ = [
-    "FLASH_SEQ_THRESHOLD", "HEAD_DIMS", "KERNELS", "LAUNCHES", "FlashAttention",
+    "FLASH_SEQ_THRESHOLD", "HEAD_DIMS", "KERNELS", "LAUNCHES", "SIMT_KERNELS",
+    "TENSOR_CORE_KERNELS", "FlashAttention",
     "auto_flash_attn_fn", "flash_attention", "flash_bwd_dkv",
     "flash_bwd_dq", "flash_fwd", "reset_launches",
 ]
