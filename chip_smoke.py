@@ -11,20 +11,26 @@ must pass:
 1. the card: ``nvidia-smi`` name and power limit;
 2. build: ``nvcc`` compiles every kernel source of the port from the
    checkout (``tfk8s_tpu_torch/ops/_build.py``), timed, with the ptxas
-   register and spill report of the kernels the slice launches;
+   register and spill report of the tensor-core flash kernels (none may
+   spill) and the block copy;
 3. kernels: each kernel against its plain PyTorch version on the same
    card inputs, each with its time, the plain version's time, its bound
    and a one-call PyTorch yardstick (timed here only; the port never
    calls it):
    - flash attention: in bfloat16 the tensor-core forward, the D
-     pre-pass and the tensor-core dk/dv, and the dq kernel, at the GPT
-     slice's shape, a ragged d=128 case and a masked d=32 case (atol 2e-2
-     + rtol 2^-7; D and lse * log2(e) atol 1e-5); in float32 the CUDA-core
+     pre-pass, the tensor-core dq and dk/dv, and the whole backward
+     (pre-pass + dq + dk/dv, as training runs it), at the GPT slice's
+     shape, a ragged d=128 case and a masked d=32 case (atol 2e-2 + rtol
+     2^-7; D and lse * log2(e) atol 1e-5); in float32 the CUDA-core
      forward, dq and dk/dv on small cases (a key mask with a fully masked
      row, causal with lq < lk, ragged lengths; atol 1e-5 outputs, 1e-4
      gradients); the slice's FLOPs at d=128 with half the heads; each with
-     its achieved TFLOP/s; yardstick
-     ``scaled_dot_product_attention``;
+     its achieved TFLOP/s; yardstick ``scaled_dot_product_attention``
+     (its backward for dq, dk/dv and the whole backward: no PyTorch call
+     computes dq alone); at the slice's shape also each row's device time
+     and its yardstick's from a ``torch.profiler`` trace, which leave out
+     the host time that CUDA events over back-to-back calls of a short
+     kernel or of an autograd call include;
    - GroupNorm forward and backward, float32 and bfloat16, at the two
      largest ResNet-50 norm sites [256,112,112,64] (ReLU) and
      [256,56,56,256], the widest [256,7,7,2048] (ReLU) and ResNet-50 at
@@ -39,8 +45,10 @@ must pass:
    against the same model on the CPU through the plain versions (loss
    and every gradient to atol 1e-4), and the base-width bfloat16 model's
    forward and backward through the kernels against plain attention:
-   loss atol 2e-2, gradients within BASE_GRAD_REL_L2 relative L2, a bound
-   that a planted dk/dv fault (D taken as zero) must exceed;
+   loss atol 2e-2, the key/value projections' gradients within
+   BASE_GRAD_REL_L2 relative L2 and the query projection's within
+   BASE_Q_GRAD_REL_L2, bounds that a planted dk/dv fault and a planted dq
+   fault (D taken as zero) must exceed;
 5. resnet reference: a small float32 ResNet-50 (width 8) on the card
    through the GroupNorm kernels against the same model on the CPU through
    the plain versions (loss atol 1e-4, gradients 1e-3 relative L2), and
@@ -51,9 +59,9 @@ must pass:
 6. train: ``tfk8s_tpu_torch.models.gpt.train(env)``, the ``gpt:train``
    entrypoint, at the GPT-2-small base preset (seq 1024, batch 8,
    ``TFK8S_ATTENTION_IMPL=flash``) for a few steps with a checkpoint:
-   finite losses, the tensor-core forward, D pre-pass and dk/dv and the
-   dq kernel each launched 12 times a step and the CUDA-core float32
-   kernels never, the checkpoint committed at the last step;
+   finite losses, the tensor-core forward, D pre-pass, dq and dk/dv each
+   launched 12 times a step and the CUDA-core float32 kernels never, the
+   checkpoint committed at the last step;
 7. resnet train: ``tfk8s_tpu_torch.models.resnet.train(env)``, the
    ``resnet:train`` entrypoint, at ResNet-50 (depth 50, width 64, batch
    256, image 224, 1000 classes, bfloat16) for a few steps with a
@@ -107,13 +115,16 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # alone). Measured 8.2e-3; a dk/dv with D = rowsum(dO * O) taken as zero
 # measured 1.24 and must exceed the bound.
 BASE_GRAD_REL_L2 = 5e-2
+# the same for the query projection's gradients, which come from dq alone:
+# measured 1.50e-2; a dq fed D = 0 measured 5.67 and must exceed the bound
+BASE_Q_GRAD_REL_L2 = 5e-2
 # kernel -> (source in the repo, the TPU kernel it replaces); the kernels
 # of the GPT training path, which runs bfloat16
 KERNEL_INFO = {
     "flash_fwd_wgmma": ("tfk8s_tpu_torch/ops/csrc/flash_attention_sm90.cu",
                         "tfk8s_tpu/ops/flash_attention.py:149"),
-    "flash_bwd_dq": ("tfk8s_tpu_torch/ops/csrc/flash_attention.cu",
-                     "tfk8s_tpu/ops/flash_attention.py:233"),
+    "flash_bwd_dq_wgmma": ("tfk8s_tpu_torch/ops/csrc/flash_attention_sm90.cu",
+                           "tfk8s_tpu/ops/flash_attention.py:233"),
     "flash_bwd_dsum": ("tfk8s_tpu_torch/ops/csrc/flash_attention_sm90.cu",
                        "tfk8s_tpu/ops/flash_attention.py:317"),
     "flash_bwd_dkv_wgmma": ("tfk8s_tpu_torch/ops/csrc/flash_attention_sm90.cu",
@@ -220,9 +231,15 @@ class Case:
         e, qn, kn, lse, pad = self.elt, self.n_q, self.n_k, 4 * self.n_lse, 4 * self.n_pad
         if kernel.startswith("flash_fwd"):
             return e * (qn + 2 * kn + qn) + lse, 4 * self.pairs * self.d  # q k v in; o lse out
-        if kernel == "flash_bwd_dq":
-            # q k v do o lse in; dq out; QK^T, dO V^T, dS K
+        if kernel == "flash_bwd_dq_wgmma":
+            # q k v do, D and lse2 from the pre-pass in; dq out; QK^T, dO V^T, dS K
+            return e * (2 * qn + 2 * kn + qn) + 2 * pad, 6 * self.pairs * self.d
+        if kernel == "flash_bwd_dq_simt":  # reads o and lse itself
             return e * (qn + 2 * kn + 2 * qn + qn) + lse, 6 * self.pairs * self.d
+        if kernel == "flash_bwd":
+            # the whole backward: q do o, k v, lse in; dq, dk dv out; the
+            # five products QK^T, dO V^T, P^T dO, dS K, dS^T Q
+            return e * (4 * qn + 4 * kn) + lse, 10 * self.pairs * self.d
         if kernel == "flash_bwd_dsum":
             return e * 2 * qn + lse + 2 * pad, 2 * qn  # do o lse in; D, lse2 out
         if kernel == "flash_bwd_dkv_wgmma":
@@ -274,10 +291,31 @@ def _err(pairs, atol, rtol=0.0):
     return worst, ok
 
 
-def check_case(fa, case: Case, iters: int):
+def _device_ms(fn, iters: int):
+    """Device time of one call of ``fn``: the sum of the card's kernel
+    times in a ``torch.profiler`` trace of ``iters`` calls, or None when
+    the trace holds no device time. Unlike CUDA events around back-to-back
+    calls, it leaves out the host's time between launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / iters * 1e-3 if us > 0 else None
+
+
+def check_case(fa, case: Case, iters: int, profile: bool = False):
     """Each kernel against its plain version on ``case``; returns one
-    result dict per kernel. bfloat16 runs the tensor-core kernels,
-    float32 the CUDA-core ones; dq serves both."""
+    result dict per kernel and, in bfloat16, one for the whole backward
+    (pre-pass, dq and dk/dv against SDPA's backward). bfloat16 runs the
+    tensor-core kernels, float32 the CUDA-core ones. ``profile`` adds each
+    row's device time from a profiler trace."""
     import torch
 
     bf16 = case.dtype_name == "bfloat16"
@@ -285,28 +323,27 @@ def check_case(fa, case: Case, iters: int):
     grad_tol = BF16_ATOL if bf16 else F32_GRAD_ATOL
     rtol = BF16_RTOL if bf16 else 0.0
     q, k, v, do, mask, causal = case.q, case.k, case.v, case.do, case.mask, case.causal
-    fwd, dkv = ("flash_fwd_wgmma", "flash_bwd_dkv_wgmma") if bf16 else (
-        "flash_fwd_simt", "flash_bwd_dkv_simt")
+    fwd, dq, dkv = (("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma") if bf16
+                    else ("flash_fwd_simt", "flash_bwd_dq_simt", "flash_bwd_dkv_simt"))
 
     fa.reset_launches()
     o_k, lse_k = fa.flash_fwd_cuda(q, k, v, mask, causal)
     o_p, lse_p = fa.flash_fwd_plain(q, k, v, mask, causal)
-    dq_k = fa.flash_bwd_dq_cuda(q, k, v, do, o_k, lse_k, mask, causal)
-    dq_p = fa.flash_bwd_dq_plain(q, k, v, do, o_k, lse_k, mask, causal)
-    dk_k, dv_k = fa.flash_bwd_dkv_cuda(q, k, v, do, o_k, lse_k, mask, causal)
-    dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, o_k, lse_k, mask, causal)
+    # the backward as training runs it: in bfloat16 one pre-pass feeds dq and dk/dv
+    dq_k, dk_k, dv_k = fa.flash_bwd_cuda(q, k, v, do, o_k, lse_k, mask, causal)
+    dq_p, dk_p, dv_p = fa.flash_bwd_plain(q, k, v, do, o_k, lse_k, mask, causal)
     torch.cuda.synchronize()
-    want = {fwd: 1, "flash_bwd_dq": 1, dkv: 1, "flash_bwd_dsum": int(bf16)}
+    want = {fwd: 1, dq: 1, dkv: 1, "flash_bwd_dsum": int(bf16)}
     if dict(fa.LAUNCHES) != {**dict.fromkeys(fa.KERNELS, 0), **want}:
         raise AssertionError(f"{case.name}: launches {dict(fa.LAUNCHES)}, want {want}")
 
     live = lse_p > -1e29
     errs = {
         fwd: _err([(o_k, o_p), (lse_k[live], lse_p[live])], out_tol, rtol),
-        "flash_bwd_dq": _err([(dq_k, dq_p)], grad_tol, rtol),
+        dq: _err([(dq_k, dq_p)], grad_tol, rtol),
         dkv: _err([(dk_k, dk_p), (dv_k, dv_p)], grad_tol, rtol),
     }
-    tols = {fwd: out_tol, "flash_bwd_dq": grad_tol, dkv: grad_tol}
+    tols = {fwd: out_tol, dq: grad_tol, dkv: grad_tol}
     if not torch.equal(lse_k > -1e29, live):
         raise AssertionError(f"{case.name}: the kernel's fully masked rows differ")
     for name, t in (("o", o_k), ("dq", dq_k), ("dk", dk_k), ("dv", dv_k)):
@@ -322,12 +359,16 @@ def check_case(fa, case: Case, iters: int):
     runs = {
         fwd: (lambda: fa.flash_fwd_cuda(q, k, v, mask, causal),
               lambda: fa.flash_fwd_plain(q, k, v, mask, causal), lib_fwd),
-        "flash_bwd_dq": (lambda: fa.flash_bwd_dq_cuda(q, k, v, do, o_k, lse_k, mask, causal),
-                         lambda: fa.flash_bwd_dq_plain(q, k, v, do, o_k, lse_k, mask, causal),
-                         lib_bwd),
     }
+
+    def dq_plain():
+        return fa.flash_bwd_dq_plain(q, k, v, do, o_k, lse_k, mask, causal)
+
+    def dkv_plain():
+        return fa.flash_bwd_dkv_plain(q, k, v, do, o_k, lse_k, mask, causal)
+
     if bf16:
-        # the pre-pass and the tensor-core dk/dv, each alone
+        # the pre-pass, dq and dk/dv, each alone, then the whole backward
         ds_k, l2_k = fa.flash_bwd_dsum_cuda(do, o_k, lse_k)
         ds_p, l2_p = fa.flash_bwd_dsum_plain(do, o_k, lse_k)
         torch.cuda.synchronize()
@@ -338,13 +379,20 @@ def check_case(fa, case: Case, iters: int):
         tols["flash_bwd_dsum"] = F32_OUT_ATOL
         runs["flash_bwd_dsum"] = (lambda: fa.flash_bwd_dsum_cuda(do, o_k, lse_k),
                                   lambda: fa.flash_bwd_dsum_plain(do, o_k, lse_k), None)
+        runs[dq] = (lambda: fa.flash_bwd_dq_wgmma_cuda(q, k, v, do, ds_k, l2_k, mask, causal),
+                    dq_plain, lib_bwd)
         runs[dkv] = (lambda: fa.flash_bwd_dkv_wgmma_cuda(q, k, v, do, ds_k, l2_k, mask, causal),
-                     lambda: fa.flash_bwd_dkv_plain(q, k, v, do, o_k, lse_k, mask, causal),
-                     lib_bwd)
+                     dkv_plain, lib_bwd)
+        errs["flash_bwd"] = (max(errs[dq][0], errs[dkv][0]), errs[dq][1] and errs[dkv][1])
+        tols["flash_bwd"] = grad_tol
+        runs["flash_bwd"] = (lambda: fa.flash_bwd_cuda(q, k, v, do, o_k, lse_k, mask, causal),
+                             lambda: fa.flash_bwd_plain(q, k, v, do, o_k, lse_k, mask, causal),
+                             lib_bwd)
     else:
+        runs[dq] = (lambda: fa.flash_bwd_dq_cuda(q, k, v, do, o_k, lse_k, mask, causal),
+                    dq_plain, lib_bwd)
         runs[dkv] = (lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, o_k, lse_k, mask, causal),
-                     lambda: fa.flash_bwd_dkv_plain(q, k, v, do, o_k, lse_k, mask, causal),
-                     lib_bwd)
+                     dkv_plain, lib_bwd)
     results = []
     for name, (kern, plain, lib) in runs.items():
         bound, by = case.bound_ms(name)
@@ -356,6 +404,9 @@ def check_case(fa, case: Case, iters: int):
             "bound_ms": bound, "bound_by": by, "tflops": case.work(name)[1] / ms * 1e-9,
             "library_ms": None if lib is None else _time_ms(lib, iters),
         }
+        if profile:
+            r["device_ms"] = _device_ms(kern, iters)
+            r["library_device_ms"] = None if lib is None else _device_ms(lib, iters)
         log(f"  {json.dumps(r)}")
         if not errs[name][1]:
             raise AssertionError(f"{case.name}/{name}: beyond atol {tols[name]} rtol {rtol}")
@@ -567,9 +618,9 @@ def phase_card():
 
 def phase_build(_build):
     """Build every source; report ptxas's registers and spills for every
-    tensor-core flash instantiation, for the CUDA-core kernels the slice
-    launches (bf16, head_dim 64) and for every instantiation that spills.
-    A tensor-core instantiation that spills at d = 64 or 128 fails."""
+    tensor-core flash instantiation, the block copy and every
+    instantiation that spills. A tensor-core instantiation that spills, at
+    any head dim, fails."""
     seconds, logs = _build.build_all(verbose=True)
     log(f"build: {seconds:.1f} s for {list(_build.SOURCES)}")
     entry, spilled = None, []
@@ -584,15 +635,12 @@ def phase_build(_build):
         name = re.search(r"tfk8s_\w+?_kernel", entry)
         tag = name.group(0) if name else entry
         wgmma = "wgmma" in tag or "dsum" in tag
-        inst = re.search(r"I(f|13__nv_bfloat16)Li(\d+)E", entry)
         head_dim = re.search(r"ILi(\d+)EE", entry)
-        if inst:
-            tag += f"<{'bf16' if inst.group(1) != 'f' else 'f32'}, d={inst.group(2)}>"
-        elif head_dim:
-            tag += f"<bf16, d={head_dim.group(1)}>"
-        if wgmma or "__nv_bfloat16Li64E" in entry or spills:
+        if head_dim and (wgmma or "simt" in tag):  # a flash kernel's head dim
+            tag += f"<d={head_dim.group(1)}>"
+        if wgmma or "block_copy" in tag or spills:
             log(f"  ptxas {tag}: {line.split(':', 1)[-1].strip()}")
-        if spills and wgmma and head_dim and head_dim.group(1) in ("64", "128"):
+        if spills and wgmma:
             spilled.append(tag)
     if spilled:
         raise AssertionError(f"tensor-core kernels spill: {sorted(set(spilled))}")
@@ -618,7 +666,7 @@ def phase_kernels(fa, torch):
     line = {}
     for i, case in enumerate(cases):
         log(f"case {case.name}:")
-        res = check_case(fa, case, iters=20 if i == 0 else 5)
+        res = check_case(fa, case, iters=20 if i == 0 else 5, profile=i == 0)
         if i == 0:
             line.update((r["kernel"], r) for r in res)
     from tfk8s_tpu_torch.models import resnet
@@ -641,7 +689,8 @@ def phase_kernels(fa, torch):
 def phase_reference(torch, gpt, fa):
     """Small f32 GPT: kernels on the card vs plain versions on the CPU;
     base-width bf16 loss and gradients: kernels vs plain attention on the
-    card, and a planted dk/dv fault that the gradient bound must catch."""
+    card, and planted dq and dk/dv faults that the gradient bounds must
+    catch."""
     import copy
 
     import numpy as np
@@ -672,18 +721,26 @@ def phase_reference(torch, gpt, fa):
     ids = torch.from_numpy(
         gpt.make_batch_fn(cfg.vocab_size, seq)(np.random.default_rng(1), batch)["input"]
     ).to(DEVICE)
-    real_dkv = fa.flash_bwd_dkv
+    real_bwd = fa.flash_bwd
 
-    def dkv_without_d(q, k, v, do, o, lse, mask=None, causal=False):
-        # the planted fault: D = rowsum(dO * O) taken as zero
-        return real_dkv(q, k, v, do, torch.zeros_like(o), lse, mask, causal)
+    def planted(which):
+        """The backward with D = rowsum(dO * O) taken as zero in dq or in
+        dk/dv only: the kernels run on o = 0, so the pre-pass gives D = 0."""
+        def bwd(q, k, v, do, o, lse, mask=None, causal=False):
+            good = real_bwd(q, k, v, do, o, lse, mask, causal)
+            bad = real_bwd(q, k, v, do, torch.zeros_like(o), lse, mask, causal)
+            return (bad[0], *good[1:]) if which == "dq" else (good[0], *bad[1:])
+        return bwd
 
+    runs = (("full", None, real_bwd), ("flash", fa.flash_attention, real_bwd),
+            ("fault_dkv", fa.flash_attention, planted("dkv")),
+            ("fault_dq", fa.flash_attention, planted("dq")))
     losses, grads = {}, {}
-    for impl, fn in (("full", None), ("flash", fa.flash_attention), ("fault", fa.flash_attention)):
+    for impl, fn, bwd in runs:
         for layer in base.layers:
             layer.attn.attn_fn = fn
         base.zero_grad(set_to_none=True)
-        fa.flash_bwd_dkv = dkv_without_d if impl == "fault" else real_dkv
+        fa.flash_bwd = bwd
         try:
             logits = base(ids)
             if not torch.isfinite(logits).all() or logits.shape != (batch, seq, cfg.vocab_size):
@@ -691,7 +748,7 @@ def phase_reference(torch, gpt, fa):
             loss = gpt.lm_loss_and_metrics(logits, ids)[0]
             loss.backward()
         finally:
-            fa.flash_bwd_dkv = real_dkv
+            fa.flash_bwd = real_bwd
         losses[impl] = loss.item()
         grads[impl] = {n: p.grad.float() for n, p in base.named_parameters()}
 
@@ -699,25 +756,34 @@ def phase_reference(torch, gpt, fa):
         num = sum(float((grads[impl][n] - grads["full"][n]).square().sum()) for n in names)
         return math.sqrt(num / sum(float(grads["full"][n].square().sum()) for n in names))
 
-    # the bound holds the key and value projections, whose gradients come
-    # from dk and dv alone; all parameters together are reported beside
+    # the bounds hold the key and value projections, whose gradients come
+    # from dk and dv alone, and the query projection, whose gradients come
+    # from dq alone; all parameters together are reported beside
     kv_names = [n for n in grads["full"] if re.search(r"attn\.(k|v)\.", n)]
+    q_names = [n for n in grads["full"] if re.search(r"attn\.q\.", n)]
+    if not kv_names or not q_names:
+        raise AssertionError("no query, key or value projection parameters found")
+    impls = ("flash", "fault_dkv", "fault_dq")
     err = abs(losses["full"] - losses["flash"])
-    rel = {impl: rel_l2(impl, kv_names) for impl in ("flash", "fault")}
-    every = {impl: rel_l2(impl, list(grads["full"])) for impl in ("flash", "fault")}
+    rel_kv = {impl: rel_l2(impl, kv_names) for impl in impls}
+    rel_q = {impl: rel_l2(impl, q_names) for impl in impls}
+    every = {impl: rel_l2(impl, list(grads["full"])) for impl in impls}
     log(f"reference bf16 base: loss full {losses['full']:.6f} flash {losses['flash']:.6f} "
-        f"err {err:.2e} (atol {BF16_ATOL}); k/v projection grads rel L2 vs full "
-        f"({len(kv_names)} tensors): flash {rel['flash']:.3e}, planted fault (D = 0) "
-        f"{rel['fault']:.3e} (bound {BASE_GRAD_REL_L2}); every parameter: flash "
-        f"{every['flash']:.3e}, fault {every['fault']:.3e}")
-    if not kv_names:
-        raise AssertionError("no key/value projection parameters found")
+        f"err {err:.2e} (atol {BF16_ATOL}); grads rel L2 vs full, flash / planted dk/dv "
+        f"fault (D = 0) / planted dq fault (D = 0): k/v projections ({len(kv_names)} "
+        f"tensors) {rel_kv['flash']:.3e} / {rel_kv['fault_dkv']:.3e} / "
+        f"{rel_kv['fault_dq']:.3e} (bound {BASE_GRAD_REL_L2}); q projection "
+        f"({len(q_names)} tensors) {rel_q['flash']:.3e} / {rel_q['fault_dkv']:.3e} / "
+        f"{rel_q['fault_dq']:.3e} (bound {BASE_Q_GRAD_REL_L2}); every parameter "
+        f"{every['flash']:.3e} / {every['fault_dkv']:.3e} / {every['fault_dq']:.3e}")
     if not err <= BF16_ATOL:
         raise AssertionError("base-width flash loss disagrees with plain attention")
-    if not rel["flash"] <= BASE_GRAD_REL_L2:
+    if not (rel_kv["flash"] <= BASE_GRAD_REL_L2 and rel_q["flash"] <= BASE_Q_GRAD_REL_L2):
         raise AssertionError("base-width flash gradients disagree with plain attention")
-    if not rel["fault"] > BASE_GRAD_REL_L2:
-        raise AssertionError("the planted dk/dv fault passes the gradient bound")
+    if not rel_kv["fault_dkv"] > BASE_GRAD_REL_L2:
+        raise AssertionError("the planted dk/dv fault passes the k/v gradient bound")
+    if not rel_q["fault_dq"] > BASE_Q_GRAD_REL_L2:
+        raise AssertionError("the planted dq fault passes the q gradient bound")
     for layer in base.layers:
         layer.attn.attn_fn = None
     del base, grads
@@ -753,10 +819,10 @@ def phase_train(torch, gpt, fa, ckpt_dir):
     log(f"train: {json.dumps(summary)}")
     if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"losses not finite: {losses}")
-    # bf16 training: each tensor-core kernel and dq once per layer and
-    # step; the float32 CUDA-core kernels never
+    # bf16 training: each tensor-core kernel once per layer and step (one
+    # pre-pass feeds dq and dk/dv); the float32 CUDA-core kernels never
     want = {**dict.fromkeys(fa.SIMT_KERNELS, 0),
-            **dict.fromkeys(fa.TENSOR_CORE_KERNELS + ("flash_bwd_dq",), layers * TRAIN_STEPS)}
+            **dict.fromkeys(fa.TENSOR_CORE_KERNELS, layers * TRAIN_STEPS)}
     if launches != want:
         raise AssertionError(f"flash launches {launches}, want {want}")
     latest = Checkpointer(ckpt_dir).latest_step()
@@ -991,6 +1057,8 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            **{key: r[key] for key in ("device_ms", "library_device_ms")
+               if r.get(key) is not None},
         })
     print(card_line)
     print(json.dumps({"kernels": kernels}))

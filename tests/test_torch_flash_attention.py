@@ -116,7 +116,8 @@ def test_matches_jax_dot_product_attention(case):
 @pytest.mark.parametrize("case", ["causal", "causal_left_pad", "cross_key_mask"])
 def test_each_kernel_function_matches_its_pallas_kernel(case):
     """Forward (o, lse), dq and dk/dv one by one, against the JAX
-    package's ``_flash_fwd_impl``/``_flash_bwd_impl`` on the same o/lse."""
+    package's ``_flash_fwd_impl``/``_flash_bwd_impl`` on the same o/lse:
+    the plain versions that the card holds each backward kernel to."""
     lq, lk, causal, mask = CASES[case]
     q, k, v, g = _inputs(lq, lk, seed=2)
     b, _, h, _ = q.shape
@@ -138,10 +139,32 @@ def test_each_kernel_function_matches_its_pallas_kernel(case):
     # the backward functions read the JAX forward's o and lse
     o_in = torch.tensor(np.asarray(o_j))
     lse_in = torch.tensor(np.where(live, lse_j, -1e30).astype(np.float32))
-    dq_t = tfa.flash_bwd_dq(tq, tk, tv, tg, o_in, lse_in, tm, causal)
-    dk_t, dv_t = tfa.flash_bwd_dkv(tq, tk, tv, tg, o_in, lse_in, tm, causal)
+    dq_t = tfa.flash_bwd_dq_plain(tq, tk, tv, tg, o_in, lse_in, tm, causal)
+    dk_t, dv_t = tfa.flash_bwd_dkv_plain(tq, tk, tv, tg, o_in, lse_in, tm, causal)
     for got, want in ((dq_t, dq_j), (dk_t, dk_j), (dv_t, dv_j)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_routed_backward_matches_the_pallas_backward(case):
+    """``flash_bwd``, the backward that autograd runs (on the CPU its plain
+    route, which recomputes the probabilities once for dq, dk and dv),
+    against the JAX package's ``_flash_bwd_impl`` on the same o/lse."""
+    lq, lk, causal, mask = CASES[case]
+    q, k, v, g = _inputs(lq, lk, seed=6)
+    b, _, h, _ = q.shape
+    jq, jk, jv, jg = (jnp.asarray(x) for x in (q, k, v, g))
+    jm = None if mask is None else jnp.asarray(mask)
+    o_j, lse_j = _flash_fwd_impl(jq, jk, jv, jm, causal, BLOCK, BLOCK, True)
+    want = _flash_bwd_impl(jq, jk, jv, jm, o_j, lse_j, jg, causal, BLOCK, BLOCK, True)
+    lse_j = np.asarray(lse_j)[..., 0].reshape(b, h, lq)
+    lse_in = torch.tensor(np.where(lse_j > -1e29, lse_j, -1e30).astype(np.float32))
+    tm = None if mask is None else torch.tensor(mask)
+    got = tfa.flash_bwd(*(torch.tensor(x) for x in (q, k, v, g)),
+                        torch.tensor(np.asarray(o_j)), lse_in, tm, causal)
+    assert len(got) == 3
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=GRAD_ATOL)
 
 
 def test_fully_masked_row_gives_zero_output_and_grads():

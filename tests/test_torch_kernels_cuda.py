@@ -9,10 +9,10 @@ machine with the card, from the root of a checkout:
 
 float32 inputs (TF32 off) run the CUDA-core flash kernels: outputs agree
 to atol 1e-5, gradients to 1e-4. bfloat16 inputs run the tensor-core
-forward and dk/dv (wgmma, TMA) and the dq kernel: within atol 2e-2 plus
-one bfloat16 rounding step (rtol 2^-7) of the plain version's, which
-computes in float32 from the same bfloat16 inputs; the kernels round P
-and dS to bfloat16 before their second products.
+kernels (wgmma, TMA: the forward, the D pre-pass, dq and dk/dv): within
+atol 2e-2 plus one bfloat16 rounding step (rtol 2^-7) of the plain
+version's, which computes in float32 from the same bfloat16 inputs; the
+kernels round P and dS to bfloat16 before their second products.
 GroupNorm in bfloat16: outputs and dx within one bfloat16 rounding step
 of the plain version's (atol 2e-2 plus rtol 2^-7), the float32 dscale and
 dbias to atol 1e-2 + rtol 1e-3 (sums over up to 12.8 M values in another
@@ -106,7 +106,8 @@ def test_kernels_match_plain(card, case, d):
 @pytest.mark.parametrize("case", list(CASES))
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_bf16_kernels_match_plain(card, case, d):
-    """The tensor-core forward, dq fed by it, and the tensor-core dk/dv."""
+    """The tensor-core forward, then the backward fed by it: one pre-pass
+    for the tensor-core dq and dk/dv."""
     q, k, v, g, tm, causal = _case(case, d, card, dtype=torch.bfloat16)
     tfa.reset_launches()
     o_c, lse_c = tfa.flash_fwd_cuda(q, k, v, tm, causal)
@@ -115,15 +116,31 @@ def test_bf16_kernels_match_plain(card, case, d):
     live = lse_p > -1e29
     torch.testing.assert_close(lse_c > -1e29, live)
     torch.testing.assert_close(lse_c[live], lse_p[live], **BF16_TOL)
-    dq_c = tfa.flash_bwd_dq_cuda(q, k, v, g, o_c, lse_c, tm, causal)
-    dq_p = tfa.flash_bwd_dq_plain(q, k, v, g, o_c, lse_c, tm, causal)
-    torch.testing.assert_close(dq_c.float(), dq_p.float(), **BF16_TOL)
-    for got, want in zip(tfa.flash_bwd_dkv_cuda(q, k, v, g, o_c, lse_c, tm, causal),
-                         tfa.flash_bwd_dkv_plain(q, k, v, g, o_c, lse_c, tm, causal)):
+    for got, want in zip(tfa.flash_bwd_cuda(q, k, v, g, o_c, lse_c, tm, causal),
+                         tfa.flash_bwd_plain(q, k, v, g, o_c, lse_c, tm, causal)):
         torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
     torch.cuda.synchronize()
-    assert tfa.LAUNCHES == {**dict.fromkeys(tfa.KERNELS, 0), **dict.fromkeys(
-        tfa.TENSOR_CORE_KERNELS + ("flash_bwd_dq",), 1)}
+    assert tfa.LAUNCHES == {**dict.fromkeys(tfa.KERNELS, 0),
+                            **dict.fromkeys(tfa.TENSOR_CORE_KERNELS, 1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_bf16_dq_wgmma_matches_plain(card, case, d):
+    """The tensor-core dq on the pre-pass's (D, lse2), and ``flash_bwd_dq_cuda``,
+    which runs the same two kernels, bit for bit."""
+    q, k, v, g, tm, causal = _case(case, d, card, seed=6, dtype=torch.bfloat16)
+    o, lse = tfa.flash_fwd_cuda(q, k, v, tm, causal)
+    dsum, lse2 = tfa.flash_bwd_dsum_cuda(g, o, lse)
+    tfa.reset_launches()
+    dq_c = tfa.flash_bwd_dq_wgmma_cuda(q, k, v, g, dsum, lse2, tm, causal)
+    dq_p = tfa.flash_bwd_dq_plain(q, k, v, g, o, lse, tm, causal)
+    torch.testing.assert_close(dq_c.float(), dq_p.float(), **BF16_TOL)
+    assert torch.equal(tfa.flash_bwd_dq_cuda(q, k, v, g, o, lse, tm, causal), dq_c)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES == {**dict.fromkeys(tfa.KERNELS, 0), "flash_bwd_dq_wgmma": 2,
+                            "flash_bwd_dsum": 1}
 
 
 @pytest.mark.cuda
@@ -141,7 +158,7 @@ def test_autograd_on_the_card_matches_the_cpu_and_counts_launches(card, case):
         launches = dict(tfa.LAUNCHES)
         want = dict.fromkeys(tfa.KERNELS, 0)
         if dev.type == "cuda":  # float32: the CUDA-core kernels
-            want.update(dict.fromkeys(tfa.SIMT_KERNELS + ("flash_bwd_dq",), 1))
+            want.update(dict.fromkeys(tfa.SIMT_KERNELS, 1))
         assert launches == want
     for got, want in zip(*outs):
         torch.testing.assert_close(got, want, atol=GRAD_ATOL, rtol=0)
@@ -153,8 +170,8 @@ def test_bf16_autograd_reaches_only_the_tensor_core_kernels(card, case, monkeypa
     def refuse(*args, **kwargs):
         raise AssertionError("a CUDA tensor reached a plain version")
 
-    for name in ("flash_fwd_plain", "flash_bwd_dq_plain", "flash_bwd_dkv_plain",
-                 "flash_bwd_dsum_plain"):
+    for name in ("flash_fwd_plain", "flash_bwd_plain", "flash_bwd_dq_plain",
+                 "flash_bwd_dkv_plain", "flash_bwd_dsum_plain"):
         monkeypatch.setattr(tfa, name, refuse)
     q, k, v, g, tm, causal = _case(case, 64, card, seed=5, dtype=torch.bfloat16)
     ts = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -162,13 +179,14 @@ def test_bf16_autograd_reaches_only_the_tensor_core_kernels(card, case, monkeypa
     out = tfa.flash_attention(*ts, mask=tm, causal=causal)
     out.backward(g)
     torch.cuda.synchronize()
-    assert tfa.LAUNCHES == {**dict.fromkeys(tfa.KERNELS, 0), **dict.fromkeys(
-        tfa.TENSOR_CORE_KERNELS + ("flash_bwd_dq",), 1)}
+    # one pre-pass feeds both dq and dk/dv
+    assert tfa.LAUNCHES == {**dict.fromkeys(tfa.KERNELS, 0),
+                            **dict.fromkeys(tfa.TENSOR_CORE_KERNELS, 1)}
     monkeypatch.undo()
     o_p, lse_p = tfa.flash_fwd_plain(q, k, v, tm, causal)
     torch.testing.assert_close(out.detach().float(), o_p.float(), **BF16_TOL)
-    for got, want in zip((t.grad for t in ts[1:]),
-                         tfa.flash_bwd_dkv_plain(q, k, v, g, out.detach(), lse_p, tm, causal)):
+    for got, want in zip((t.grad for t in ts),
+                         tfa.flash_bwd_plain(q, k, v, g, out.detach(), lse_p, tm, causal)):
         torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
 
 
@@ -204,6 +222,36 @@ def test_bf16_dkv_repeats_bit_for_bit(card):
 
 
 @pytest.mark.cuda
+def test_bf16_dq_repeats_bit_for_bit(card):
+    gen = torch.Generator(device=card).manual_seed(4)
+    q, k, v, g = (torch.randn(2, 777, 4, 64, generator=gen, device=card).to(torch.bfloat16)
+                  for _ in range(4))
+    mask = torch.arange(777, device=card)[None] < torch.tensor([[777], [500]], device=card)
+    o, lse = tfa.flash_fwd_cuda(q, k, v, mask, True)
+    dsum, lse2 = tfa.flash_bwd_dsum_cuda(g, o, lse)
+    first = tfa.flash_bwd_dq_wgmma_cuda(q, k, v, g, dsum, lse2, mask, True)
+    for _ in range(3):
+        assert torch.equal(first, tfa.flash_bwd_dq_wgmma_cuda(q, k, v, g, dsum, lse2, mask, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_bf16_backward_is_exactly_zero_on_fully_masked_rows(card, d):
+    """A batch row whose keys are all masked, over several q tiles and a
+    ragged edge: its lse2 is +inf, so dq, dk and dv are exactly zero."""
+    gen = torch.Generator(device=card).manual_seed(d)
+    q, k, v, g = (torch.randn(2, 200, 3, d, generator=gen, device=card).to(torch.bfloat16)
+                  for _ in range(4))
+    mask = torch.arange(200, device=card)[None] < torch.tensor([[150], [0]], device=card)
+    o, lse = tfa.flash_fwd_cuda(q, k, v, mask, False)
+    dq, dk, dv = tfa.flash_bwd_cuda(q, k, v, g, o, lse, mask, False)
+    torch.cuda.synchronize()
+    for t in (o, dq, dk, dv):
+        assert torch.isfinite(t).all() and t[1].abs().max() == 0
+    assert dq[0].abs().max() > 0
+
+
+@pytest.mark.cuda
 def test_bf16_kernels_refuse_misaligned_views(card):
     """TMA reads 16-byte aligned tensors: a view one element in raises."""
     n = 2 * 32 * 2 * 64
@@ -211,12 +259,20 @@ def test_bf16_kernels_refuse_misaligned_views(card):
     bad = flat[1:].view(2, 32, 2, 64)
     good = torch.zeros(2, 32, 2, 64, device=card, dtype=torch.bfloat16)
     lse = torch.zeros(2, 2, 32, device=card)
+    dsum = lse2 = torch.zeros(2 * 2, 64, device=card)
     with pytest.raises(ValueError, match="aligned"):
         tfa.flash_fwd_cuda(bad, good, good)
     with pytest.raises(ValueError, match="aligned"):
         tfa.flash_bwd_dkv_cuda(good, bad, good, good, good, lse)
     with pytest.raises(ValueError, match="aligned"):
         tfa.flash_bwd_dkv_cuda(good, good, good, bad, good, lse)
+    with pytest.raises(ValueError, match="aligned"):
+        tfa.flash_bwd_dq_cuda(good, good, bad, good, good, lse)
+    for i in range(4):  # each of q, k, v, dO
+        args = [good] * 4
+        args[i] = bad
+        with pytest.raises(ValueError, match="aligned"):
+            tfa.flash_bwd_dq_wgmma_cuda(*args, dsum, lse2)
 
 
 @pytest.mark.cuda
@@ -369,7 +425,8 @@ def test_group_norm_wrapper_refuses_what_the_kernels_do_not_take(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,cols", [(8192, 8192), (9, 7), (1, 3), (33, 4), (100, 1001)])
+@pytest.mark.parametrize("rows,cols", [(8192, 8192), (9, 7), (1, 3), (33, 4), (100, 1001),
+                                       (4097, 1025)])  # bytes not a multiple of 16
 def test_block_copy_is_bit_exact(card, rows, cols):
     x = torch.randn(rows, cols, device=card)
     out = torch.full_like(x, float("nan"))

@@ -1,9 +1,10 @@
-"""Row-block copy of a float32 ``[rows, cols]`` tensor: the hand-written
+"""Block copy of a float32 ``[rows, cols]`` tensor: the hand-written
 CUDA kernel of the roofline probe's copy bandwidth, and its plain version.
 
 The kernel lives in ``csrc/block_copy.cu`` and replaces the Pallas kernel
-of the JAX package's ``tools/roofline.py:pallas_copy_gbps``; it is built
-with ``nvcc`` at first use (``_build.py``). ``block_copy`` launches it for
+of the JAX package's ``tools/roofline.py:pallas_copy_gbps``, a staged
+copy by the TPU's DMA engines, with the TMA's bulk copies staged through
+shared memory; it is built with ``nvcc`` at first use (``_build.py``). ``block_copy`` launches it for
 a CUDA tensor and takes the plain version (``out.copy_(x)``) for a CPU
 tensor, and raises for anything else. The wrapper counts its launches in
 ``LAUNCHES``.
@@ -18,8 +19,6 @@ from typing import Optional
 import torch
 
 from tfk8s_tpu_torch.ops import _build
-
-BLOCK_ROWS = 8  # rows a block copies: 1024 blocks of 256 KB at [8192, 8192]
 
 KERNELS = ("block_copy",)
 # launches of each kernel since the last reset_launches()
@@ -50,7 +49,7 @@ def block_copy_plain(x: torch.Tensor, out: Optional[torch.Tensor] = None) -> tor
 def _lib() -> ctypes.CDLL:
     lib = _build.load("block_copy")
     lib.tfk8s_block_copy.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                                     ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+                                     ctypes.c_longlong, ctypes.c_void_p]
     lib.tfk8s_block_copy.restype = ctypes.c_int
     return lib
 
@@ -67,7 +66,7 @@ def block_copy_cuda(x: torch.Tensor, out: Optional[torch.Tensor] = None) -> torc
         return out
     with torch.cuda.device(x.device):
         rc = _lib().tfk8s_block_copy(x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
-                                     BLOCK_ROWS, torch.cuda.current_stream().cuda_stream)
+                                     torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"block_copy kernel launch failed: cudaError {rc}")
     LAUNCHES["block_copy"] += 1
@@ -84,5 +83,5 @@ def block_copy(x: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Ten
     raise ValueError(f"block copy runs on cuda or cpu tensors, got {x.device}")
 
 
-__all__ = ["BLOCK_ROWS", "KERNELS", "LAUNCHES", "block_copy", "block_copy_cuda",
-           "block_copy_plain", "reset_launches"]
+__all__ = ["KERNELS", "LAUNCHES", "block_copy", "block_copy_cuda", "block_copy_plain",
+           "reset_launches"]

@@ -1,32 +1,31 @@
-// Flash attention on the CUDA cores (sm_90a): the float32 forward and
-// dk/dv kernels, and the FlashAttention-2 dq kernel for float32 and
-// bfloat16, behind a plain C interface loaded with ctypes
-// (tfk8s_tpu_torch/ops/_build.py builds this file with nvcc). bfloat16's
-// forward and dk/dv run on the tensor cores: flash_attention_sm90.cu.
+// Flash attention on the CUDA cores (sm_90a): the float32 forward, dq and
+// dk/dv kernels (FlashAttention-2's loops), behind a plain C interface
+// loaded with ctypes (tfk8s_tpu_torch/ops/_build.py builds this file with
+// nvcc). Every bfloat16 kernel runs on the tensor cores:
+// flash_attention_sm90.cu.
 //
-// Replaces the Pallas TPU kernels of tfk8s_tpu/ops/flash_attention.py:
-//   tfk8s_fwd_simt_kernel <- _fwd_kernel     (:149, launched by _flash_fwd_impl :394), float32
-//   tfk8s_dq_kernel       <- _bwd_dq_kernel  (:233, launched by _flash_bwd_impl :438)
-//   tfk8s_dkv_simt_kernel <- _bwd_dkv_kernel (:290, launched by _flash_bwd_impl :438), float32
+// Replaces, for float32 inputs, the Pallas TPU kernels of
+// tfk8s_tpu/ops/flash_attention.py:
+//   tfk8s_fwd_simt_kernel <- _fwd_kernel     (:149, launched by _flash_fwd_impl :424)
+//   tfk8s_dq_simt_kernel  <- _bwd_dq_kernel  (:233, launched by _flash_bwd_impl :451)
+//   tfk8s_dkv_simt_kernel <- _bwd_dkv_kernel (:290, launched by _flash_bwd_impl :469)
 //
 // Contract (the same as the plain PyTorch versions in flash_attention.py):
-// q/k/v/do/o are contiguous [b, l, h, d] tensors, q pre-scaled by
+// q/k/v/do/o are contiguous [b, l, h, d] float32 tensors, q pre-scaled by
 // 1/sqrt(d); the optional mask is [b, lk] uint8 key validity; causal
 // masking is bottom-right aligned (query i sees keys <= i + lk - lq);
 // every probability of a masked (query, key) pair is exactly zero, so a
 // row whose keys are all masked gives zero output and zero gradients.
-// lse is the per-row logsumexp, [b, h, lq] float32. All arithmetic is
-// float32; outputs are stored in the input type.
+// lse is the per-row logsumexp, [b, h, lq] float32.
 //
 // What bounds them. float32 FMA and shared-memory issue on the CUDA cores:
 // they keep float32 exact (TF32 would not be), which is what the float32
-// parity checks hold them to; bfloat16 training takes the tensor-core
-// kernels. dq at GPT-2-small's bf16 shape runs ~45x above its ~23 us bound
-// and is the next kernel to move onto the tensor cores. The design keeps
-// the flash property that matters most: no [lq, lk] matrix ever reaches
-// device memory, each K/V (or Q/dO) tile is staged once per block in
-// shared memory and read by every row of the block, and the tiles above
-// the causal diagonal are never visited.
+// parity checks hold them to. The design keeps the flash property that
+// matters most: no [lq, lk] matrix ever reaches device memory, each K/V
+// (or Q/dO) tile is staged once per block in shared memory and read by
+// every row of the block, and the tiles above the causal diagonal are
+// never visited. dq and dk/dv compute D = rowsum(dO * O) themselves, as
+// the reference's kernels do.
 //
 // Layout of a block. A block owns 64 rows (query rows in fwd/dq, key rows
 // in dk/dv); each row is held by a group of TPR = d/32 threads (1 for
@@ -38,7 +37,6 @@
 // dq is one block per q tile, dk/dv one block per k tile (the reference's
 // no-atomics design).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,17 +58,6 @@ struct Cfg {
   static_assert(TILE % kChunk == 0, "tile must hold whole chunks");
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 // Sum over the TPR consecutive lanes that hold one row; every lane of the
 // group gets the total. All lanes of the warp must call it.
 template <int TPR>
@@ -88,23 +75,23 @@ __device__ __forceinline__ int dim_of(int c, int g) {
 }
 
 // Registers <- one global row (zeros when the row does not exist).
-template <typename T, int D>
-__device__ __forceinline__ void load_row(float* dst, const T* row, bool ok, int g) {
+template <int D>
+__device__ __forceinline__ void load_row(float* dst, const float* row, bool ok, int g) {
 #pragma unroll
   for (int c = 0; c < Cfg<D>::NV4; ++c) {
     const int d0 = dim_of<D>(c, g);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dst[4 * c + e] = ok ? to_f(row[d0 + e]) : 0.f;
+    for (int e = 0; e < 4; ++e) dst[4 * c + e] = ok ? row[d0 + e] : 0.f;
   }
 }
 
-template <typename T, int D>
-__device__ __forceinline__ void store_row(T* row, const float* src, float scale, int g) {
+template <int D>
+__device__ __forceinline__ void store_row(float* row, const float* src, float scale, int g) {
 #pragma unroll
   for (int c = 0; c < Cfg<D>::NV4; ++c) {
     const int d0 = dim_of<D>(c, g);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) row[d0 + e] = from_f<T>(src[4 * c + e] * scale);
+    for (int e = 0; e < 4; ++e) row[d0 + e] = src[4 * c + e] * scale;
   }
 }
 
@@ -138,14 +125,14 @@ __device__ __forceinline__ void axpy_part(float* acc, float a, const float* srow
   }
 }
 
-// Shared tile <- rows [0, nrows) of a [., h, D] slab (token stride tok),
-// converted to float; missing rows are zero.
-template <typename T, int D>
-__device__ __forceinline__ void stage(float (*dst)[D], const T* src, long long tok, int nrows) {
+// Shared tile <- rows [0, nrows) of a [., h, D] slab (token stride tok);
+// missing rows are zero.
+template <int D>
+__device__ __forceinline__ void stage(float (*dst)[D], const float* src, long long tok, int nrows) {
   constexpr int TILE = Cfg<D>::TILE;
   for (int i = threadIdx.x; i < TILE * D; i += Cfg<D>::THREADS) {
     const int r = i / D, c = i % D;
-    dst[r][c] = r < nrows ? to_f(src[r * tok + c]) : 0.f;
+    dst[r][c] = r < nrows ? src[r * tok + c] : 0.f;
   }
 }
 
@@ -156,11 +143,12 @@ __device__ __forceinline__ bool visible(int key, int lk, int qpos, bool causal,
 
 // -- forward -----------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(Cfg<D>::THREADS)
-tfk8s_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const uint8_t* __restrict__ mask, T* __restrict__ o, float* __restrict__ lse,
-                 int lq, int lk, int h, int causal) {
+tfk8s_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                      float* __restrict__ o, float* __restrict__ lse, int lq, int lk, int h,
+                      int causal) {
   using C = Cfg<D>;
   __shared__ __align__(16) float ks[C::TILE][D];
   __shared__ __align__(16) float vs[C::TILE][D];
@@ -175,20 +163,20 @@ tfk8s_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   const uint8_t* mrow = mask ? mask + (long long)bi * lk : nullptr;
 
   float qr[C::DPT], acc[C::DPT];
-  load_row<T, D>(qr, q + ((long long)bi * lq + qi) * tok + (long long)hi * D, row_ok, g);
+  load_row<D>(qr, q + ((long long)bi * lq + qi) * tok + (long long)hi * D, row_ok, g);
 #pragma unroll
   for (int i = 0; i < C::DPT; ++i) acc[i] = 0.f;
   float m = kNeg, l = 0.f;
 
   // tiles past the last visible key of the block's last row are skipped
   const int kend = causal ? min(lk, offset + min(q0 + kRows, lq)) : lk;
-  const T* kb = k + (long long)bi * lk * tok + (long long)hi * D;
-  const T* vb = v + (long long)bi * lk * tok + (long long)hi * D;
+  const float* kb = k + (long long)bi * lk * tok + (long long)hi * D;
+  const float* vb = v + (long long)bi * lk * tok + (long long)hi * D;
 
   for (int t0 = 0; t0 < kend; t0 += C::TILE) {
     __syncthreads();  // the previous tile is consumed
-    stage<T, D>(ks, kb + t0 * tok, tok, min(C::TILE, lk - t0));
-    stage<T, D>(vs, vb + t0 * tok, tok, min(C::TILE, lk - t0));
+    stage<D>(ks, kb + t0 * tok, tok, min(C::TILE, lk - t0));
+    stage<D>(vs, vb + t0 * tok, tok, min(C::TILE, lk - t0));
     __syncthreads();
     for (int j0 = 0; j0 < C::TILE; j0 += kChunk) {
       float s[kChunk];
@@ -220,19 +208,20 @@ tfk8s_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 
   if (row_ok) {
     const float ls = fmaxf(l, 1e-30f);
-    store_row<T, D>(o + ((long long)bi * lq + qi) * tok + (long long)hi * D, acc, 1.f / ls, g);
+    store_row<D>(o + ((long long)bi * lq + qi) * tok + (long long)hi * D, acc, 1.f / ls, g);
     if (lse != nullptr && g == 0) lse[(long long)bh * lq + qi] = m + logf(ls);
   }
 }
 
 // -- backward: dq --------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(Cfg<D>::THREADS)
-tfk8s_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ dout, const T* __restrict__ o,
-                const float* __restrict__ lse, const uint8_t* __restrict__ mask,
-                T* __restrict__ dq, int lq, int lk, int h, int causal) {
+tfk8s_dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ o, const float* __restrict__ lse,
+                     const uint8_t* __restrict__ mask, float* __restrict__ dq, int lq, int lk,
+                     int h, int causal) {
   using C = Cfg<D>;
   __shared__ __align__(16) float ks[C::TILE][D];
   __shared__ __align__(16) float vs[C::TILE][D];
@@ -248,11 +237,11 @@ tfk8s_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const uint8_t* mrow = mask ? mask + (long long)bi * lk : nullptr;
 
   float qr[C::DPT], dor[C::DPT], acc[C::DPT];
-  load_row<T, D>(qr, q + row_off, row_ok, g);
-  load_row<T, D>(dor, dout + row_off, row_ok, g);
+  load_row<D>(qr, q + row_off, row_ok, g);
+  load_row<D>(dor, dout + row_off, row_ok, g);
   // D = rowsum(dO * O), computed here from the row as the reference does;
   // acc holds the row of O until the key loop needs it as dq
-  load_row<T, D>(acc, o + row_off, row_ok, g);
+  load_row<D>(acc, o + row_off, row_ok, g);
   float part = 0.f;
 #pragma unroll
   for (int i = 0; i < C::DPT; ++i) part = fmaf(dor[i], acc[i], part);
@@ -262,13 +251,13 @@ tfk8s_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const float L = row_ok ? lse[(long long)bh * lq + qi] : 0.f;
 
   const int kend = causal ? min(lk, offset + min(q0 + kRows, lq)) : lk;
-  const T* kb = k + (long long)bi * lk * tok + (long long)hi * D;
-  const T* vb = v + (long long)bi * lk * tok + (long long)hi * D;
+  const float* kb = k + (long long)bi * lk * tok + (long long)hi * D;
+  const float* vb = v + (long long)bi * lk * tok + (long long)hi * D;
 
   for (int t0 = 0; t0 < kend; t0 += C::TILE) {
     __syncthreads();
-    stage<T, D>(ks, kb + t0 * tok, tok, min(C::TILE, lk - t0));
-    stage<T, D>(vs, vb + t0 * tok, tok, min(C::TILE, lk - t0));
+    stage<D>(ks, kb + t0 * tok, tok, min(C::TILE, lk - t0));
+    stage<D>(vs, vb + t0 * tok, tok, min(C::TILE, lk - t0));
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < C::TILE; ++j) {
@@ -280,17 +269,18 @@ tfk8s_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       axpy_part<D>(acc, p * (dp - dsum), ks[j], g);
     }
   }
-  if (row_ok) store_row<T, D>(dq + row_off, acc, 1.f, g);
+  if (row_ok) store_row<D>(dq + row_off, acc, 1.f, g);
 }
 
 // -- backward: dk, dv ------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(Cfg<D>::THREADS)
-tfk8s_dkv_simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const T* __restrict__ dout, const T* __restrict__ o,
-                 const float* __restrict__ lse, const uint8_t* __restrict__ mask,
-                 T* __restrict__ dk, T* __restrict__ dv, int lq, int lk, int h, int causal) {
+tfk8s_dkv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
+                      const float* __restrict__ o, const float* __restrict__ lse,
+                      const uint8_t* __restrict__ mask, float* __restrict__ dk,
+                      float* __restrict__ dv, int lq, int lk, int h, int causal) {
   using C = Cfg<D>;
   __shared__ __align__(16) float qs[C::TILE][D];
   __shared__ __align__(16) float dos[C::TILE][D];
@@ -307,29 +297,29 @@ tfk8s_dkv_simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   const long long krow = ((long long)bi * lk + kj) * tok + (long long)hi * D;
 
   float kr[C::DPT], vr[C::DPT], dka[C::DPT], dva[C::DPT];
-  load_row<T, D>(kr, k + krow, kj < lk, g);
-  load_row<T, D>(vr, v + krow, kj < lk, g);
+  load_row<D>(kr, k + krow, kj < lk, g);
+  load_row<D>(vr, v + krow, kj < lk, g);
 #pragma unroll
   for (int i = 0; i < C::DPT; ++i) dka[i] = dva[i] = 0.f;
 
   // first query row that sees key k0 is k0 - offset; earlier tiles skipped
   const int qstart = causal ? max(0, k0 - offset) / C::TILE * C::TILE : 0;
-  const T* qb = q + (long long)bi * lq * tok + (long long)hi * D;
-  const T* dob = dout + (long long)bi * lq * tok + (long long)hi * D;
-  const T* ob = o + (long long)bi * lq * tok + (long long)hi * D;
+  const float* qb = q + (long long)bi * lq * tok + (long long)hi * D;
+  const float* dob = dout + (long long)bi * lq * tok + (long long)hi * D;
+  const float* ob = o + (long long)bi * lq * tok + (long long)hi * D;
 
   for (int t0 = qstart; t0 < lq; t0 += C::TILE) {
     const int nrows = min(C::TILE, lq - t0);
     __syncthreads();
-    stage<T, D>(qs, qb + t0 * tok, tok, nrows);
-    stage<T, D>(dos, dob + t0 * tok, tok, nrows);
+    stage<D>(qs, qb + t0 * tok, tok, nrows);
+    stage<D>(dos, dob + t0 * tok, tok, nrows);
     __syncthreads();
     {
       // D = rowsum(dO * O) for the tile's rows: group r takes row r
       // (a tile has at most as many rows as the block has groups)
       const bool have = r < C::TILE && r < nrows;
       float orow[C::DPT];
-      load_row<T, D>(orow, ob + (long long)(t0 + r) * tok, have, g);
+      load_row<D>(orow, ob + (long long)(t0 + r) * tok, have, g);
       const float part = have ? dot_part<D>(orow, dos[r < C::TILE ? r : 0], g) : 0.f;
       const float tot = group_sum<C::TPR>(part);
       if (r < C::TILE && g == 0) {
@@ -350,97 +340,81 @@ tfk8s_dkv_simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     }
   }
   if (kj < lk) {
-    store_row<T, D>(dk + krow, dka, 1.f, g);
-    store_row<T, D>(dv + krow, dva, 1.f, g);
+    store_row<D>(dk + krow, dka, 1.f, g);
+    store_row<D>(dv + krow, dva, 1.f, g);
   }
 }
 
 // -- launch --------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* mask, void* o,
                        void* lse, int b, int lq, int lk, int h, int causal, cudaStream_t st) {
   dim3 grid(b * h, (lq + kRows - 1) / kRows);
-  tfk8s_fwd_simt_kernel<T, D><<<grid, Cfg<D>::THREADS, 0, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const uint8_t*)mask, (T*)o, (float*)lse, lq, lk,
-      h, causal);
+  tfk8s_fwd_simt_kernel<D><<<grid, Cfg<D>::THREADS, 0, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const uint8_t*)mask, (float*)o,
+      (float*)lse, lq, lk, h, causal);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* o, const void* lse, const void* mask, void* dq, int b, int lq,
                       int lk, int h, int causal, cudaStream_t st) {
   dim3 grid(b * h, (lq + kRows - 1) / kRows);
-  tfk8s_dq_kernel<T, D><<<grid, Cfg<D>::THREADS, 0, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const T*)o, (const float*)lse,
-      (const uint8_t*)mask, (T*)dq, lq, lk, h, causal);
+  tfk8s_dq_simt_kernel<D><<<grid, Cfg<D>::THREADS, 0, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const float*)o,
+      (const float*)lse, (const uint8_t*)mask, (float*)dq, lq, lk, h, causal);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* o, const void* lse, const void* mask, void* dk, void* dv,
                        int b, int lq, int lk, int h, int causal, cudaStream_t st) {
   dim3 grid(b * h, (lk + kRows - 1) / kRows);
-  tfk8s_dkv_simt_kernel<T, D><<<grid, Cfg<D>::THREADS, 0, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const T*)o, (const float*)lse,
-      (const uint8_t*)mask, (T*)dk, (T*)dv, lq, lk, h, causal);
+  tfk8s_dkv_simt_kernel<D><<<grid, Cfg<D>::THREADS, 0, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, (const float*)o,
+      (const float*)lse, (const uint8_t*)mask, (float*)dk, (float*)dv, lq, lk, h, causal);
   return cudaGetLastError();
 }
 
-// dtype code: 0 = float32, 1 = bfloat16 (the wrapper's _DTYPE_CODES).
-#define TFK8S_DISPATCH(FN, ...)                                     \
-  do {                                                              \
-    if (dtype == 0) {                                               \
-      TFK8S_DISPATCH_F32(FN, __VA_ARGS__);                          \
-    } else if (dtype == 1) {                                        \
-      switch (d) {                                                  \
-        case 16: return (int)FN<__nv_bfloat16, 16>(__VA_ARGS__);    \
-        case 32: return (int)FN<__nv_bfloat16, 32>(__VA_ARGS__);    \
-        case 64: return (int)FN<__nv_bfloat16, 64>(__VA_ARGS__);    \
-        case 128: return (int)FN<__nv_bfloat16, 128>(__VA_ARGS__);  \
-      }                                                             \
-    }                                                               \
-    return (int)cudaErrorInvalidValue;                              \
-  } while (0)
-
-#define TFK8S_DISPATCH_F32(FN, ...)                      \
-  do {                                                   \
-    switch (d) {                                         \
-      case 16: return (int)FN<float, 16>(__VA_ARGS__);   \
-      case 32: return (int)FN<float, 32>(__VA_ARGS__);   \
-      case 64: return (int)FN<float, 64>(__VA_ARGS__);   \
-      case 128: return (int)FN<float, 128>(__VA_ARGS__); \
-    }                                                    \
-    return (int)cudaErrorInvalidValue;                   \
+#define TFK8S_BY_HEAD_DIM(FN, ...)                \
+  do {                                            \
+    switch (d) {                                  \
+      case 16: return (int)FN<16>(__VA_ARGS__);   \
+      case 32: return (int)FN<32>(__VA_ARGS__);   \
+      case 64: return (int)FN<64>(__VA_ARGS__);   \
+      case 128: return (int)FN<128>(__VA_ARGS__); \
+    }                                             \
+    return (int)cudaErrorInvalidValue;            \
   } while (0)
 
 }  // namespace
 
-// Each entry point returns the cudaError_t of its launch (0 = success).
-// The forward and dk/dv take float32 only.
+// Each entry point takes float32 tensors and returns the cudaError_t of
+// its launch (0 = success).
 extern "C" {
 
 int tfk8s_flash_fwd_simt(const void* q, const void* k, const void* v, const void* mask, void* o,
                          void* lse, int b, int lq, int lk, int h, int d, int causal,
                          void* stream) {
-  TFK8S_DISPATCH_F32(launch_fwd, q, k, v, mask, o, lse, b, lq, lk, h, causal,
-                     (cudaStream_t)stream);
+  TFK8S_BY_HEAD_DIM(launch_fwd, q, k, v, mask, o, lse, b, lq, lk, h, causal,
+                    (cudaStream_t)stream);
 }
 
-int tfk8s_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                       const void* o, const void* lse, const void* mask, void* dq, int b, int lq,
-                       int lk, int h, int d, int causal, int dtype, void* stream) {
-  TFK8S_DISPATCH(launch_dq, q, k, v, dout, o, lse, mask, dq, b, lq, lk, h, causal,
-                 (cudaStream_t)stream);
+int tfk8s_flash_bwd_dq_simt(const void* q, const void* k, const void* v, const void* dout,
+                            const void* o, const void* lse, const void* mask, void* dq, int b,
+                            int lq, int lk, int h, int d, int causal, void* stream) {
+  TFK8S_BY_HEAD_DIM(launch_dq, q, k, v, dout, o, lse, mask, dq, b, lq, lk, h, causal,
+                    (cudaStream_t)stream);
 }
 
 int tfk8s_flash_bwd_dkv_simt(const void* q, const void* k, const void* v, const void* dout,
                              const void* o, const void* lse, const void* mask, void* dk, void* dv,
                              int b, int lq, int lk, int h, int d, int causal, void* stream) {
-  TFK8S_DISPATCH_F32(launch_dkv, q, k, v, dout, o, lse, mask, dk, dv, b, lq, lk, h, causal,
-                     (cudaStream_t)stream);
+  TFK8S_BY_HEAD_DIM(launch_dkv, q, k, v, dout, o, lse, mask, dk, dv, b, lq, lk, h, causal,
+                    (cudaStream_t)stream);
 }
 
 }  // extern "C"

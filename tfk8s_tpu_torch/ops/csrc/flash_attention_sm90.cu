@@ -1,17 +1,19 @@
-// Flash attention on Hopper's tensor cores (sm_90a): the bfloat16 forward
-// and dk/dv kernels, and the pre-pass that gives dk/dv its per-row
-// D = rowsum(dO * O). A plain C interface, loaded with ctypes
-// (tfk8s_tpu_torch/ops/_build.py builds this file with nvcc). Nothing is
-// linked beyond the CUDA runtime: cuTensorMapEncodeTiled is fetched from
-// the CUDA driver library through cudaGetDriverEntryPoint.
+// Flash attention on Hopper's tensor cores (sm_90a): every bfloat16 kernel
+// (the forward, dq, dk/dv, and the pre-pass that gives both backward
+// kernels their per-row D = rowsum(dO * O) and lse * log2e). A plain C
+// interface, loaded with ctypes (tfk8s_tpu_torch/ops/_build.py builds this
+// file with nvcc). Nothing is linked beyond the CUDA runtime:
+// cuTensorMapEncodeTiled is fetched from the CUDA driver library through
+// cudaGetDriverEntryPoint.
 //
 // Replaces, for bfloat16 inputs, the Pallas TPU kernels of
 // tfk8s_tpu/ops/flash_attention.py:
 //   tfk8s_fwd_wgmma_kernel <- _fwd_kernel     (:149, launched by _flash_fwd_impl :424)
+//   tfk8s_dq_wgmma_kernel  <- _bwd_dq_kernel  (:233, launched by _flash_bwd_impl :451)
 //   tfk8s_dkv_wgmma_kernel <- _bwd_dkv_kernel (:290, launched by _flash_bwd_impl :469)
-//   tfk8s_dsum_kernel      <- that kernel's D = rowsum(dO * O) (:317)
-// float32 inputs keep the CUDA-core kernels of flash_attention.cu, and the
-// dq kernel there serves both types; it reads this forward's (o, lse).
+//   tfk8s_dsum_kernel      <- those kernels' D = rowsum(dO * O) (:247, :317)
+// The backward runs the pre-pass once and feeds it to dq and dk/dv.
+// float32 inputs take the CUDA-core kernels of flash_attention.cu.
 //
 // Contract: that of flash_attention.cu (contiguous [b, l, h, d], q
 // pre-scaled, [b, lk] uint8 key mask, bottom-right causal with lq <= lk,
@@ -21,8 +23,9 @@
 //
 // What bounds them. At GPT-2-small's shape (b=8, l=1024, h=12, d=64,
 // causal) the forward does 12.9 GFLOP (13 us at 989 TFLOP/s) on ~50 MB
-// (15 us at 3.35 TB/s), dk/dv 25.8 GFLOP on ~76 MB: both sit near the
-// ridge, so the work is to keep the tensor cores fed. Every product is a
+// (15 us at 3.35 TB/s), dq 19.4 GFLOP on ~64 MB, dk/dv 25.8 GFLOP on ~76
+// MB: all sit near the ridge, so the work is to keep the tensor cores
+// fed. Every product is a
 // wgmma (m64nNk16, bf16 in, f32 accumulate), and every tile reaches shared
 // memory by TMA, in the swizzled layout the wgmma descriptors read,
 // through a ring of stages that one producer warp keeps ahead of the
@@ -54,10 +57,23 @@
 // accumulate in f32 registers and are stored once; nothing is reduced
 // across blocks and no atomics are used, so results repeat bit for bit.
 //
+// dq is the forward's loop with one more product: a block owns 64 query
+// rows with Q and dO resident, K and V tiles of 64 keys stream through
+// the ring, S = Q K^T and dP = dO V^T read shared memory, and
+// dS = P (dP - D) is split in registers into two bf16 A fragments, hi +
+// lo, for dQ += dS K, which reads K MN-major as the forward's P V reads V.
+// (dS rounded once to bf16, as dk/dv rounds it, puts dq a bf16 step of dq
+// off its float32 value: dk multiplies dS by the pre-scaled Q, dq by the
+// unscaled K. The split costs a fourth product a tile.) P comes from the
+// pre-pass's lse * log2e with no running max; the row's D and lse2 are
+// read once into registers. dQ stays in f32 registers and is stored once,
+// so dq repeats bit for bit too. Two blocks share an SM (registers held to
+// 204).
+//
 // Numerics: the first products take the bf16 inputs exactly and accumulate
 // in f32; P and dS are rounded to bf16 before the second products, as every
 // FlashAttention does (the port's plain model attention also rounds its
-// probabilities to the input type before P V).
+// probabilities to the input type before P V), except dq's dS (above).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -355,6 +371,26 @@ __device__ __forceinline__ void to_a_frags(const float (&acc)[N / 2], uint32_t (
   }
 }
 
+// The same A operand as two bf16 terms, hi + lo, which carry 16 bits of
+// each value's mantissa: dq's dS = P (dP - D) reaches |dS| ~ 10 (dP = dO V^T
+// is not scaled, unlike the pre-scaled Q that multiplies dS in dk), where
+// one bf16 rounding of dS moves dq by more than a bf16 step of dq.
+template <int N>
+__device__ __forceinline__ void to_a_frags_split(const float (&acc)[N / 2], uint32_t (&hi)[N / 16][4],
+                                                 uint32_t (&lo)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float x0 = acc[8 * kk + 2 * j], x1 = acc[8 * kk + 2 * j + 1];
+      __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+      const float2 hf = __bfloat1622float2(h);
+      hi[kk][j] = *reinterpret_cast<uint32_t*>(&h);
+      lo[kk][j] = pack_bf16(x0 - hf.x, x1 - hf.y);
+    }
+  }
+}
+
 // A row of an accumulator is spread over the four lanes of a quad.
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -547,7 +583,8 @@ tfk8s_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 // -- backward: the D = rowsum(dO * O) pre-pass -----------------------------------
 // Writes, for every (b, h) and query row padded to lqp (a multiple of 64),
 // D and lse * log2e; padding rows and fully masked rows get lse2 = +inf,
-// so that their probabilities come out exactly 0 in dk/dv without a mask.
+// so that their probabilities come out exactly 0 in dq and dk/dv without
+// a mask.
 
 template <int D>
 __global__ void __launch_bounds__(256)
@@ -736,6 +773,154 @@ tfk8s_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   store_rows<D>(dv, dva, one, key, lk, bi, h, hi, lane);
 }
 
+// -- backward: dq ----------------------------------------------------------------
+
+template <int D>
+struct Dq {
+  static constexpr int BM = 64;     // query rows a block
+  static constexpr int BN = 64;     // keys a tile
+  static constexpr int STAGES = 2;  // K/V tiles in flight
+  // blocks an SM must hold: two, which caps registers at 204
+  static constexpr int MIN_BLOCKS = 2;
+  static constexpr int Q_BYTES = Tile<D>::bytes(BM);
+  static constexpr int KV_BYTES = Tile<D>::bytes(BN);
+  static constexpr int SMEM = 1024 + 2 * Q_BYTES + STAGES * 2 * KV_BYTES + 8 * (1 + 2 * STAGES);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, Dq<D>::MIN_BLOCKS)
+tfk8s_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ dsum,
+                      const float* __restrict__ lse2, const uint8_t* __restrict__ mask,
+                      bf16* __restrict__ dq, int lq, int lk, int h, int lqp, int causal) {
+  using C = Dq<D>;
+  using T = Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq = align1024(smem_raw);
+  uint8_t* sdo = sq + C::Q_BYTES;
+  uint8_t* skv = sdo + C::Q_BYTES;  // stage s: its K tile, then its V tile
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(skv + C::STAGES * 2 * C::KV_BYTES);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + C::STAGES;
+
+  const int bh = blockIdx.x, bi = bh / h, hi = bh % h;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::BM;  // the rows with the most keys first
+  const int offset = lk - lq;
+  const int kend = causal ? min(lk, offset + min(q0 + C::BM, lq)) : lk;
+  const int ntiles = (kend + C::BN - 1) / C::BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // the producer warp
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(bar_q, 2 * C::Q_BYTES);
+      for (int a = 0; a < T::ATOMS; ++a) {
+        tma_load(sq + a * C::BM * T::SW, &tm_q, bar_q, a * T::COLS, hi, q0, bi);
+        tma_load(sdo + a * C::BM * T::SW, &tm_do, bar_q, a * T::COLS, hi, q0, bi);
+      }
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % C::STAGES;
+        if (t >= C::STAGES) mbar_wait(&empty[s], (t / C::STAGES - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * C::KV_BYTES);
+        uint8_t* kt = skv + s * 2 * C::KV_BYTES;
+        for (int a = 0; a < T::ATOMS; ++a) {
+          tma_load(kt + a * C::BN * T::SW, &tm_k, &full[s], a * T::COLS, hi, t * C::BN, bi);
+          tma_load(kt + C::KV_BYTES + a * C::BN * T::SW, &tm_v, &full[s], a * T::COLS, hi,
+                   t * C::BN, bi);
+        }
+      }
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = q0 + 16 * warp + lane / 4;  // this thread's rows: row and row + 8
+  const uint8_t* mrow = mask ? mask + (long long)bi * lk : nullptr;
+  const uint32_t q_tile = smem_u32(sq), do_tile = smem_u32(sdo);
+  // the pre-pass's D and lse * log2e of this thread's rows (padded to a
+  // multiple of BM, so in bounds); +inf lse2 makes a padding or fully
+  // masked row's probabilities, and with them its dq, exactly zero
+  float l2[2], dd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long i = (long long)bh * lqp + row + 8 * r;
+    l2[r] = lse2[i];
+    dd[r] = dsum[i];
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(bar_q, 0);
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % C::STAGES, k0 = t * C::BN;
+    mbar_wait(&full[s], (t / C::STAGES) & 1);
+    const uint32_t kt = smem_u32(skv + s * 2 * C::KV_BYTES), vt = kt + C::KV_BYTES;
+    float sc[C::BN / 2], dp[C::BN / 2];
+#pragma unroll
+    for (int i = 0; i < C::BN / 2; ++i) sc[i] = dp[i] = 0.f;
+    pin(sc);
+    pin(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<C::BN>::template ss<0>(sc, desc_k<D>(q_tile, C::BM, kk), desc_k<D>(kt, C::BN, kk),
+                                   kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<C::BN>::template ss<0>(dp, desc_k<D>(do_tile, C::BM, kk), desc_k<D>(vt, C::BN, kk),
+                                   kk > 0);
+    wg_commit();
+    wg_wait_all();
+    pin(sc);
+    pin(dp);
+
+    // dS = P (dP - D), masks only on tiles with the diagonal, the ragged
+    // key edge or a key mask
+    const bool edge =
+        k0 + C::BN > lk || mrow != nullptr || (causal && k0 + C::BN - 1 > q0 + offset);
+#pragma unroll
+    for (int i = 0; i < C::BN / 2; ++i) {
+      const int r = acc_half(i);
+      float p = exp2f(fmaf(sc[i], kLog2e, -l2[r]));
+      if (edge) {
+        const int key = k0 + acc_col(i, lane);
+        const bool vis = key < lk && (!causal || key <= offset + row + 8 * r) &&
+                         (mrow == nullptr || mrow[key] != 0);
+        p = vis ? p : 0.f;
+      }
+      dp[i] = p * (dp[i] - dd[r]);
+    }
+    uint32_t da[C::BN / 16][4], db[C::BN / 16][4];  // dS = da + db
+    to_a_frags_split<C::BN>(dp, da, db);
+    pin(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::BN / 16; ++kk) {
+      Wgmma<D>::template rs<1>(acc, da[kk], desc_mn<D>(kt, C::BN, kk), 1);
+      Wgmma<D>::template rs<1>(acc, db[kk], desc_mn<D>(kt, C::BN, kk), 1);
+    }
+    wg_commit();
+    wg_wait_all();
+    pin(acc);
+    mbar_arrive(&empty[s]);
+  }
+
+  const float one[2] = {1.f, 1.f};
+  store_rows<D>(dq, acc, one, row, lq, bi, h, hi, lane);
+}
+
 // -- host: tensor maps and launches ------------------------------------------------
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -836,6 +1021,26 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
+                      const void* dsum, const void* lse2, const void* mask, void* dq, int b,
+                      int lq, int lk, int h, int lqp, int causal, cudaStream_t st) {
+  using C = Dq<D>;
+  // each thread reads the pre-pass's values of its rows, padding rows included
+  if (lqp < lq || lqp % C::BM != 0) return cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_map<D>(&mq, q, b, lq, h, C::BM) || !make_map<D>(&mdo, dout, b, lq, h, C::BM) ||
+      !make_map<D>(&mk, k, b, lk, h, C::BN) || !make_map<D>(&mv, v, b, lk, h, C::BN))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(tfk8s_dq_wgmma_kernel<D>, C::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid(b * h, (lq + C::BM - 1) / C::BM);
+  tfk8s_dq_wgmma_kernel<D><<<grid, kThreads, C::SMEM, st>>>(
+      mq, mk, mv, mdo, (const float*)dsum, (const float*)lse2, (const uint8_t*)mask, (bf16*)dq,
+      lq, lk, h, lqp, causal);
+  return cudaGetLastError();
+}
+
 #define TFK8S_BY_HEAD_DIM(FN, ...)                  \
   do {                                              \
     switch (d) {                                    \
@@ -871,6 +1076,13 @@ int tfk8s_flash_bwd_dkv_wgmma(const void* q, const void* k, const void* v, const
                               void* dv, int b, int lq, int lk, int h, int d, int lqp, int causal,
                               void* stream) {
   TFK8S_BY_HEAD_DIM(launch_dkv, q, k, v, dout, dsum, lse2, mask, dk, dv, b, lq, lk, h, lqp, causal,
+                    (cudaStream_t)stream);
+}
+
+int tfk8s_flash_bwd_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                             const void* dsum, const void* lse2, const void* mask, void* dq, int b,
+                             int lq, int lk, int h, int d, int lqp, int causal, void* stream) {
+  TFK8S_BY_HEAD_DIM(launch_dq, q, k, v, dout, dsum, lse2, mask, dq, b, lq, lk, h, lqp, causal,
                     (cudaStream_t)stream);
 }
 

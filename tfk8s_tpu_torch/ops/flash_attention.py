@@ -2,11 +2,12 @@
 and their plain PyTorch versions.
 
 bfloat16 inputs (the training path) take the tensor-core kernels of
-``csrc/flash_attention_sm90.cu``: a wgmma/TMA forward, a pre-pass for
-``D = rowsum(dO * O)`` and a wgmma/TMA dk/dv. float32 inputs take the
-CUDA-core forward and dk/dv of ``csrc/flash_attention.cu``, which keep
-float32 exact. The FlashAttention-2 dq kernel there serves both types.
-All replace the Pallas TPU kernels of the JAX package's
+``csrc/flash_attention_sm90.cu``: a wgmma/TMA forward, and a backward
+that runs one pre-pass for ``D = rowsum(dO * O)`` and ``lse * log2(e)``
+and feeds it to both the wgmma/TMA dq and the wgmma/TMA dk/dv. float32
+inputs take the CUDA-core forward, dq and dk/dv of
+``csrc/flash_attention.cu``, which keep float32 exact and compute D
+themselves. All replace the Pallas TPU kernels of the JAX package's
 ``ops/flash_attention.py`` and are built with ``nvcc`` at first use
 (``_build.py``). Each function here takes its kernel for a CUDA tensor
 and its plain version for a CPU tensor, and raises for anything else:
@@ -21,12 +22,12 @@ Contract (the JAX package's ``flash_attention``):
 - a query row whose keys are all masked gives zero output and zero grads.
 
 The forward saves the per-row logsumexp (``[b, h, lq]`` float32) only
-when a backward will follow; the backward recomputes probabilities from
-(q, k, lse) and computes ``D = rowsum(dO * O)`` itself, exactly as the
-reference's kernels do. Unlike the Pallas kernels, the CUDA kernels take
-any sequence length (they mask the ragged edge) and pick their own tiles
-for the H100, so this module has no block-size arguments and no
-``pick_blocks``. The tensor-core kernels read through TMA, which needs
+when a backward will follow; the backward (``flash_bwd``) recomputes
+probabilities from (q, k, lse) and ``D = rowsum(dO * O)`` from (dO, O),
+as the reference's kernels do. Unlike the Pallas kernels, the CUDA
+kernels take any sequence length (they mask the ragged edge) and pick
+their own tiles for the H100, so this module has no block-size arguments
+and no ``pick_blocks``. The tensor-core kernels read through TMA, which needs
 16-byte aligned tensors; their wrappers raise on any other.
 
 Each wrapper counts its launches in ``LAUNCHES`` so a run can show that
@@ -45,7 +46,8 @@ from tfk8s_tpu_torch.ops import _build
 
 _NEG = -1e30
 LOG2E = 1.4426950408889634
-# the dk/dv pre-pass pads each (batch, head) row of D and lse to this
+LN2 = 0.6931471805599453
+# the backward pre-pass pads each (batch, head) row of D and lse to this
 DSUM_PAD = 64
 
 # Above this sequence length "auto" attention picks the kernels on the
@@ -53,12 +55,13 @@ DSUM_PAD = 64
 FLASH_SEQ_THRESHOLD = 1024
 
 HEAD_DIMS = (16, 32, 64, 128)  # the head widths the kernels are built for
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 
-# bfloat16 on the tensor cores; float32 on the CUDA cores (SIMT); dq both
-TENSOR_CORE_KERNELS = ("flash_fwd_wgmma", "flash_bwd_dsum", "flash_bwd_dkv_wgmma")
-SIMT_KERNELS = ("flash_fwd_simt", "flash_bwd_dkv_simt")
-KERNELS = TENSOR_CORE_KERNELS + ("flash_bwd_dq",) + SIMT_KERNELS
+# bfloat16 on the tensor cores; float32 on the CUDA cores (SIMT)
+TENSOR_CORE_KERNELS = ("flash_fwd_wgmma", "flash_bwd_dsum", "flash_bwd_dq_wgmma",
+                       "flash_bwd_dkv_wgmma")
+SIMT_KERNELS = ("flash_fwd_simt", "flash_bwd_dq_simt", "flash_bwd_dkv_simt")
+KERNELS = TENSOR_CORE_KERNELS + SIMT_KERNELS
 # launches of each kernel since the last reset_launches()
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
@@ -69,6 +72,11 @@ def reset_launches() -> None:
 
 
 # -- plain versions (CPU tensors; the card's yardstick) ----------------------
+# They work in powers of two, as the kernels do: exp2 and log2, never exp
+# and log. On the CPU PyTorch evaluates float32 exp and log with MKL's VML,
+# whose first multithreaded call in a process has been seen to return
+# results ~1e-4 off (relative) on the card machine's host; exp2 and log2
+# run PyTorch's own vectorized code.
 
 
 def _visible(q, k, mask, causal) -> Optional[torch.Tensor]:
@@ -94,19 +102,19 @@ def flash_fwd_plain(q, k, v, mask=None, causal=False, save_lse=True):
     if vis is not None:
         s = s.masked_fill(~vis, _NEG)
     m = s.amax(-1, keepdim=True)
-    p = torch.exp(s - m)
+    p = torch.exp2((s - m) * LOG2E)
     if vis is not None:
         p = p.masked_fill(~vis, 0.0)  # a fully masked row has exp(0) = 1
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)
     o = torch.einsum("bhqk,bkhd->bqhd", p, vf) / l.permute(0, 2, 1, 3)
-    lse = (m + torch.log(l)).squeeze(-1).contiguous() if save_lse else None
+    lse = (m + torch.log2(l) * LN2).squeeze(-1).contiguous() if save_lse else None
     return o.to(q.dtype).contiguous(), lse
 
 
 def _probs_and_ds(q, k, v, do, o, lse, mask, causal):
     """Recomputed probabilities p and ds = p * (dO.V^T - D), float32."""
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) - lse[..., None])
+    p = torch.exp2((torch.einsum("bqhd,bkhd->bhqk", qf, kf) - lse[..., None]) * LOG2E)
     vis = _visible(q, k, mask, causal)
     if vis is not None:
         p = p.masked_fill(~vis, 0.0)
@@ -115,18 +123,33 @@ def _probs_and_ds(q, k, v, do, o, lse, mask, causal):
     return p, p * (dp - dsum)
 
 
+def _dq_of(ds, q, k):
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(q.dtype).contiguous()
+
+
+def _dkv_of(p, ds, q, k, v, do):
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    return dk.to(k.dtype).contiguous(), dv.to(v.dtype).contiguous()
+
+
 def flash_bwd_dq_plain(q, k, v, do, o, lse, mask=None, causal=False):
     """The dq kernel's function in PyTorch ops."""
     _, ds = _probs_and_ds(q, k, v, do, o, lse, mask, causal)
-    return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(q.dtype).contiguous()
+    return _dq_of(ds, q, k)
 
 
 def flash_bwd_dkv_plain(q, k, v, do, o, lse, mask=None, causal=False):
     """The dk/dv kernel's function in PyTorch ops: ``(dk, dv)``."""
     p, ds = _probs_and_ds(q, k, v, do, o, lse, mask, causal)
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
-    return dk.to(k.dtype).contiguous(), dv.to(v.dtype).contiguous()
+    return _dkv_of(p, ds, q, k, v, do)
+
+
+def flash_bwd_plain(q, k, v, do, o, lse, mask=None, causal=False):
+    """The whole backward in PyTorch ops: ``(dq, dk, dv)``, with the
+    probabilities recomputed once for all three."""
+    p, ds = _probs_and_ds(q, k, v, do, o, lse, mask, causal)
+    return (_dq_of(ds, q, k), *_dkv_of(p, ds, q, k, v, do))
 
 
 def _padded(lq: int) -> int:
@@ -134,7 +157,7 @@ def _padded(lq: int) -> int:
 
 
 def flash_bwd_dsum_plain(do, o, lse):
-    """The dk/dv pre-pass's function: ``(dsum, lse2)``, each
+    """The backward pre-pass's function: ``(dsum, lse2)``, each
     ``[b * h, lqp]`` float32 with lqp = lq rounded up to DSUM_PAD.
     ``dsum = rowsum(dO * O)``; ``lse2 = lse * log2(e)``, and +inf on the
     padding rows and on fully masked rows (lse <= -1e29), whose
@@ -154,27 +177,29 @@ def flash_bwd_dsum_plain(do, o, lse):
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    """The CUDA-core kernels (float32 forward and dk/dv, dq)."""
+    """The CUDA-core kernels (float32 forward, dq, dk/dv)."""
     lib = _build.load("flash_attention")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.tfk8s_flash_fwd_simt.argtypes = [P] * 6 + [I] * 6 + [P]
-    lib.tfk8s_flash_bwd_dq.argtypes = [P] * 8 + [I] * 7 + [P]
+    lib.tfk8s_flash_bwd_dq_simt.argtypes = [P] * 8 + [I] * 6 + [P]
     lib.tfk8s_flash_bwd_dkv_simt.argtypes = [P] * 9 + [I] * 6 + [P]
-    for fn in (lib.tfk8s_flash_fwd_simt, lib.tfk8s_flash_bwd_dq, lib.tfk8s_flash_bwd_dkv_simt):
+    for fn in (lib.tfk8s_flash_fwd_simt, lib.tfk8s_flash_bwd_dq_simt,
+               lib.tfk8s_flash_bwd_dkv_simt):
         fn.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _lib_sm90() -> ctypes.CDLL:
-    """The tensor-core kernels (bfloat16 forward, D pre-pass, dk/dv)."""
+    """The tensor-core kernels (bfloat16 forward, D pre-pass, dq, dk/dv)."""
     lib = _build.load("flash_attention_sm90")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.tfk8s_flash_fwd_wgmma.argtypes = [P] * 6 + [I] * 6 + [P]
     lib.tfk8s_flash_bwd_dsum.argtypes = [P] * 5 + [I] * 5 + [P]
+    lib.tfk8s_flash_bwd_dq_wgmma.argtypes = [P] * 8 + [I] * 7 + [P]
     lib.tfk8s_flash_bwd_dkv_wgmma.argtypes = [P] * 9 + [I] * 7 + [P]
     for fn in (lib.tfk8s_flash_fwd_wgmma, lib.tfk8s_flash_bwd_dsum,
-               lib.tfk8s_flash_bwd_dkv_wgmma):
+               lib.tfk8s_flash_bwd_dq_wgmma, lib.tfk8s_flash_bwd_dkv_wgmma):
         fn.restype = ctypes.c_int
     return lib
 
@@ -187,7 +212,7 @@ def _check_cuda(q, k, v, mask, do=None, o=None, lse=None) -> Optional[torch.Tens
     b, lq, h, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
         raise ValueError(f"k/v shape {tuple(k.shape)} does not fit q {tuple(q.shape)}")
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in _DTYPES:
         raise TypeError(f"flash kernels take float32 or bfloat16, got {q.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash kernels are built for head_dim in {HEAD_DIMS}, got {d}")
@@ -249,25 +274,31 @@ def flash_fwd_cuda(q, k, v, mask=None, causal=False, save_lse=True):
 
 
 def flash_bwd_dq_cuda(q, k, v, do, o, lse, mask=None, causal=False):
-    """Launch the dq kernel."""
+    """Launch dq. bfloat16 takes the D pre-pass and the tensor-core
+    kernel, float32 the CUDA-core kernel."""
     m8 = _check_cuda(q, k, v, mask, do, o, lse)
     b, lq, h, d = q.shape
+    if q.dtype == torch.bfloat16:
+        if k.numel() == 0 or q.numel() == 0:  # no query sees any key
+            return torch.zeros_like(q)
+        dsum, lse2 = flash_bwd_dsum_cuda(do, o, lse)
+        return flash_bwd_dq_wgmma_cuda(q, k, v, do, dsum, lse2, mask, causal)
     dq = torch.empty_like(q)
     if dq.numel() == 0:
         return dq
     with torch.cuda.device(q.device):
-        rc = _lib().tfk8s_flash_bwd_dq(
+        rc = _lib().tfk8s_flash_bwd_dq_simt(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(),
             lse.data_ptr(), _ptr(m8), dq.data_ptr(),
-            b, lq, k.shape[1], h, d, int(causal), _DTYPE_CODES[q.dtype], _stream(),
+            b, lq, k.shape[1], h, d, int(causal), _stream(),
         )
-    _raise_on(rc, "flash_bwd_dq")
-    LAUNCHES["flash_bwd_dq"] += 1
+    _raise_on(rc, "flash_bwd_dq_simt")
+    LAUNCHES["flash_bwd_dq_simt"] += 1
     return dq
 
 
 def flash_bwd_dsum_cuda(do, o, lse):
-    """Launch the dk/dv pre-pass (bfloat16): ``(dsum, lse2)`` as
+    """Launch the backward pre-pass (bfloat16): ``(dsum, lse2)`` as
     ``flash_bwd_dsum_plain`` gives them."""
     b, lq, h, d = do.shape
     _check_cuda(do, do, do, None, do, o, lse)
@@ -286,25 +317,58 @@ def flash_bwd_dsum_cuda(do, o, lse):
     return dsum, lse2
 
 
+def _check_tensor_core_bwd(name, q, k, v, do, dsum, lse2, mask):
+    """Validate a tensor-core backward kernel's inputs, the pre-pass's
+    ``(dsum, lse2)`` among them; returns the mask as for ``_check_cuda``."""
+    m8 = _check_cuda(q, k, v, mask, do, do)
+    b, lq, h, _ = q.shape
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core {name} kernel takes bfloat16, got {q.dtype}")
+    lqp = _padded(lq)
+    for t in (dsum, lse2):
+        if (t.dtype != torch.float32 or t.shape != (b * h, lqp) or not t.is_contiguous()
+                or t.device != q.device):
+            raise ValueError(f"dsum and lse2 must be contiguous float32 {(b * h, lqp)} "
+                             f"on {q.device}")
+    return m8
+
+
+def flash_bwd_dq_wgmma_cuda(q, k, v, do, dsum, lse2, mask=None, causal=False):
+    """Launch the tensor-core dq kernel (bfloat16) on the pre-pass's
+    ``(dsum, lse2)``."""
+    m8 = _check_tensor_core_bwd("dq", q, k, v, do, dsum, lse2, mask)
+    b, lq, h, d = q.shape
+    dq = torch.empty_like(q)
+    if dq.numel() == 0:
+        return dq
+    if k.numel() == 0:  # no key to see
+        return dq.zero_()
+    with torch.cuda.device(q.device):
+        rc = _lib_sm90().tfk8s_flash_bwd_dq_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dsum.data_ptr(),
+            lse2.data_ptr(), _ptr(m8), dq.data_ptr(),
+            b, lq, k.shape[1], h, d, _padded(lq), int(causal), _stream(),
+        )
+    _raise_on(rc, "flash_bwd_dq_wgmma")
+    LAUNCHES["flash_bwd_dq_wgmma"] += 1
+    return dq
+
+
 def flash_bwd_dkv_wgmma_cuda(q, k, v, do, dsum, lse2, mask=None, causal=False):
     """Launch the tensor-core dk/dv kernel (bfloat16) on the pre-pass's
     ``(dsum, lse2)``: ``(dk, dv)``."""
-    m8 = _check_cuda(q, k, v, mask, do, do)
+    m8 = _check_tensor_core_bwd("dk/dv", q, k, v, do, dsum, lse2, mask)
     b, lq, h, d = q.shape
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"the tensor-core dk/dv kernel takes bfloat16, got {q.dtype}")
-    lqp = _padded(lq)
-    for t in (dsum, lse2):
-        if t.dtype != torch.float32 or t.shape != (b * h, lqp) or not t.is_contiguous():
-            raise ValueError(f"dsum and lse2 must be contiguous float32 {(b * h, lqp)}")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
+    if q.numel() == 0:  # no query to be seen by
+        return dk.zero_(), dv.zero_()
     with torch.cuda.device(q.device):
         rc = _lib_sm90().tfk8s_flash_bwd_dkv_wgmma(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dsum.data_ptr(),
             lse2.data_ptr(), _ptr(m8), dk.data_ptr(), dv.data_ptr(),
-            b, lq, k.shape[1], h, d, lqp, int(causal), _stream(),
+            b, lq, k.shape[1], h, d, _padded(lq), int(causal), _stream(),
         )
     _raise_on(rc, "flash_bwd_dkv_wgmma")
     LAUNCHES["flash_bwd_dkv_wgmma"] += 1
@@ -335,6 +399,21 @@ def flash_bwd_dkv_cuda(q, k, v, do, o, lse, mask=None, causal=False):
     return dk, dv
 
 
+def flash_bwd_cuda(q, k, v, do, o, lse, mask=None, causal=False):
+    """Launch the whole backward: ``(dq, dk, dv)``. bfloat16 runs the D
+    pre-pass once and feeds it to the tensor-core dq and dk/dv kernels;
+    float32 runs the CUDA-core dq and dk/dv kernels."""
+    if q.dtype != torch.bfloat16:
+        return (flash_bwd_dq_cuda(q, k, v, do, o, lse, mask, causal),
+                *flash_bwd_dkv_cuda(q, k, v, do, o, lse, mask, causal))
+    _check_cuda(q, k, v, mask, do, o, lse)
+    if k.numel() == 0 or q.numel() == 0:  # no query sees any key
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dsum, lse2 = flash_bwd_dsum_cuda(do, o, lse)
+    return (flash_bwd_dq_wgmma_cuda(q, k, v, do, dsum, lse2, mask, causal),
+            *flash_bwd_dkv_wgmma_cuda(q, k, v, do, dsum, lse2, mask, causal))
+
+
 # -- dispatch: the kernel on the card, the plain version on the CPU -----------
 
 
@@ -350,17 +429,14 @@ def flash_fwd(q, k, v, mask=None, causal=False, save_lse=True):
     return _route(q, flash_fwd_cuda, flash_fwd_plain)(q, k, v, mask, causal, save_lse)
 
 
-def flash_bwd_dq(q, k, v, do, o, lse, mask=None, causal=False):
-    return _route(q, flash_bwd_dq_cuda, flash_bwd_dq_plain)(q, k, v, do, o, lse, mask, causal)
-
-
-def flash_bwd_dkv(q, k, v, do, o, lse, mask=None, causal=False):
-    return _route(q, flash_bwd_dkv_cuda, flash_bwd_dkv_plain)(q, k, v, do, o, lse, mask, causal)
+def flash_bwd(q, k, v, do, o, lse, mask=None, causal=False):
+    """The whole backward: ``(dq, dk, dv)``."""
+    return _route(q, flash_bwd_cuda, flash_bwd_plain)(q, k, v, do, o, lse, mask, causal)
 
 
 class FlashAttention(torch.autograd.Function):
-    """Forward kernel, then the dq and dk/dv kernels as its backward (the
-    reference's ``_flash`` custom_vjp)."""
+    """Forward kernel, then the backward's kernels (the reference's
+    ``_flash`` custom_vjp)."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, causal):
@@ -375,9 +451,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, mask = ctx.saved_tensors
-        do = do.contiguous()
-        dq = flash_bwd_dq(q, k, v, do, o, lse, mask, ctx.causal)
-        dk, dv = flash_bwd_dkv(q, k, v, do, o, lse, mask, ctx.causal)
+        dq, dk, dv = flash_bwd(q, k, v, do.contiguous(), o, lse, mask, ctx.causal)
         return dq, dk, dv, None, None
 
 
@@ -429,6 +503,5 @@ def auto_flash_attn_fn(attention_impl: str, seq_len: int, device: torch.device):
 __all__ = [
     "FLASH_SEQ_THRESHOLD", "HEAD_DIMS", "KERNELS", "LAUNCHES", "SIMT_KERNELS",
     "TENSOR_CORE_KERNELS", "FlashAttention",
-    "auto_flash_attn_fn", "flash_attention", "flash_bwd_dkv",
-    "flash_bwd_dq", "flash_fwd", "reset_launches",
+    "auto_flash_attn_fn", "flash_attention", "flash_bwd", "flash_fwd", "reset_launches",
 ]

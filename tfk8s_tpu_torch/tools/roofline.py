@@ -12,7 +12,7 @@ thing):
                         reference leaves it to XLA);
 - ``stream_bf16_gbps``, ``stream_f32_gbps``  an in-place elementwise add
                         over 2^28 values, read and write (torch ops);
-- ``copy_gbps``         the port's hand-written row-block copy kernel
+- ``copy_gbps``         the port's hand-written TMA bulk-copy kernel
                         (``ops/block_copy.py``, CUDA), [8192, 8192] f32:
                         the bandwidth a hand-written kernel sees; the JSON
                         names its source in ``copy_source``;
