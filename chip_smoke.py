@@ -11,8 +11,8 @@ must pass:
 1. the card: ``nvidia-smi`` name and power limit;
 2. build: ``nvcc`` compiles every kernel source of the port from the
    checkout (``tfk8s_tpu_torch/ops/_build.py``), timed, with the ptxas
-   register and spill report of the tensor-core flash kernels (none may
-   spill) and the block copy;
+   register and spill report of the tensor-core flash kernels and the
+   one-read GroupNorm kernels (none may spill) and the block copy;
 3. kernels: each kernel against its plain PyTorch version on the same
    card inputs, each with its time, the plain version's time, its bound
    and a one-call PyTorch yardstick (timed here only; the port never
@@ -31,14 +31,19 @@ must pass:
      and its yardstick's from a ``torch.profiler`` trace, which leave out
      the host time that CUDA events over back-to-back calls of a short
      kernel or of an autograd call include;
-   - GroupNorm forward and backward, float32 and bfloat16, at the two
-     largest ResNet-50 norm sites [256,112,112,64] (ReLU) and
-     [256,56,56,256], the widest [256,7,7,2048] (ReLU) and ResNet-50 at
-     width 128's [64,7,7,4096] (ReLU, two channel tiles); float32 atol
-     1e-5 outputs, 1e-4 dx, bfloat16 atol 2e-2 + rtol 2^-7, dscale and
-     dbias atol 1e-2 + rtol 1e-3; yardstick ``F.group_norm`` (+ ``relu``)
-     on the channels-last NCHW view and its autograd backward; then every
-     ResNet-50 norm site's shape once, for the per-step GroupNorm time;
+   - GroupNorm forward and backward, float32 and bfloat16, through the
+     one-read kernels at the two largest ResNet-50 norm sites
+     [256,112,112,64] (ReLU) and [256,56,56,256], the widest
+     [256,7,7,2048] (ReLU) and ResNet-50 at width 128's [64,7,7,4096]
+     (ReLU), and through the two-read kernels at [16,256,256,32] in one
+     group, each launch counted under the path the layout rule gives it;
+     float32 atol 1e-5 outputs, 1e-4 dx, bfloat16 atol 2e-2 + rtol 2^-7,
+     dscale and dbias atol 1e-2 + rtol 1e-3; device times from the
+     profiler beside CUDA-event times; yardstick ``F.group_norm`` (+
+     ``relu``) on the channels-last NCHW view and its autograd backward;
+     then every ResNet-50 norm site's shape once
+     (``tfk8s_tpu_torch/tools/gn_sweep.py``), for the per-step GroupNorm
+     device and event times against the bounds;
    - the block copy at [8192, 8192] float32, bit-exact; yardstick
      ``Tensor.copy_``;
 4. reference: a small float32 GPT on the card through the kernels
@@ -51,7 +56,8 @@ must pass:
    fault (D taken as zero) must exceed;
 5. resnet reference: a small float32 ResNet-50 (width 8) on the card
    through the GroupNorm kernels against the same model on the CPU through
-   the plain versions (loss atol 1e-4, gradients 1e-3 relative L2), and
+   the plain versions (loss atol 1e-4, gradients 1e-3 relative L2; every
+   one of the 53 norms through the one-read kernels), and
    ResNet-50 at full width on one input, kernel GroupNorm against plain
    GroupNorm: in float32, logits within 1e-4 of the largest logit; in
    bfloat16 within 2%, where a sound variant of the plain GroupNorm must
@@ -65,9 +71,10 @@ must pass:
 7. resnet train: ``tfk8s_tpu_torch.models.resnet.train(env)``, the
    ``resnet:train`` entrypoint, at ResNet-50 (depth 50, width 64, batch
    256, image 224, 1000 classes, bfloat16) for a few steps with a
-   checkpoint: finite losses, each GroupNorm kernel launched 53 times a
-   step, the checkpoint committed; step time, images/s, first step, peak
-   memory, input wait and input-starved steps;
+   checkpoint: finite losses, each one-read GroupNorm kernel launched 53
+   times a step and the two-read kernels never, the checkpoint
+   committed; step time, images/s, first step, peak memory, input wait
+   and input-starved steps;
 8. roofline: ``tfk8s_tpu_torch.tools.roofline.run_all()`` at full size
    (matmul, streams, the block-copy kernel, ResNet-50 forward, GN-ablated
    step and full step), one JSON line; the copy kernel must launch.
@@ -107,8 +114,9 @@ BASE_CHECK = dict(preset="base_config", seq=1024, batch=2)  # bf16 reference che
 # since gradients reach magnitudes where one step exceeds 2e-2
 BF16_ATOL, BF16_RTOL = 2e-2, 2.0 ** -7
 F32_OUT_ATOL, F32_GRAD_ATOL = 1e-5, 1e-4
-# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by type
-HBM_BYTES_PER_S = 3.35e12
+# H100 SXM peak FLOP/s by type (NVIDIA data sheet, dense); the memory
+# rate and both timers are gn_sweep's (HBM_BYTES_PER_S, events_ms,
+# device_ms), imported where they are used
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # bf16 base-width GPT, flash vs plain attention: the relative L2 distance
 # of the key and value projections' gradients (they come from dk and dv
@@ -133,6 +141,11 @@ KERNEL_INFO = {
                        "tfk8s_tpu/ops/group_norm.py:68"),
     "group_norm_bwd": ("tfk8s_tpu_torch/ops/csrc/group_norm.cu",
                        "tfk8s_tpu/ops/group_norm.py:137"),
+    # the two-read path, for shapes whose slab does not fit a cluster
+    "group_norm_fwd_2pass": ("tfk8s_tpu_torch/ops/csrc/group_norm.cu",
+                             "tfk8s_tpu/ops/group_norm.py:68"),
+    "group_norm_bwd_2pass": ("tfk8s_tpu_torch/ops/csrc/group_norm.cu",
+                             "tfk8s_tpu/ops/group_norm.py:137"),
     "block_copy": ("tfk8s_tpu_torch/ops/csrc/block_copy.cu", "tools/roofline.py:124"),
 }
 # the resnet:train run: ResNet-50 at its published widths
@@ -158,34 +171,22 @@ RESNET_GN_SITES = 53  # stem + 16 bottlenecks x 3 + 4 projections
 RESNET50_F32_LOGIT_RTOL = 1e-4
 RESNET50_BF16_LOGIT_RTOL = 2e-2
 RESNET50_FAULTS_CAUGHT = ("first_quarter_dropped", "groups_mismapped")
-# GroupNorm cases: (name, [B, H, W, C], groups, relu); the line's shape first
+# GroupNorm cases: (name, [B, H, W, C], groups, relu); the line's shape
+# first, for the one-read kernels; the last takes the two-read path (one
+# group across a 256x256x32 image: 4 MB a sample in bfloat16, beyond 8
+# blocks' shared memory) and gives the line its two-read rows
 GN_CASES = [
     ("gn_56x56x256", (256, 56, 56, 256), 32, False),
     ("gn_112x112x64_relu", (256, 112, 112, 64), 32, True),
     ("gn_7x7x2048_relu", (256, 7, 7, 2048), 32, True),
-    ("gn_7x7x4096_relu", (64, 7, 7, 4096), 32, True),  # two channel tiles (width 128)
+    ("gn_7x7x4096_relu", (64, 7, 7, 4096), 32, True),  # ResNet-50 at width 128
+    ("gn_256x256x32_g1", (16, 256, 256, 32), 1, False),
 ]
 COPY_SHAPE = (8192, 8192)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def _time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
-    import torch
-
-    fn()
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 class Case:
@@ -251,6 +252,8 @@ class Case:
     def bound_ms(self, kernel: str):
         """Least time on the card: the larger of bytes over the memory
         rate and FLOPs over the peak rate for the inputs' type."""
+        from tfk8s_tpu_torch.tools.gn_sweep import HBM_BYTES_PER_S
+
         nbytes, flops = self.work(kernel)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS[self.dtype_name] * 1e3
@@ -291,25 +294,6 @@ def _err(pairs, atol, rtol=0.0):
     return worst, ok
 
 
-def _device_ms(fn, iters: int):
-    """Device time of one call of ``fn``: the sum of the card's kernel
-    times in a ``torch.profiler`` trace of ``iters`` calls, or None when
-    the trace holds no device time. Unlike CUDA events around back-to-back
-    calls, it leaves out the host's time between launches."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / iters * 1e-3 if us > 0 else None
-
-
 def check_case(fa, case: Case, iters: int, profile: bool = False):
     """Each kernel against its plain version on ``case``; returns one
     result dict per kernel and, in bfloat16, one for the whole backward
@@ -317,6 +301,8 @@ def check_case(fa, case: Case, iters: int, profile: bool = False):
     tensor-core kernels, float32 the CUDA-core ones. ``profile`` adds each
     row's device time from a profiler trace."""
     import torch
+
+    from tfk8s_tpu_torch.tools.gn_sweep import device_ms, events_ms
 
     bf16 = case.dtype_name == "bfloat16"
     out_tol = BF16_ATOL if bf16 else F32_OUT_ATOL
@@ -396,17 +382,17 @@ def check_case(fa, case: Case, iters: int, profile: bool = False):
     results = []
     for name, (kern, plain, lib) in runs.items():
         bound, by = case.bound_ms(name)
-        ms = _time_ms(kern, iters)
+        ms = events_ms(kern, iters)
         r = {
             "case": case.name, "kernel": name, "dtype": case.dtype_name,
             "max_abs_err": errs[name][0], "atol": tols[name], "rtol": rtol,
-            "ms": ms, "plain_ms": _time_ms(plain, max(iters // 4, 1)),
+            "ms": ms, "plain_ms": events_ms(plain, max(iters // 4, 1)),
             "bound_ms": bound, "bound_by": by, "tflops": case.work(name)[1] / ms * 1e-9,
-            "library_ms": None if lib is None else _time_ms(lib, iters),
+            "library_ms": None if lib is None else events_ms(lib, iters),
         }
         if profile:
-            r["device_ms"] = _device_ms(kern, iters)
-            r["library_device_ms"] = None if lib is None else _device_ms(lib, iters)
+            r["device_ms"] = device_ms(kern, iters)
+            r["library_device_ms"] = None if lib is None else device_ms(lib, iters)
         log(f"  {json.dumps(r)}")
         if not errs[name][1]:
             raise AssertionError(f"{case.name}/{name}: beyond atol {tols[name]} rtol {rtol}")
@@ -425,27 +411,30 @@ def _gn_inputs(shape, dtype, seed):
     return x, dy, scale, bias
 
 
-def _gn_bound_ms(n, elt, backward):
-    """Bytes over the memory rate: x in, y out (forward); dy, x in, dx out
-    (backward). The per-(sample, group) statistics and [C] parameters
-    are negligible next to them."""
-    return (3 if backward else 2) * n * elt / HBM_BYTES_PER_S * 1e3
-
-
 def check_group_norm(gn, torch, name, shape, groups, relu, dtype, iters):
-    """Both GroupNorm kernels against their plain versions on one case."""
+    """Both GroupNorm kernels against their plain versions on one case,
+    each under the name of the path (one read or two) that the kernels'
+    layout rule gives the shape; each row with its device time and
+    ``F.group_norm``'s."""
     import torch.nn.functional as F
+
+    from tfk8s_tpu_torch.tools.gn_sweep import bound_ms, device_ms, events_ms
 
     x, dy, scale, bias = _gn_inputs(shape, dtype, seed=len(name))
     bf16 = dtype == torch.bfloat16
     atol_y, atol_dx = (2e-2, 2e-2) if bf16 else (F32_OUT_ATOL, F32_GRAD_ATOL)
     rtol = BF16_RTOL if bf16 else 0.0
+    fwd_name, bwd_name = (gn.kernel_name(shape, groups, dtype, bwd) for bwd in (False, True))
+    gn.reset_launches()
     y_k, m_k, r_k = gn.group_norm_fwd_cuda(x, scale, bias, groups, relu=relu)
     y_p, m_p, r_p = gn.group_norm_fwd_plain(x, scale, bias, groups, relu=relu)
     # both backwards from the kernel's statistics, so the ReLU masks agree
     dx_k, ds_k, db_k = gn.group_norm_bwd_cuda(dy, x, scale, bias, m_k, r_k, groups, relu)
     dx_p, ds_p, db_p = gn.group_norm_bwd_plain(dy, x, scale, bias, m_k, r_k, groups, relu)
     torch.cuda.synchronize()
+    want = {**dict.fromkeys(gn.KERNELS, 0), fwd_name: 1, bwd_name: 1}
+    if dict(gn.LAUNCHES) != want:
+        raise AssertionError(f"{name}: group-norm launches {dict(gn.LAUNCHES)}, want {want}")
     for t in (y_k, dx_k, ds_k, db_k):
         if not torch.isfinite(t).all():
             raise AssertionError(f"{name}: a group-norm kernel output is not finite")
@@ -474,24 +463,25 @@ def check_group_norm(gn, torch, name, shape, groups, relu, dtype, iters):
 
     n, elt = x.numel(), x.element_size()
     runs = {
-        "group_norm_fwd": (
+        fwd_name: (
             lambda: gn.group_norm_fwd_cuda(x, scale, bias, groups, relu=relu),
             lambda: gn.group_norm_fwd_plain(x, scale, bias, groups, relu=relu),
             lib_fwd, max(e_fwd[0], e_stats[0]), e_fwd[1] and e_stats[1],
-            _gn_bound_ms(n, elt, False)),
-        "group_norm_bwd": (
+            bound_ms(n, elt, False)),
+        bwd_name: (
             lambda: gn.group_norm_bwd_cuda(dy, x, scale, bias, m_k, r_k, groups, relu),
             lambda: gn.group_norm_bwd_plain(dy, x, scale, bias, m_k, r_k, groups, relu),
             lib_bwd, max(e_dx[0], e_par[0]), e_dx[1] and e_par[1],
-            _gn_bound_ms(n, elt, True)),
+            bound_ms(n, elt, True)),
     }
     results = []
     for kname, (kern, plain, lib, worst, ok, bound) in runs.items():
         r = {
             "case": f"{name}_{str(dtype).replace('torch.', '')}", "kernel": kname,
-            "shape": list(shape), "max_abs_err": worst, "ms": _time_ms(kern, iters),
-            "plain_ms": _time_ms(plain, max(iters // 4, 1)), "bound_ms": bound,
-            "bound_by": "bytes", "library_ms": _time_ms(lib, iters),
+            "shape": list(shape), "max_abs_err": worst, "ms": events_ms(kern, iters),
+            "plain_ms": events_ms(plain, max(iters // 4, 1)), "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": events_ms(lib, iters),
+            "device_ms": device_ms(kern, iters), "library_device_ms": device_ms(lib, iters),
         }
         log(f"  {json.dumps(r)}")
         if not ok:
@@ -500,57 +490,25 @@ def check_group_norm(gn, torch, name, shape, groups, relu, dtype, iters):
     return results
 
 
-def resnet50_gn_sites(torch, resnet):
-    """(shape [B, H, W, C], groups, relu) of every GroupNorm call of one
-    ResNet-50 forward at batch 256, image 224, recorded on a meta-device
-    pass through the real model code."""
-    sites = []
-    real = resnet.fused_group_norm
+def gn_step_sweep():
+    """Each GroupNorm kernel at every ResNet-50 norm site's shape (bfloat16,
+    batch 256): its device time (profiler) and event time a site, and
+    their sums a training step against the bounds, from
+    ``tfk8s_tpu_torch/tools/gn_sweep.py``."""
+    from tfk8s_tpu_torch.tools import gn_sweep
 
-    def record(x, scale, bias, groups, eps=1e-6, relu=False):
-        sites.append((tuple(x.shape), groups, relu))
-        return torch.empty_like(x)
-
-    resnet.fused_group_norm = record
-    try:
-        with torch.device("meta"):
-            model = resnet.ResNet(50, 1000, 64)
-            model(torch.empty(256, 224, 224, 3))
-    finally:
-        resnet.fused_group_norm = real
-    return sites
-
-
-def gn_step_sweep(gn, torch, resnet):
-    """Each GroupNorm kernel once at every ResNet-50 norm site's shape
-    (bfloat16, batch 256): its time per training step against its bound
-    per step."""
-    sites = resnet50_gn_sites(torch, resnet)
-    if len(sites) != RESNET_GN_SITES:
-        raise AssertionError(f"{len(sites)} norm sites, want {RESNET_GN_SITES}")
-    by_shape = {}
-    for site in sites:
-        by_shape[site] = by_shape.get(site, 0) + 1
-    tot = {"fwd_ms": 0.0, "bwd_ms": 0.0, "fwd_bound_ms": 0.0, "bwd_bound_ms": 0.0,
-           "elements": 0}
-    for (shape, groups, relu), count in by_shape.items():
-        x, dy, scale, bias = _gn_inputs(shape, torch.bfloat16, seed=7)
-        y, m, r = gn.group_norm_fwd_cuda(x, scale, bias, groups, relu=relu)
-        f = _time_ms(lambda: gn.group_norm_fwd_cuda(x, scale, bias, groups, relu=relu), 5)
-        b = _time_ms(lambda: gn.group_norm_bwd_cuda(dy, x, scale, bias, m, r, groups, relu), 5)
-        tot["fwd_ms"] += count * f
-        tot["bwd_ms"] += count * b
-        tot["fwd_bound_ms"] += count * _gn_bound_ms(x.numel(), 2, False)
-        tot["bwd_bound_ms"] += count * _gn_bound_ms(x.numel(), 2, True)
-        tot["elements"] += count * x.numel()
-        log(f"  site {list(shape)} relu={relu} x{count}: fwd {f:.4f} ms, bwd {b:.4f} ms")
-        del x, dy, y
-    log(f"gn per ResNet-50 step (bf16, batch 256, {len(sites)} sites): {json.dumps(tot)}")
-    return tot
+    out = gn_sweep.sweep(log=lambda line: log(f"  {line}"))
+    if out["sites"] != RESNET_GN_SITES:
+        raise AssertionError(f"{out['sites']} norm sites, want {RESNET_GN_SITES}")
+    log(f"gn per ResNet-50 step (bf16, batch 256, {out['sites']} sites): "
+        f"{json.dumps({k: v for k, v in out.items() if k != 'rows'})}")
+    return out
 
 
 def check_copy(bc, torch, iters):
     """The block copy against ``out.copy_(x)``: bit-exact."""
+    from tfk8s_tpu_torch.tools.gn_sweep import HBM_BYTES_PER_S, events_ms
+
     rows, cols = COPY_SHAPE
     x = torch.randn(rows, cols, device=DEVICE)
     out_k = torch.full_like(x, float("nan"))
@@ -562,10 +520,10 @@ def check_copy(bc, torch, iters):
     r = {
         "case": "copy_8192x8192_f32", "kernel": "block_copy",
         "max_abs_err": float((out_k - out_p).abs().max()),
-        "ms": _time_ms(lambda: bc.block_copy_cuda(x, spare), iters),
-        "plain_ms": _time_ms(lambda: bc.block_copy_plain(x, spare), iters),
+        "ms": events_ms(lambda: bc.block_copy_cuda(x, spare), iters),
+        "plain_ms": events_ms(lambda: bc.block_copy_plain(x, spare), iters),
         "bound_ms": 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": _time_ms(lambda: spare.copy_(x), iters),
+        "library_ms": events_ms(lambda: spare.copy_(x), iters),
     }
     log(f"  {json.dumps(r)}")
     if not exact:
@@ -618,9 +576,9 @@ def phase_card():
 
 def phase_build(_build):
     """Build every source; report ptxas's registers and spills for every
-    tensor-core flash instantiation, the block copy and every
-    instantiation that spills. A tensor-core instantiation that spills, at
-    any head dim, fails."""
+    tensor-core flash instantiation, the one-read GroupNorm kernels, the
+    block copy and every instantiation that spills. A tensor-core or
+    one-read GroupNorm instantiation that spills fails."""
     seconds, logs = _build.build_all(verbose=True)
     log(f"build: {seconds:.1f} s for {list(_build.SOURCES)}")
     entry, spilled = None, []
@@ -635,15 +593,20 @@ def phase_build(_build):
         name = re.search(r"tfk8s_\w+?_kernel", entry)
         tag = name.group(0) if name else entry
         wgmma = "wgmma" in tag or "dsum" in tag
+        cluster = "cluster" in tag  # the one-read GroupNorm kernels
         head_dim = re.search(r"ILi(\d+)EE", entry)
         if head_dim and (wgmma or "simt" in tag):  # a flash kernel's head dim
             tag += f"<d={head_dim.group(1)}>"
-        if wgmma or "block_copy" in tag or spills:
+        inst = re.search(r"cluster_kernelI(\w+?)Li(\d+)ELb(\d)E", entry)
+        if inst:  # a GroupNorm instantiation: <type, vec, relu>
+            dtype = "bf16" if "bfloat16" in inst.group(1) else "f32"
+            tag += f"<{dtype},{inst.group(2)},{inst.group(3)}>"
+        if wgmma or cluster or "block_copy" in tag or spills:
             log(f"  ptxas {tag}: {line.split(':', 1)[-1].strip()}")
-        if spills and wgmma:
+        if spills and (wgmma or cluster):
             spilled.append(tag)
     if spilled:
-        raise AssertionError(f"tensor-core kernels spill: {sorted(set(spilled))}")
+        raise AssertionError(f"kernels spill: {sorted(set(spilled))}")
 
 
 def phase_kernels(fa, torch):
@@ -669,7 +632,6 @@ def phase_kernels(fa, torch):
         res = check_case(fa, case, iters=20 if i == 0 else 5, profile=i == 0)
         if i == 0:
             line.update((r["kernel"], r) for r in res)
-    from tfk8s_tpu_torch.models import resnet
     from tfk8s_tpu_torch.ops import block_copy as bc
     from tfk8s_tpu_torch.ops import group_norm as gn
 
@@ -677,10 +639,10 @@ def phase_kernels(fa, torch):
         for dtype in (torch.bfloat16, torch.float32):
             log(f"case {name} {dtype}:")
             res = check_group_norm(gn, torch, name, shape, groups, relu, dtype, iters=10)
-            if i == 0 and dtype == torch.bfloat16:
-                line.update((r["kernel"], r) for r in res)
+            if dtype == torch.bfloat16:  # the first case's row of each kernel
+                line.update((r["kernel"], r) for r in res if r["kernel"] not in line)
             torch.cuda.empty_cache()
-    gn_step_sweep(gn, torch, resnet)
+    gn_step_sweep()
     log("case copy:")
     line["block_copy"] = check_copy(bc, torch, iters=20)
     return line
@@ -869,8 +831,11 @@ def phase_resnet_reference(torch, resnet, gn):
         loss.backward()
         losses.append(loss.item())
         grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
-    if gn.LAUNCHES["group_norm_fwd"] != RESNET_GN_SITES:
-        raise AssertionError(f"card pass launched {dict(gn.LAUNCHES)}")
+    # every site through the one-read kernels, forward and backward
+    want = {**dict.fromkeys(gn.TWO_READ_KERNELS, 0),
+            **dict.fromkeys(gn.ONE_READ_KERNELS, RESNET_GN_SITES)}
+    if dict(gn.LAUNCHES) != want:
+        raise AssertionError(f"card pass launched {dict(gn.LAUNCHES)}, want {want}")
     num = sum(float((grads[0][n] - grads[1][n]).square().sum()) for n in grads[0])
     den = sum(float(grads[0][n].square().sum()) for n in grads[0])
     g_rel, l_err = math.sqrt(num / den), abs(losses[0] - losses[1])
@@ -951,10 +916,11 @@ def phase_resnet_train(torch, resnet, gn, ckpt_dir):
     log(f"resnet train: {json.dumps(summary)}")
     if len(losses) != RESNET_STEPS or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"losses not finite: {losses}")
-    for name in gn.KERNELS:  # one launch per norm site and step
-        if launches[name] != RESNET_GN_SITES * RESNET_STEPS:
-            raise AssertionError(f"{name} launched {launches[name]} times, "
-                                 f"want {RESNET_GN_SITES * RESNET_STEPS}")
+    # one launch of each one-read kernel per norm site and step, no two-read one
+    want = {**dict.fromkeys(gn.TWO_READ_KERNELS, 0),
+            **dict.fromkeys(gn.ONE_READ_KERNELS, RESNET_GN_SITES * RESNET_STEPS)}
+    if launches != want:
+        raise AssertionError(f"group-norm launches {launches}, want {want}")
     latest = Checkpointer(ckpt_dir).latest_step()
     log(f"checkpoint: latest_step {latest}")
     if latest != RESNET_STEPS:

@@ -14,10 +14,14 @@ atol 2e-2 plus one bfloat16 rounding step (rtol 2^-7) of the plain
 version's, which computes in float32 from the same bfloat16 inputs; the
 kernels round P and dS to bfloat16 before their second products.
 GroupNorm in bfloat16: outputs and dx within one bfloat16 rounding step
-of the plain version's (atol 2e-2 plus rtol 2^-7), the float32 dscale and
-dbias to atol 1e-2 + rtol 1e-3 (sums over up to 12.8 M values in another
-order). The copy is bit-exact.
+of the plain version's (atol 2e-2 plus rtol 2^-7). The float32 dscale and
+dbias, in both types, against the float64 sums of the same float32 terms,
+within PARAM_EPS float32 rounding steps of the terms' L2 norm, a bound
+that grows with the sum's length as its rounding does. The copy is
+bit-exact.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -318,8 +322,40 @@ def _gn_inputs(shape, dtype, device, seed=0, mean=0.5):
     return x, dy, scale, bias
 
 
-def _gn_check(shape, groups, relu, dtype, device):
-    x, dy, scale, bias = _gn_inputs(shape, dtype, device)
+# dscale and dbias: each channel's distance from the float64 sum of its
+# float32 terms stays within PARAM_EPS float32 rounding steps (2^-23) of
+# the terms' L2 norm. A float32 sum taken in blocks, in any order, errs by
+# a few such steps (for terms of one size the bound grows as the square
+# root of the sum's length); one term dropped from a long sum exceeds it.
+PARAM_EPS = 32
+
+
+def _gn_param_check(ds_k, db_k, dy, x, scale, bias, mean, rstd, groups, relu):
+    """dscale and dbias against the float64 sums of the float32 terms
+    dz * xhat and dz, formed as the plain version forms them."""
+    b, h, w, c = x.shape
+    cg = c // groups
+    xhat = (x.float().reshape(b, h * w, groups, cg) - mean[:, None, :, None]) \
+        * rstd[:, None, :, None]
+    dz = dy.float().reshape(b, h * w, groups, cg)
+    if relu:
+        pre = xhat * scale.reshape(groups, cg) + bias.reshape(groups, cg)
+        dz = torch.where(pre > 0, dz, torch.zeros((), device=dz.device))
+    for name, got, terms in (("dscale", ds_k, dz * xhat), ("dbias", db_k, dz)):
+        t = terms.double().reshape(-1, c)
+        err = (got.double() - t.sum(0)).abs()
+        bound = PARAM_EPS * 2.0 ** -23 * t.square().sum(0).sqrt()
+        share = float((err / bound.clamp_min(1e-300)).max())
+        assert bool((err <= bound).all()), f"{name}: {share:.3g} times the bound"
+
+
+def _gn_check(shape, groups, relu, dtype, device, x=None):
+    """Both kernels against their plain versions on one case; each launch
+    must count under the path that the layout rule gives the case and
+    x's alignment."""
+    x_, dy, scale, bias = _gn_inputs(shape, dtype, device)
+    x = x_ if x is None else x.copy_(x_)
+    tgn.reset_launches()
     y_k, m_k, r_k = tgn.group_norm_fwd_cuda(x, scale, bias, groups, relu=relu)
     y_p, m_p, r_p = tgn.group_norm_fwd_plain(x, scale, bias, groups, relu=relu)
     bf16 = dtype == torch.bfloat16
@@ -329,13 +365,15 @@ def _gn_check(shape, groups, relu, dtype, device):
     torch.testing.assert_close(y_k.float(), y_p.float(), **out_tol)
     # both backwards from the kernel's statistics: the ReLU mask must agree
     dx_k, ds_k, db_k = tgn.group_norm_bwd_cuda(dy, x, scale, bias, m_k, r_k, groups, relu)
-    dx_p, ds_p, db_p = tgn.group_norm_bwd_plain(dy, x, scale, bias, m_k, r_k, groups, relu)
+    dx_p, _, _ = tgn.group_norm_bwd_plain(dy, x, scale, bias, m_k, r_k, groups, relu)
     grad_tol = dict(atol=2e-2, rtol=2 ** -7) if bf16 else dict(atol=GRAD_ATOL, rtol=0)
     torch.testing.assert_close(dx_k.float(), dx_p.float(), **grad_tol)
-    par_tol = dict(atol=1e-2, rtol=1e-3) if x.numel() > 1e6 else dict(atol=GRAD_ATOL, rtol=0)
-    torch.testing.assert_close(ds_k, ds_p, **par_tol)
-    torch.testing.assert_close(db_k, db_p, **par_tol)
+    _gn_param_check(ds_k, db_k, dy, x, scale, bias, m_k, r_k, groups, relu)
     torch.cuda.synchronize()
+    want = dict.fromkeys(tgn.KERNELS, 0)
+    for backward in (False, True):
+        want[tgn.kernel_name(shape, groups, dtype, backward, tgn.alignment(x))] = 1
+    assert tgn.LAUNCHES == want
 
 
 @pytest.mark.cuda
@@ -376,14 +414,123 @@ def test_group_norm_kernel_puts_eps_inside_the_square_root(card):
 
 
 @pytest.mark.cuda
-def test_group_norm_kernel_repeats_bit_for_bit(card):
-    x, dy, scale, bias = _gn_inputs((8, 28, 28, 512), torch.bfloat16, card)
+@pytest.mark.parametrize("shape,dtype", [
+    ((8, 28, 28, 512), torch.bfloat16),   # clusters of one block
+    ((2, 112, 112, 64), torch.bfloat16),  # clusters of 8
+    ((2, 112, 112, 64), torch.float32),   # clusters of 7
+    ((1, 176, 176, 32), torch.bfloat16),  # the two-read path (one group, G = 1)
+], ids=["k1", "k8", "k7_f32", "two_read"])
+def test_group_norm_kernel_repeats_bit_for_bit(card, shape, dtype):
+    groups = 1 if shape[-1] == 32 else 32
+    x, dy, scale, bias = _gn_inputs(shape, dtype, card)
     outs = []
     for _ in range(2):
-        y, m, r = tgn.group_norm_fwd_cuda(x, scale, bias, 32, relu=True)
-        outs.append((y, m, r, *tgn.group_norm_bwd_cuda(dy, x, scale, bias, m, r, 32, True)))
+        tgn.reset_launches()
+        y, m, r = tgn.group_norm_fwd_cuda(x, scale, bias, groups, relu=True)
+        outs.append((y, m, r, *tgn.group_norm_bwd_cuda(dy, x, scale, bias, m, r, groups, True)))
+        assert tgn.LAUNCHES[tgn.kernel_name(shape, groups, dtype, False)] == 1
+        assert tgn.LAUNCHES[tgn.kernel_name(shape, groups, dtype, True)] == 1
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+# forward cluster size -> a case that takes it: [B, H, W, C] with C = 64 in
+# 32 groups (tiles of 64 bytes a position), H x W growing
+GN_CLUSTERS = {1: (2, 40, 40, 64), 2: (2, 56, 56, 64), 4: (2, 80, 80, 64),
+               8: (2, 160, 160, 64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True], ids=["plain", "relu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("k", list(GN_CLUSTERS))
+def test_group_norm_one_read_kernels_at_each_cluster_size(card, k, dtype, relu):
+    shape = GN_CLUSTERS[k]
+    assert tgn.cluster_size(shape, 32, dtype, False) == k
+    assert tgn.cluster_size(shape, 32, dtype, True) >= k
+    _gn_check(shape, 32, relu, dtype, card)
+
+
+# (shape, groups, dtype, forward path, backward path): each side of the
+# one-read / two-read boundary, in slab size (one group across the image)
+# and in tile width (one group across C)
+GN_BOUNDARY = [
+    ((1, 112, 112, 32), 1, torch.bfloat16, "one", "one"),
+    ((1, 160, 160, 32), 1, torch.bfloat16, "one", "two"),
+    ((1, 176, 176, 32), 1, torch.bfloat16, "two", "two"),
+    ((1, 4, 4, 2048), 1, torch.float32, "one", "one"),
+    ((1, 4, 4, 4096), 1, torch.float32, "two", "two"),
+    ((1, 4, 4, 4096), 1, torch.bfloat16, "one", "two"),
+    ((1, 4, 4, 8192), 1, torch.bfloat16, "two", "two"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups,dtype,fwd,bwd", GN_BOUNDARY,
+                         ids=[f"{'x'.join(map(str, c[0]))}_{str(c[2])[6:]}" for c in GN_BOUNDARY])
+def test_group_norm_path_on_each_side_of_the_one_read_boundary(card, shape, groups, dtype, fwd,
+                                                               bwd):
+    for backward, want in ((False, fwd), (True, bwd)):
+        assert (tgn.cluster_size(shape, groups, dtype, backward) > 0) == (want == "one")
+    _gn_check(shape, groups, True, dtype, card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,groups", [((2, 9, 7, 15), 5), ((2, 6, 5, 40), 10)],
+                         ids=["c15_odd", "c40_g10"])
+def test_group_norm_one_read_without_tma(card, shape, groups, dtype):
+    """C * elt not a multiple of 16 bytes (in bfloat16 for C = 40): the
+    slab arrives by cp.async (a single bfloat16 at a time for odd C)
+    instead of TMA boxes."""
+    assert tgn.cluster_size(shape, groups, dtype, False) > 0
+    _gn_check(shape, groups, True, dtype, card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups,dtype,offset,path", [
+    ((2, 8, 8, 64), 32, torch.float32, 2, "one"),    # 8 bytes past: 8-byte loads
+    ((2, 8, 8, 64), 32, torch.bfloat16, 1, "one"),   # 2 bytes past: a value a load
+    ((1, 4, 4, 2048), 1, torch.float32, 1, "two"),   # 4 bytes past: 2048 columns of one value
+], ids=["f32_8B", "bf16_2B", "f32_4B_wide"])
+def test_group_norm_path_of_a_misaligned_tensor(card, shape, groups, dtype, offset, path):
+    """A view that starts mid-buffer keeps the one-read kernel (cp.async
+    loads as wide as its alignment allows) while its tile fits 512
+    columns; the same shape 16-byte aligned would take TMA boxes."""
+    x = torch.empty(math.prod(shape) + offset, dtype=dtype, device=card)[offset:].view(shape)
+    assert x.is_contiguous() and tgn.alignment(x) == offset * x.element_size()
+    for backward in (False, True):
+        got = tgn.cluster_size(shape, groups, dtype, backward, tgn.alignment(x)) > 0
+        assert got == (path == "one")
+    _gn_check(shape, groups, True, dtype, card, x=x)
+
+
+@pytest.mark.cuda
+def test_group_norm_stem_backward_in_f32_holds_the_largest_slab(card):
+    """ResNet-50's stem at batch 256, float32: 1.6 MB of x and dy a
+    (sample, two-group tile), held by the largest cluster the rule gives a
+    ResNet-50 site."""
+    shape = (256, 112, 112, 64)
+    assert tgn.cluster_size(shape, 32, torch.float32, True) == 7
+    _gn_check(shape, 32, True, torch.float32, card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups", [((4, 56, 56, 64), 32), ((1, 176, 176, 32), 1)],
+                         ids=["one_read", "two_read"])
+def test_group_norm_backward_writes_every_per_sample_partial(card, shape, groups):
+    """dscale and dbias come from [B, C] per-sample partials in a [2, B, C]
+    buffer that torch.empty hands over unwritten: fill the allocator's
+    cached blocks of that size with NaN first, so that an entry the kernels
+    left unwritten would show."""
+    x, dy, scale, bias = _gn_inputs(shape, torch.float32, card, seed=5)
+    b, c = shape[0], shape[-1]
+    junk = [torch.full((2, b, c), float("nan"), device=card) for _ in range(64)]
+    del junk
+    _, m, r = tgn.group_norm_fwd_cuda(x, scale, bias, groups, relu=True)
+    _, ds_k, db_k = tgn.group_norm_bwd_cuda(dy, x, scale, bias, m, r, groups, True)
+    assert torch.isfinite(ds_k).all() and torch.isfinite(db_k).all()
+    _gn_param_check(ds_k, db_k, dy, x, scale, bias, m, r, groups, True)
 
 
 @pytest.mark.cuda
@@ -402,11 +549,36 @@ def test_group_norm_autograd_on_the_card_never_reaches_the_plain_path(card, monk
         y = tgn.fused_group_norm(*ts, 32, relu=True)
         y.backward(dy.to(dev))
         outs.append([t.detach().cpu() for t in (y, *(u.grad for u in ts))])
-        want = 1 if dev.type == "cuda" else 0
-        assert tgn.LAUNCHES == dict.fromkeys(tgn.KERNELS, want)
+        want = dict.fromkeys(tgn.KERNELS, 0)
+        if dev.type == "cuda":  # one launch a direction, both of the one-read kernels
+            want.update(dict.fromkeys(tgn.ONE_READ_KERNELS, 1))
+        assert tgn.LAUNCHES == want
         monkeypatch.undo()
     for got, want in zip(*outs):
         torch.testing.assert_close(got, want, atol=GRAD_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups,dtype,kernels", [
+    ((4, 56, 56, 64), 32, torch.bfloat16, tgn.ONE_READ_KERNELS),
+    ((2, 7, 7, 2048), 32, torch.float32, tgn.ONE_READ_KERNELS),
+    ((1, 176, 176, 32), 1, torch.bfloat16, tgn.TWO_READ_KERNELS),
+], ids=["one_read_bf16", "one_read_f32", "two_read_bf16"])
+def test_group_norm_autograd_launch_counts(card, shape, groups, dtype, kernels):
+    """fused_group_norm under autograd, three steps: each step launches one
+    forward and one backward kernel of the path its shape takes, and no
+    other GroupNorm kernel."""
+    x, dy, scale, bias = _gn_inputs(shape, dtype, card, seed=2)
+    for t in (x, scale, bias):
+        t.requires_grad_()
+    tgn.reset_launches()
+    for _ in range(3):
+        tgn.fused_group_norm(x, scale, bias, groups, relu=True).backward(dy)
+    torch.cuda.synchronize()
+    want = dict.fromkeys(tgn.KERNELS, 0)
+    want.update(dict.fromkeys(kernels, 3))
+    assert tgn.LAUNCHES == want
+    assert torch.isfinite(x.grad).all() and torch.isfinite(scale.grad).all()
 
 
 @pytest.mark.cuda

@@ -23,6 +23,16 @@ Sets:
 - ``copy``: the TMA bulk copy (``block_copy.cu``) at [8192, 8192] f32:
   contiguous runs of chunks a block, no L2 evict-first hints, bytes a
   stage, stages, blocks an SM; beside ``Tensor.copy_``.
+- ``gn``: the one-read GroupNorm kernels (``group_norm.cu``) at five
+  ResNet-50 norm sites (bfloat16, batch 256): the layout rule's
+  preferences (the least bytes a tile holds of a position, the shared
+  memory a block takes), each timed forward and backward by profiler
+  device time of the bare entry points (no wrapper), in turns, and checked
+  against the shipped kernel's output.
+
+    python -m tfk8s_tpu_torch.tools.kernel_variants [SET ...]
+
+runs the named sets (all by default).
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from tfk8s_tpu_torch.ops import _build
+from tfk8s_tpu_torch.tools.gn_sweep import bound_ms, device_ms, events_ms
 
 VARIANT_DIR = _build.BUILD_DIR.parent / "variants"
 ROUNDS = 2
@@ -74,6 +85,14 @@ _COPY_NO_HINTS = {
 }
 
 
+_GN_PREFS = ("constexpr int kPrefs[][2] = {{64, kSmemTwoBlocks}, {32, kSmemTwoBlocks}, "
+             "{32, kSmemMax}};")
+
+
+def _gn_prefs(*prefs: str) -> Dict[str, str]:
+    return {_GN_PREFS: "constexpr int kPrefs[][2] = {" + ", ".join(prefs) + "};"}
+
+
 def _copy_variant(chunk: int, stages: int, blocks: int) -> Dict[str, str]:
     return {"constexpr int kChunk = 16384;": f"constexpr int kChunk = {chunk};",
             "constexpr int kStages = 4;": f"constexpr int kStages = {stages};",
@@ -95,7 +114,21 @@ VARIANTS: Dict[str, Tuple[str, Dict[str, Dict[str, str]]]] = {
            for c, s, b in ((32768, 4, 1), (65536, 3, 1), (16384, 8, 1), (4096, 16, 2),
                            (16384, 3, 4))},
     }),
+    "gn": ("group_norm", {
+        "tile32": _gn_prefs("{32, kSmemTwoBlocks}", "{32, kSmemMax}"),
+        "tile128": _gn_prefs("{128, kSmemTwoBlocks}", "{64, kSmemTwoBlocks}",
+                             "{32, kSmemTwoBlocks}", "{32, kSmemMax}"),
+        "smem75k": _gn_prefs("{64, 75 * 1024}", "{64, kSmemTwoBlocks}", "{32, kSmemTwoBlocks}",
+                             "{32, kSmemMax}"),
+        "fwd512": {"constexpr int kFwdThreads = 256;": "constexpr int kFwdThreads = 512;"},
+        "fwd128": {"constexpr int kFwdThreads = 256;": "constexpr int kFwdThreads = 128;"},
+        "bwd128": {"constexpr int kBwdThreads = 256;": "constexpr int kBwdThreads = 128;"},
+        "bwd512": {"constexpr int kBwdThreads = 256;": "constexpr int kBwdThreads = 512;"},
+    }),
 }
+GN_SITES = (((256, 56, 56, 256), False), ((256, 112, 112, 64), True),
+            ((256, 28, 28, 512), False), ((256, 14, 14, 1024), False),
+            ((256, 7, 7, 2048), True))
 
 
 def build_variants(source: str, variants: Dict[str, Dict[str, str]]) -> Dict[str, Tuple[Path, str]]:
@@ -138,27 +171,97 @@ def ptxas_report(log: str, kernel: str) -> List[str]:
     return lines
 
 
-def _events_ms(fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def in_turns(shipped, variant, iters: int, rounds: int) -> Tuple[float, float]:
     """Mean ms of each, timed shipped, variant, variant, shipped."""
     a, b = [], []
     for _ in range(rounds):
-        a.append(_events_ms(shipped, iters))
-        b.append(_events_ms(variant, iters))
-        b.append(_events_ms(variant, iters))
-        a.append(_events_ms(shipped, iters))
+        a.append(events_ms(shipped, iters))
+        b.append(events_ms(variant, iters))
+        b.append(events_ms(variant, iters))
+        a.append(events_ms(shipped, iters))
     return sum(a) / len(a), sum(b) / len(b)
+
+
+def run_gn(rounds: int) -> None:
+    from tfk8s_tpu_torch.ops import group_norm as gn
+
+    source, variants = VARIANTS["gn"]
+    built = build_variants(source, variants)
+    libs = {}
+    for name, (lib_path, log) in built.items():
+        lib = ctypes.CDLL(str(lib_path))
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.tfk8s_group_norm_fwd.argtypes = [P] * 6 + [I] * 4 + [F] + [I] * 2 + [P]
+        lib.tfk8s_group_norm_bwd.argtypes = [P] * 9 + [I] * 6 + [P]
+        lib.tfk8s_group_norm_cluster_size.argtypes = [I] * 7
+        libs[name] = lib
+        spills = [ln for ln in log.splitlines() if re.search(r"[1-9]\d* bytes spill", ln)]
+        print(json.dumps({"set": "gn", "variant": name, "spill_lines": len(spills)}), flush=True)
+    for shape, relu in GN_SITES:
+        b, h, w, c = shape
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(torch.bfloat16)
+        dy = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        scale, bias = (torch.randn(c, generator=gen, device="cuda") for _ in range(2))
+        _, m_s, r_s = gn.group_norm_fwd_cuda(x, scale, bias, 32, relu=relu)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def entry_points(lib, name):
+            """Both entry points of one library on the same tensors, with
+            no wrapper around them (no allocation, no sum of the partials)."""
+            y, dx = torch.empty_like(x), torch.empty_like(x)
+            m, r = torch.empty_like(m_s), torch.empty_like(r_s)
+            part = torch.empty(2, b, c, device="cuda")
+
+            def fwd():
+                rc = lib.tfk8s_group_norm_fwd(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                                              y.data_ptr(), m.data_ptr(), r.data_ptr(), b, h * w,
+                                              c, 32, 1e-6, int(relu), 1, stream)
+                if rc != 0:
+                    raise RuntimeError(f"{name}: cudaError {rc}")
+
+            def bwd():
+                rc = lib.tfk8s_group_norm_bwd(dy.data_ptr(), x.data_ptr(), scale.data_ptr(),
+                                              bias.data_ptr(), m_s.data_ptr(), r_s.data_ptr(),
+                                              dx.data_ptr(), part[0].data_ptr(),
+                                              part[1].data_ptr(), b, h * w, c, 32, int(relu), 1,
+                                              stream)
+                if rc != 0:
+                    raise RuntimeError(f"{name}: cudaError {rc}")
+
+            return fwd, bwd, y, dx
+
+        ship_fwd, ship_bwd, y_s, dx_s = entry_points(gn._lib(), "shipped")
+        ship_fwd()
+        ship_bwd()
+        for name, lib in libs.items():
+            fwd, bwd, y, dx = entry_points(lib, f"variant {name}")
+            fwd()
+            bwd()
+            torch.cuda.synchronize()
+            err = max(float((y.float() - y_s.float()).abs().max()),
+                      float((dx.float() - dx_s.float()).abs().max()))
+            times = {}
+            for kind, ship, var in (("fwd", ship_fwd, fwd), ("bwd", ship_bwd, bwd)):
+                a, v = [], []
+                for _ in range(rounds):
+                    a.append(device_ms(ship, 10))
+                    v.append(device_ms(var, 10))
+                    v.append(device_ms(var, 10))
+                    a.append(device_ms(ship, 10))
+                times[kind] = (sum(a) / len(a), sum(v) / len(v))
+            print(json.dumps({
+                "set": "gn", "variant": name, "shape": list(shape), "relu": relu,
+                "k": [lib.tfk8s_group_norm_cluster_size(b, h * w, c, 32, 1, d, 16)
+                      for d in (0, 1)],
+                "shipped_k": [gn.cluster_size(shape, 32, torch.bfloat16, d) for d in (0, 1)],
+                "max_abs_diff_vs_shipped": err,
+                "shipped_fwd_ms": times["fwd"][0], "variant_fwd_ms": times["fwd"][1],
+                "shipped_bwd_ms": times["bwd"][0], "variant_bwd_ms": times["bwd"][1],
+                "fwd_bound_ms": bound_ms(x.numel(), 2, False),
+                "bwd_bound_ms": bound_ms(x.numel(), 2, True),
+            }), flush=True)
+        del x, dy
 
 
 def run_dq(rounds: int) -> None:
@@ -245,8 +348,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device visible", file=sys.stderr)
         return 2
-    run_dq(ROUNDS)
-    run_copy(ROUNDS)
+    sets = {"dq": run_dq, "copy": run_copy, "gn": run_gn}
+    for name in sys.argv[1:] or list(sets):
+        sets[name](ROUNDS)
     return 0
 
 
