@@ -77,10 +77,24 @@ must pass:
    and input-starved steps;
 8. roofline: ``tfk8s_tpu_torch.tools.roofline.run_all()`` at full size
    (matmul, streams, the block-copy kernel, ResNet-50 forward, GN-ablated
-   step and full step), one JSON line; the copy kernel must launch.
+   step and full step), one JSON line; the copy kernel must launch;
+9. serve: ``tfk8s_tpu_torch.runtime.server.serve(env, stop)``, the
+   TPUServe entrypoint, in-process at GPT-2-small base width in bfloat16
+   (8 slots, 16-token pages, 513 pages): 24 requests with prompts of
+   16-512 tokens and 64 generated each, a third sampled (temperature
+   0.8, top_k 50, top_p 0.95, fixed seeds), a third sharing a 256-token
+   prefix. Every request must complete with 64 tokens; each sampled
+   request, run again alone, must give the same stream; no kernel of the
+   port may launch (the paged path is torch ops, as the reference's is
+   jnp). In float32 with TF32 off, 4 greedy requests through the same
+   decoder must emit at every position the argmax of the non-paged full
+   forward over the sequence so far. It prints time to first token (p50,
+   p99), mean time per output token, output tokens/s, peak memory, and
+   one decode step's time, device time and device-idle share from a
+   ``torch.profiler`` trace, greedy and sampled.
 
-The launch counts are zeroed just before each path (phases 6, 7, 8) and
-read just after it. Then it prints the card line, the ``kernels`` JSON
+The launch counts are zeroed just before each path (phases 6, 7, 8, 9)
+and read just after it. Then it prints the card line, the ``kernels`` JSON
 line and, last, the ``ok`` line. It exits non-zero, printing no result,
 when a phase fails, when no card is visible, or when the port's package is
 not beside it. ``--only PHASE[,PHASE]`` runs just those phases (and the
@@ -183,6 +197,20 @@ GN_CASES = [
     ("gn_256x256x32_g1", (16, 256, 256, 32), 1, False),
 ]
 COPY_SHAPE = (8192, 8192)
+# the serve run: GPT-2-small at base width, bf16, through serve(env, stop)
+SERVE_ENV = {
+    "TFK8S_SERVE_TASK": "gpt", "TFK8S_SERVE_CHECKPOINT": "seed:0",
+    "TFK8S_SERVE_GPT_SIZE": "base", "TFK8S_SERVE_MAX_BATCH": "8",
+    "TFK8S_SERVE_PAGE_SIZE": "16", "TFK8S_SERVE_MAX_PAGES": "513",
+    "TFK8S_SERVE_GEN_TOKENS": "64", "TFK8S_POD_NAME": "chip-smoke-serve",
+}
+SERVE = dict(requests=24, gen=64, prompt_min=16, prompt_max=512, shared_prefix=256,
+             f32_requests=4, profile_steps=10, timeout_s=600)
+SERVE_SAMPLING = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
+# float32 paged vs full forward: a position may pick another token than
+# the full forward's argmax only where both logits are this close (a tie
+# at float32 precision); every such position is counted and printed
+SERVE_F32_TIE_ATOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -943,6 +971,230 @@ def phase_roofline(torch, bc):
     return launches
 
 
+def _serve_requests(n, vocab, seed=0):
+    """The mixed workload: prompt lengths 16-512, a third sampled, a third
+    opening with one shared 256-token prefix."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(1, vocab, SERVE["shared_prefix"]).astype(np.int32)
+    out = []
+    for i in range(n):
+        plen = int(rng.integers(SERVE["prompt_min"], SERVE["prompt_max"] + 1))
+        tokens = rng.integers(1, vocab, plen).astype(np.int32)
+        if i % 3 == 1:
+            tail = max(plen - SERVE["shared_prefix"], SERVE["prompt_min"])
+            tokens = np.concatenate([shared, tokens[:tail]])
+        payload = {"tokens": tokens, "gen_tokens": SERVE["gen"]}
+        if i % 3 == 2:
+            payload["sampling"] = dict(SERVE_SAMPLING, seed=1000 + i)
+        out.append(payload)
+    return out
+
+
+def _submit_all(replica, payloads):
+    """Submit concurrently; (result, submit time, done time) per request."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(p):
+        t0 = time.perf_counter()
+        res = replica.submit(p, timeout=SERVE["timeout_s"])
+        return res, t0, time.perf_counter()
+
+    with ThreadPoolExecutor(len(payloads)) as ex:
+        return [f.result() for f in [ex.submit(one, p) for p in payloads]]
+
+
+def _decode_step_times(torch, decoder, sampled):
+    """One decode step of 8 live rows at mid-length positions: its wall
+    time (host launch and sync included, no profiler) and its device time
+    (the union of the card's activity intervals in a profiler trace),
+    each over SERVE["profile_steps"] steps; idle share = 1 - device/wall."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    slots, mpp, ps = decoder.slots, decoder.pages_per_slot, decoder.page_size
+    per_row = (decoder.max_pages - 1) // slots
+    state = np.zeros((slots, 2 + mpp), np.int32)
+    for r in range(slots):
+        state[r, 0] = 1 + r
+        state[r, 1] = min(per_row, mpp) * ps // 2
+        n = min(per_row, mpp)
+        state[r, 2:2 + n] = np.arange(1 + r * per_row, 1 + r * per_row + n)
+    samp = None
+    if sampled:
+        samp = (np.tile(np.array([[SERVE_SAMPLING["temperature"], SERVE_SAMPLING["top_p"]]],
+                                 np.float32), (slots, 1)),
+                np.stack([np.full(slots, SERVE_SAMPLING["top_k"]), np.arange(slots)], 1)
+                .astype(np.int32))
+    n = SERVE["profile_steps"]
+
+    def run():
+        st = state
+        for _ in range(n):
+            _, st = decoder.decode(st, samp)
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, cur = 0, None
+    for start, end in spans:
+        if cur is None or start > cur[1]:
+            if cur is not None:
+                busy += cur[1] - cur[0]
+            cur = [start, end]
+        else:
+            cur[1] = max(cur[1], end)
+    if cur is not None:
+        busy += cur[1] - cur[0]
+    device_ms = busy / n * 1e-3 if busy else None
+    return {
+        "step_ms": wall_ms, "device_ms": device_ms,
+        "idle_share": None if device_ms is None else 1.0 - device_ms / wall_ms,
+        "tokens_per_s": slots / (wall_ms * 1e-3), "device_activities": len(spans) // n,
+    }
+
+
+def phase_serve(torch, gpt, kernel_modules):
+    """The TPUServe entrypoint at base width on the card: the mixed
+    workload, the alone-vs-batched sampled streams, the float32 paged-vs-
+    full check, then one decode step's time and device-idle share."""
+    import threading
+
+    import numpy as np
+
+    from tfk8s_tpu_torch.runtime import server
+    from tfk8s_tpu_torch.utils.logging import Metrics
+
+    metrics = Metrics()
+    server.set_metrics(metrics)
+    env = dict(SERVE_ENV, TFK8S_DEVICE=DEVICE)
+    key = f"default/{env['TFK8S_POD_NAME']}"
+    stop = threading.Event()
+    errors = []
+
+    def entry():
+        try:
+            server.serve(env, stop)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in kernel_modules:
+        mod.reset_launches()
+    t_load = time.perf_counter()
+    thread = threading.Thread(target=entry, name="serve-entry", daemon=True)
+    thread.start()
+    while server.lookup_replica(key) is None:
+        if errors or not thread.is_alive():
+            raise RuntimeError(f"serve did not come up: {errors}")
+        time.sleep(0.05)
+    load_s = time.perf_counter() - t_load
+    replica = server.lookup_replica(key)
+    decoder = replica.model
+    payloads = _serve_requests(SERVE["requests"], decoder.vocab_size)
+    t0 = time.perf_counter()
+    results = _submit_all(replica, payloads)
+    wall = time.perf_counter() - t0
+    alone = {}
+    for i, p in enumerate(payloads):
+        if "sampling" in p:
+            alone[i] = replica.submit(p, timeout=SERVE["timeout_s"])["tokens"]
+    prefix_hits = replica.allocator.prefix_hits
+    stop.set()
+    thread.join(timeout=120)
+    if errors or thread.is_alive():
+        raise RuntimeError(f"serve did not exit cleanly: {errors}")
+    launches = {k: v for mod in kernel_modules for k, v in mod.LAUNCHES.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    outs = [r["tokens"] for r, _, _ in results]
+    short = [i for i, o in enumerate(outs) if len(o) != SERVE["gen"]]
+    if short:
+        raise AssertionError(f"requests {short} did not complete {SERVE['gen']} tokens")
+    bad = [t for o in outs for t in o if not 0 <= t < decoder.vocab_size]
+    if bad:
+        raise AssertionError(f"out-of-vocab tokens {bad[:5]}")
+    differ = [i for i, toks in alone.items() if toks != outs[i]]
+    ttft = np.array([r["ttft_s"] for r, _, _ in results])
+    snap = metrics.snapshot()["histograms"]
+    tpot = [v for k, v in snap.items() if k.startswith("tfk8s_serving_tpot_seconds")]
+    tpot_mean = sum(v["sum"] for v in tpot) / max(sum(v["count"] for v in tpot), 1)
+    greedy = _decode_step_times(torch, decoder, sampled=False)
+    sampled = _decode_step_times(torch, decoder, sampled=True)
+    del replica, decoder
+    torch.cuda.empty_cache()
+    f32 = _serve_f32_check(torch, gpt, server, payloads)
+    summary = {
+        "requests": len(outs), "gen_tokens": SERVE["gen"], "load_s": load_s,
+        "wall_s": wall, "ttft_p50_s": float(np.percentile(ttft, 50)),
+        "ttft_p99_s": float(np.percentile(ttft, 99)), "tpot_mean_s": tpot_mean,
+        "output_tokens_per_s": sum(map(len, outs)) / wall, "peak_mem_gib": peak_gib,
+        "prefix_cache_hits": prefix_hits, "sampled_alone_equal": len(alone) - len(differ),
+        "sampled_requests": len(alone), "decode_step_greedy": greedy,
+        "decode_step_sampled": sampled, "f32_check": f32, "kernel_launches": launches,
+    }
+    log(f"serve: {json.dumps(summary)}")
+    if differ:
+        raise AssertionError(f"sampled requests {differ} differ alone vs in the batch")
+    if any(launches.values()):
+        raise AssertionError(f"the serving path launched port kernels: {launches}")
+    if prefix_hits < 1:
+        raise AssertionError("no request reused the shared prefix's pages")
+    return summary
+
+
+def _serve_f32_check(torch, gpt, server, payloads):
+    """Float32 at base width, TF32 off: 4 greedy requests through the
+    paged decoder; each emitted token must be the argmax of the non-paged
+    full forward at its position (one causal forward over prompt + output
+    gives every position's prediction over the sequence so far)."""
+    import numpy as np
+
+    decoder = server.PagedGptDecoder(
+        "seed:0", slots=int(SERVE_ENV["TFK8S_SERVE_MAX_BATCH"]),
+        page_size=int(SERVE_ENV["TFK8S_SERVE_PAGE_SIZE"]),
+        max_pages=int(SERVE_ENV["TFK8S_SERVE_MAX_PAGES"]), gen_tokens=SERVE["gen"],
+        size="base", cfg=gpt.base_config(dtype=torch.float32), device=DEVICE)
+    decoder.load()
+    loop = server.DecodeLoopExecutor(decoder).start()
+    greedy = [p for p in payloads if "sampling" not in p][:SERVE["f32_requests"]]
+    try:
+        results = _submit_all(loop, greedy)
+    finally:
+        loop.drain(60)
+    checked, ties, worst_gap = 0, 0, 0.0
+    for p, (res, _, _) in zip(greedy, results):
+        toks = res["tokens"]
+        seq = np.concatenate([p["tokens"], np.asarray(toks[:-1], np.int32)])
+        with torch.no_grad():
+            logits = decoder.module(torch.from_numpy(seq)[None].to(DEVICE).long())[0]
+        plen = len(p["tokens"])
+        rows = logits[plen - 1:plen - 1 + len(toks)]
+        full = rows.argmax(-1).tolist()
+        for t, (a, b) in enumerate(zip(toks, full)):
+            checked += 1
+            if a == b:
+                continue
+            gap = float(rows[t, b] - rows[t, a])
+            worst_gap = max(worst_gap, gap)
+            if gap > SERVE_F32_TIE_ATOL:
+                raise AssertionError(
+                    f"float32 paged token {a} != full-forward argmax {b} at step {t} "
+                    f"(logit gap {gap:.3e})")
+            ties += 1
+    del decoder, loop
+    torch.cuda.empty_cache()
+    return {"tokens_checked": checked, "near_ties": ties, "worst_tie_gap": worst_gap}
+
+
 def main() -> int:
     import torch
 
@@ -982,6 +1234,7 @@ def main() -> int:
         ("train", lambda: phase_train(torch, gpt, fa, ckpt_dir)),
         ("resnet_train", lambda: phase_resnet_train(torch, resnet, gn, rn_ckpt_dir)),
         ("roofline", lambda: phase_roofline(torch, bc)),
+        ("serve", lambda: phase_serve(torch, gpt, (fa, gn, bc))),
     ]
     if only:
         phases = [p for p in phases if p[0] in ("card", "build", *only)]

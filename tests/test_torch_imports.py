@@ -66,6 +66,10 @@ def test_every_port_module_imports_without_jax_or_the_reference():
 @pytest.mark.parametrize("module", [
     "tfk8s_tpu_torch.ops.group_norm", "tfk8s_tpu_torch.ops.block_copy",
     "tfk8s_tpu_torch.models.resnet", "tfk8s_tpu_torch.tools.roofline",
+    "tfk8s_tpu_torch.runtime.node_agent", "tfk8s_tpu_torch.obs.trace",
+    "tfk8s_tpu_torch.ops.jax_random", "tfk8s_tpu_torch.runtime.paging",
+    "tfk8s_tpu_torch.runtime.handoff", "tfk8s_tpu_torch.runtime.kvtier",
+    "tfk8s_tpu_torch.runtime.sched", "tfk8s_tpu_torch.runtime.server",
 ])
 def test_each_resnet_and_roofline_module_imports_on_its_own(module):
     proc = _run(_BLOCK + f"import {module}\n"

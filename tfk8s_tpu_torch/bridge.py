@@ -22,11 +22,16 @@ module names (``stem``, ``stem_norm``, ``stage{s}_block{i}/{conv1,norm1,
 out] (HWIO) becomes ``weight`` [out, in, kh, kw] (OIHW), a GroupNorm
 ``scale``/``bias`` becomes ``weight``/``bias``, and the classifier's dense
 ``kernel`` [in, out] becomes ``weight`` [out, in].
+
+The paged KV cache maps too (``pages_to_torch``/``pages_from_torch``): the
+reference's ``pages`` tree holds ``layer{i}/attn/{k_pages,v_pages}``, flat
+``[n_pages*page_size, heads, head_dim]`` leaves, and the port keeps the
+same buffers as one ``(k, v)`` pair per layer.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -143,3 +148,37 @@ def resnet_state_dict_to_params(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any
             node = node.setdefault(key, {})
         node[leaf] = np.ascontiguousarray(a).copy()
     return params
+
+
+def pages_to_torch(pages: Mapping[str, Any], cfg: TransformerConfig,
+                   device: Any = None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The reference's paged KV tree (``{"layer{i}": {"attn": {"k_pages",
+    "v_pages"}}}``, numpy leaves ``[n_pages*ps, heads, head_dim]``) -> the
+    port's per-layer ``(k, v)`` pools (``models/gpt.clean_pages``), in
+    ``cfg.dtype``. A bfloat16 leaf converts through its raw 2-byte words."""
+
+    def t(a) -> torch.Tensor:
+        arr = np.ascontiguousarray(a)
+        if arr.dtype.name == "bfloat16":
+            out = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+        else:
+            out = torch.from_numpy(arr.copy())
+        return out.to(device=device, dtype=cfg.dtype)
+
+    return [
+        (t(pages[f"layer{i}"]["attn"]["k_pages"]), t(pages[f"layer{i}"]["attn"]["v_pages"]))
+        for i in range(cfg.num_layers)
+    ]
+
+
+def pages_from_torch(pages: Sequence[Tuple[torch.Tensor, torch.Tensor]]) -> Dict[str, Any]:
+    """The port's pools -> the reference's paged KV tree with float32 numpy
+    leaves (numpy has no bfloat16; the caller casts to its pool dtype)."""
+
+    def a(x: torch.Tensor) -> np.ndarray:
+        return x.detach().to("cpu", torch.float32).numpy().copy()
+
+    return {
+        f"layer{i}": {"attn": {"k_pages": a(k), "v_pages": a(v)}}
+        for i, (k, v) in enumerate(pages)
+    }

@@ -5,7 +5,7 @@ BERT MLM task itself is ROADMAP item 1.7."""
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -16,6 +16,7 @@ from tfk8s_tpu_torch.models.transformer import (
     EncoderLayer,
     TransformerConfig,
     _ln,
+    page_plan,
 )
 
 MASK_ID = 0  # reserved mask token; chain tokens live in [1, vocab)
@@ -41,10 +42,29 @@ class BertWithHead(nn.Module):
         self.ln_final = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
 
     def forward(self, ids: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                pos_offset: Optional[int] = None) -> torch.Tensor:
+                pos_offset: Union[int, torch.Tensor, None] = None,
+                page_tables: Optional[torch.Tensor] = None,
+                pages: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
+                ) -> torch.Tensor:
+        """``pages`` (one ``(k, v)`` pool per layer) with ``page_tables``
+        runs the block-paged path; ``pos_offset`` is then the per-row
+        position vector and feeds both the positional gather and the
+        page math (one :func:`page_plan` for every layer), as in the
+        reference's ``paged=True`` stack."""
         x = self.embed(ids, pos_offset=pos_offset)
-        for layer in self.layers:
-            x = layer(x, mask)
+        plan = None
+        if pages is not None:
+            cfg = self.cfg
+            if page_tables is None or not isinstance(pos_offset, torch.Tensor):
+                raise ValueError("paged mode needs page_tables and a position vector")
+            if not cfg.kv_page_size or not cfg.kv_max_pages:
+                raise ValueError("paged mode needs cfg.kv_page_size and cfg.kv_max_pages")
+            plan = page_plan(page_tables, pos_offset, ids.shape[-1], cfg.kv_page_size)
+        for i, layer in enumerate(self.layers):
+            if pages is not None:
+                x = layer(x, mask, pool=pages[i], plan=plan)
+            else:
+                x = layer(x, mask)
         x = _ln(self.ln_final, x, self.cfg.dtype)
         return self.embed.logits(x)  # [b, l, vocab], float32
 

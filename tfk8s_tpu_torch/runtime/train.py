@@ -11,7 +11,13 @@ What is kept from the reference:
   host batch per step, synthesized ahead on a prefetch thread;
 - metrics fetched from the device only at log boundaries, progress
   reports, convergence targets, checkpoint/resume, and the drain on a
-  reclaim notice (``stop.drain_requested``) ending in ``PodDrained``.
+  reclaim notice (``stop.drain_requested``) ending in ``PodDrained``;
+- under a node agent (``runtime/node_agent``): progress reaches pod
+  status through the agent's sink, a drain raises the agent's
+  ``PodDrained`` (so the pod ends Drained), the first step's time is also
+  reported as ``compile_seconds``, and ``run_task`` continues
+  ``TFK8S_TRACEPARENT`` with ``trainer.run``, ``trainer.startup`` and
+  ``trainer.first_step`` spans.
 
 Not ported yet, raising ``NotImplementedError`` when asked for: multi-
 process, per-host and record-file input (ROADMAP item 1.5), the scanned
@@ -31,7 +37,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from tfk8s_tpu_torch.runtime import progress
+from tfk8s_tpu_torch.obs.trace import TRACEPARENT_ENV, get_tracer
+from tfk8s_tpu_torch.runtime import node_agent, progress
 from tfk8s_tpu_torch.runtime.checkpoint import Checkpointer
 from tfk8s_tpu_torch.runtime.launcher import ProcessContext, select_device
 from tfk8s_tpu_torch.utils.logging import get_logger
@@ -43,10 +50,9 @@ log = get_logger("train")
 _INPUT_STARVED_FRACTION = 0.2
 
 
-class PodDrained(Exception):
-    """Raised by an entrypoint that honored a reclaim notice: it finished
-    its in-flight step, committed its drain checkpoint, and is exiting
-    gracefully (the reference's ``runtime.registry.PodDrained``)."""
+# what a drained run raises outside a node agent (under one, the agent's
+# own class: ``node_agent.pod_drained_class``)
+PodDrained = node_agent.PodDrained
 
 
 @dataclasses.dataclass
@@ -299,14 +305,22 @@ class Trainer:
                 it_t0 = time.perf_counter()
                 host = prefetcher.get() if prefetcher is not None else _make_host_batch(step)
                 input_wait = time.perf_counter() - it_t0
-                metrics = self.train_step(state, self.to_device(host))
-                step = state.step
                 if first_step_s is None:
                     # the first step builds the kernels and warms the
-                    # libraries: report it apart, after it has finished
-                    float(metrics["loss"])
+                    # libraries: span it and report it apart, after it
+                    # has finished (the reference's one-time start cost,
+                    # so also under the key the controller mirrors)
+                    with get_tracer().start_span(
+                        "trainer.first_step", attributes={"task": self.task.name}
+                    ):
+                        metrics = self.train_step(state, self.to_device(host))
+                        float(metrics["loss"])
                     first_step_s = time.perf_counter() - it_t0
-                    progress.report(first_step_seconds=first_step_s)
+                    progress.report(first_step_seconds=first_step_s,
+                                    compile_seconds=first_step_s)
+                else:
+                    metrics = self.train_step(state, self.to_device(host))
+                step = state.step
                 it_dt = time.perf_counter() - it_t0
                 input_wait_total += input_wait
                 if input_wait > _INPUT_STARVED_FRACTION * max(it_dt, 1e-9):
@@ -407,17 +421,26 @@ def run_task(
     """Entrypoint glue: env contract -> device -> (resume ->) fit ->
     metrics history. Raises if the task declares convergence targets and
     misses them — a failed pod is how the control plane learns training
-    went wrong — and ``PodDrained`` after a drain."""
+    went wrong — and ``PodDrained`` after a drain (the node agent's class
+    when ``stop`` comes from one). Progress goes to the node agent's sink
+    and the spans continue ``TFK8S_TRACEPARENT`` (``runtime/node_agent``)."""
     env = dict(env or {})
-    _unported_env(env)
-    ctx = ProcessContext.from_env(env)
-    ctx.require_single_device()
-    device = select_device(env, device)
-    config = config or config_from_env(env, ctx)
-    trainer = Trainer(task, config, device)
-    _state, history = trainer.fit(stop=stop)
+    with node_agent.attach(stop):
+        tracer = get_tracer()
+        with tracer.start_span(
+            "trainer.run", traceparent=env.get(TRACEPARENT_ENV),
+            attributes={"task": task.name},
+        ):
+            with tracer.start_span("trainer.startup", attributes={"task": task.name}):
+                _unported_env(env)
+                ctx = ProcessContext.from_env(env)
+                ctx.require_single_device()
+                device = select_device(env, device)
+                config = config or config_from_env(env, ctx)
+                trainer = Trainer(task, config, device)
+            _state, history = trainer.fit(stop=stop)
     if trainer.drained_at is not None:
-        raise PodDrained(
+        raise node_agent.pod_drained_class(stop)(
             f"{task.name}: drained at step {trainer.drained_at} on reclaim notice"
         )
     final = history[-1] if history else {}
