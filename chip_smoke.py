@@ -78,7 +78,23 @@ must pass:
 8. roofline: ``tfk8s_tpu_torch.tools.roofline.run_all()`` at full size
    (matmul, streams, the block-copy kernel, ResNet-50 forward, GN-ablated
    step and full step), one JSON line; the copy kernel must launch;
-9. serve: ``tfk8s_tpu_torch.runtime.server.serve(env, stop)``, the
+9. generate: ``gpt.generate`` and ``gpt.beam_generate`` at GPT-2-small
+   base width in bfloat16 with ``attention_impl="flash"`` (random weights
+   from seed 0): greedy on batch 8, prompt 512, 64 generated, whose
+   prefill must launch the tensor-core flash forward 12 times (prefill
+   time, per-token decode time and device-idle share from a profiler
+   trace, tokens/s, peak memory); sampled (temperature 0.8, top_k 50,
+   top_p 0.95, one key) must repeat itself under the same key and equal
+   greedy at top_k 1; an ``eos_id`` the greedy stream emits mid-way must
+   stop and pad every row; 4 beams on batch 2 (prompt 256, 32 tokens),
+   one beam equal to greedy. In float32 (TF32 off) the greedy tokens of
+   4 rows must be the full forward's argmax at every position and the
+   paged decode loop's tokens, but at float32 ties (1e-4). The bf16
+   prefill logits, flash against plain attention, must lie within
+   GENERATE_LOGIT_REL_L2 relative L2, which the flash kernel called
+   non-causal must exceed. Then the flash forward at the prefill's shape
+   [8, 512, 12, 64] against its plain version and SDPA, with device times;
+10. serve: ``tfk8s_tpu_torch.runtime.server.serve(env, stop)``, the
    TPUServe entrypoint, in-process at GPT-2-small base width in bfloat16
    (8 slots, 16-token pages, 513 pages): 24 requests with prompts of
    16-512 tokens and 64 generated each, a third sampled (temperature
@@ -91,10 +107,15 @@ must pass:
    forward over the sequence so far. It prints time to first token (p50,
    p99), mean time per output token, output tokens/s, peak memory, and
    one decode step's time, device time and device-idle share from a
-   ``torch.profiler`` trace, greedy and sampled.
+   ``torch.profiler`` trace, greedy and sampled. Then 24 greedy requests
+   of three bucket lengths (128, 256, 512; 64 generated) through the same
+   decode loop and through the slot-per-batch executor
+   (``TFK8S_SERVE_DECODE_LOOP=0``, max batch 8), side by side: latency
+   p50/p99, output tokens/s, peak memory; and ``echo`` and ``mlp``
+   through ``server.serve``, a few requests each.
 
-The launch counts are zeroed just before each path (phases 6, 7, 8, 9)
-and read just after it. Then it prints the card line, the ``kernels`` JSON
+The launch counts are zeroed just before each path (phases 6-10) and
+read just after it; the line's launches add up the paths'. Then it prints the card line, the ``kernels`` JSON
 line and, last, the ``ok`` line. It exits non-zero, printing no result,
 when a phase fails, when no card is visible, or when the port's package is
 not beside it. ``--only PHASE[,PHASE]`` runs just those phases (and the
@@ -207,6 +228,19 @@ SERVE_ENV = {
 SERVE = dict(requests=24, gen=64, prompt_min=16, prompt_max=512, shared_prefix=256,
              f32_requests=4, profile_steps=10, timeout_s=600)
 SERVE_SAMPLING = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
+# the same 24 greedy requests through the decode loop and through the
+# slot-per-batch executor (TFK8S_SERVE_DECODE_LOOP=0): prompts of three
+# bucket lengths, 8 of each, 64 generated
+LEGACY = dict(buckets=(128, 256, 512), per_bucket=8, gen=64, seed=3)
+# the generate run: GPT-2-small at base width, bf16, flash prefill
+GENERATE = dict(batch=8, prompt=512, gen=64, seed=5, key=1234, beam_batch=2,
+                beam_prompt=256, beam_gen=32, beams=4, f32_rows=4)
+# bf16 prefill logits, flash against plain attention, relative L2: the
+# base-width GPT check's bound; a flash call made non-causal must exceed it
+GENERATE_LOGIT_REL_L2 = 5e-2
+# float32 generate vs the full forward (and the paged loop): the serve
+# phase's tie rule
+GENERATE_F32_TIE_ATOL = 1e-4
 # float32 paged vs full forward: a position may pick another token than
 # the full forward's argmax only where both logits are this close (a tie
 # at float32 precision); every such position is counted and printed
@@ -971,6 +1005,236 @@ def phase_roofline(torch, bc):
     return launches
 
 
+def _device_busy_ms(torch, prof):
+    """(union of the card's activity intervals in a profiler trace, in ms;
+    the number of activities)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, cur = 0, None
+    for start, end in spans:
+        if cur is None or start > cur[1]:
+            if cur is not None:
+                busy += cur[1] - cur[0]
+            cur = [start, end]
+        else:
+            cur[1] = max(cur[1], end)
+    if cur is not None:
+        busy += cur[1] - cur[0]
+    return busy * 1e-3, len(spans)
+
+
+def _timed(torch, fn, profiled=False):
+    """(result, wall ms) of one synced call, with (device ms, activities)
+    from a profiler trace of a second call when ``profiled``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    if not profiled:
+        return out, wall, None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return out, wall, _device_busy_ms(torch, prof)
+
+
+def _rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _greedy_check(torch, model, prompts, tokens, others=()):
+    """Each row's generated tokens against the full forward's argmax over
+    the sequence so far: a position may differ only where both logits lie
+    within GENERATE_F32_TIE_ATOL. ``others`` are other decoders' tokens for
+    the same prompts, held to the same rule: up to the first position where
+    they part, which must be such a tie. Returns (checked, ties)."""
+    import numpy as np
+
+    checked, ties = 0, 0
+    for r, prompt in enumerate(prompts):
+        seqs = [tokens[r]] + [o[r] for o in others]
+        for s_i, toks in enumerate(seqs):
+            seq = np.concatenate([prompt, np.asarray(toks[:-1], np.int64)])
+            with torch.no_grad():
+                logits = model(torch.from_numpy(seq)[None].to(DEVICE))[0]
+            plen = len(prompt)
+            rows = logits[plen - 1:plen - 1 + len(toks)]
+            full = rows.argmax(-1).tolist()
+            for t, (a, b) in enumerate(zip(toks, full)):
+                checked += 1
+                if s_i > 0 and a != tokens[r][t]:
+                    gap = abs(float(rows[t, a] - rows[t, tokens[r][t]]))
+                    if gap > GENERATE_F32_TIE_ATOL:
+                        raise AssertionError(
+                            f"row {r}: decoder {s_i} parts from generate at step {t} "
+                            f"({a} vs {tokens[r][t]}, logit gap {gap:.3e})")
+                    ties += 1
+                    break
+                if a != b:
+                    gap = float(rows[t, b] - rows[t, a])
+                    if gap > GENERATE_F32_TIE_ATOL:
+                        raise AssertionError(
+                            f"row {r}: token {a} != full-forward argmax {b} at step {t} "
+                            f"(logit gap {gap:.3e})")
+                    ties += 1
+    return checked, ties
+
+
+def phase_generate(torch, gpt, fa):
+    """Slot-per-batch KV-cache generation at GPT-2-small base width on the
+    card, through ``gpt.generate``/``gpt.beam_generate``: prefill through
+    the bf16 flash forward kernel (12 launches a prefill), greedy and
+    sampled streams, EOS, beams; float32 tokens against the full forward
+    and the paged decode loop; bf16 prefill logits, flash vs plain, against
+    a bound a non-causal flash call must exceed; the flash forward at the
+    prefill's shape against its plain version and SDPA."""
+    import dataclasses
+
+    import numpy as np
+
+    from tfk8s_tpu_torch.runtime import server
+
+    g = GENERATE
+    b, plen, n = g["batch"], g["prompt"], g["gen"]
+    cfg = gpt.base_config(attention_impl="flash")
+    layers = cfg.num_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = server.GptGenerator("seed:0", b, gen_tokens=n, cfg=cfg, device=DEVICE)
+    gen.load()
+    model = gen.module
+    rng = np.random.default_rng(g["seed"])
+    prompts = torch.from_numpy(rng.integers(1, cfg.vocab_size, (b, plen))).to(DEVICE)
+
+    def counted(fn):
+        fa.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(fa.LAUNCHES)
+
+    want_prefill = {**dict.fromkeys(fa.KERNELS, 0), "flash_fwd_wgmma": layers}
+    # warm-up, then the main path: one greedy generate, counted
+    gpt.generate(cfg, model, prompts, n)
+    greedy, launches = counted(lambda: gpt.generate(cfg, model, prompts, n))
+    if launches != want_prefill:
+        raise AssertionError(f"generate launches {launches}, want {want_prefill}")
+    _, gen_ms, gen_dev = _timed(torch, lambda: gpt.generate(cfg, model, prompts, n),
+                                profiled=True)
+    _, prefill_ms, prefill_dev = _timed(
+        torch, lambda: gpt.prefill_cache(dataclasses.replace(cfg, decode_cache_len=plen + n),
+                                         model, prompts), profiled=True)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    decode_ms = (gen_ms - prefill_ms) / (n - 1)
+    decode_dev = (gen_dev[0] - prefill_dev[0]) / (n - 1)
+    g_np = greedy.cpu().numpy()
+    if not ((0 <= g_np) & (g_np < cfg.vocab_size)).all() or g_np.shape != (b, n):
+        raise AssertionError(f"greedy tokens malformed: {g_np.shape}")
+
+    samp = dict(temperature=0.8, top_k=50, top_p=0.95)
+    (sampled, launches_s) = counted(lambda: gpt.generate(cfg, model, prompts, n, rng=g["key"],
+                                                         **samp))
+    again = gpt.generate(cfg, model, prompts, n, rng=g["key"], **samp)
+    top1 = gpt.generate(cfg, model, prompts, n, rng=g["key"], **dict(samp, top_k=1))
+    if launches_s != want_prefill:
+        raise AssertionError(f"sampled generate launches {launches_s}, want {want_prefill}")
+    if not torch.equal(sampled, again):
+        raise AssertionError("the same key gave another sampled stream")
+    if not torch.equal(top1, greedy):
+        raise AssertionError("top_k=1 sampling differs from greedy")
+
+    eos = int(g_np[0, n // 2])
+    stopped = gpt.generate(cfg, model, prompts, n, eos_id=eos).cpu().numpy()
+    for r in range(b):
+        hits = np.flatnonzero(g_np[r] == eos)
+        end = hits[0] + 1 if hits.size else n
+        if not (np.array_equal(stopped[r, :end], g_np[r, :end]) and (stopped[r, end:] == 0).all()):
+            raise AssertionError(f"row {r}: EOS {eos} did not stop and pad the stream")
+
+    bb, bplen, bn, beams = g["beam_batch"], g["beam_prompt"], g["beam_gen"], g["beams"]
+    bprompt = prompts[:bb, :bplen]
+    (seqs, scores), beam_ms, _ = _timed(torch, lambda: gpt.beam_generate(
+        cfg, model, bprompt, bn, num_beams=beams, return_all=True))
+    one = gpt.beam_generate(cfg, model, bprompt, bn, num_beams=1)
+    if not torch.equal(one, gpt.greedy_generate(cfg, model, bprompt, bn)):
+        raise AssertionError("num_beams=1 differs from greedy")
+    if not (torch.isfinite(scores).all() and (scores[:, 1:] <= scores[:, :-1]).all()):
+        raise AssertionError(f"beam scores not finite or not sorted: {scores}")
+
+    # bf16 prefill logits: flash against plain attention, and a planted
+    # fault (the flash kernel called non-causal) that must exceed the bound
+    plain_cfg = dataclasses.replace(cfg, attention_impl="full", decode_cache_len=plen + n)
+    flash_logits, _ = gpt.prefill_cache(dataclasses.replace(cfg, decode_cache_len=plen + n),
+                                        model, prompts)
+    plain_logits, _ = gpt.prefill_cache(plain_cfg, model, prompts)
+    rel = _rel_l2(flash_logits, plain_logits)
+    del flash_logits
+    with torch.no_grad():
+        fault_logits, _ = gpt.mode_view(model, sow_kv=True)(
+            prompts, attn_fn=lambda q, k, v, mask=None, causal=False:
+            fa.flash_attention(q, k, v, mask, causal=False))
+    fault_rel = _rel_l2(fault_logits, plain_logits)
+    del fault_logits, plain_logits, gen, model
+    torch.cuda.empty_cache()
+
+    # float32 (TF32 off): generate's greedy tokens against the full
+    # forward's argmax and against the paged decode loop's tokens
+    f32_cfg = gpt.base_config(dtype=torch.float32, attention_impl="flash")
+    f32 = server.GptGenerator("seed:0", g["f32_rows"], gen_tokens=n, cfg=f32_cfg, device=DEVICE)
+    f32.load()
+    f_prompts = prompts[:g["f32_rows"]]
+    f_tokens = gpt.generate(f32_cfg, f32.module, f_prompts, n).cpu().numpy()
+    paged = server.PagedGptDecoder(
+        "seed:0", slots=g["f32_rows"], page_size=16, max_pages=g["f32_rows"] * 64 + 1,
+        gen_tokens=n, cfg=f32_cfg, params=f32.module.state_dict(), device=DEVICE)
+    paged.load()
+    loop = server.DecodeLoopExecutor(paged).start()
+    try:
+        paged_tokens = [r["tokens"] for r, _, _ in _submit_all(
+            loop, [{"tokens": p.cpu().numpy().astype(np.int32), "gen_tokens": n}
+                   for p in f_prompts])]
+    finally:
+        loop.drain(60)
+    checked, ties = _greedy_check(torch, f32.module, [p.cpu().numpy() for p in f_prompts],
+                                  f_tokens.tolist(), others=(paged_tokens,))
+    same_as_paged = sum(list(a) == list(p) for a, p in zip(f_tokens.tolist(), paged_tokens))
+    del f32, paged, loop
+    torch.cuda.empty_cache()
+
+    # the flash forward at the prefill's shape: kernel against its plain
+    # version and SDPA, with profiler device times
+    rows = check_case(fa, Case("prefill_bf16_causal", b, plen, plen, cfg.num_heads,
+                               cfg.head_dim, torch.bfloat16,
+                               causal=True, seed=8), iters=20, profile=True)
+    fwd_row = next(r for r in rows if r["kernel"] == "flash_fwd_wgmma")
+    summary = {
+        "batch": b, "prompt": plen, "gen_tokens": n, "prefill_ms": prefill_ms,
+        "prefill_device_ms": prefill_dev[0], "generate_ms": gen_ms,
+        "generate_device_ms": gen_dev[0], "generate_activities": gen_dev[1],
+        "decode_token_ms": decode_ms, "decode_token_device_ms": decode_dev,
+        "decode_idle_share": 1.0 - decode_dev / decode_ms,
+        "tokens_per_s": b * n / (gen_ms * 1e-3), "peak_mem_gib": peak_gib,
+        "flash_fwd_launches_per_generate": launches["flash_fwd_wgmma"],
+        "sampled_repeat_equal": True, "top_k1_equals_greedy": True, "eos_id": eos,
+        "beam": {"batch": bb, "prompt": bplen, "gen": bn, "beams": beams, "ms": beam_ms,
+                 "best_scores": scores[:, 0].tolist()},
+        "prefill_logits_rel_l2_flash_vs_plain": rel,
+        "prefill_logits_rel_l2_noncausal_fault": fault_rel,
+        "f32": {"rows": g["f32_rows"], "tokens_checked": checked, "near_ties": ties,
+                "rows_equal_to_paged": same_as_paged},
+        "flash_fwd_at_prefill_shape": fwd_row,
+    }
+    log(f"generate: {json.dumps(summary)}")
+    if rel > GENERATE_LOGIT_REL_L2:
+        raise AssertionError(f"bf16 prefill logits flash vs plain {rel:.3e} > "
+                             f"{GENERATE_LOGIT_REL_L2}")
+    if fault_rel <= GENERATE_LOGIT_REL_L2:
+        raise AssertionError(f"the non-causal fault {fault_rel:.3e} passes the bound")
+    return {"flash_fwd_wgmma": launches["flash_fwd_wgmma"]}
+
+
 def _serve_requests(n, vocab, seed=0):
     """The mixed workload: prompt lengths 16-512, a third sampled, a third
     opening with one shared 256-token prefix."""
@@ -1041,32 +1305,21 @@ def _decode_step_times(torch, decoder, sampled):
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, cur = 0, None
-    for start, end in spans:
-        if cur is None or start > cur[1]:
-            if cur is not None:
-                busy += cur[1] - cur[0]
-            cur = [start, end]
-        else:
-            cur[1] = max(cur[1], end)
-    if cur is not None:
-        busy += cur[1] - cur[0]
-    device_ms = busy / n * 1e-3 if busy else None
+    busy, activities = _device_busy_ms(torch, prof)
+    device_ms = busy / n if busy else None
     return {
         "step_ms": wall_ms, "device_ms": device_ms,
         "idle_share": None if device_ms is None else 1.0 - device_ms / wall_ms,
-        "tokens_per_s": slots / (wall_ms * 1e-3), "device_activities": len(spans) // n,
+        "tokens_per_s": slots / (wall_ms * 1e-3), "device_activities": activities // n,
     }
 
 
 def phase_serve(torch, gpt, kernel_modules):
     """The TPUServe entrypoint at base width on the card: the mixed
-    workload, the alone-vs-batched sampled streams, the float32 paged-vs-
-    full check, then one decode step's time and device-idle share."""
-    import threading
-
+    workload, the alone-vs-batched sampled streams, the bucketed greedy
+    requests, the float32 paged-vs-full check, one decode step's time and
+    device-idle share; then the slot-per-batch executor on the bucketed
+    requests, and ``echo`` and ``mlp``."""
     import numpy as np
 
     from tfk8s_tpu_torch.runtime import server
@@ -1075,29 +1328,13 @@ def phase_serve(torch, gpt, kernel_modules):
     metrics = Metrics()
     server.set_metrics(metrics)
     env = dict(SERVE_ENV, TFK8S_DEVICE=DEVICE)
-    key = f"default/{env['TFK8S_POD_NAME']}"
-    stop = threading.Event()
-    errors = []
-
-    def entry():
-        try:
-            server.serve(env, stop)
-        except BaseException as e:  # noqa: BLE001 — re-raised below
-            errors.append(e)
-
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for mod in kernel_modules:
         mod.reset_launches()
     t_load = time.perf_counter()
-    thread = threading.Thread(target=entry, name="serve-entry", daemon=True)
-    thread.start()
-    while server.lookup_replica(key) is None:
-        if errors or not thread.is_alive():
-            raise RuntimeError(f"serve did not come up: {errors}")
-        time.sleep(0.05)
+    replica, stop, thread, errors = _run_serve(server, env)
     load_s = time.perf_counter() - t_load
-    replica = server.lookup_replica(key)
     decoder = replica.model
     payloads = _serve_requests(SERVE["requests"], decoder.vocab_size)
     t0 = time.perf_counter()
@@ -1108,10 +1345,10 @@ def phase_serve(torch, gpt, kernel_modules):
         if "sampling" in p:
             alone[i] = replica.submit(p, timeout=SERVE["timeout_s"])["tokens"]
     prefix_hits = replica.allocator.prefix_hits
-    stop.set()
-    thread.join(timeout=120)
-    if errors or thread.is_alive():
-        raise RuntimeError(f"serve did not exit cleanly: {errors}")
+    bucketed = _legacy_requests(decoder.vocab_size)
+    loop_bucketed = _latency_summary(_submit_all(
+        replica, [{"tokens": p, "gen_tokens": LEGACY["gen"]} for p in bucketed]))
+    _stop_serve(stop, thread, errors)
     launches = {k: v for mod in kernel_modules for k, v in mod.LAUNCHES.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
@@ -1132,6 +1369,8 @@ def phase_serve(torch, gpt, kernel_modules):
     del replica, decoder
     torch.cuda.empty_cache()
     f32 = _serve_f32_check(torch, gpt, server, payloads)
+    legacy = _serve_legacy(torch, server, bucketed, kernel_modules)
+    others = _serve_echo_and_mlp(server)
     summary = {
         "requests": len(outs), "gen_tokens": SERVE["gen"], "load_s": load_s,
         "wall_s": wall, "ttft_p50_s": float(np.percentile(ttft, 50)),
@@ -1140,6 +1379,8 @@ def phase_serve(torch, gpt, kernel_modules):
         "prefix_cache_hits": prefix_hits, "sampled_alone_equal": len(alone) - len(differ),
         "sampled_requests": len(alone), "decode_step_greedy": greedy,
         "decode_step_sampled": sampled, "f32_check": f32, "kernel_launches": launches,
+        "bucketed_decode_loop": loop_bucketed, "bucketed_legacy": legacy,
+        "echo_and_mlp": others,
     }
     log(f"serve: {json.dumps(summary)}")
     if differ:
@@ -1149,6 +1390,110 @@ def phase_serve(torch, gpt, kernel_modules):
     if prefix_hits < 1:
         raise AssertionError("no request reused the shared prefix's pages")
     return summary
+
+
+def _legacy_requests(vocab):
+    """LEGACY's greedy prompts: 8 of each bucket length, in shuffled order."""
+    import numpy as np
+
+    rng = np.random.default_rng(LEGACY["seed"])
+    lengths = rng.permutation(np.repeat(LEGACY["buckets"], LEGACY["per_bucket"]))
+    return [rng.integers(1, vocab, int(n)).astype(np.int32) for n in lengths]
+
+
+def _latency_summary(results):
+    """Latency p50/p99 (submit to reply) and output tokens/s of one
+    concurrent run; every reply must hold LEGACY["gen"] tokens."""
+    import numpy as np
+
+    lat = np.array([t1 - t0 for _, t0, t1 in results])
+    toks = [r["tokens"] for r, _, _ in results]
+    if any(len(t) != LEGACY["gen"] for t in toks):
+        raise AssertionError("a bucketed request did not complete its tokens")
+    wall = max(t1 for _, _, t1 in results) - min(t0 for _, t0, _ in results)
+    return {"requests": len(results), "latency_p50_s": float(np.percentile(lat, 50)),
+            "latency_p99_s": float(np.percentile(lat, 99)), "wall_s": wall,
+            "output_tokens_per_s": sum(map(len, toks)) / wall}
+
+
+def _run_serve(server, env):
+    """Start ``server.serve(env, stop)`` on a thread; (replica, stop,
+    thread, errors) once the replica is registered."""
+    import threading
+
+    key = f"default/{env['TFK8S_POD_NAME']}"
+    stop, errors = threading.Event(), []
+
+    def entry():
+        try:
+            server.serve(env, stop)
+        except BaseException as e:  # noqa: BLE001 — re-raised by _stop_serve
+            errors.append(e)
+
+    thread = threading.Thread(target=entry, name="serve-entry", daemon=True)
+    thread.start()
+    while server.lookup_replica(key) is None:
+        if errors or not thread.is_alive():
+            raise RuntimeError(f"serve did not come up: {errors}")
+        time.sleep(0.05)
+    return server.lookup_replica(key), stop, thread, errors
+
+
+def _stop_serve(stop, thread, errors):
+    stop.set()
+    thread.join(timeout=120)
+    if errors or thread.is_alive():
+        raise RuntimeError(f"serve did not exit cleanly: {errors}")
+
+
+def _serve_legacy(torch, server, prompts, kernel_modules):
+    """The slot-per-batch executor (``TFK8S_SERVE_DECODE_LOOP=0``) through
+    ``server.serve`` at base width, max batch 8, on the bucketed prompts:
+    latency, output tokens/s and peak memory; every reply 64 tokens. Its
+    prefill at 512 tokens or fewer takes plain attention under the "auto"
+    policy, so no kernel of the port launches."""
+    env = dict(SERVE_ENV, TFK8S_DEVICE=DEVICE, TFK8S_SERVE_DECODE_LOOP="0",
+               TFK8S_SERVE_GEN_TOKENS=str(LEGACY["gen"]),
+               TFK8S_POD_NAME="chip-smoke-legacy")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in kernel_modules:
+        mod.reset_launches()
+    replica, stop, thread, errors = _run_serve(server, env)
+    try:
+        out = _latency_summary(_submit_all(replica, prompts))
+        out["batches"] = replica.batches_total
+    finally:
+        _stop_serve(stop, thread, errors)
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: v for mod in kernel_modules for k, v in mod.LAUNCHES.items()}
+    if any(launches.values()):
+        raise AssertionError(f"the legacy path launched port kernels: {launches}")
+    return out
+
+
+def _serve_echo_and_mlp(server):
+    """``echo`` and ``mlp`` through ``server.serve``: a few requests each."""
+    import numpy as np
+
+    out = {}
+    for task in ("echo", "mlp"):
+        env = {"TFK8S_SERVE_TASK": task, "TFK8S_SERVE_CHECKPOINT": "seed:0",
+               "TFK8S_DEVICE": DEVICE, "TFK8S_POD_NAME": f"chip-smoke-{task}"}
+        replica, stop, thread, errors = _run_serve(server, env)
+        try:
+            rng = np.random.default_rng(0)
+            payloads = ([float(i) for i in range(4)] if task == "echo" else
+                        [rng.standard_normal(784).astype(np.float32) for _ in range(4)])
+            replies = [r for r, _, _ in _submit_all(replica, payloads)]
+        finally:
+            _stop_serve(stop, thread, errors)
+        if task == "echo" and [r["echo"] for r in replies] != payloads:
+            raise AssertionError(f"echo replies {replies}")
+        if task == "mlp" and not all(0 <= r["label"] < 10 for r in replies):
+            raise AssertionError(f"mlp replies {replies}")
+        out[task] = [r.get("label", r.get("echo")) for r in replies]
+    return out
 
 
 def _serve_f32_check(torch, gpt, server, payloads):
@@ -1234,6 +1579,7 @@ def main() -> int:
         ("train", lambda: phase_train(torch, gpt, fa, ckpt_dir)),
         ("resnet_train", lambda: phase_resnet_train(torch, resnet, gn, rn_ckpt_dir)),
         ("roofline", lambda: phase_roofline(torch, bc)),
+        ("generate", lambda: phase_generate(torch, gpt, fa)),
         ("serve", lambda: phase_serve(torch, gpt, (fa, gn, bc))),
     ]
     if only:
@@ -1257,8 +1603,9 @@ def main() -> int:
             log(f"card: {card_line}")
         elif name == "kernels":
             line = value
-        elif name in ("train", "resnet_train", "roofline"):
-            launches.update(value)
+        elif name in ("train", "resnet_train", "roofline", "generate"):
+            for kernel, count in value.items():  # each path's launches add up
+                launches[kernel] = launches.get(kernel, 0) + count
     for d in (ckpt_dir, rn_ckpt_dir):
         shutil.rmtree(d, ignore_errors=True)
     if failed:

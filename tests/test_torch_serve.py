@@ -220,10 +220,15 @@ def test_bfloat16_wire_bytes_interchange():
 
 
 def test_serve_refuses_the_tasks_it_does_not_port():
-    for env in ({"TFK8S_SERVE_TASK": "mlp"},
-                {"TFK8S_SERVE_TASK": "gpt", "TFK8S_SERVE_DECODE_LOOP": "0"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 1.6"):
+    """The port serves every task the reference does (echo, mlp, gpt and
+    t5, with or without the decode loop); an unknown task raises
+    ``ServeError``, as the reference's ``make_model`` does."""
+    for env in ({"TFK8S_SERVE_TASK": "bogus"},
+                {"TFK8S_SERVE_TASK": "bogus", "TFK8S_SERVE_DECODE_LOOP": "0"}):
+        with pytest.raises(tserver.ServeError, match="unknown serve task"):
             tserver.serve(dict(env, TFK8S_DEVICE="cpu"), threading.Event())
+        with pytest.raises(jserver.ServeError, match="unknown serve task"):
+            jserver.serve(env, threading.Event())
 
 
 @pytest.fixture

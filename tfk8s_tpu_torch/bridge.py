@@ -27,6 +27,16 @@ The paged KV cache maps too (``pages_to_torch``/``pages_from_torch``): the
 reference's ``pages`` tree holds ``layer{i}/attn/{k_pages,v_pages}``, flat
 ``[n_pages*page_size, heads, head_dim]`` leaves, and the port keeps the
 same buffers as one ``(k, v)`` pair per layer.
+
+So does the slot-per-batch decode cache (``cache_to_torch``/
+``cache_from_torch``): the reference's ``cache`` tree holds
+``layer{i}/attn/{cached_key,cached_value}`` ``[b, cache_len, heads,
+head_dim]`` and a per-layer ``cache_index``; the port's
+``transformer.DecodeCache`` holds the same buffers and one shared index.
+
+The MLP classifier (``models/mlp.py``) maps ``fc1``/``fc2`` ``{kernel
+[in, out], bias}`` to ``nn.Linear`` ``weight [out, in]`` and ``bias``
+(``mlp_params_to_state_dict``).
 """
 
 from __future__ import annotations
@@ -36,7 +46,7 @@ from typing import Any, Dict, List, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
-from tfk8s_tpu_torch.models.transformer import TransformerConfig
+from tfk8s_tpu_torch.models.transformer import DecodeCache, TransformerConfig
 
 _PROJ = ("q", "k", "v")
 
@@ -182,3 +192,47 @@ def pages_from_torch(pages: Sequence[Tuple[torch.Tensor, torch.Tensor]]) -> Dict
         f"layer{i}": {"attn": {"k_pages": a(k), "v_pages": a(v)}}
         for i, (k, v) in enumerate(pages)
     }
+
+
+def cache_to_torch(cache: Mapping[str, Any], cfg: TransformerConfig,
+                   device: Any = None) -> DecodeCache:
+    """The reference's decode-cache tree (numpy leaves) -> a port
+    :class:`DecodeCache` in ``cfg.dtype``. Every layer's ``cache_index``
+    must agree: the port keeps one."""
+    layers = [cache[f"layer{i}"]["attn"] for i in range(cfg.num_layers)]
+    indices = {int(np.asarray(a["cache_index"])) for a in layers}
+    if len(indices) != 1:
+        raise ValueError(f"layers disagree on the cache index: {sorted(indices)}")
+
+    def t(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, copy=True)).to(device=device, dtype=cfg.dtype)
+
+    return DecodeCache([t(a["cached_key"]) for a in layers],
+                       [t(a["cached_value"]) for a in layers],
+                       torch.tensor(indices.pop(), dtype=torch.int32, device=device))
+
+
+def cache_from_torch(cache: DecodeCache) -> Dict[str, Any]:
+    """A port :class:`DecodeCache` -> the reference's decode-cache tree
+    (float32 numpy buffers, an int32 index per layer)."""
+
+    def a(x: torch.Tensor) -> np.ndarray:
+        return x.detach().to("cpu", torch.float32).numpy().copy()
+
+    index = np.asarray(int(cache.index), np.int32)
+    return {
+        f"layer{i}": {"attn": {"cached_key": a(k), "cached_value": a(v),
+                               "cache_index": index.copy()}}
+        for i, (k, v) in enumerate(zip(cache.keys, cache.values))
+    }
+
+
+def mlp_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The MLP classifier's flax tree (numpy leaves) -> the port's
+    ``state_dict``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("fc1", "fc2"):
+        sd[f"{name}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(params[name]["kernel"], np.float32).T).copy())
+        sd[f"{name}.bias"] = torch.from_numpy(np.array(params[name]["bias"], np.float32, copy=True))
+    return sd

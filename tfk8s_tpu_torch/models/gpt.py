@@ -13,12 +13,23 @@ The device half of paged continuous-batching decode is here too:
 ``clean_pages``, ``_paged_apply``, the packed ``decode``/``prefill``/
 ``verify`` steps over the reference's int32 state and batch layouts, the
 top-k/top-p filters and the per-row pick (``sample_tokens``), which draws
-with ``ops/jax_random`` so sampled streams equal the reference's. The
-slot-per-batch ``generate``/``beam_generate`` family is ROADMAP item 1.6.
+with ``ops/jax_random`` so sampled streams equal the reference's.
+
+So is slot-per-batch KV-cache generation (reference ``gpt.py:142-791``):
+``init_cache``, ``prefill_cache`` (one causal forward over the prompt
+through ``select_attn_fn``, so the flash kernel on the card when flash is
+chosen, seeding a :class:`DecodeCache` from every layer's K/V),
+``generate`` (greedy or sampled with the reference's key folds, batched or
+token-at-a-time prefill, early exit once every row has emitted
+``eos_id``), ``greedy_generate`` and ``beam_generate``; and Hugging Face
+GPT-2 import and export (``load_hf_gpt2``, ``save_hf_gpt2``) as direct
+``state_dict`` maps.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -28,7 +39,10 @@ import torch.nn.functional as F
 from tfk8s_tpu_torch.models.bert import BertWithHead, make_chain_tokens
 from tfk8s_tpu_torch.ops import jax_random
 from tfk8s_tpu_torch.models.transformer import (
+    DecodeCache,
     TransformerConfig,
+    clean_cache,
+    dot_product_attention,
     init_params,
     select_attn_fn,
 )
@@ -344,6 +358,340 @@ def _sample_packed(logits: torch.Tensor, positions: torch.Tensor,
         rep(samp_f[:, 1]), rep(samp_i[:, 1]), folds.reshape(-1),
     )
     return picks.reshape(slots, c)
+
+
+# ---------------------------------------------------------------------------
+# Slot-per-batch KV-cache generation
+# ---------------------------------------------------------------------------
+
+
+def mode_view(model: BertWithHead, decode: bool = False, sow_kv: bool = False) -> BertWithHead:
+    """``model`` in another mode (``BertWithHead``'s ``decode``/``sow_kv``
+    flags) over the same parameters: a shallow copy shares every
+    submodule, and only the flags differ."""
+    view = copy.copy(model)
+    view.decode, view.sow_kv = decode, sow_kv
+    return view
+
+
+def init_cache(cfg: TransformerConfig, batch_size: int,
+               device: Union[str, torch.device, None] = None) -> DecodeCache:
+    """A clean decode cache of ``cfg.decode_cache_len or cfg.max_len``
+    positions (reference ``gpt.py:142``): right-size it to the request,
+    since a decode step's cache traffic scales with the buffer."""
+    return clean_cache(cfg, batch_size, device)
+
+
+@torch.no_grad()
+def prefill_cache(cfg: TransformerConfig, model: BertWithHead,
+                  prompt: torch.Tensor) -> Tuple[torch.Tensor, DecodeCache]:
+    """Batched prefill (reference ``gpt.py:467``): one causal forward over
+    the prompt ``[b, plen]``, through the attention ``select_attn_fn``
+    picks for ``plen`` on the prompt's device (the flash kernel on the
+    card when flash is chosen), whose layers also return their raw K/V;
+    a decode cache seeded with them sits at position ``plen``. Returns
+    ``(prompt logits [b, plen, vocab], cache)``. The K/V are the
+    projections a token-at-a-time prefill writes, whichever attention
+    ran."""
+    b, plen = prompt.shape
+    cache_len = cfg.decode_cache_len or cfg.max_len
+    if plen > cache_len:
+        raise ValueError(f"prompt_len {plen} exceeds cache_len {cache_len}")
+    attn_fn = select_attn_fn(cfg, plen, prompt.device) or dot_product_attention
+    logits, sown = mode_view(model, sow_kv=True)(prompt, attn_fn=attn_fn)
+    cache = init_cache(cfg, b, prompt.device)
+    for k_buf, v_buf, (k, v) in zip(cache.keys, cache.values, sown):
+        k_buf[:, :plen] = k
+        v_buf[:, :plen] = v
+    cache.index.fill_(plen)
+    return logits, cache
+
+
+def _key(rng: Any, device: torch.device) -> torch.Tensor:
+    """A jax.random key as ``[2]`` int64 words: an int seed
+    (``PRNGKey(seed)``) or the key's two uint32 words (``key_data``)."""
+    if isinstance(rng, int):
+        return jax_random.prng_key(torch.tensor(rng)).to(device)
+    words = torch.as_tensor(np.asarray(rng, dtype=np.int64).reshape(2))
+    return words.to(device)
+
+
+@torch.no_grad()
+def generate(
+    cfg: TransformerConfig,
+    model: BertWithHead,
+    prompt: torch.Tensor,  # [b, prompt_len] int
+    num_tokens: int,
+    rng: Any = None,
+    temperature: float = 1.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    batched_prefill: bool = True,
+    eos_id: Optional[int] = None,
+    pad_id: int = 0,
+) -> torch.Tensor:
+    """KV-cache decoding, greedy or sampled (reference ``gpt.py:518``);
+    returns the ``[b, num_tokens]`` continuation in the prompt's dtype.
+
+    ``batched_prefill=True`` seeds the cache with one full forward
+    (:func:`prefill_cache`), then decodes ``num_tokens - 1`` single-token
+    steps; ``False`` runs ``prompt_len + num_tokens`` single-token steps
+    from a clean cache. Both give the same tokens. ``rng=None`` (or
+    ``temperature=0``) is greedy argmax; otherwise the token after
+    position ``p`` is ``categorical(fold_in(rng, p), filter_logits(logits
+    / temperature, top_k, top_p))`` with one key over the whole batch, as
+    the reference draws it (``gpt.py:588-599``), so the same key gives the
+    reference's tokens. ``rng`` is an int seed or a key's two uint32 words.
+
+    ``eos_id`` (batched prefill only): a row's EOS is emitted, every later
+    position is ``pad_id``, and the loop stops once every row has finished;
+    the reference's on-device while-loop exit is a host read of
+    ``done.all()`` once a step here.
+
+    The cache holds ``prompt_len + num_tokens`` positions unless
+    ``cfg.decode_cache_len`` pins a size that fits."""
+    b, prompt_len = prompt.shape
+    total = prompt_len + num_tokens
+    if num_tokens < 1:
+        return prompt.new_zeros((b, 0))
+    if total > cfg.max_len:
+        raise ValueError(f"prompt_len + num_tokens = {total} exceeds max_len={cfg.max_len}")
+    if cfg.decode_cache_len is not None and cfg.decode_cache_len < total:
+        raise ValueError(
+            f"decode_cache_len={cfg.decode_cache_len} is smaller than "
+            f"prompt_len + num_tokens = {total}"
+        )
+    if cfg.decode_cache_len is None:
+        cfg = dataclasses.replace(cfg, decode_cache_len=total)
+    if eos_id is not None and not batched_prefill:
+        raise ValueError("eos_id requires batched_prefill=True")
+    decoder = mode_view(model, decode=True)
+    sampled = rng is not None and temperature > 0.0
+    key = _key(rng, prompt.device) if sampled else None
+
+    def pick(step_logits: torch.Tensor, fold: int) -> torch.Tensor:
+        """The next token from float32 logits, the key folded by the
+        absolute position, so both prefill paths draw the same stream."""
+        if sampled:
+            filtered = filter_logits(step_logits / temperature, top_k=top_k, top_p=top_p)
+            drawn = jax_random.categorical_shared(jax_random.fold_in(key, fold), filtered)
+            return drawn.to(prompt.dtype)
+        return torch.argmax(step_logits, dim=-1).to(prompt.dtype)
+
+    def step(cache: DecodeCache, tok: torch.Tensor) -> Tuple[torch.Tensor, DecodeCache]:
+        logits, cache = decoder(tok[:, None], cache=cache, pos_offset=cache.index)
+        return logits[:, 0].float(), cache
+
+    if not batched_prefill:
+        cache = init_cache(cfg, b, prompt.device)
+        tok, outs = prompt[:, 0], []
+        for i in range(total):
+            logits, cache = step(cache, tok)
+            nxt = pick(logits, i)
+            outs.append(nxt)
+            # inside the prompt feed its next token, then the model's own
+            tok = prompt[:, i + 1] if i + 1 < prompt_len else nxt
+        # outs[i] predicts position i + 1: the continuation starts at
+        # prompt_len, predicted at step prompt_len - 1
+        return torch.stack(outs, dim=1)[:, prompt_len - 1:total - 1]
+
+    prompt_logits, cache = prefill_cache(cfg, model, prompt)
+    tok = pick(prompt_logits[:, -1].float(), prompt_len - 1)
+    if eos_id is None:
+        outs = [tok]
+        for j in range(num_tokens - 1):
+            logits, cache = step(cache, tok)
+            tok = pick(logits, prompt_len + j)
+            outs.append(tok)
+        return torch.stack(outs, dim=1)
+    out = torch.full((b, num_tokens), pad_id, dtype=prompt.dtype, device=prompt.device)
+    out[:, 0] = tok
+    done = tok == eos_id
+    pad = torch.full_like(tok, pad_id)
+    for j in range(num_tokens - 1):
+        if bool(done.all()):
+            break
+        # finished rows keep feeding pad; their cache rows are dead
+        logits, cache = step(cache, torch.where(done, pad, tok))
+        tok = torch.where(done, pad, pick(logits, prompt_len + j))
+        out[:, j + 1] = tok
+        done = done | (tok == eos_id)
+    return out
+
+
+def greedy_generate(cfg: TransformerConfig, model: BertWithHead, prompt: torch.Tensor,
+                    num_tokens: int) -> torch.Tensor:
+    """Greedy argmax decoding: :func:`generate` without a key (reference
+    ``gpt.py:690``)."""
+    return generate(cfg, model, prompt, num_tokens)
+
+
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last axis: the ``k`` largest values,
+    descending, ties toward the lower index. ``torch.topk`` promises no
+    order among ties, so a stable descending sort is sliced instead."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+@torch.no_grad()
+def beam_generate(
+    cfg: TransformerConfig,
+    model: BertWithHead,
+    prompt: torch.Tensor,  # [b, prompt_len] int
+    num_tokens: int,
+    num_beams: int = 4,
+    return_all: bool = False,
+):
+    """Beam search with the KV cache (reference ``gpt.py:700``): one
+    batched prefill at batch ``b``, the cache tiled to ``b * num_beams``
+    rows, then each step keeps the ``num_beams`` highest total log-prob
+    continuations per batch row and re-gathers the cache by parent beam.
+    Fixed-length sequences. Returns the best continuation ``[b,
+    num_tokens]``, or with ``return_all`` ``(sequences [b, k, num_tokens],
+    scores [b, k])`` best first. ``num_beams=1`` is greedy decoding."""
+    b, prompt_len = prompt.shape
+    k, vocab = num_beams, cfg.vocab_size
+    total = prompt_len + num_tokens
+    if num_tokens < 1:
+        raise ValueError("beam search needs num_tokens >= 1")
+    if total > cfg.max_len:
+        raise ValueError(f"prompt_len + num_tokens = {total} exceeds max_len={cfg.max_len}")
+    if cfg.decode_cache_len is not None and cfg.decode_cache_len < total:
+        raise ValueError(f"decode_cache_len={cfg.decode_cache_len} < {total}")
+    if cfg.decode_cache_len is None:
+        cfg = dataclasses.replace(cfg, decode_cache_len=total)
+    decoder = mode_view(model, decode=True)
+    prompt_logits, cache = prefill_cache(cfg, model, prompt)
+    logp0 = torch.log_softmax(prompt_logits[:, -1].float(), dim=-1)  # [b, V]
+    scores, tok0 = _top_k(logp0, k)  # [b, k] each: beams from one source
+    dev = prompt.device
+    cache = cache.select_rows(torch.arange(b, device=dev).repeat_interleave(k))
+    seqs = torch.zeros((b * k, num_tokens), dtype=prompt.dtype, device=dev)
+    seqs[:, 0] = tok0.reshape(-1).to(prompt.dtype)
+    row_base = torch.arange(b, device=dev)[:, None] * k
+    for i in range(num_tokens - 1):
+        logits, cache = decoder(seqs[:, i][:, None], cache=cache, pos_offset=cache.index)
+        logp = torch.log_softmax(logits[:, 0].float(), dim=-1)  # [b*k, V]
+        cand = (scores.reshape(b * k)[:, None] + logp).reshape(b, k * vocab)
+        scores, flat = _top_k(cand, k)
+        parent = (row_base + flat // vocab).reshape(-1)
+        cache = cache.select_rows(parent)
+        seqs = seqs.index_select(0, parent)
+        seqs[:, i + 1] = (flat % vocab).reshape(-1).to(prompt.dtype)
+    seqs = seqs.reshape(b, k, num_tokens)
+    if return_all:
+        return seqs, scores
+    return seqs[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# Hugging Face GPT-2 interop
+# ---------------------------------------------------------------------------
+
+
+def load_hf_gpt2(hf_model) -> Tuple[TransformerConfig, BertWithHead]:
+    """Import a Hugging Face ``GPT2LMHeadModel`` as ``(cfg, model)``, a
+    float32 GPT of this package (reference ``gpt.py:793``). The stacks are
+    the same pre-LN blocks with learned positions, a final LN and a tied
+    head, so the map is a relabel of ``state_dict`` entries: HF's
+    ``Conv1D`` weights are ``[in, out]`` and become ``nn.Linear``'s
+    ``[out, in]``, the fused ``c_attn`` splits into q, k and v, and
+    ``ln_eps`` is the checkpoint's ``layer_norm_epsilon``. Configs whose
+    forward differs from this stack are refused."""
+    hc = hf_model.config
+    if hc.n_embd % hc.n_head:
+        raise ValueError(f"n_embd {hc.n_embd} not divisible by n_head {hc.n_head}")
+    act = getattr(hc, "activation_function", "gelu_new")
+    if act not in ("gelu_new", "gelu_pytorch_tanh"):
+        raise ValueError(
+            f"activation_function={act!r} unsupported: this stack runs the "
+            "tanh-approximate gelu (gelu_new)"
+        )
+    if not getattr(hc, "scale_attn_weights", True):
+        raise ValueError("scale_attn_weights=False is unsupported")
+    if getattr(hc, "scale_attn_by_inverse_layer_idx", False):
+        raise ValueError("scale_attn_by_inverse_layer_idx is unsupported")
+    if getattr(hc, "reorder_and_upcast_attn", False):
+        raise ValueError("reorder_and_upcast_attn is unsupported")
+    cfg = TransformerConfig(
+        vocab_size=hc.vocab_size, embed_dim=hc.n_embd, num_heads=hc.n_head,
+        head_dim=hc.n_embd // hc.n_head,
+        mlp_dim=getattr(hc, "n_inner", None) or 4 * hc.n_embd,
+        num_layers=hc.n_layer, max_len=hc.n_positions,
+        ln_eps=float(hc.layer_norm_epsilon), dtype=torch.float32,
+    )
+    src = {k: v.detach().to("cpu", torch.float32) for k, v in hf_model.state_dict().items()}
+    sd = {
+        "embed.tok.weight": src["transformer.wte.weight"],
+        "embed.pos": src["transformer.wpe.weight"],
+        "ln_final.weight": src["transformer.ln_f.weight"],
+        "ln_final.bias": src["transformer.ln_f.bias"],
+    }
+    for i in range(cfg.num_layers):
+        p, o = f"transformer.h.{i}", f"layers.{i}"
+        wq, wk, wv = src[f"{p}.attn.c_attn.weight"].chunk(3, dim=1)
+        bq, bk, bv = src[f"{p}.attn.c_attn.bias"].chunk(3)
+        for name, w, bias in (("q", wq, bq), ("k", wk, bk), ("v", wv, bv)):
+            sd[f"{o}.attn.{name}.weight"] = w.t()
+            sd[f"{o}.attn.{name}.bias"] = bias
+        for ours, theirs in (("attn.out", "attn.c_proj"), ("mlp.wi", "mlp.c_fc"),
+                             ("mlp.wo", "mlp.c_proj")):
+            sd[f"{o}.{ours}.weight"] = src[f"{p}.{theirs}.weight"].t()
+            sd[f"{o}.{ours}.bias"] = src[f"{p}.{theirs}.bias"]
+        for ours, theirs in (("ln_attn", "ln_1"), ("ln_mlp", "ln_2")):
+            sd[f"{o}.{ours}.weight"] = src[f"{p}.{theirs}.weight"]
+            sd[f"{o}.{ours}.bias"] = src[f"{p}.{theirs}.bias"]
+    model = GPTLM(cfg)
+    model.load_state_dict({k: v.contiguous() for k, v in sd.items()})
+    return cfg, model.eval()
+
+
+def save_hf_gpt2(cfg: TransformerConfig, model: Union[BertWithHead, Dict[str, torch.Tensor]]):
+    """Export a GPT of this package (a module or its ``state_dict``) as a
+    Hugging Face ``GPT2LMHeadModel``: :func:`load_hf_gpt2`'s map run
+    backwards (reference ``gpt.py:892``). ``transformers`` is imported
+    here only."""
+    from transformers import GPT2Config, GPT2LMHeadModel
+
+    e, h, d = cfg.embed_dim, cfg.num_heads, cfg.head_dim
+    if e != h * d:
+        raise ValueError(f"HF GPT-2 requires embed_dim == num_heads*head_dim; got {e} != {h}*{d}")
+    if cfg.num_experts > 0:
+        raise ValueError("MoE models have no GPT-2 equivalent")
+    src = model.state_dict() if isinstance(model, torch.nn.Module) else model
+    src = {k: v.detach().to("cpu", torch.float32) for k, v in src.items()}
+    hf = GPT2LMHeadModel(GPT2Config(
+        vocab_size=cfg.vocab_size, n_positions=cfg.max_len, n_embd=e, n_layer=cfg.num_layers,
+        n_head=h, n_inner=cfg.mlp_dim, layer_norm_epsilon=cfg.ln_eps,
+        activation_function="gelu_new", resid_pdrop=0.0, embd_pdrop=0.0, attn_pdrop=0.0,
+    ))
+    sd = {
+        "transformer.wte.weight": src["embed.tok.weight"],
+        "transformer.wpe.weight": src["embed.pos"],
+        "transformer.ln_f.weight": src["ln_final.weight"],
+        "transformer.ln_f.bias": src["ln_final.bias"],
+        "lm_head.weight": src["embed.tok.weight"],  # tied
+    }
+    for i in range(cfg.num_layers):
+        p, o = f"transformer.h.{i}", f"layers.{i}"
+        sd[f"{p}.attn.c_attn.weight"] = torch.cat(
+            [src[f"{o}.attn.{n}.weight"].t() for n in ("q", "k", "v")], dim=1)
+        sd[f"{p}.attn.c_attn.bias"] = torch.cat([src[f"{o}.attn.{n}.bias"] for n in ("q", "k", "v")])
+        for ours, theirs in (("attn.out", "attn.c_proj"), ("mlp.wi", "mlp.c_fc"),
+                             ("mlp.wo", "mlp.c_proj")):
+            sd[f"{p}.{theirs}.weight"] = src[f"{o}.{ours}.weight"].t()
+            sd[f"{p}.{theirs}.bias"] = src[f"{o}.{ours}.bias"]
+        for ours, theirs in (("ln_attn", "ln_1"), ("ln_mlp", "ln_2")):
+            sd[f"{p}.{theirs}.weight"] = src[f"{o}.{ours}.weight"]
+            sd[f"{p}.{theirs}.bias"] = src[f"{o}.{ours}.bias"]
+    missing, unexpected = hf.load_state_dict(
+        {k: v.contiguous() for k, v in sd.items()}, strict=False)
+    # attn.bias / attn.masked_bias are causal-mask buffers HF derives itself
+    real_missing = [m for m in missing if not m.endswith((".attn.bias", ".attn.masked_bias"))]
+    if real_missing or unexpected:
+        raise ValueError(f"state_dict mismatch: missing={real_missing} unexpected={list(unexpected)}")
+    return hf.eval()
 
 
 def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, float]]:

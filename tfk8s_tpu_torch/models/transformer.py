@@ -19,16 +19,24 @@ Parameter layout is PyTorch's (``nn.Linear`` weights are ``[out, in]``);
 
 The paged path (:func:`paged_attention`) keeps each layer's K/V in a flat
 ``[kv_max_pages * kv_page_size, heads, head_dim]`` pool per layer, in
-``cfg.dtype``, written in place. The reference's slot-per-batch decode
-cache, MoE, remat and sequence parallelism are later ROADMAP items and
-raise ``NotImplementedError``.
+``cfg.dtype``, written in place.
+
+The slot-per-batch decode path (:func:`decode_attention`, the reference's
+``decode=True`` branch, ``transformer.py:253-300``) keeps each layer's K/V
+in ``[batch, cache_len, heads, head_dim]`` buffers of a
+:class:`DecodeCache`, an explicit structure the caller passes in and gets
+back (no hidden module state), with the write position as a 0-d tensor on
+the device. A full forward can hand each layer's raw K/V projections to a
+caller's list (the reference's ``sow_kv``, ``:147-177``), whichever
+attention implementation runs. MoE, remat and sequence parallelism are
+later ROADMAP items and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -59,6 +67,10 @@ class TransformerConfig:
     # is the trash page inactive rows write into (runtime/paging)
     kv_page_size: Optional[int] = None
     kv_max_pages: Optional[int] = None
+    # KV-cache buffer length of slot-per-batch decode (None = max_len):
+    # right-sized to the request (prompt + generation), since a decode
+    # step's cache traffic scales with the buffer, not the filled part
+    decode_cache_len: Optional[int] = None
 
     def pages_per_slot(self) -> int:
         """Page-table width: pages needed to cover ``max_len`` tokens."""
@@ -168,12 +180,77 @@ def paged_attention(
     return out.masked_fill(~plan.inside[:, :, None, None], float("nan"))
 
 
+@dataclasses.dataclass
+class DecodeCache:
+    """The slot-per-batch KV cache of incremental decode: per layer a key
+    and a value buffer ``[batch, cache_len, heads, head_dim]`` in
+    ``cfg.dtype``, and the next write position, shared by every layer (the
+    reference keeps one ``cache_index`` per layer; they always agree). A
+    decode step writes its buffers in place and returns a cache with the
+    position advanced; the position stays a 0-d int32 tensor on the device,
+    so a step issues no host read."""
+
+    keys: List[torch.Tensor]
+    values: List[torch.Tensor]
+    index: torch.Tensor
+
+    def advanced(self, steps: int) -> "DecodeCache":
+        return DecodeCache(self.keys, self.values, self.index + steps)
+
+    def select_rows(self, rows: torch.Tensor) -> "DecodeCache":
+        """The cache of the batch rows ``rows`` (new buffers), as beam
+        search re-gathers it by parent beam."""
+        return DecodeCache([k.index_select(0, rows) for k in self.keys],
+                           [v.index_select(0, rows) for v in self.values], self.index)
+
+
+def clean_cache(cfg: TransformerConfig, batch_size: int,
+                device: Union[str, torch.device, None] = None) -> DecodeCache:
+    """A clean decode cache (zero buffers of ``cfg.decode_cache_len or
+    cfg.max_len`` positions, index 0): the port's counterpart of the
+    reference's ``clean_cache``, which zeroes the cache shapes a module's
+    init reports."""
+    cache_len = cfg.decode_cache_len or cfg.max_len
+    shape = (batch_size, cache_len, cfg.num_heads, cfg.head_dim)
+
+    def zeros() -> List[torch.Tensor]:
+        return [torch.zeros(shape, dtype=cfg.dtype, device=device) for _ in range(cfg.num_layers)]
+
+    return DecodeCache(zeros(), zeros(), torch.zeros((), dtype=torch.int32, device=device))
+
+
+def decode_attention(
+    q: torch.Tensor,  # [b, 1, h, d] (pre-scaled)
+    k: torch.Tensor,  # [b, 1, h, d] this step's key
+    v: torch.Tensor,  # [b, 1, h, d]
+    cache: Tuple[torch.Tensor, torch.Tensor],  # (k, v) [b, cache_len, h, d]
+    index: torch.Tensor,  # 0-d int: the position this step writes
+) -> torch.Tensor:
+    """Incremental attention against a layer's decode cache: write this
+    step's K/V at ``index`` in place and attend over positions ``<=
+    index`` with the plain ``dot_product_attention`` (the causal mask in
+    incremental form). Past the buffer the write lands on the last
+    position, as ``dynamic_update_slice`` clamps its start, and the output
+    is NaN, the reference's overflow guard."""
+    k_buf, v_buf = cache
+    b, cache_len = k_buf.shape[0], k_buf.shape[1]
+    at = index.long().clamp(max=cache_len - 1).view(1)
+    k_buf.index_copy_(1, at, k.to(k_buf.dtype))
+    v_buf.index_copy_(1, at, v.to(v_buf.dtype))
+    valid = torch.arange(cache_len, device=q.device) < index + 1
+    out = dot_product_attention(q, k_buf, v_buf, mask=valid.expand(b, cache_len))
+    return out.masked_fill(index >= cache_len, float("nan"))
+
+
 class MultiHeadAttention(nn.Module):
     """Self- or cross-attention. ``attn_fn`` swaps the inner
-    softmax(QK^T)V computation (the flash kernels plug in here). Given a
-    layer's page ``pool`` and ``plan``, it runs the
-    block-paged path (:func:`paged_attention`) with the forward's
-    :class:`PagePlan`."""
+    softmax(QK^T)V computation (the flash kernels plug in here); a call's
+    ``attn_fn`` overrides the layer's. Given a layer's page ``pool`` and
+    ``plan``, it runs the block-paged path (:func:`paged_attention`) with
+    the forward's :class:`PagePlan`; given a layer's decode ``cache`` and
+    ``cache_index``, the incremental path (:func:`decode_attention`), one
+    token a call. ``kv_sink``, a list, receives this call's raw ``(k, v)``
+    projections (the reference's ``sow_kv``)."""
 
     def __init__(self, cfg: TransformerConfig, causal: bool = False,
                  attn_fn: Optional[Callable] = None):
@@ -190,7 +267,11 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None,
                 pool: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                plan: Optional[PagePlan] = None) -> torch.Tensor:
+                plan: Optional[PagePlan] = None,
+                cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                cache_index: Optional[torch.Tensor] = None,
+                kv_sink: Optional[list] = None,
+                attn_fn: Optional[Callable] = None) -> torch.Tensor:
         cfg = self.cfg
         kv = x if kv is None else kv
         b, lq, lk = x.shape[0], x.shape[1], kv.shape[1]
@@ -198,7 +279,25 @@ class MultiHeadAttention(nn.Module):
         q = _dense(self.q, x, cfg.dtype).view(b, lq, *heads) / self.q_scale
         k = _dense(self.k, kv, cfg.dtype).view(b, lk, *heads)
         v = _dense(self.v, kv, cfg.dtype).view(b, lk, *heads)
-        if pool is not None:
+        if kv_sink is not None:
+            kv_sink.append((k, v))
+        attn_fn = attn_fn or self.attn_fn
+        if cache is not None:
+            # one token a call: a longer step would need an intra-step
+            # causal mask this path omits; a padding mask would make pad
+            # K/V attendable for every later token
+            if lq != 1:
+                raise ValueError(
+                    f"decode mode is incremental (one token per call); "
+                    f"got a {lq}-token step"
+                )
+            if mask is not None:
+                raise ValueError(
+                    "decode mode does not support padding masks; feed "
+                    "unpadded per-row prompts (mask=None)"
+                )
+            out = decode_attention(q, k, v, cache, cache_index)
+        elif pool is not None:
             if mask is not None:
                 raise ValueError(
                     "paged mode computes its own prefix mask; feed unpadded "
@@ -207,8 +306,8 @@ class MultiHeadAttention(nn.Module):
             if plan is None:
                 raise ValueError("paged mode needs the forward's page plan")
             out = paged_attention(q, k, v, pool, plan)
-        elif self.attn_fn is not None:
-            out = self.attn_fn(q, k, v, mask=mask, causal=self.causal)
+        elif attn_fn is not None:
+            out = attn_fn(q, k, v, mask=mask, causal=self.causal)
         else:
             out = dot_product_attention(q, k, v, mask=mask, causal=self.causal)
         return _dense(self.out, out.reshape(b, lq, -1), cfg.dtype)
@@ -241,9 +340,11 @@ class EncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 pool: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                plan: Optional[PagePlan] = None) -> torch.Tensor:
+                plan: Optional[PagePlan] = None, **attn_kw) -> torch.Tensor:
+        """``attn_kw`` (``cache``, ``cache_index``, ``kv_sink``,
+        ``attn_fn``) goes to the attention as is."""
         dt = self.cfg.dtype
-        x = x + self.attn(_ln(self.ln_attn, x, dt), mask=mask, pool=pool, plan=plan)
+        x = x + self.attn(_ln(self.ln_attn, x, dt), mask=mask, pool=pool, plan=plan, **attn_kw)
         return x + self.mlp(_ln(self.ln_mlp, x, dt))
 
 
@@ -262,13 +363,19 @@ class Embedder(nn.Module):
         """``pos_offset`` shifts the positional slice; a VECTOR ``[b]``
         gives each row its own offset (paged decode steps rows at
         different positions in one call). Rows past the table read NaN,
-        as the reference's ``jnp.take`` fills out-of-range indices."""
+        as the reference's ``jnp.take`` fills out-of-range indices. A 0-d
+        tensor (incremental decode's cache position) is read on the device
+        and clamped so the slice fits, as ``dynamic_slice_in_dim`` does."""
         length = ids.shape[-1]
+        max_len = self.pos.shape[0]
         if isinstance(pos_offset, torch.Tensor) and pos_offset.dim() >= 1:
             rows = pos_offset.long()[:, None] + torch.arange(length, device=ids.device)
-            inside = (rows >= 0) & (rows < self.pos.shape[0])
-            pos = self.pos[rows.clamp(0, self.pos.shape[0] - 1)]  # [b, l, embed]
+            inside = (rows >= 0) & (rows < max_len)
+            pos = self.pos[rows.clamp(0, max_len - 1)]  # [b, l, embed]
             pos = pos.masked_fill(~inside[..., None], float("nan"))
+        elif isinstance(pos_offset, torch.Tensor):
+            start = pos_offset.long().clamp(0, max_len - length)
+            pos = self.pos.index_select(0, start + torch.arange(length, device=ids.device))
         else:
             start = 0 if pos_offset is None else int(pos_offset)
             pos = self.pos[start:start + length]

@@ -18,7 +18,9 @@ What is reproduced, bit for bit against jax 0.9.0 on the CPU (where
   ``[tiny, 1)``, where ``log`` is XLA:CPU's float32 log (the Cephes
   polynomial with its fused multiply-adds, :func:`xla_cpu_log`), not
   torch's, which differs from it in the last place for ~14% of inputs;
-- :func:`categorical`: ``argmax(gumbel + logits)`` along the last axis.
+- :func:`categorical`: ``argmax(gumbel + logits)`` along the last axis,
+  one key a row; :func:`categorical_shared` the same with one key for the
+  whole batch, the noise drawn over the logits' full shape.
 
 torch has no full uint32 arithmetic, so every word is an int64 tensor
 held in ``[0, 2^32)``: additions are masked with ``& 0xFFFFFFFF`` and
@@ -166,4 +168,12 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     ``logits [*batch, n]`` and keys ``[*batch, 2]``: the Gumbel-max draw,
     first index on ties."""
     noise = gumbel(key, logits.shape[-1:])  # [*batch, n]
+    return torch.argmax(noise + logits.float(), dim=-1)
+
+
+def categorical_shared(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)`` with ONE key ``[2]``
+    for float32 ``logits [*batch, n]``: jax draws the Gumbel noise over the
+    logits' whole shape from that key."""
+    noise = gumbel(key, logits.shape)
     return torch.argmax(noise + logits.float(), dim=-1)

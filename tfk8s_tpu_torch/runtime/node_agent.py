@@ -21,6 +21,13 @@ attribute. Outside a node agent (no stop object, or a plain
 (the pod's entrypoint thread, which is the thread the node agent reads
 progress for) until the ``with`` block ends, and makes the agent's
 tracer the one ``obs.trace.get_tracer`` returns.
+
+The agent's serving table, where the gateway and the serve client look
+replicas up, is found the same way: the stop signal's module belongs to a
+package whose ``server`` attribute, once that module is loaded (the
+gateway imports it), is the agent's serving module. :func:`serving_module`
+returns it, and the port's ``serve`` registers its replicas there too
+(``runtime/agent_replica``).
 """
 
 from __future__ import annotations
@@ -63,6 +70,25 @@ def find(stop: Any) -> Optional[NodeAgent]:
             and callable(get_tracer)):
         return None
     return NodeAgent(pod_drained=drained, progress=prog, get_tracer=get_tracer)
+
+
+def serving_module(stop: Any) -> Any:
+    """The node agent's serving module behind ``stop``: the ``server``
+    attribute of the package of the stop signal's module, when it is
+    loaded and offers the replica table (``register_replica``,
+    ``unregister_replica``, ``lookup_replica``) and the ``ServeError``
+    taxonomy. None outside a node agent or while no such module is
+    loaded."""
+    if find(stop) is None:
+        return None
+    package = getattr(sys.modules.get(type(stop).__module__), "__package__", None)
+    serving = getattr(sys.modules.get(package or ""), "server", None)
+    table = ("register_replica", "unregister_replica", "lookup_replica")
+    if not all(callable(getattr(serving, name, None)) for name in table):
+        return None
+    if not isinstance(getattr(serving, "ServeError", None), type):
+        return None
+    return serving
 
 
 def pod_drained_class(stop: Any) -> type:

@@ -18,17 +18,21 @@ continuous-batching GPT path:
   containment, the metric families and spans. Only the seams where the
   reference read a device array with ``np.asarray`` changed: the torch
   decoder already returns host numpy there.
-- :func:`serve` is the pod entrypoint for ``TFK8S_SERVE_TASK=gpt`` with
-  the reference's env keys and defaults. It reports ``serving_ready``
-  through the node agent's progress sink and raises the node agent's
-  ``PodDrained`` on a reclaim notice (``runtime/node_agent``), so the
-  control plane sees a port replica become Ready and drain like a
-  reference one.
+- :class:`ModelServer` is a copy of the reference's slot-per-batch
+  executor (the legacy path ``TFK8S_SERVE_DECODE_LOOP=0`` pins), with its
+  served models :class:`EchoModel`, :class:`MlpClassifier` and
+  :class:`GptGenerator` (batched prefill and KV-cache ``gpt.generate``
+  over exact-length prompt buckets) and :func:`make_model`.
+- :func:`serve` is the pod entrypoint with the reference's env keys and
+  defaults. It reports ``serving_ready`` through the node agent's
+  progress sink and raises the node agent's ``PodDrained`` on a reclaim
+  notice (``runtime/node_agent``), so the control plane sees a port
+  replica become Ready and drain like a reference one.
 
-Replicas register in this module's own table (:func:`lookup_replica`).
-The gateway and the reference's ``ServeClient`` look replicas up only in
-the reference's table, which nothing handed to the entrypoint reaches, so
-routing gateway traffic to a port replica is still open (ROADMAP F5).
+Replicas register in this module's own table (:func:`lookup_replica`)
+and, under a node agent, in the agent's serving table, wrapped so that
+they speak its error and buffer types (``runtime/agent_replica``): the
+gateway and the serve client route to port replicas there.
 """
 
 from __future__ import annotations
@@ -278,6 +282,176 @@ def _params_from_checkpoint(checkpoint: str, init_fn: Callable[[int], Any]) -> A
     return mgr.restore()["model"]
 
 
+class ServedModel:
+    """One loadable model family of the slot-per-batch executor
+    (:class:`ModelServer`; reference ``server.py:169``). ``bucket_of``
+    partitions payloads into batchable groups (payloads in one bucket must
+    stack after the model's own padding); ``forward`` serves one bucket's
+    batch."""
+
+    #: version string of the loaded weights (the checkpoint ref)
+    version: str = ""
+
+    def load(self) -> None:  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def bucket_of(self, payload: Any) -> Any:  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def forward(self, payloads: List[Any]) -> List[Any]:  # pragma: no cover
+        raise NotImplementedError
+
+
+class EchoModel(ServedModel):
+    """The control plane's test model (reference ``server.py:187``): no
+    device, no weights. The response echoes ``payload`` and the version;
+    ``delay_ms`` stands for a batch's model time, so batching beats
+    one-at-a-time dispatch and queue depth builds up under load."""
+
+    def __init__(self, checkpoint: str = "", delay_ms: float = 0.0):
+        self.version = checkpoint or "echo"
+        self.delay_ms = delay_ms
+        self._loaded = False
+
+    def load(self) -> None:
+        self._loaded = True
+
+    def bucket_of(self, payload: Any) -> Any:
+        shape = getattr(payload, "shape", None)
+        return ("echo", tuple(shape) if shape is not None else type(payload).__name__)
+
+    def forward(self, payloads: List[Any]) -> List[Any]:
+        if not self._loaded:
+            raise RequestFailed("model not loaded")
+        if self.delay_ms:
+            time.sleep(self.delay_ms / 1000.0)
+        return [{"echo": p, "version": self.version} for p in payloads]
+
+
+def _load_module(module: nn.Module, state: Dict[str, torch.Tensor], dtype: torch.dtype,
+                 device: torch.device) -> nn.Module:
+    """``state`` into ``module`` on ``device`` for inference, its
+    ``nn.Linear`` layers cast to ``dtype`` once (a projection casts its
+    weight to ``dtype`` anyway, so the numbers do not change)."""
+    module.load_state_dict(state)
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            m.to(dtype)
+    return module.to(device).eval().requires_grad_(False)
+
+
+class MlpClassifier(ServedModel):
+    """The classifier's serving path (reference ``server.py:229``): one
+    forward over a batch padded to ``max_batch_size`` rows, the argmax
+    label a row, on the card unless ``device`` asks for the CPU."""
+
+    def __init__(self, checkpoint: str, max_batch_size: int, hidden: int = 64,
+                 device: Union[str, torch.device, None] = None):
+        self.version = checkpoint
+        self.max_batch_size = max_batch_size
+        self.hidden = hidden
+        self._device_arg = device
+        self.device: Optional[torch.device] = None
+        self.module: Optional[nn.Module] = None
+
+    def load(self) -> None:
+        from tfk8s_tpu_torch.models import mlp
+
+        self.device = select_device({}, self._device_arg)
+
+        def init_fn(seed: int):
+            model = mlp.MLP(hidden=self.hidden)
+            return mlp.init_params(model, torch.Generator().manual_seed(seed)).state_dict()
+
+        self.module = _load_module(mlp.MLP(hidden=self.hidden),
+                                   _params_from_checkpoint(self.version, init_fn),
+                                   torch.float32, self.device)
+
+    def bucket_of(self, payload: Any) -> Any:
+        arr = np.asarray(payload)
+        if arr.ndim != 1:
+            raise TypeError(f"mlp payload must be a 1-D feature vector, got {arr.shape}")
+        return ("mlp", arr.shape)
+
+    @torch.no_grad()
+    def forward(self, payloads: List[Any]) -> List[Any]:
+        x = np.stack([np.asarray(p, dtype=np.float32) for p in payloads])
+        n = len(payloads)
+        if n < self.max_batch_size:  # one padded shape for every batch
+            x = np.concatenate([x, np.zeros((self.max_batch_size - n, x.shape[1]), np.float32)])
+        labels = _host(self.module(torch.from_numpy(x).to(self.device)).argmax(-1))
+        return [{"label": int(labels[i]), "version": self.version} for i in range(n)]
+
+
+class GptGenerator(ServedModel):
+    """The slot-per-batch generative path (reference ``server.py:326``):
+    batched prefill and KV-cache decode through ``models/gpt.generate``.
+    Prompts bucket by exact length, since decode mode refuses padding
+    masks; the batch pads to ``max_batch_size`` with row 0 repeated, and
+    each bucket's cache holds exactly prompt + generation. ``cfg`` and
+    ``device`` override the size preset and the card, as
+    :class:`PagedGptDecoder`'s do."""
+
+    def __init__(self, checkpoint: str, max_batch_size: int, gen_tokens: int = 16,
+                 size: str = "tiny", cfg: Any = None,
+                 device: Union[str, torch.device, None] = None):
+        self.version = checkpoint
+        self.max_batch_size = max_batch_size
+        self.gen_tokens = gen_tokens
+        self.size = size
+        self._cfg_base = cfg
+        self._device_arg = device
+        self.device: Optional[torch.device] = None
+        self._cfg = None
+        self.module: Optional[nn.Module] = None
+
+    def load(self) -> None:
+        from tfk8s_tpu_torch.models import gpt
+        from tfk8s_tpu_torch.models.transformer import init_params
+
+        self._cfg = self._cfg_base if self._cfg_base is not None else _gpt_config_of(self.size)
+        self.device = select_device({}, self._device_arg)
+
+        def init_fn(seed: int):
+            model = gpt.GPTLM(self._cfg)
+            return init_params(model, torch.Generator().manual_seed(seed)).state_dict()
+
+        self.module = _load_module(gpt.GPTLM(self._cfg),
+                                   _params_from_checkpoint(self.version, init_fn),
+                                   self._cfg.dtype, self.device)
+
+    @property
+    def cfg(self):
+        return self._cfg
+
+    def bucket_of(self, payload: Any) -> Any:
+        arr = np.asarray(payload)
+        if arr.ndim != 1 or arr.dtype.kind not in "iu":
+            raise TypeError(
+                f"gpt payload must be a 1-D int token array, got {arr.dtype}{arr.shape}"
+            )
+        if arr.shape[0] + self.gen_tokens > self._cfg.max_len:
+            raise InvalidRequest(
+                f"prompt of {arr.shape[0]} + {self.gen_tokens} generated "
+                f"tokens exceeds max_len={self._cfg.max_len}"
+            )
+        return ("gpt", int(arr.shape[0]))
+
+    def forward(self, payloads: List[Any]) -> List[Any]:
+        from tfk8s_tpu_torch.models import gpt
+
+        prompt = np.stack([np.asarray(p, dtype=np.int32) for p in payloads])
+        n, plen = prompt.shape
+        if n < self.max_batch_size:  # one batch shape for every bucket
+            prompt = np.concatenate(
+                [prompt, np.repeat(prompt[:1], self.max_batch_size - n, axis=0)])
+        # the cache right-sized to this bucket: prompt + generation
+        cfg = dataclasses.replace(self._cfg, decode_cache_len=plen + self.gen_tokens)
+        out = _host(gpt.generate(cfg, self.module, torch.from_numpy(prompt).to(self.device),
+                                 num_tokens=self.gen_tokens))
+        return [{"tokens": out[i].tolist(), "version": self.version} for i in range(n)]
+
+
 class PagedGptDecoder:
     """Model half of the continuous-batching decode loop: the GPT module
     and its paged KV pools on one device, behind the members the loop
@@ -341,12 +515,7 @@ class PagedGptDecoder:
             self._params_override if self._params_override is not None
             else _params_from_checkpoint(self.version, init_fn)
         )
-        model = gpt.GPTLM(cfg)
-        model.load_state_dict(state)
-        for m in model.modules():
-            if isinstance(m, nn.Linear):
-                m.to(cfg.dtype)
-        self.module = model.to(self.device).eval().requires_grad_(False)
+        self.module = _load_module(gpt.GPTLM(cfg), state, cfg.dtype, self.device)
         self._pages = gpt.clean_pages(cfg, self.device)
         # run all three serving shapes once (decode [slots], burst prefill
         # [slots, C], trickle prefill [1, C]) against the trash page, so
@@ -2270,6 +2439,378 @@ class DecodeLoopExecutor:
 
 
 # ---------------------------------------------------------------------------
+# The slot-per-batch executor (TFK8S_SERVE_DECODE_LOOP=0, echo, mlp)
+# ---------------------------------------------------------------------------
+
+
+def make_model(task: str, checkpoint: str, batching_max: int,
+               env: Optional[Dict[str, str]] = None) -> ServedModel:
+    """Served-model factory by ``spec.task`` (reference ``server.py:2493``);
+    the mlp and gpt models run on the card unless ``TFK8S_DEVICE`` in
+    ``env`` asks for the CPU."""
+    env = env or {}
+    if task == "echo":
+        return EchoModel(checkpoint, delay_ms=float(env.get("TFK8S_SERVE_ECHO_DELAY_MS", "0")))
+    if task == "mlp":
+        return MlpClassifier(checkpoint, batching_max,
+                             hidden=int(env.get("TFK8S_SERVE_MLP_HIDDEN", "64")),
+                             device=select_device(env))
+    if task in ("gpt", "t5"):
+        # t5 rides the decoder-only generate path, as in the reference
+        return GptGenerator(
+            checkpoint, batching_max,
+            gen_tokens=int(env.get("TFK8S_SERVE_GEN_TOKENS", "16")),
+            size=env.get("TFK8S_SERVE_GPT_SIZE", "tiny"),
+            device=select_device(env),
+        )
+    raise ServeError(f"unknown serve task {task!r} (known: echo, mlp, gpt, t5)")
+
+
+@dataclass
+class _Request:
+    payload: Any
+    bucket: Any
+    enqueue_t: float
+    done: threading.Event = field(default_factory=threading.Event)
+    result: Any = None
+    error: Optional[BaseException] = None
+    # stamped at dispatch so queue/execute split exactly once per request
+    dequeue_t: float = 0.0
+    # request-scoped observability (empty traceparent = untraced)
+    traceparent: str = ""
+    tenant: str = ""
+    priority: int = 0
+    wall_start: float = 0.0
+
+
+class ModelServer:
+    """Bounded-queue dynamic batcher around one :class:`ServedModel`, a
+    copy of the reference's (``server.py:2563``), which its bench baseline
+    measures the decode loop against:
+
+    - a batch closes at ``max_batch_size`` or ``batch_timeout_s`` after it
+      opened (first request dequeued), whichever comes first;
+    - only requests whose bucket matches the batch head ride the batch;
+    - a submit past ``queue_limit`` sheds with :class:`Overloaded`; after
+      :meth:`drain` began, with :class:`Draining`;
+    - the queue/execute/total latency histograms observe every served
+      request exactly once (shed requests count only in
+      ``tfk8s_serving_requests_total{outcome="rejected"}``).
+    """
+
+    def __init__(
+        self,
+        model: ServedModel,
+        max_batch_size: int = 8,
+        batch_timeout_s: float = 0.01,
+        queue_limit: int = 128,
+        metrics: Optional[Metrics] = None,
+        labels: Optional[Dict[str, str]] = None,
+    ):
+        self.model = model
+        self.max_batch_size = max(1, int(max_batch_size))
+        self.batch_timeout_s = max(0.0, float(batch_timeout_s))
+        self.queue_limit = max(self.max_batch_size, int(queue_limit))
+        self.metrics = metrics if metrics is not None else get_metrics()
+        self.labels = dict(labels or {})
+        self._cond = threading.Condition()
+        self._q: deque = deque()
+        self._draining = False
+        self._stopped = False
+        self._thread: Optional[threading.Thread] = None
+        self.served_total = 0
+        self.batches_total = 0
+        self.rejected_total = 0
+        self._qps_last = (time.monotonic(), 0)
+        self._fault: Optional[BaseException] = None
+        self._chaos_delay_s = 0.0
+        for name, help_text in (
+            ("tfk8s_serving_requests_total",
+             "Serving requests by outcome (ok / rejected / error)."),
+            ("tfk8s_serving_batches_total", "Batches executed by the server."),
+            ("tfk8s_serving_queue_seconds",
+             "Per-request time from submit to batch dispatch."),
+            ("tfk8s_serving_execute_seconds",
+             "Per-request model execution time (its batch's wall time)."),
+            ("tfk8s_serving_request_seconds",
+             "Per-request total latency, submit to response."),
+            ("tfk8s_serving_queue_depth", "Pending requests in the bounded queue."),
+            ("tfk8s_serving_batch_occupancy",
+             "Mean requests per executed batch since start."),
+        ):
+            self.metrics.describe(name, help_text)
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def start(self) -> "ModelServer":
+        self._thread = threading.Thread(target=self._loop, name="serve-batcher", daemon=True)
+        self._thread.start()
+        return self
+
+    def drain(self, timeout: float = 30.0) -> bool:
+        """Stop accepting, finish everything queued, stop the batcher.
+        Returns True when the queue fully drained inside ``timeout``."""
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            self._draining = True
+            self._cond.notify_all()
+        while time.monotonic() < deadline:
+            with self._cond:
+                if not self._q:
+                    break
+            time.sleep(0.005)
+        with self._cond:
+            drained = not self._q
+            self._stopped = True
+            self._cond.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+        return drained
+
+    @property
+    def queue_depth(self) -> int:
+        with self._cond:
+            return len(self._q)
+
+    @property
+    def mean_batch_occupancy(self) -> float:
+        return self.served_total / self.batches_total if self.batches_total else 0.0
+
+    # -- client side --------------------------------------------------------
+
+    def submit(self, payload: Any, timeout: Optional[float] = 30.0,
+               traceparent: Optional[str] = None, tenant: str = "",
+               priority: int = 0) -> Any:
+        """Blocking request: the model's response for ``payload``, or
+        Overloaded / Draining / InvalidRequest / RequestFailed /
+        DeadlineExceeded. A ``traceparent`` makes the request traced: its
+        served interval lands as a ``serve.request`` span under it."""
+        try:
+            bucket = self.model.bucket_of(payload)  # TypeError: bad payload
+        except InvalidRequest:
+            # unservable by contract: a typed outcome with its own label
+            self.metrics.inc("tfk8s_serving_requests_total", 1.0,
+                             {**self.labels, "outcome": "invalid"})
+            raise
+        if self._chaos_delay_s:
+            time.sleep(self._chaos_delay_s)  # gray replica: alive but slow
+        req = _Request(
+            payload=payload, bucket=bucket, enqueue_t=time.perf_counter(),
+            traceparent=traceparent or "", tenant=tenant,
+            priority=int(priority), wall_start=time.time(),
+        )
+        with self._cond:
+            if self._fault is not None:
+                raise ReplicaUnavailable(f"replica failed: {self._fault}")
+            if self._draining or self._stopped:
+                raise Draining("replica is draining; retry another replica")
+            if len(self._q) >= self.queue_limit:
+                self.rejected_total += 1
+                self.metrics.inc("tfk8s_serving_requests_total", 1.0,
+                                 {**self.labels, "outcome": "rejected"})
+                raise Overloaded(len(self._q), self.queue_limit)
+            self._q.append(req)
+            self.metrics.set_gauge("tfk8s_serving_queue_depth", float(len(self._q)), self.labels)
+            self._cond.notify_all()
+        if not req.done.wait(timeout):
+            # a request still queued is removed and counted timeout; one
+            # already in a dispatched batch completes server-side
+            timed_out = False
+            with self._cond:
+                try:
+                    self._q.remove(req)
+                    timed_out = True
+                    self.metrics.inc("tfk8s_serving_requests_total", 1.0,
+                                     {**self.labels, "outcome": "timeout"})
+                    self.metrics.set_gauge("tfk8s_serving_queue_depth",
+                                           float(len(self._q)), self.labels)
+                except ValueError:
+                    pass  # already dequeued into a batch
+            if timed_out and req.traceparent:
+                _trace.get_tracer().record_span(
+                    "serve.request", req.wall_start, time.time(),
+                    traceparent=req.traceparent, status="error",
+                    attributes={"outcome": "timeout", "tenant": req.tenant,
+                                "priority": req.priority},
+                )
+            raise DeadlineExceeded(f"request not served within {timeout}s")
+        if req.error is not None:
+            if isinstance(req.error, ServeError):
+                raise req.error  # typed; retriability survives the hop
+            raise RequestFailed(str(req.error)) from req.error
+        return req.result
+
+    # -- chaos hooks (tests; never on the production path) -------------------
+
+    @property
+    def fault(self) -> Optional[BaseException]:
+        return self._fault
+
+    def _fail_queued(self, e: BaseException) -> None:
+        with self._cond:
+            victims = list(self._q)
+            self._q.clear()
+            self.metrics.set_gauge("tfk8s_serving_queue_depth", 0.0, self.labels)
+            self._cond.notify_all()
+        if victims:
+            self.metrics.inc("tfk8s_serving_requests_total", float(len(victims)),
+                             {**self.labels, "outcome": "error"})
+        for req in victims:
+            req.error = e
+            req.done.set()
+
+    def chaos_crash(self, message: str = "chaos: replica host died") -> None:
+        """Host death: queued requests fail ReplicaUnavailable, new submits
+        refuse with the same, report_progress goes non-Ready; the registry
+        entry stays (a dead host cannot unregister)."""
+        err = ReplicaUnavailable(message)
+        with self._cond:
+            self._fault = err
+            self._stopped = True
+            self._cond.notify_all()
+        self._fail_queued(err)
+
+    def chaos_wire_reset(self, message: str = "chaos: wire reset") -> None:
+        """Fail the queued requests once with ReplicaUnavailable; the
+        replica keeps serving."""
+        self._fail_queued(ReplicaUnavailable(message))
+
+    def chaos_delay(self, seconds: float) -> None:
+        """Gray failure: every later submit stalls ``seconds``."""
+        self._chaos_delay_s = max(0.0, float(seconds))
+
+    # -- the batcher --------------------------------------------------------
+
+    def _take_matching(self, bucket: Any, want: int) -> List[_Request]:
+        """Pop up to ``want`` queued requests of ``bucket`` (FIFO among
+        matches; the others keep their positions). Caller holds the lock."""
+        taken: List[_Request] = []
+        if want <= 0:
+            return taken
+        kept: deque = deque()
+        while self._q:
+            r = self._q.popleft()
+            if len(taken) < want and r.bucket == bucket:
+                taken.append(r)
+            else:
+                kept.append(r)
+        self._q = kept
+        return taken
+
+    def _loop(self) -> None:
+        while True:
+            with self._cond:
+                while not self._q and not self._stopped:
+                    self._cond.wait(0.5)
+                if self._stopped and not self._q:
+                    return
+                head = self._q.popleft()
+                batch = [head]
+                deadline = time.monotonic() + self.batch_timeout_s
+                # fill from what is queued, then wait out the rest of the
+                # timeout for stragglers: size or time closes the batch
+                batch += self._take_matching(head.bucket, self.max_batch_size - len(batch))
+                while len(batch) < self.max_batch_size:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0 or self._stopped or self._draining:
+                        break
+                    self._cond.wait(remaining)
+                    batch += self._take_matching(head.bucket, self.max_batch_size - len(batch))
+                self.metrics.set_gauge("tfk8s_serving_queue_depth", float(len(self._q)),
+                                       self.labels)
+            self._execute(batch)
+
+    def _execute(self, batch: List[_Request]) -> None:
+        t0 = time.perf_counter()
+        for r in batch:
+            r.dequeue_t = t0
+        try:
+            results = self.model.forward([r.payload for r in batch])
+            if len(results) != len(batch):  # a model bug, not a request bug
+                raise RequestFailed(
+                    f"model returned {len(results)} results for a batch of {len(batch)}"
+                )
+        except BaseException as e:  # noqa: BLE001 — fan the failure out
+            t1 = time.perf_counter()
+            for r in batch:
+                r.error = e
+                if r.traceparent:
+                    _trace.get_tracer().record_span(
+                        "serve.request", r.wall_start, r.wall_start + (t1 - r.enqueue_t),
+                        traceparent=r.traceparent, status="error",
+                        attributes={"outcome": "error", "error": str(e),
+                                    "tenant": r.tenant, "priority": r.priority},
+                    )
+                r.done.set()
+            self.metrics.inc("tfk8s_serving_requests_total", float(len(batch)),
+                             {**self.labels, "outcome": "error"})
+            log.warning("batch of %d failed: %s", len(batch), e)
+            return
+        t1 = time.perf_counter()
+        self.batches_total += 1
+        self.served_total += len(batch)
+        self.metrics.inc("tfk8s_serving_batches_total", 1.0, self.labels)
+        self.metrics.inc("tfk8s_serving_requests_total", float(len(batch)),
+                         {**self.labels, "outcome": "ok"})
+        self.metrics.set_gauge("tfk8s_serving_batch_occupancy", self.mean_batch_occupancy,
+                               self.labels)
+        exec_s = t1 - t0
+        for r, res in zip(batch, results):
+            # one observation per served request per family, all here
+            self.metrics.observe("tfk8s_serving_queue_seconds", r.dequeue_t - r.enqueue_t,
+                                 self.labels)
+            self.metrics.observe("tfk8s_serving_execute_seconds", exec_s, self.labels)
+            self.metrics.observe("tfk8s_serving_request_seconds", t1 - r.enqueue_t,
+                                 self.labels, exemplar=_trace_id_of(r.traceparent))
+            if r.traceparent:
+                _trace.get_tracer().record_span(
+                    "serve.request", r.wall_start, r.wall_start + (t1 - r.enqueue_t),
+                    traceparent=r.traceparent,
+                    attributes={"outcome": "ok", "tenant": r.tenant,
+                                "priority": r.priority, "batch_size": len(batch)},
+                    events=[{
+                        "name": "dispatched",
+                        "ts": r.wall_start + (r.dequeue_t - r.enqueue_t),
+                        "attributes": {"queue_wait_s": r.dequeue_t - r.enqueue_t,
+                                       "execute_s": exec_s},
+                    }],
+                )
+            r.result = res
+            r.done.set()
+
+    # -- live introspection (/debug/decode) ---------------------------------
+
+    def debug_state(self) -> Dict[str, Any]:
+        """The batcher's zpage view (no slots or pages)."""
+        with self._cond:
+            return {
+                "kind": "batch",
+                "queue_depth": len(self._q),
+                "served_total": self.served_total,
+                "batches_total": self.batches_total,
+                "rejected_total": self.rejected_total,
+            }
+
+    # -- load reporting (progress -> pod status -> autoscaler) ----------------
+
+    def report_progress(self) -> Dict[str, float]:
+        now = time.monotonic()
+        last_t, last_served = self._qps_last
+        dt = now - last_t
+        qps = (self.served_total - last_served) / dt if dt > 0 else 0.0
+        self._qps_last = (now, self.served_total)
+        values = {
+            "serving_ready": 0.0 if self._fault is not None else 1.0,
+            "serving_queue_depth": float(self.queue_depth),
+            "serving_qps": qps,
+            "serving_batch_occupancy": self.mean_batch_occupancy,
+            "serving_requests": float(self.served_total),
+        }
+        _progress.report(**values)
+        return values
+
+
+# ---------------------------------------------------------------------------
 # Metrics registry hook (the operator process may wire its registry in;
 # standalone use falls back to a private one)
 # ---------------------------------------------------------------------------
@@ -2297,8 +2838,9 @@ def get_metrics() -> Metrics:
 # ---------------------------------------------------------------------------
 
 _registry_lock = threading.Lock()
-# the port's own replica table: the reference's gateway and ServeClient
-# do not read it (ROADMAP F5)
+# the port's own replica table; under a node agent, ``serve`` registers
+# each replica in the agent's table as well, where the gateway and the
+# serve client look
 _REPLICAS: Dict[str, Any] = {}
 
 
@@ -2328,21 +2870,25 @@ PROGRESS_PERIOD_S = 0.2
 
 
 def serve(env: Dict[str, str], stop: Optional[threading.Event] = None) -> None:
-    """The TPUServe pod entrypoint for the port (``TFK8S_SERVE_TASK=gpt``):
-    load -> register -> Ready -> report load until stopped -> drain.
-    Readiness (``serving_ready``) and load go through the node agent's
-    progress sink; a reclaim notice raises the node agent's
-    ``PodDrained`` after the drain (``runtime/node_agent``). Other tasks,
-    and the slot-per-batch executor (``TFK8S_SERVE_DECODE_LOOP=0``), are
-    ROADMAP item 1.6."""
+    """The TPUServe pod entrypoint for the port, with the reference's env
+    keys and defaults (``server.py:3032``): load -> register -> Ready ->
+    report load until stopped -> drain. ``gpt``/``t5`` run the
+    continuous-batching decode loop; ``TFK8S_SERVE_DECODE_LOOP=0`` pins the
+    slot-per-batch :class:`ModelServer`, which also serves ``echo`` and
+    ``mlp``. Readiness (``serving_ready``) and load go through the node
+    agent's progress sink, and a reclaim notice raises the node agent's
+    ``PodDrained`` after the drain (``runtime/node_agent``). Under a node
+    agent whose serving module is loaded, the replica is registered in
+    that table too (``runtime/agent_replica``), so the agent's gateway
+    routes to it, and unregistering there fires the gateway's drain
+    hooks; the decode loop's KV peer fetch looks peers up in both
+    tables."""
+    from tfk8s_tpu_torch.runtime.agent_replica import AgentReplica
+
     task = env.get("TFK8S_SERVE_TASK", "echo")
-    if task not in ("gpt", "t5") or env.get("TFK8S_SERVE_DECODE_LOOP", "1") == "0":
-        raise NotImplementedError(
-            f"TFK8S_SERVE_TASK={task!r} / TFK8S_SERVE_DECODE_LOOP="
-            f"{env.get('TFK8S_SERVE_DECODE_LOOP', '1')!r}: the port serves GPT "
-            "through the continuous-batching decode loop; the other served "
-            "models and the slot-per-batch executor are ROADMAP item 1.6"
-        )
+    checkpoint = env.get("TFK8S_SERVE_CHECKPOINT", "")
+    max_batch = int(env.get("TFK8S_SERVE_MAX_BATCH", "8"))
+    queue_limit = int(env.get("TFK8S_SERVE_QUEUE_LIMIT", "128"))
     stop = stop if stop is not None else threading.Event()
     ns = env.get("TFK8S_NAMESPACE", "default")
     pod = env.get("TFK8S_POD_NAME", "")
@@ -2352,54 +2898,81 @@ def serve(env: Dict[str, str], stop: Optional[threading.Event] = None) -> None:
     if phase:
         labels["phase"] = phase
     key = f"{ns}/{pod}"
+    decode_loop = task in ("gpt", "t5") and env.get("TFK8S_SERVE_DECODE_LOOP", "1") != "0"
     reclaimed = False
     fault: Optional[BaseException] = None
-    with node_agent.attach(stop):
-        model = PagedGptDecoder(
-            env.get("TFK8S_SERVE_CHECKPOINT", ""),
-            slots=int(env.get("TFK8S_SERVE_MAX_BATCH", "8")),
-            page_size=int(env.get("TFK8S_SERVE_PAGE_SIZE", "16")),
-            max_pages=int(env.get("TFK8S_SERVE_MAX_PAGES", "256")),
-            gen_tokens=int(env.get("TFK8S_SERVE_GEN_TOKENS", "16")),
-            size=env.get("TFK8S_SERVE_GPT_SIZE", "tiny"),
-            prefill_chunk=int(env.get("TFK8S_SERVE_PREFILL_CHUNK", "32")),
-            eos_id=(
-                int(env["TFK8S_SERVE_EOS_ID"])
-                if env.get("TFK8S_SERVE_EOS_ID") else None
-            ),
-            device=select_device(env),
-        )
-        model.load()  # Ready is honest: the weights are resident before it
-        speculative = None
-        if env.get("TFK8S_SERVE_SPEC_DECODE", "0") != "0":
-            from tfk8s_tpu_torch.runtime.sched import SpeculativeEngine
+    agent = node_agent.serving_module(stop)
 
-            speculative = SpeculativeEngine.build(
-                model,
-                k=int(env.get("TFK8S_SERVE_SPEC_TOKENS", "4")),
-                size=env.get("TFK8S_SERVE_SPEC_DRAFT", "tiny"),
+    def resolve_peer(peer_key: str) -> Any:
+        """A KV peer by replica key: the port's table, then the agent's
+        (whose JAX replicas' buffers carry the same wire bytes)."""
+        found = lookup_replica(peer_key)
+        if found is None and agent is not None:
+            found = agent.lookup_replica(peer_key)
+        return found
+
+    with node_agent.attach(stop):
+        if decode_loop:
+            model = PagedGptDecoder(
+                checkpoint,
+                slots=max_batch,
+                page_size=int(env.get("TFK8S_SERVE_PAGE_SIZE", "16")),
+                max_pages=int(env.get("TFK8S_SERVE_MAX_PAGES", "256")),
+                gen_tokens=int(env.get("TFK8S_SERVE_GEN_TOKENS", "16")),
+                size=env.get("TFK8S_SERVE_GPT_SIZE", "tiny"),
+                prefill_chunk=int(env.get("TFK8S_SERVE_PREFILL_CHUNK", "32")),
+                eos_id=(
+                    int(env["TFK8S_SERVE_EOS_ID"])
+                    if env.get("TFK8S_SERVE_EOS_ID") else None
+                ),
+                device=select_device(env),
             )
-        server = DecodeLoopExecutor(
-            model,
-            queue_limit=int(env.get("TFK8S_SERVE_QUEUE_LIMIT", "128")),
-            metrics=get_metrics(),
-            labels=labels,
-            prefix_cache=env.get("TFK8S_SERVE_PREFIX_CACHE", "1") != "0",
-            sched_policy=env.get("TFK8S_SERVE_SCHED_POLICY", "fifo"),
-            preemption=env.get("TFK8S_SERVE_PREEMPTION", "1") != "0",
-            aging_s=float(env.get("TFK8S_SERVE_AGING_S", "5.0")),
-            speculative=speculative,
-            kv_host_bytes=int(env.get("TFK8S_KV_HOST_BYTES", "0")),
-            kv_peer_fetch=env.get("TFK8S_KV_PEER_FETCH", "0") != "0",
-        ).start()
+            model.load()  # Ready is honest: the weights are resident before it
+            speculative = None
+            if env.get("TFK8S_SERVE_SPEC_DECODE", "0") != "0":
+                from tfk8s_tpu_torch.runtime.sched import SpeculativeEngine
+
+                speculative = SpeculativeEngine.build(
+                    model,
+                    k=int(env.get("TFK8S_SERVE_SPEC_TOKENS", "4")),
+                    size=env.get("TFK8S_SERVE_SPEC_DRAFT", "tiny"),
+                )
+            server = DecodeLoopExecutor(
+                model,
+                queue_limit=queue_limit,
+                metrics=get_metrics(),
+                labels=labels,
+                prefix_cache=env.get("TFK8S_SERVE_PREFIX_CACHE", "1") != "0",
+                sched_policy=env.get("TFK8S_SERVE_SCHED_POLICY", "fifo"),
+                preemption=env.get("TFK8S_SERVE_PREEMPTION", "1") != "0",
+                aging_s=float(env.get("TFK8S_SERVE_AGING_S", "5.0")),
+                speculative=speculative,
+                kv_host_bytes=int(env.get("TFK8S_KV_HOST_BYTES", "0")),
+                kv_peer_fetch=env.get("TFK8S_KV_PEER_FETCH", "0") != "0",
+                kv_peer_resolve=resolve_peer,
+            ).start()
+        else:
+            model = make_model(task, checkpoint, max_batch, env)
+            model.load()  # Ready is honest: the weights are resident before it
+            server = ModelServer(
+                model,
+                max_batch_size=max_batch,
+                batch_timeout_s=float(env.get("TFK8S_SERVE_BATCH_TIMEOUT_MS", "10")) / 1000.0,
+                queue_limit=queue_limit,
+                metrics=get_metrics(),
+                labels=labels,
+            ).start()
         register_replica(key, server)
+        if agent is not None:
+            agent.register_replica(key, AgentReplica(server, agent))
         server.report_progress()
         log.info("%s: serving %s ready on %s; version=%s", key, task,
-                 model.device, model.version)
+                 getattr(model, "device", None), model.version)
         try:
             while not stop.wait(PROGRESS_PERIOD_S):
                 # a GLOBAL fault (device unusable) exits non-Ready without
-                # the drain protocol; the raised error fails the pod
+                # the drain protocol: the registry keeps the corpse, and
+                # the raised error fails the pod
                 fault = getattr(server, "fault", None)
                 if fault is not None:
                     log.error("%s: replica fault, exiting non-Ready: %s",
@@ -2416,7 +2989,12 @@ def serve(env: Dict[str, str], stop: Optional[threading.Event] = None) -> None:
             if fault is not None:
                 server.report_progress()  # publish serving_ready 0.0
             else:
+                # unregister first so callers stop picking this replica
+                # (the agent's table fires the gateway's drain hooks), then
+                # finish what it already holds
                 unregister_replica(key)
+                if agent is not None:
+                    agent.unregister_replica(key)
                 drained = server.drain(
                     timeout=float(env.get("TFK8S_SERVE_DRAIN_TIMEOUT_S", "30"))
                 )
