@@ -112,9 +112,32 @@ must pass:
    decode loop and through the slot-per-batch executor
    (``TFK8S_SERVE_DECODE_LOOP=0``, max batch 8), side by side: latency
    p50/p99, output tokens/s, peak memory; and ``echo`` and ``mlp``
-   through ``server.serve``, a few requests each.
+   through ``server.serve``, a few requests each;
+11. distributed: record-file input, a two-rank gang and the Evaluator at
+   GPT-2-small base width (bfloat16, flash, seq 1024, random weights from
+   seed 0). The port's ``RecordWriter`` writes four training shards and
+   one evaluation shard of ``{"input": int32[1024]}`` chain-token rows
+   through the native record core (which must load), with its write
+   rate. ``gpt.train(env)`` trains 10 steps of batch 8 from the shards
+   (``TFK8S_INPUT_FILES``) with a checkpoint: finite losses, each
+   tensor-core flash kernel launched 12 times a step and the CUDA-core
+   ones never, the first batch the trainer drew equal by hash to the
+   dataset's first batch read on the host, the final checkpoint
+   committed; step time, tokens/s, input wait and starved steps. Then two
+   processes join a gloo process group (``TFK8S_DISTRIBUTED=1``; NCCL will
+   not put two ranks on one card) and train ``data=2`` with per-host
+   input, global batch 8, 4 steps, a checkpoint at step 4, each bounded by
+   a timeout: their shard hashes equal a one-process run's in this
+   process, their losses are identical and within DIST_LOSS_ATOL of the
+   one-process run's, their final parameter checksums are equal exactly.
+   One process then resumes the gang's checkpoint with
+   ``TFK8S_WORLD_VERSION=1`` to step 6, within DIST_LOSS_ATOL of the
+   uninterrupted 6-step run. Last, ``run_eval`` scores the 10-step run's
+   checkpoint on the evaluation shard: finite metrics, the loss within
+   DIST_LOSS_ATOL of the same parameters and batches through plain
+   attention, the flash forward launched 12 times a batch; eval seconds.
 
-The launch counts are zeroed just before each path (phases 6-10) and
+The launch counts are zeroed just before each path (phases 6-11) and
 read just after it; the line's launches add up the paths'. Then it prints the card line, the ``kernels`` JSON
 line and, last, the ``ok`` line. It exits non-zero, printing no result,
 when a phase fails, when no card is visible, or when the port's package is
@@ -125,6 +148,7 @@ card and build) and prints no result: a development aid.
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import math
 import os
@@ -241,6 +265,14 @@ GENERATE_LOGIT_REL_L2 = 5e-2
 # float32 generate vs the full forward (and the paged loop): the serve
 # phase's tie rule
 GENERATE_F32_TIE_ATOL = 1e-4
+# the distributed phase: record shards of the GPT task at base width; the
+# gang's global batch of 8 is 4 rows a rank
+DIST = dict(train_files=4, records_per_file=32, eval_records=32, seed=11, gang_steps=4,
+            resume_steps=6, eval_batches=4, timeout_s=300)
+# bf16 base-width GPT losses across layouts (a gang against one process,
+# a resume, flash against plain attention): the base-width check's loss
+# bound
+DIST_LOSS_ATOL = 2e-2
 # float32 paged vs full forward: a position may pick another token than
 # the full forward's argmax only where both logits are this close (a tie
 # at float32 precision); every such position is counted and printed
@@ -1540,6 +1572,300 @@ def _serve_f32_check(torch, gpt, server, payloads):
     return {"tokens_checked": checked, "near_ties": ties, "worst_tie_gap": worst_gap}
 
 
+
+def _batch_hash(batch):
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        h.update(np.ascontiguousarray(batch[k]).tobytes())
+    return h.hexdigest()[:16]
+
+
+GANG_WORKER = r"""
+import hashlib, json, os, sys
+sys.path.insert(0, os.environ["CHIP_SMOKE_ROOT"])
+import numpy as np
+import torch
+
+from tfk8s_tpu_torch.models import gpt
+from tfk8s_tpu_torch.ops import flash_attention as fa
+from tfk8s_tpu_torch.parallel.data_parallel import DataParallel
+from tfk8s_tpu_torch.runtime import train as ttrain
+from tfk8s_tpu_torch.runtime.launcher import ProcessContext, initialize_distributed
+
+env = dict(os.environ)
+# two ranks share one card: gloo, as NCCL will not put them on one device
+initialize_distributed(ProcessContext.from_env(env), env, backend="gloo")
+ctx, dev = ttrain.join_job(env)
+preset = gpt.tiny_config if env.get("TFK8S_MODEL_PRESET") == "tiny" else gpt.base_config
+cfg = preset(attention_impl="flash")
+task = gpt.task_for_mesh(dev, cfg=cfg, seq_len=int(env["TFK8S_SEQ_LEN"]),
+                         batch_size=int(env["TFK8S_BATCH_SIZE"]))
+trainer = ttrain.Trainer(task, ttrain.config_from_env(env, ctx), dev, DataParallel(ctx.mesh, dev))
+fa.reset_launches()
+state, hist = trainer.fit()
+if dev.type == "cuda":
+    torch.cuda.synchronize()
+lo, hi, n = trainer.input_shard_range
+hashes = {f"{step} {s}": None for step in range(state.step) for s in range(lo, hi)}
+for key in hashes:
+    step, s = map(int, key.split())
+    shard = trainer._make_shard_batch(step, s, s + 1, n)
+    h = hashlib.sha256()
+    for k in sorted(shard):
+        h.update(np.ascontiguousarray(shard[k]).tobytes())
+    hashes[key] = h.hexdigest()[:16]
+model = state.state_dict()["model"]
+checksum = sum(float(t.double().abs().sum()) for t in model.values())
+print("RANK " + json.dumps({
+    "rank": trainer.parallel.rank, "mode": trainer.parallel.mode, "shards": [lo, hi, n],
+    "losses": [h["loss"] for h in hist], "steps_per_s": hist[-1]["steps_per_s"],
+    "step_s": [h["step"] / h["steps_per_s"] for h in hist],
+    "checksum": repr(checksum), "hashes": hashes, "launches": dict(fa.LAUNCHES)}), flush=True)
+"""
+
+
+def _run_gang(n_procs, env):
+    """``n_procs`` processes of GANG_WORKER joined on a free port; their
+    RANK records in rank order. A process past DIST's timeout, or one that
+    fails, fails the phase after the whole gang is killed."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for rank in range(n_procs):
+        penv = dict(os.environ, **env, CHIP_SMOKE_ROOT=root, TFK8S_DISTRIBUTED="1",
+                    TFK8S_NUM_PROCESSES=str(n_procs), TFK8S_PROCESS_ID=str(rank),
+                    TFK8S_COORDINATOR_ADDRESS=f"127.0.0.1:{port}")
+        if DEVICE == "cpu":
+            penv["TFK8S_DEVICE"] = "cpu"
+        procs.append(subprocess.Popen([sys.executable, "-c", GANG_WORKER], env=penv, cwd=root,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST["timeout_s"])[0])
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"gang of {n_procs} ran past {DIST['timeout_s']} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    records = []
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"gang rank {rank} exited {p.returncode}:\n{out[-3000:]}")
+        lines = [ln for ln in out.splitlines() if ln.startswith("RANK ")]
+        if len(lines) != 1:
+            raise AssertionError(f"gang rank {rank} printed no result:\n{out[-3000:]}")
+        records.append(json.loads(lines[0][5:]))
+    return sorted(records, key=lambda r: r["rank"])
+
+
+def phase_distributed(torch, gpt, fa, root):
+    """Record-file input, a two-rank gloo gang on the one card, elastic
+    resume and the Evaluator at GPT-2-small base width (docstring phase
+    11). Returns the launches of the paths it drives in this process."""
+    import numpy as np
+
+    from tfk8s_tpu_torch.data import _native, example
+    from tfk8s_tpu_torch.data.dataset import RecordDataset
+    from tfk8s_tpu_torch.data.recordio import RecordWriter
+    from tfk8s_tpu_torch.parallel.data_parallel import DataParallel
+    from tfk8s_tpu_torch.runtime import progress
+    from tfk8s_tpu_torch.runtime import train as ttrain
+    from tfk8s_tpu_torch.runtime.checkpoint import Checkpointer
+
+    card = phase_card()
+    d = DIST
+    work = os.path.join(root, "build", "chip_smoke_dist")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    tiny = TRAIN_ENV.get("TFK8S_MODEL_PRESET") == "tiny"
+    cfg = (gpt.tiny_config if tiny else gpt.base_config)(attention_impl="flash")
+    layers, seq, batch = cfg.num_layers, int(TRAIN_ENV["TFK8S_SEQ_LEN"]), 8
+    total = dict.fromkeys(fa.KERNELS, 0)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    # 1. the shards, through the native record core
+    if _native.load() is None:
+        raise AssertionError("the native record core did not load")
+    make = gpt.make_batch_fn(cfg.vocab_size, seq)
+    rng = np.random.default_rng(d["seed"])
+    t0 = time.perf_counter()
+    nbytes = 0
+    shards = [(f"train-{i}.rio", d["records_per_file"]) for i in range(d["train_files"])]
+    for name, count in shards + [("eval-0.rio", d["eval_records"])]:
+        rows = make(rng, count)["input"]
+        with RecordWriter(os.path.join(work, name)) as w:
+            for row in rows:
+                rec = example.encode({"input": row})
+                nbytes += len(rec)
+                w.write(rec)
+    write_s = time.perf_counter() - t0
+    log(f"distributed shards: {json.dumps({'card': card, 'bytes': nbytes, 'write_s': write_s, 'write_mb_per_s': nbytes / write_s / 1e6})}")
+    files = os.path.join(work, "train-*.rio")
+
+    # 2. gpt:train from the shards, one process
+    ckpt = os.path.join(work, "ckpt_files")
+    env = dict(TRAIN_ENV, TFK8S_INPUT_FILES=files, TFK8S_BATCH_SIZE=str(batch),
+               TFK8S_CHECKPOINT_DIR=ckpt, TFK8S_SEED=str(d["seed"]))
+    if DEVICE == "cpu":
+        env["TFK8S_DEVICE"] = "cpu"
+    first = []
+    to_device = ttrain.Trainer.to_device
+
+    def spy(self, host):
+        if not first:
+            first.append(_batch_hash(host))
+        return to_device(self, host)
+
+    ttrain.Trainer.to_device = spy
+    progress.clear()
+    fa.reset_launches()
+    try:
+        history = gpt.train(env)
+    finally:
+        ttrain.Trainer.to_device = to_device
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    add(launches)
+    report = progress.snapshot()
+    want_first = _batch_hash(next(RecordDataset(
+        sorted(glob.glob(files)), batch_size=batch, seed=d["seed"]).batches(0)))
+    losses = [h["loss"] for h in history]
+    t_first = history[0]["step"] / history[0]["steps_per_s"]
+    t_last = history[-1]["step"] / history[-1]["steps_per_s"]
+    step_s = (t_last - t_first) / (history[-1]["step"] - history[0]["step"])
+    latest = Checkpointer(ckpt).latest_step()
+    log(f"distributed files: {json.dumps({'card': card, 'steps': len(losses), 'step_ms': step_s * 1e3, 'tokens_per_s': batch * seq / step_s, 'first_step_s': t_first, 'input_wait_s': report.get('input_wait_seconds'), 'input_starved_steps': report.get('input_starved_steps'), 'first_batch': first, 'dataset_first_batch': want_first, 'losses': losses, 'latest_step': latest, 'launches': launches})}")
+    want = {**dict.fromkeys(fa.SIMT_KERNELS, 0),
+            **dict.fromkeys(fa.TENSOR_CORE_KERNELS, layers * TRAIN_STEPS)}
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"files run: losses {losses}")
+    if launches != want:
+        raise AssertionError(f"files run: flash launches {launches}, want {want}")
+    if first != [want_first]:
+        raise AssertionError(f"files run: first batch {first}, dataset's {want_first}")
+    if latest != TRAIN_STEPS:
+        raise AssertionError(f"files run: latest committed step {latest}")
+
+    # 3. a two-rank gang on the one card against one process, then resume
+    torch.cuda.empty_cache()
+    gang_ckpt = os.path.join(work, "ckpt_gang")
+    gang_env = dict(TRAIN_ENV, TFK8S_BATCH_SIZE=str(batch), TFK8S_MESH='{"data": 2}',
+                    TFK8S_INPUT_MODE="per_host", TFK8S_INPUT_SHARDS="2",
+                    TFK8S_TRAIN_STEPS=str(d["gang_steps"]),
+                    TFK8S_CHECKPOINT_EVERY=str(d["gang_steps"]),
+                    TFK8S_CHECKPOINT_DIR=gang_ckpt)
+    t0 = time.perf_counter()
+    ranks = _run_gang(2, gang_env)
+    gang_s = time.perf_counter() - t0
+    dev = torch.device(DEVICE)
+    single_cfg = ttrain.TrainConfig(
+        steps=d["resume_steps"], learning_rate=float(TRAIN_ENV["TFK8S_LEARNING_RATE"]),
+        log_every=1, input_mode="per_host", input_shards=2)
+    trainer = ttrain.Trainer(gpt.task_for_mesh(dev, cfg=cfg, seq_len=seq, batch_size=batch),
+                             single_cfg, dev, DataParallel(None, dev))
+    fa.reset_launches()
+    _, single = trainer.fit()
+    torch.cuda.synchronize()
+    add(fa.LAUNCHES)
+    single_losses = [h["loss"] for h in single]
+    single_hashes = {f"{step} {s}": _batch_hash(trainer._make_shard_batch(step, s, s + 1, 2))
+                     for step in range(d["gang_steps"]) for s in range(2)}
+    gang_hashes = {**ranks[0]["hashes"], **ranks[1]["hashes"]}
+    resume_env = dict(gang_env, TFK8S_TRAIN_STEPS=str(d["resume_steps"]), TFK8S_WORLD_VERSION="1",
+                      TFK8S_CHECKPOINT_EVERY="0")
+    del resume_env["TFK8S_MESH"]
+    if DEVICE == "cpu":
+        resume_env["TFK8S_DEVICE"] = "cpu"
+    fa.reset_launches()
+    resumed = gpt.train(resume_env)
+    torch.cuda.synchronize()
+    add(fa.LAUNCHES)
+    resumed_losses = [h["loss"] for h in resumed]
+    gang_err = max(abs(a - b) for a, b in zip(ranks[0]["losses"], single_losses))
+    resume_err = max(abs(a - b) for a, b in zip(resumed_losses, single_losses[d["gang_steps"]:]))
+    s_first = single[0]["step"] / single[0]["steps_per_s"]
+    s_last = single[-1]["step"] / single[-1]["steps_per_s"]
+    single_step_ms = (s_last - s_first) / (single[-1]["step"] - single[0]["step"]) * 1e3
+    g_times = ranks[0]["step_s"]
+    gang_step_ms = (g_times[-1] - g_times[0]) / (len(g_times) - 1) * 1e3
+    log(f"distributed gang: {json.dumps({'card': card, 'ranks': 2, 'backend': 'gloo', 'mode': ranks[0]['mode'], 'shards': [r['shards'] for r in ranks], 'gang_wall_s': gang_s, 'gang_step_ms': gang_step_ms, 'one_process_step_ms': single_step_ms, 'gang_losses': ranks[0]['losses'], 'one_process_losses': single_losses, 'gang_max_err': gang_err, 'checksums': [r['checksum'] for r in ranks], 'resumed_losses': resumed_losses, 'resume_max_err': resume_err, 'rank_launches': [r['launches'] for r in ranks]})}")
+    if [r["shards"] for r in ranks] != [[0, 1, 2], [1, 2, 2]]:
+        raise AssertionError(f"gang shards {[r['shards'] for r in ranks]}")
+    if gang_hashes != single_hashes:
+        raise AssertionError(f"gang shard hashes {gang_hashes} != one process's {single_hashes}")
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError("the gang's ranks disagree on the losses")
+    if ranks[0]["checksum"] != ranks[1]["checksum"]:
+        raise AssertionError("the gang's ranks end with different parameters")
+    if not gang_err <= DIST_LOSS_ATOL:
+        raise AssertionError(f"gang losses {gang_err:.3e} from one process's")
+    want_gang = layers * d["gang_steps"]
+    for r in ranks:
+        if any(r["launches"][k] != want_gang for k in fa.TENSOR_CORE_KERNELS):
+            raise AssertionError(f"rank {r['rank']} flash launches {r['launches']}")
+    if [h["step"] for h in resumed] != list(range(d["gang_steps"] + 1, d["resume_steps"] + 1)):
+        raise AssertionError(f"resume ran steps {[h['step'] for h in resumed]}")
+    if not resume_err <= DIST_LOSS_ATOL:
+        raise AssertionError(f"resumed losses {resume_err:.3e} from the uninterrupted run's")
+
+    # 4. the Evaluator on the files run's final checkpoint
+    eval_env = {"TFK8S_CHECKPOINT_DIR": ckpt, "TFK8S_TRAIN_STEPS": str(TRAIN_STEPS),
+                "TFK8S_EVAL_TIMEOUT": "60", "TFK8S_EVAL_BATCHES": str(d["eval_batches"]),
+                "TFK8S_EVAL_INPUT_FILES": os.path.join(work, "eval-*.rio")}
+    if DEVICE == "cpu":
+        eval_env["TFK8S_DEVICE"] = "cpu"
+    task = gpt.task_for_mesh(dev, cfg=cfg, seq_len=seq, batch_size=batch)
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    metrics = ttrain.run_eval(task, eval_env)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    add(launches)
+    plain = gpt.make_task(cfg, seq_len=seq, batch_size=batch).init(torch.Generator().manual_seed(0))
+    plain.load_state_dict(Checkpointer(ckpt).restore(TRAIN_STEPS)["model"])
+    plain = plain.to(dev)
+    for layer in plain.layers:
+        layer.attn.attn_fn = None
+    eval_ds = RecordDataset(glob.glob(eval_env["TFK8S_EVAL_INPUT_FILES"]), batch_size=batch,
+                            shuffle=False)
+    with torch.no_grad():
+        plain_losses = [
+            float(gpt.lm_loss_and_metrics(plain(ids), ids)[0])
+            for ids in (torch.from_numpy(b["input"]).to(dev)
+                        for b, _ in zip(eval_ds.batches(0), range(d["eval_batches"])))]
+    plain_loss = sum(plain_losses) / len(plain_losses)
+    eval_err = abs(metrics.get("loss", math.nan) - plain_loss)
+    log(f"distributed eval: {json.dumps({'card': card, 'eval_s': eval_s, 'metrics': metrics, 'plain_loss': plain_loss, 'err': eval_err, 'launches': launches})}")
+    if metrics.get("step") != float(TRAIN_STEPS) or not all(
+            math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"eval metrics {metrics}")
+    if not eval_err <= DIST_LOSS_ATOL:
+        raise AssertionError(f"eval loss {eval_err:.3e} from plain attention's")
+    n_eval = min(d["eval_batches"], d["eval_records"] // batch)
+    want_eval = {**dict.fromkeys(fa.KERNELS, 0), "flash_fwd_wgmma": layers * n_eval}
+    if launches != want_eval:
+        raise AssertionError(f"eval flash launches {launches}, want {want_eval}")
+    shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1581,6 +1907,7 @@ def main() -> int:
         ("roofline", lambda: phase_roofline(torch, bc)),
         ("generate", lambda: phase_generate(torch, gpt, fa)),
         ("serve", lambda: phase_serve(torch, gpt, (fa, gn, bc))),
+        ("distributed", lambda: phase_distributed(torch, gpt, fa, root)),
     ]
     if only:
         phases = [p for p in phases if p[0] in ("card", "build", *only)]
@@ -1603,7 +1930,7 @@ def main() -> int:
             log(f"card: {card_line}")
         elif name == "kernels":
             line = value
-        elif name in ("train", "resnet_train", "roofline", "generate"):
+        elif name in ("train", "resnet_train", "roofline", "generate", "distributed"):
             for kernel, count in value.items():  # each path's launches add up
                 launches[kernel] = launches.get(kernel, 0) + count
     for d in (ckpt_dir, rn_ckpt_dir):

@@ -33,6 +33,7 @@ from tfk8s_tpu.runtime import LocalKubelet
 from tfk8s_tpu.trainer import TPUJobController
 from tfk8s_tpu_torch import bridge
 from tfk8s_tpu_torch.models import mlp as tmlp
+from tfk8s_tpu_torch.runtime import train as ttrain
 
 from conftest import wait_for
 
@@ -94,9 +95,17 @@ def test_init_is_lecun_normal_with_zero_biases():
     assert abs(w.std().item() / flax_std - 1.0) < 0.02
 
 
-def test_evaluate_is_a_later_item():
-    with pytest.raises(NotImplementedError, match="1.5"):
+def test_evaluate_is_a_later_item(tmp_path):
+    """``mlp:evaluate`` is the Evaluator's entrypoint now: it needs a
+    checkpoint directory, and scores the final checkpoint in it."""
+    with pytest.raises(RuntimeError, match="TFK8S_CHECKPOINT_DIR"):
         tmlp.evaluate({"TFK8S_DEVICE": "cpu"})
+    config = ttrain.TrainConfig(steps=2, checkpoint_dir=str(tmp_path))
+    ttrain.Trainer(tmlp.make_task(), config, torch.device("cpu")).fit()
+    metrics = tmlp.evaluate({"TFK8S_DEVICE": "cpu", "TFK8S_CHECKPOINT_DIR": str(tmp_path),
+                             "TFK8S_TRAIN_STEPS": "2", "TFK8S_EVAL_TIMEOUT": "30"})
+    assert metrics["step"] == 2.0
+    assert np.isfinite(metrics["loss"]) and 0.0 <= metrics["accuracy"] <= 1.0
 
 
 def test_mlp_train_succeeds_under_the_reference_kubelet(monkeypatch):

@@ -174,11 +174,12 @@ def test_drain_commits_a_checkpoint_and_raises_pod_drained(tmp_path):
     {"TFK8S_NUM_EXPERTS": "2"},
     {"TFK8S_ATTENTION_IMPL": "ring"},
     {"TFK8S_ATTENTION_IMPL": "ulysses"},
-    {"TFK8S_NUM_PROCESSES": "2"},
+    {"TFK8S_NUM_SLICES": "2"},
     {"TFK8S_MESH": '{"data": 2}'},
-    {"TFK8S_INPUT_FILES": "part-*.rio"},
+    {"TFK8S_INPUT_FILES": "part-*.rio", "TFK8S_INPUT_FORMAT": "image"},
     {"TFK8S_SCAN_STEPS": "4"},
     {"TFK8S_PROFILE_DIR": "profile"},
+    {"TFK8S_NUM_PROCESSES": "2", "TFK8S_MESH": '{"data": 2, "tensor": 2}'},
 ])
 def test_unported_features_raise(extra):
     with pytest.raises(NotImplementedError):

@@ -140,8 +140,8 @@ def task_for_mesh(
     **task_kw,
 ) -> TrainTask:
     """Build the task with the attention impl its device calls for. The
-    port runs on one device, so the reference's mesh is just the device
-    here (``transformer.select_attn_fn``)."""
+    port runs one device per process, so the reference's mesh is just the
+    device here (``transformer.select_attn_fn``)."""
     cfg = cfg or base_config()
     seq_len = min(task_kw.get("seq_len", 128), cfg.max_len)
     attn_fn = select_attn_fn(cfg, seq_len, device)
@@ -697,8 +697,10 @@ def save_hf_gpt2(cfg: TransformerConfig, model: Union[BertWithHead, Dict[str, to
 def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, float]]:
     """TPUJob entrypoint: ``tfk8s_tpu_torch.models.gpt:train``.
     ``TFK8S_MODEL_PRESET=tiny`` selects the test-scale config;
-    ``TFK8S_ATTENTION_IMPL`` pins an attention impl. Returns the logged
-    metrics history (the last entry is the final metrics)."""
+    ``TFK8S_ATTENTION_IMPL`` pins an attention impl. Takes the runtime's
+    input modes (``TFK8S_INPUT_FILES``, ``TFK8S_INPUT_MODE``) and
+    multi-process data parallelism. Returns the logged metrics history
+    (the last entry is the final metrics)."""
     env = dict(env)
     env.setdefault("TFK8S_TRAIN_STEPS", "100")
     env.setdefault("TFK8S_LEARNING_RATE", "1e-4")

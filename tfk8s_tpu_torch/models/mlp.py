@@ -10,8 +10,9 @@ names ``fc1``/``fc2`` (``bridge.mlp_params_to_state_dict`` maps them),
 initialized as flax's ``lecun_normal`` (a normal of variance ``1 /
 fan_in`` truncated at two standard deviations) with zero biases.
 
-``evaluate``, the Evaluator replica's entrypoint, needs ``run_eval``
-(ROADMAP item 1.5) and raises ``NotImplementedError``.
+``evaluate`` is the Evaluator replica's entrypoint
+(``tfk8s_tpu_torch.models.mlp:evaluate``): ``run_eval`` scores each
+checkpoint the workers write.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tfk8s_tpu_torch.runtime.train import TrainTask, run_task
+from tfk8s_tpu_torch.runtime.train import TrainTask, run_eval, run_task
 
 IMAGE_DIM = 784
 NUM_CLASSES = 10
@@ -121,10 +122,12 @@ def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, flo
     return run_task(make_task(), env, stop)
 
 
-def evaluate(env: Dict[str, str], stop: Optional[Any] = None) -> None:
-    """The Evaluator replica's entrypoint (``mlp:evaluate`` in the
-    reference) evaluates each checkpoint the workers write through
-    ``run_eval``, which is ROADMAP item 1.5."""
-    raise NotImplementedError(
-        "mlp:evaluate needs run_eval, the Evaluator role: ROADMAP item 1.5"
-    )
+def evaluate(env: Dict[str, str], stop: Optional[Any] = None) -> Dict[str, float]:
+    """TPUJob entrypoint of the Evaluator replica,
+    ``tfk8s_tpu_torch.models.mlp:evaluate``: scores each new checkpoint
+    the workers write (``runtime.train.run_eval``) and returns the final
+    step's metrics."""
+    env = dict(env)
+    # train()'s default: the evaluator exits after scoring this step
+    env.setdefault("TFK8S_TRAIN_STEPS", "300")
+    return run_eval(make_task(), env, stop)

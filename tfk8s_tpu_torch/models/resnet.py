@@ -328,9 +328,10 @@ def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, flo
     """TPUJob entrypoint: ``tfk8s_tpu_torch.models.resnet:train``, with the
     reference's env contract (``TFK8S_RESNET_DEPTH``, ``TFK8S_BATCH_SIZE``,
     ``TFK8S_IMAGE_SIZE``, ``TFK8S_NUM_CLASSES``, ``TFK8S_RESNET_WIDTH``,
-    ``TFK8S_TARGET_ACCURACY``) on one device: the card unless
-    ``TFK8S_DEVICE=cpu``. Image-file input (``TFK8S_INPUT_FILES``) is
-    ROADMAP item 1.5 and raises. Returns the logged metrics history."""
+    ``TFK8S_TARGET_ACCURACY``), on the card unless ``TFK8S_DEVICE=cpu``,
+    with the runtime's input modes and multi-process data parallelism.
+    Image-format record input (``TFK8S_INPUT_FORMAT=image``) is ROADMAP
+    item 1.5 and raises. Returns the logged metrics history."""
     env = dict(env)
     env.setdefault("TFK8S_TRAIN_STEPS", "100")
     env.setdefault("TFK8S_LEARNING_RATE", "1e-3")

@@ -1,19 +1,26 @@
-"""Checkpoint/resume over ``torch.save`` — the contract gang restart
-depends on, kept from the JAX package's orbax-backed ``Checkpointer``.
+"""Checkpoint/resume over ``torch.save`` and ``torch.distributed.
+checkpoint`` — the contract gang restart depends on, kept from the JAX
+package's orbax-backed ``Checkpointer``.
 
-Layout: ``<dir>/<step>/state.pt`` holds one pickled state dict (model,
-optimizer, step). A step only counts as restorable once its commit marker
-``<dir>/.tfk8s_commits/<step>`` exists, and the marker is written strictly
-after the step's file is durably on disk: a kill mid-save leaves an
-unmarked directory that ``latest_step``/``all_steps`` skip, and restore
-falls back to the previous committed step. A directory with no marker
-registry at all is trusted as it is, and the first save into such a
-directory marks the steps already there before it writes its own.
+Layout: ``<dir>/<step>/`` holds either ``state.pt``, one pickled state
+dict written by the coordinator (one process, or replicas on the data
+axis), or a ``torch.distributed.checkpoint`` directory to which every
+rank wrote its own shards (``save(..., sharded=True)``, the fsdp axis).
+A step only counts as restorable once its commit marker
+``<dir>/.tfk8s_commits/<step>`` exists, and the coordinator writes the
+marker strictly after the step is durably on disk (for shards, after a
+barrier behind every rank's write): a kill mid-save leaves an unmarked
+directory that ``latest_step``/``all_steps`` skip, and restore falls back
+to the previous committed step. A directory with no marker registry at
+all is trusted as it is, and the first save into such a directory marks
+the steps already there before it writes its own.
 
-``save_async`` copies the state to host memory at once (training may go
-on changing the parameters) and writes it on a background thread; the
-marker follows in ``wait_until_finished``/``maybe_commit``. Paths are
-local; a URI (``gs://...``) raises.
+``restore`` returns the whole unsharded state whichever way it was
+written, so a checkpoint saved by N processes restores in M (elastic
+resume). ``save_async`` copies replicated state to host memory at once
+(training may go on changing the parameters) and writes it on a
+background thread; the marker follows in ``wait_until_finished``/
+``maybe_commit``. Paths are local; a URI (``gs://...``) raises.
 """
 
 from __future__ import annotations
@@ -25,7 +32,9 @@ import threading
 from typing import Any, List, Optional
 
 import torch
+import torch.distributed as dist
 
+from tfk8s_tpu_torch.parallel.mesh import rank, world_size
 from tfk8s_tpu_torch.utils.logging import get_logger
 
 log = get_logger("checkpoint")
@@ -33,6 +42,7 @@ log = get_logger("checkpoint")
 _URI_RE = re.compile(r"^[a-z][a-z0-9+.\-]*://")
 _COMMITS_DIRNAME = ".tfk8s_commits"
 _STATE_FILE = "state.pt"
+_SHARDED_FILE = ".metadata"  # what torch.distributed.checkpoint writes last
 
 
 def resolve_directory(directory: str) -> str:
@@ -70,7 +80,10 @@ class Checkpointer:
         self._commit_dir = (
             os.path.join(self.directory, _COMMITS_DIRNAME) if self.directory else None
         )
-        if self.directory:
+        # the coordinator writes replicated state and every marker
+        self._coordinator = rank() == 0
+        self._world = world_size()
+        if self.directory and self._coordinator:
             os.makedirs(self.directory, exist_ok=True)
 
     @property
@@ -86,7 +99,8 @@ class Checkpointer:
             return []
         return sorted(
             int(n) for n in names
-            if n.isdigit() and os.path.isfile(os.path.join(self.directory, n, _STATE_FILE))
+            if n.isdigit() and any(os.path.isfile(os.path.join(self.directory, n, f))
+                                   for f in (_STATE_FILE, _SHARDED_FILE))
         )
 
     def _committed_only(self, steps: List[int]) -> List[int]:
@@ -151,25 +165,44 @@ class Checkpointer:
         except Exception as e:  # noqa: BLE001 — re-raised at commit
             self._write_error = e
 
-    def save(self, step: int, state: Any, wait: bool = False) -> None:
-        self.save_async(step, state)
+    def save(self, step: int, state: Any, wait: bool = False, sharded: bool = False) -> None:
+        """Save ``state`` at ``step``. Every rank calls it. ``sharded``:
+        each rank holds shards of the state (DTensors) and writes them; else
+        the state is the same on every rank and the coordinator writes it.
+        ``wait`` returns once the step is committed, on every rank."""
+        self.save_async(step, state, sharded=sharded)
         if wait:
             self.wait_until_finished()
+            self._barrier()
 
-    def save_async(self, step: int, state: Any) -> None:
-        """Copy ``state`` to host memory now and write it on a background
-        thread; its marker is written once the write has finished."""
-        if not self.enabled:
-            return
-        if self._pending:
-            # the previous step commits before this one opens its window
-            self.wait_until_finished()
+    def _barrier(self) -> None:
+        if self._world > 1:
+            dist.barrier()
+
+    def _open_gate(self) -> None:
         if not os.path.isdir(self._commit_dir):
             # first save here: switch on the strict gate, marking the steps
             # already present, before this step's directory starts to exist
             os.makedirs(self._commit_dir, exist_ok=True)
             for s in self._step_dirs():
                 self._write_marker(s)
+
+    def save_async(self, step: int, state: Any, sharded: bool = False) -> None:
+        """Replicated state: the coordinator copies it to host memory now
+        and writes it on a background thread; its marker is written once
+        the write has finished. Sharded state is written at once by every
+        rank, and committed behind a barrier."""
+        if not self.enabled:
+            return
+        if self._pending:
+            # the previous step commits before this one opens its window
+            self.wait_until_finished()
+        if sharded:
+            self._save_sharded(int(step), state)
+            return
+        if not self._coordinator:
+            return
+        self._open_gate()
         host_state = _to_host(state)
         self._pending.append(int(step))
         self._writer = threading.Thread(
@@ -178,6 +211,24 @@ class Checkpointer:
         )
         self._writer.start()
         log.info("saving checkpoint step=%d -> %s", step, self.directory)
+
+    def _save_sharded(self, step: int, state: Any) -> None:
+        import torch.distributed.checkpoint as dcp
+
+        final = os.path.join(self.directory, str(step))
+        tmp = f"{final}.tmp"
+        if self._coordinator:
+            self._open_gate()
+            shutil.rmtree(tmp, ignore_errors=True)
+        self._barrier()
+        dcp.save(state, checkpoint_id=tmp)
+        self._barrier()  # every rank's shards are on disk
+        if self._coordinator:
+            shutil.rmtree(final, ignore_errors=True)
+            os.replace(tmp, final)
+            self._pending.append(step)
+            self._commit_pending()
+        log.info("saved sharded checkpoint step=%d -> %s", step, self.directory)
 
     def saving_in_progress(self) -> bool:
         return self._writer is not None and self._writer.is_alive()
@@ -195,16 +246,38 @@ class Checkpointer:
             self.wait_until_finished()
 
     def restore(self, step: Optional[int] = None, map_location: Any = "cpu") -> Any:
-        """The state saved at ``step`` (default: the newest committed)."""
+        """The whole state saved at ``step`` (default: the newest
+        committed), unsharded, whichever way and by however many ranks it
+        was written. Reads files only: no collective."""
         if not self.enabled:
             raise RuntimeError("checkpointing is disabled (no directory)")
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
-        path = os.path.join(self.directory, str(step), _STATE_FILE)
-        state = torch.load(path, map_location=map_location, weights_only=True)
+        path = os.path.join(self.directory, str(step))
+        if os.path.isfile(os.path.join(path, _STATE_FILE)):
+            state = torch.load(os.path.join(path, _STATE_FILE),
+                               map_location=map_location, weights_only=True)
+        else:
+            state = _load_sharded(path)
         log.info("restored checkpoint step=%d from %s", step, self.directory)
         return state
 
     def close(self) -> None:
+        """Commit what is pending; every rank returns once it is."""
         self.wait_until_finished()
+        self._barrier()
+
+
+def _load_sharded(path: str) -> Any:
+    """Gather a ``torch.distributed.checkpoint`` directory into one
+    unsharded state dict on the CPU, in this process alone (what
+    ``format_utils.dcp_to_torch_save`` does, without the file)."""
+    from torch.distributed.checkpoint import FileSystemReader
+    from torch.distributed.checkpoint.default_planner import _EmptyStateDictLoadPlanner
+    from torch.distributed.checkpoint.state_dict_loader import _load_state_dict
+
+    state: dict = {}
+    _load_state_dict(state, storage_reader=FileSystemReader(path),
+                     planner=_EmptyStateDictLoadPlanner(), no_dist=True)
+    return state

@@ -1,46 +1,64 @@
-"""The training loop on one device: TrainTask -> eager PyTorch steps,
-ported from the JAX package's ``runtime/train.py``.
+"""The training loop: TrainTask -> eager PyTorch steps on one device per
+process, ported from the JAX package's ``runtime/train.py``.
 
 What is kept from the reference:
 - the env contract of ``run_task`` (steps, learning rate, schedule,
-  warmup, gradient accumulation, logging, checkpoint cadence, seed);
+  warmup, gradient accumulation, logging, checkpoint cadence, seed, input
+  mode and files);
 - AdamW with optax ``adamw`` semantics (b1 0.9, b2 0.999, eps 1e-8,
   decoupled weight decay) whose learning rate is the schedule read at the
   optimizer's count before the update, so warmup's first step has lr 0;
-- the replicated batch stream ``np.random.default_rng(seed + step)``, one
-  host batch per step, synthesized ahead on a prefetch thread;
-- metrics fetched from the device only at log boundaries, progress
-  reports, convergence targets, checkpoint/resume, and the drain on a
-  reclaim notice (``stop.drain_requested``) ending in ``PodDrained``;
+- the input modes (``TFK8S_INPUT_MODE``, auto by the reference's rule):
+  ``replicated``, the stream ``np.random.default_rng(seed + step)`` of
+  whole batches; ``per_host``, a batch concatenated from ``input_shards``
+  shard streams seeded by ``(seed, step, shard)``, each process building
+  only its own shards; ``files``, record shards (``TFK8S_INPUT_FILES``,
+  array format) read through ``data.dataset.RecordDataset``, each process
+  opening its round-robin share, fast-forwarded to the resume step, the
+  first batch held to the task's schema. Host batches are synthesized
+  ahead on a prefetch thread;
+- multi-process data parallelism over the mesh's ``data`` and ``fsdp``
+  axes (``parallel.data_parallel``): each rank trains on its contiguous
+  rows of the global batch; losses and metrics are global means, read
+  back and averaged over the ranks only at log boundaries;
+- progress reports from each process, convergence targets, checkpoint/
+  resume (a checkpoint saved by N processes restores in M), and the drain
+  on a reclaim notice (``stop.drain_requested``) ending in ``PodDrained``;
 - under a node agent (``runtime/node_agent``): progress reaches pod
   status through the agent's sink, a drain raises the agent's
   ``PodDrained`` (so the pod ends Drained), the first step's time is also
   reported as ``compile_seconds``, and ``run_task`` continues
   ``TFK8S_TRACEPARENT`` with ``trainer.run``, ``trainer.startup`` and
-  ``trainer.first_step`` spans.
+  ``trainer.first_step`` spans;
+- ``run_eval``, the Evaluator replica: it scores every new checkpoint on
+  held-out batches until the final step's.
 
-Not ported yet, raising ``NotImplementedError`` when asked for: multi-
-process, per-host and record-file input (ROADMAP item 1.5), the scanned
+Not ported yet, raising ``NotImplementedError`` when asked for: image
+record input (``TFK8S_INPUT_FORMAT=image``, ROADMAP item 1.5), the scanned
 multi-step dispatch (``TFK8S_SCAN_STEPS``) and profiling (item 1.11).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob as globlib
 import math
 import queue
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from tfk8s_tpu_torch.data.dataset import RecordDataset
 from tfk8s_tpu_torch.obs.trace import TRACEPARENT_ENV, get_tracer
+from tfk8s_tpu_torch.parallel.data_parallel import DataParallel, load_full_state_dicts, state_dicts
+from tfk8s_tpu_torch.parallel.mesh import world_size
 from tfk8s_tpu_torch.runtime import node_agent, progress
 from tfk8s_tpu_torch.runtime.checkpoint import Checkpointer
-from tfk8s_tpu_torch.runtime.launcher import ProcessContext, select_device
+from tfk8s_tpu_torch.runtime.launcher import ProcessContext, initialize_distributed, select_device
 from tfk8s_tpu_torch.utils.logging import get_logger
 
 log = get_logger("train")
@@ -90,6 +108,14 @@ class TrainConfig:
     grad_accum_steps: int = 1
     # >1 synthesizes host batches this many steps ahead on a thread
     prefetch: int = 2
+    # "replicated" | "per_host" | "files"; None = auto: "files" when
+    # input_files is set, else "per_host" with more than one process
+    input_mode: Optional[str] = None
+    # logical input shards in per_host mode (None = the process count);
+    # the batch content depends only on (seed, step, input_shards)
+    input_shards: Optional[int] = None
+    # comma-separated record-file paths/globs (TFK8S_INPUT_FILES)
+    input_files: Optional[str] = None
     # "constant" | "cosine" | "linear" decay after warmup, over
     # decay_steps (None = the rest of the run) down to min_lr_ratio * lr
     lr_schedule: str = "constant"
@@ -137,16 +163,82 @@ class TrainState:
     optimizer: torch.optim.Optimizer
 
     def state_dict(self) -> Dict[str, Any]:
-        return {
-            "step": self.step,
-            "model": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
-        }
+        """Model and optimizer state keyed by parameter name, whatever
+        wraps the model (this rank's shards under FSDP)."""
+        return {"step": self.step, **state_dicts(self.model, self.optimizer)}
 
     def load_state_dict(self, saved: Dict[str, Any]) -> None:
-        self.model.load_state_dict(saved["model"])
-        self.optimizer.load_state_dict(saved["optimizer"])
+        """Load a whole (unsharded) saved state into this rank's layout."""
+        load_full_state_dicts(self.model, self.optimizer, saved)
         self.step = int(saved["step"])
+
+
+def _expand_input_files(spec: str) -> List[str]:
+    """Expand a comma-separated list of record-file paths/globs (the
+    TFK8S_INPUT_FILES / TFK8S_EVAL_INPUT_FILES value) into a concrete
+    path list; a glob matching nothing fails loudly."""
+    paths: List[str] = []
+    for part in (spec or "").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if any(c in part for c in "*?["):
+            hits = sorted(globlib.glob(part))
+            if not hits:
+                raise ValueError(f"input pattern matched nothing: {part!r}")
+            paths.extend(hits)
+        else:
+            paths.append(part)
+    if not paths:
+        raise ValueError(f"input file spec is empty: {spec!r}")
+    return paths
+
+
+class _CheckedFileStream:
+    """Iterator over a RecordDataset iterator that holds the FIRST decoded
+    batch to the task's batch schema (keys, per-row shapes, dtypes, local
+    row count): a records/task mismatch fails with a schema message, not a
+    shape error deep inside the model."""
+
+    def __init__(self, it: Iterator, want_example: Dict[str, np.ndarray], local_rows: int,
+                 dataset: Optional[RecordDataset] = None):
+        self._it = it
+        self._want = want_example
+        self._rows = local_rows
+        self._checked = False
+        # its bytes_read feeds the windowed input MB/s progress report
+        self.dataset = dataset
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Dict[str, np.ndarray]:
+        raw = next(self._it)
+        if not self._checked:
+            self._checked = True
+            if sorted(raw) != sorted(self._want):
+                raise ValueError(
+                    f"record schema {sorted(raw)} does not match the task's "
+                    f"batch schema {sorted(self._want)}"
+                )
+            for k in sorted(raw):
+                ga, wa = np.asarray(raw[k]), np.asarray(self._want[k])
+                if ga.shape[1:] != wa.shape[1:] or ga.dtype != wa.dtype:
+                    raise ValueError(
+                        "record example mismatch: got "
+                        f"{ga.dtype}{list(ga.shape[1:])} per row, "
+                        f"task expects {wa.dtype}{list(wa.shape[1:])}"
+                    )
+                if ga.shape[0] != self._rows:
+                    raise ValueError(
+                        f"dataset produced {ga.shape[0]} rows, expected {self._rows}"
+                    )
+        return raw
+
+    def close(self) -> None:
+        self._it.close()
+        if self.dataset is not None:
+            self.dataset.close()
 
 
 class _BatchPrefetcher:
@@ -203,13 +295,18 @@ class _BatchPrefetcher:
 
 
 class Trainer:
-    def __init__(self, task: TrainTask, config: TrainConfig, device: torch.device):
+    def __init__(self, task: TrainTask, config: TrainConfig, device: torch.device,
+                 parallel: Optional[DataParallel] = None):
         self.task = task
         self.config = config
         self.device = torch.device(device)
+        self.parallel = parallel or DataParallel(None, self.device)
         self.schedule = config.make_schedule()
         # set by fit() when a reclaim notice drained the run
         self.drained_at: Optional[int] = None
+        # set by fit() in per_host and multi-process files input:
+        # (shard_lo, shard_hi, num_shards) of this process
+        self.input_shard_range: Optional[Tuple[int, int, int]] = None
         accum = max(config.grad_accum_steps, 1)
         if task.batch_size % accum:
             raise ValueError(
@@ -218,7 +315,7 @@ class Trainer:
 
     def init_state(self) -> TrainState:
         generator = torch.Generator().manual_seed(self.config.seed)
-        model = self.task.init(generator).to(self.device)
+        model = self.parallel.wrap(self.task.init(generator).to(self.device))
         optimizer = torch.optim.AdamW(
             model.parameters(), lr=self.schedule(0), betas=(0.9, 0.999),
             eps=1e-8, weight_decay=self.config.weight_decay,
@@ -232,57 +329,178 @@ class Trainer:
         }
 
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """One optimizer update; returns the step's metrics as device
-        tensors (nothing is fetched to the host here)."""
+        """One optimizer update on this rank's rows; returns the step's
+        metrics as device tensors, this rank's local means (nothing is
+        fetched to the host here)."""
         accum = max(self.config.grad_accum_steps, 1)
         model, opt = state.model, state.optimizer
         opt.zero_grad(set_to_none=True)
-        if accum == 1:
-            loss, aux = self.task.loss_fn(model, batch)
-            loss.backward()
-        else:
-            # contiguous row chunks: the reference's [accum, B/accum] split
-            micro = [dict(zip(batch, parts)) for parts in
-                     zip(*(v.chunk(accum, dim=0) for v in batch.values()))]
-            loss, aux = torch.zeros((), device=self.device), {}
-            for mb in micro:
+        # contiguous row chunks: the reference's [accum, B/accum] split
+        micro = [dict(zip(batch, parts)) for parts in
+                 zip(*(v.chunk(accum, dim=0) for v in batch.values()))]
+        loss, aux = torch.zeros((), device=self.device), {}
+        for i, mb in enumerate(micro):
+            with self.parallel.no_sync(model, last=i == accum - 1):
                 loss_i, aux_i = self.task.loss_fn(model, mb)
                 (loss_i / accum).backward()
-                loss = loss + loss_i.detach().float() / accum
-                for k, v in aux_i.items():
-                    aux[k] = aux.get(k, 0.0) + v.detach().float() / accum
+            loss = loss + loss_i.detach().float() / accum
+            for k, v in aux_i.items():
+                aux[k] = aux.get(k, 0.0) + v.detach().float() / accum
         grads = [p.grad for p in model.parameters() if p.grad is not None]
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
-        )
+        grad_norm = self.parallel.grad_norm(grads)
         lr = self.schedule(state.step)  # optax reads the pre-update count
         for group in opt.param_groups:
             group["lr"] = lr
         opt.step()
         state.step += 1
-        return {"loss": loss.detach(), "grad_norm": grad_norm,
-                **{k: v.detach() for k, v in aux.items()}}
+        return {"loss": loss, "grad_norm": grad_norm, **aux}
+
+    # -- input ----------------------------------------------------------------
+
+    def input_mode(self) -> str:
+        """The reference's rule: ``files`` when input files are given,
+        else ``per_host`` with more than one process, else
+        ``replicated``."""
+        cfg = self.config
+        mode = cfg.input_mode or (
+            "files" if cfg.input_files
+            else ("per_host" if self.parallel.world > 1 else "replicated")
+        )
+        if mode not in ("replicated", "per_host", "files"):
+            raise ValueError(f"unknown input_mode {cfg.input_mode!r}")
+        if mode == "files" and not cfg.input_files:
+            raise ValueError('input_mode="files" needs input_files')
+        if cfg.input_files and mode != "files":
+            raise ValueError(
+                f"input_files is set but input_mode={mode!r} would "
+                'ignore it — use input_mode="files" (or unset one)'
+            )
+        return mode
+
+    def _input_shard_plan(self, num_shards: Optional[int] = None) -> Tuple[int, int, int]:
+        """``(shard_lo, shard_hi, num_shards)``: the half-open range of
+        input shards this process builds. Rank r holds the contiguous rows
+        ``[r * local, (r + 1) * local)`` of the global batch (the range the
+        reference reads off its sharding); the shards must not straddle
+        ranks. ``num_shards=None`` uses the config (per_host mode)."""
+        cfg, task = self.config, self.task
+        num_shards = num_shards or cfg.input_shards or self.parallel.world
+        accum = max(cfg.grad_accum_steps, 1)
+        if task.batch_size % num_shards:
+            raise ValueError(
+                f"input_shards={num_shards} does not divide batch_size={task.batch_size}"
+            )
+        if (task.batch_size // num_shards) % accum:
+            raise ValueError(
+                f"per-shard batch {task.batch_size // num_shards} must be "
+                f"a multiple of grad_accum_steps={accum}"
+            )
+        local = self.parallel.local_rows(task.batch_size)
+        lo, hi = self.parallel.rank * local, (self.parallel.rank + 1) * local
+        rows_per_shard = task.batch_size // num_shards
+        if lo % rows_per_shard or hi % rows_per_shard:
+            raise ValueError(
+                f"process-local rows [{lo},{hi}) are not aligned to "
+                f"{rows_per_shard} rows/shard; pick input_shards such that "
+                "shards don't straddle processes"
+            )
+        return lo // rows_per_shard, hi // rows_per_shard, num_shards
+
+    def _open_input_files(self, start_step: int) -> _CheckedFileStream:
+        """The record-shard stream (files mode): this process's round-robin
+        file share (or, with fewer files than processes, a record stripe,
+        warned loudly), batches of its local rows, the first held to the
+        task's schema, fast-forwarded to ``start_step`` (one batch a step)
+        so a resume continues the exact record stream."""
+        cfg, task, par = self.config, self.task, self.parallel
+        paths = _expand_input_files(cfg.input_files or "")
+        if cfg.input_shards is not None:
+            log.warning(
+                "%s: input_shards=%d is ignored in input_mode='files' "
+                "(file input divides per process: %d); unset it or use "
+                "input_mode='per_host'", task.name, cfg.input_shards, par.world,
+            )
+        if par.world > 1:
+            lo, hi, n = self._input_shard_plan(num_shards=par.world)
+            self.input_shard_range = (lo, hi, n)
+        local_rows = par.local_rows(task.batch_size)
+        ds = RecordDataset(paths, batch_size=local_rows, host_index=par.rank,
+                           num_hosts=par.world, seed=cfg.seed)
+        if ds.shard_by == "records" and par.world > 1:
+            log.warning(
+                "%s: only %d record files for %d processes — falling back "
+                "to RECORD striping (every process reads all files; write "
+                ">= one file per host to restore per-host file IO)",
+                task.name, len(ds.files), par.world,
+            )
+        log.info(
+            "%s: array file input (%s-sharded) — process %d/%d reads %d files / "
+            "%d records, %d rows/step, resuming at batch %d",
+            task.name, ds.shard_by, par.rank, par.world, len(ds.files), len(ds),
+            local_rows, start_step,
+        )
+        want = task.make_batch(np.random.default_rng(0), 1)
+        # prefetch=0: fit's own prefetcher is the background thread
+        it = ds.iterator(prefetch=0, start_batch=start_step)
+        return _CheckedFileStream(it, want, local_rows, dataset=ds)
+
+    def _make_shard_batch(self, step: int, shard_lo: int, shard_hi: int,
+                          num_shards: int) -> Dict[str, np.ndarray]:
+        """This process's input shards for one step, each from a fresh
+        generator seeded by (seed, step, shard): the content depends only
+        on those three values, whichever process builds it."""
+        shard_size = self.task.batch_size // num_shards
+        parts = [
+            self.task.make_batch(
+                np.random.default_rng(np.random.SeedSequence([self.config.seed, step, s])),
+                shard_size,
+            )
+            for s in range(shard_lo, shard_hi)
+        ]
+        if len(parts) == 1:
+            return parts[0]
+        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+    # -- the loop -------------------------------------------------------------
 
     def fit(
         self,
         state: Optional[TrainState] = None,
         stop: Optional[Any] = None,  # threading.Event-like graceful preemption
     ) -> Tuple[TrainState, List[Dict[str, float]]]:
-        cfg = self.config
+        cfg, par = self.config, self.parallel
         ckpt = Checkpointer(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
         if state is None:
             state = self.init_state()
             if cfg.resume and ckpt and ckpt.latest_step() is not None:
-                state.load_state_dict(ckpt.restore(map_location=self.device))
+                state.load_state_dict(ckpt.restore())
                 log.info("%s: resumed at step %d", self.task.name, state.step)
 
         history: List[Dict[str, float]] = []
         start_step = state.step
-        # the batch stream: owned by the producer (thread or this loop)
-        np_rng = np.random.default_rng(cfg.seed + start_step)
+        mode = self.input_mode()
+        files_iter: Optional[_CheckedFileStream] = None
+        if mode == "files":
+            files_iter = self._open_input_files(start_step)
+        elif mode == "per_host":
+            shard_lo, shard_hi, num_shards = self._input_shard_plan()
+            self.input_shard_range = (shard_lo, shard_hi, num_shards)
+            log.info("%s: per-host input — process %d/%d builds shards [%d, %d) of %d",
+                     self.task.name, par.rank, par.world, shard_lo, shard_hi, num_shards)
+        else:
+            # the replicated stream: owned by the producer (thread or this
+            # loop); with several processes each keeps its own rows
+            np_rng = np.random.default_rng(cfg.seed + start_step)
+            local = par.local_rows(self.task.batch_size)
+            rows = slice(par.rank * local, (par.rank + 1) * local)
 
-        def _make_host_batch(step: int):
-            return self.task.make_batch(np_rng, self.task.batch_size)
+        def _make_host_batch(step: int) -> Dict[str, np.ndarray]:
+            if files_iter is not None:
+                return next(files_iter)
+            if mode == "per_host":
+                return self._make_shard_batch(step, shard_lo, shard_hi, num_shards)
+            batch = self.task.make_batch(np_rng, self.task.batch_size)
+            return batch if par.world == 1 else {k: v[rows] for k, v in batch.items()}
 
         prefetcher = (
             _BatchPrefetcher(_make_host_batch, start_step, cfg.steps, cfg.prefetch)
@@ -290,6 +508,7 @@ class Trainer:
         )
         t0 = time.perf_counter()
         last_report = (start_step, t0)
+        last_bytes = 0
         first_step_s: Optional[float] = None
         input_wait_total, starved_steps = 0.0, 0
         try:
@@ -326,13 +545,17 @@ class Trainer:
                 if input_wait > _INPUT_STARVED_FRACTION * max(it_dt, 1e-9):
                     starved_steps += 1
                 if ckpt and cfg.checkpoint_every and step % cfg.checkpoint_every == 0:
-                    ckpt.save(step, state.state_dict())
+                    ckpt.save(step, state.state_dict(), sharded=par.sharded)
                 elif ckpt:
                     ckpt.maybe_commit()
                 if step % cfg.log_every == 0 or step == cfg.steps:
-                    # one host transfer for the whole metrics dict
+                    # one host transfer (and one all-reduce) for the whole
+                    # metrics dict; grad_norm is global already
                     keys = sorted(metrics)
-                    vals = torch.stack([metrics[k].float() for k in keys]).tolist()
+                    vals = par.reduce_metrics(
+                        torch.stack([metrics[k].float() for k in keys]),
+                        keep=torch.tensor([k == "grad_norm" for k in keys], device=self.device),
+                    ).tolist()
                     m = dict(zip(keys, vals))
                     m["step"] = step
                     now = time.perf_counter()
@@ -342,7 +565,7 @@ class Trainer:
                     w_dt = max(now - last_report[1], 1e-9)
                     last_report = (step, now)
                     rate = w_steps / w_dt
-                    progress.report(
+                    report_kw = dict(
                         step=step,
                         steps_per_sec=rate,
                         examples_per_sec=rate * self.task.batch_size,
@@ -350,6 +573,11 @@ class Trainer:
                         input_wait_seconds=input_wait_total,
                         input_starved_steps=float(starved_steps),
                     )
+                    if files_iter is not None:
+                        b_now = files_iter.dataset.bytes_read
+                        report_kw["input_mb_per_sec"] = (b_now - last_bytes) / w_dt / 1e6
+                        last_bytes = b_now
+                    progress.report(**report_kw)
                     log.info(
                         "%s step %d: %s", self.task.name, step,
                         {k: round(v, 4) for k, v in m.items()},
@@ -357,10 +585,12 @@ class Trainer:
         finally:
             if prefetcher is not None:
                 prefetcher.close()
+            if files_iter is not None:
+                files_iter.close()
         if ckpt and ckpt.enabled:
             if self.drained_at is not None:
                 t_drain = time.perf_counter()
-                ckpt.save_async(state.step, state.state_dict())
+                ckpt.save_async(state.step, state.state_dict(), sharded=par.sharded)
                 ckpt.wait_until_finished()
                 drain_s = time.perf_counter() - t_drain
                 self.drained_at = state.step
@@ -370,19 +600,17 @@ class Trainer:
                     self.task.name, state.step, drain_s,
                 )
             else:
-                ckpt.save(state.step, state.state_dict(), wait=True)
+                ckpt.save(state.step, state.state_dict(), wait=True, sharded=par.sharded)
             ckpt.close()
         return state, history
 
 
 def _unported_env(env: Dict[str, str]) -> None:
-    """Raise for env knobs of the reference that this slice does not run."""
-    if env.get("TFK8S_INPUT_FILES"):
-        raise NotImplementedError("TFK8S_INPUT_FILES: record-file input is ROADMAP item 1.5")
-    if env.get("TFK8S_INPUT_MODE", "replicated") not in ("", "replicated"):
+    """Raise for env knobs of the reference that the port does not run."""
+    if env.get("TFK8S_INPUT_FORMAT", "array") not in ("", "array"):
         raise NotImplementedError(
-            f"TFK8S_INPUT_MODE={env['TFK8S_INPUT_MODE']!r}: per-host and file "
-            "input are ROADMAP item 1.5"
+            f"TFK8S_INPUT_FORMAT={env['TFK8S_INPUT_FORMAT']!r}: image record "
+            "input is ROADMAP item 1.5"
         )
     if int(env.get("TFK8S_SCAN_STEPS", "1")) > 1:
         raise NotImplementedError(
@@ -404,11 +632,31 @@ def config_from_env(env: Dict[str, str], ctx: ProcessContext) -> TrainConfig:
         seed=int(env.get("TFK8S_SEED", "0")),
         resume=ctx.resuming,
         grad_accum_steps=int(env.get("TFK8S_GRAD_ACCUM", "1")),
+        input_mode=env.get("TFK8S_INPUT_MODE") or None,
+        input_shards=int(env["TFK8S_INPUT_SHARDS"]) if env.get("TFK8S_INPUT_SHARDS") else None,
+        input_files=env.get("TFK8S_INPUT_FILES") or None,
         warmup_steps=int(env.get("TFK8S_WARMUP_STEPS", "0")),
         lr_schedule=env.get("TFK8S_LR_SCHEDULE", "constant"),
         decay_steps=int(env["TFK8S_DECAY_STEPS"]) if env.get("TFK8S_DECAY_STEPS") else None,
         min_lr_ratio=float(env.get("TFK8S_MIN_LR_RATIO", "0.0")),
     )
+
+
+def join_job(env: Dict[str, str], device: Optional[torch.device] = None,
+             ) -> Tuple[ProcessContext, torch.device]:
+    """Env -> process context, the process group (when the job has one)
+    and this rank's device: with several cards on the host, rank r takes
+    card ``r % cards``."""
+    _unported_env(env)
+    ctx = ProcessContext.from_env(env)
+    device = select_device(env, device)
+    if initialize_distributed(ctx, env, device=device) and device.type == "cuda":
+        device = torch.device("cuda", ctx.process_id % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    # without a process group this process trains alone (replicas run as
+    # threads of one process), on one device
+    ctx.require_single_device(world_size())
+    return ctx, device
 
 
 def run_task(
@@ -418,12 +666,13 @@ def run_task(
     config: Optional[TrainConfig] = None,
     device: Optional[torch.device] = None,
 ) -> List[Dict[str, float]]:
-    """Entrypoint glue: env contract -> device -> (resume ->) fit ->
-    metrics history. Raises if the task declares convergence targets and
-    misses them — a failed pod is how the control plane learns training
-    went wrong — and ``PodDrained`` after a drain (the node agent's class
-    when ``stop`` comes from one). Progress goes to the node agent's sink
-    and the spans continue ``TFK8S_TRACEPARENT`` (``runtime/node_agent``)."""
+    """Entrypoint glue: env contract -> process group and device ->
+    (resume ->) fit -> metrics history. Raises if the task declares
+    convergence targets and misses them — a failed pod is how the control
+    plane learns training went wrong — and ``PodDrained`` after a drain
+    (the node agent's class when ``stop`` comes from one). Progress goes
+    to the node agent's sink and the spans continue ``TFK8S_TRACEPARENT``
+    (``runtime/node_agent``)."""
     env = dict(env or {})
     with node_agent.attach(stop):
         tracer = get_tracer()
@@ -432,12 +681,9 @@ def run_task(
             attributes={"task": task.name},
         ):
             with tracer.start_span("trainer.startup", attributes={"task": task.name}):
-                _unported_env(env)
-                ctx = ProcessContext.from_env(env)
-                ctx.require_single_device()
-                device = select_device(env, device)
+                ctx, device = join_job(env, device)
                 config = config or config_from_env(env, ctx)
-                trainer = Trainer(task, config, device)
+                trainer = Trainer(task, config, device, DataParallel(ctx.mesh, device))
             _state, history = trainer.fit(stop=stop)
     if trainer.drained_at is not None:
         raise node_agent.pod_drained_class(stop)(
@@ -455,3 +701,88 @@ def run_task(
                 f"after {final.get('step')} steps"
             )
     return history
+
+
+def run_eval(
+    task: TrainTask,
+    env: Optional[Dict[str, str]] = None,
+    stop: Optional[Any] = None,
+    device: Optional[torch.device] = None,
+) -> Dict[str, float]:
+    """The Evaluator replica: poll the job's checkpoint dir, score each NEW
+    checkpoint on held-out batches, and return once the final training
+    step (``TFK8S_TRAIN_STEPS``) has been scored. Raises if no new
+    checkpoint appears within ``TFK8S_EVAL_TIMEOUT`` seconds (the clock
+    restarts on every new one): a failed evaluator pod is how the control
+    plane learns evaluation is wedged.
+
+    The held-out batches are ``TFK8S_EVAL_BATCHES`` draws of the stream
+    ``default_rng(10_000)``, or the first batches of the record shards
+    ``TFK8S_EVAL_INPUT_FILES`` read unshuffled, materialised once so every
+    checkpoint is scored on the same ones. Metrics are the means over the
+    batches of the task's loss and metrics."""
+    env = dict(env or {})
+    ctx = ProcessContext.from_env(env)
+    if not ctx.checkpoint_dir:
+        raise RuntimeError(
+            f"{task.name}: evaluator needs TFK8S_CHECKPOINT_DIR "
+            "(set the tfk8s.dev/checkpoint-dir job annotation)"
+        )
+    # the evaluator is a rank of the job's process group (the controller's
+    # TFK8S_NUM_PROCESSES counts every replica): the gang waits for it
+    _ctx, device = join_job(env, device)
+    final_step = int(env.get("TFK8S_TRAIN_STEPS", "0"))
+    timeout = float(env.get("TFK8S_EVAL_TIMEOUT", "300"))
+    eval_batches = int(env.get("TFK8S_EVAL_BATCHES", "4"))
+
+    model = task.init(torch.Generator().manual_seed(0)).to(device)
+    np_rng = np.random.default_rng(10_000)  # held-out stream
+    eval_files = env.get("TFK8S_EVAL_INPUT_FILES")
+    if eval_files:
+        eval_ds = RecordDataset(_expand_input_files(eval_files),
+                                batch_size=task.batch_size, shuffle=False)
+        avail = eval_ds.batches_per_epoch()
+        if avail < eval_batches:
+            log.info("%s-eval: eval set holds %d batches; clamping "
+                     "TFK8S_EVAL_BATCHES from %d", task.name, avail, eval_batches)
+            eval_batches = avail
+        want = task.make_batch(np.random.default_rng(0), 1)
+        checked = _CheckedFileStream(eval_ds.batches(0), want, task.batch_size)
+        eval_set = [next(checked) for _ in range(eval_batches)]
+    # the evaluator only reads checkpoints: it never commits or waits on
+    # the gang's barrier
+    ckpt = Checkpointer(ctx.checkpoint_dir)
+
+    last_seen = -1
+    metrics: Dict[str, float] = {}
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if stop is not None and getattr(stop, "is_set", lambda: False)():
+            log.info("%s-eval: stop requested", task.name)
+            return metrics
+        step = ckpt.latest_step()
+        if step is not None and step > last_seen:
+            model.load_state_dict(ckpt.restore(step, map_location=device)["model"])
+            sums: Dict[str, float] = {}
+            with torch.no_grad():
+                for bi in range(eval_batches):
+                    host = eval_set[bi] if eval_files else task.make_batch(np_rng, task.batch_size)
+                    loss, aux = task.loss_fn(model, {
+                        k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                        for k, v in host.items()
+                    })
+                    for k, v in {"loss": loss, **aux}.items():
+                        sums[k] = sums.get(k, 0.0) + float(v)
+            metrics = {k: v / eval_batches for k, v in sums.items()}
+            metrics["step"] = float(step)
+            log.info("%s-eval step %d: %s", task.name, step,
+                     {k: round(v, 4) for k, v in metrics.items()})
+            last_seen = step
+            if final_step and step >= final_step:
+                return metrics
+            deadline = time.time() + timeout  # progress -> new window
+        time.sleep(0.2)
+    raise RuntimeError(
+        f"{task.name}: evaluator saw no new checkpoint (step > {last_seen}) "
+        f"for {timeout:.0f}s (final step wanted: {final_step})"
+    )
