@@ -135,9 +135,34 @@ must pass:
    uninterrupted 6-step run. Last, ``run_eval`` scores the 10-step run's
    checkpoint on the evaluation shard: finite metrics, the loss within
    DIST_LOSS_ATOL of the same parameters and batches through plain
-   attention, the flash forward launched 12 times a batch; eval seconds.
+   attention, the flash forward launched 12 times a batch; eval seconds;
+12. families: the BERT MLM, ViT and T5 families at their published widths
+   (bf16 activations, f32 parameters, ``TFK8S_ATTENTION_IMPL=flash``,
+   random weights from seed 0; only the steps cut): ``bert:train``
+   (BERT-base, seq 512, batch 32, 10 steps), ``vit:train`` (ViT-B/16,
+   224/16 so 196 tokens, 1000 classes, batch 64, 6 steps) and ``t5:train``
+   (T5-base, seq 512, batch 16, 10 steps): finite losses, each tensor-core
+   flash kernel launched sites x steps times (12, 12 and 36 sites a step)
+   and the CUDA-core ones never; step ms, tokens or images a second,
+   first step, peak memory, input wait; then the same step on batches
+   staged on the card, with one step's profiler trace (busy time, idle
+   share, the leading kernels, the ``[b, l]`` ``_to_copy`` calls that
+   count T5's mask conversions). Each family, flash against plain
+   attention on one base-width batch (T5 also on one whose sources end in
+   PAD_ID tails): loss within BF16_ATOL and every gradient within
+   FAMILY_GRAD_REL_L2, which BERT's kernel called causal and T5's with
+   its mask dropped on the padded batch must exceed; a small float32
+   config (TF32 off) through the kernels against the CPU plain path, loss
+   and gradients within F32_GRAD_ATOL. Then ``t5.greedy_generate`` at
+   T5-base width on 8 sources of 512 tokens, 64 generated: 12 launches of
+   the flash forward (the encoder's) and no other kernel; encoder ms,
+   per-token ms and the device-idle share of a token; a sampled stream
+   repeats under its key. Last, the flash kernels at each family's
+   training call (BERT [32, 512], ViT [64, 196], T5 [16, 512] with
+   padded keys; 12 heads of 64) against their plain versions and SDPA,
+   with device times.
 
-The launch counts are zeroed just before each path (phases 6-11) and
+The launch counts are zeroed just before each path (phases 6-12) and
 read just after it; the line's launches add up the paths'. Then it prints the card line, the ``kernels`` JSON
 line and, last, the ``ok`` line. It exits non-zero, printing no result,
 when a phase fails, when no card is visible, or when the port's package is
@@ -277,6 +302,39 @@ DIST_LOSS_ATOL = 2e-2
 # the full forward's argmax only where both logits are this close (a tie
 # at float32 precision); every such position is counted and printed
 SERVE_F32_TIE_ATOL = 1e-4
+# the families phase: BERT-base MLM, ViT-B/16 and T5-base at their
+# published widths (bf16 activations, f32 parameters, flash pinned, random
+# weights from seed 0); only the steps are cut. ``sites`` is the flash
+# call sites a step (T5: 12 encoder, 12 causal decoder, 12 cross)
+FAMILY_ENV = {"TFK8S_ATTENTION_IMPL": "flash", "TFK8S_LOG_EVERY": "1", "TFK8S_SEED": "0"}
+FAMILIES = {
+    "bert": dict(env={"TFK8S_SEQ_LEN": "512", "TFK8S_BATCH_SIZE": "32",
+                      "TFK8S_TRAIN_STEPS": "10", "TFK8S_LEARNING_RATE": "1e-4"},
+                 sites=12, per_step=("tokens", 32 * 512)),
+    "vit": dict(env={"TFK8S_IMAGE_SIZE": "224", "TFK8S_PATCH_SIZE": "16",
+                     "TFK8S_NUM_CLASSES": "1000", "TFK8S_BATCH_SIZE": "64",
+                     "TFK8S_TRAIN_STEPS": "6", "TFK8S_LEARNING_RATE": "1e-3"},
+                sites=12, per_step=("images", 64)),
+    "t5": dict(env={"TFK8S_SEQ_LEN": "512", "TFK8S_BATCH_SIZE": "16",
+                    "TFK8S_TRAIN_STEPS": "10", "TFK8S_LEARNING_RATE": "1e-4"},
+               sites=36, per_step=("tokens", 16 * 512)),
+}
+# flash against plain attention on one batch at base width (bf16): the
+# base-width GPT check's bounds on the loss and on every parameter's
+# gradient (relative L2); BERT's kernel called causal and T5's with the
+# key mask dropped (on a batch whose sources end in PAD_ID tails) must
+# exceed them
+FAMILY_CHECK = dict(batch=4, vit_batch=8, seed=21, staged_steps=5)
+FAMILY_GRAD_REL_L2 = 5e-2
+# T5 greedy generation: 8 sources of 512 tokens, 64 generated
+T5_GENERATE = dict(batch=8, src=512, gen=64, seed=23, key=99)
+# the flash kernels at each family's training call, 12 heads of 64, bf16:
+# (name, batch, length, key lengths); T5's keys up to 37% padded
+FAMILY_KERNEL_CASES = [
+    ("bert_bf16_non_causal", 32, 512, None),
+    ("vit_b16_bf16_ragged_196", 64, 196, None),
+    ("t5_bf16_key_mask", 16, 512, [512 - (i * 13) % 192 for i in range(16)]),
+]
 
 
 def log(msg: str) -> None:
@@ -1866,6 +1924,336 @@ def phase_distributed(torch, gpt, fa, root):
     return total
 
 
+def _attn_impl(torch, model, fn):
+    """Point every attention of ``model`` at ``fn`` (None: plain)."""
+    from tfk8s_tpu_torch.models.transformer import MultiHeadAttention
+
+    for m in model.modules():
+        if isinstance(m, MultiHeadAttention):
+            m.attn_fn = fn
+
+
+def _loss_and_grads(torch, loss_fn, model, batch):
+    model.zero_grad(set_to_none=True)
+    loss, _ = loss_fn(model, batch)
+    loss.backward()
+    return loss.item(), {n: p.grad.float().clone() for n, p in model.named_parameters()}
+
+
+def _grads_rel_l2(grads, want):
+    num = sum(float((grads[n] - want[n]).square().sum()) for n in want)
+    return math.sqrt(num / sum(float(want[n].square().sum()) for n in want))
+
+
+def _t5_padded(batch, seed):
+    """The reversal batch with each source's last quarter to half set to
+    PAD_ID (targets the reversed sources, so they start with pads)."""
+    import numpy as np
+
+    from tfk8s_tpu_torch.models import t5
+
+    rng = np.random.default_rng(seed)
+    src = batch["src"].copy()
+    b, l = src.shape
+    for row in src:
+        row[l - rng.integers(l // 4, l // 2 + 1):] = t5.PAD_ID
+    tgt = np.ascontiguousarray(src[:, ::-1])
+    tgt_in = np.concatenate([np.full((b, 1), t5.BOS_ID, np.int32), tgt[:, :-1]], 1)
+    return {"src": src, "tgt_in": tgt_in.astype(np.int32), "tgt_out": tgt}
+
+
+def _device(torch, batch):
+    import numpy as np
+
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(DEVICE) for k, v in batch.items()}
+
+
+def _family_task(name, module, cfg, batch, attn_fn=None):
+    e = FAMILIES[name]["env"]
+    if name == "vit":
+        return module.make_task(cfg, num_classes=int(e["TFK8S_NUM_CLASSES"]),
+                                image_size=int(e["TFK8S_IMAGE_SIZE"]),
+                                patch_size=int(e["TFK8S_PATCH_SIZE"]), batch_size=batch,
+                                attn_fn=attn_fn)
+    return module.make_task(cfg, seq_len=int(e["TFK8S_SEQ_LEN"]), batch_size=batch,
+                            attn_fn=attn_fn)
+
+
+def _family_check(torch, fa, name, module):
+    """Base-width bf16 loss and gradients, flash against plain attention,
+    on one batch (and, for T5, on a padded one), with the planted fault of
+    the family where it has one. Returns the numbers; raises on a miss."""
+    import numpy as np
+
+    c = FAMILY_CHECK
+    batch_size = c["vit_batch"] if name == "vit" else c["batch"]
+    task = _family_task(name, module, module.base_config(), batch_size)
+    model = task.init(torch.Generator().manual_seed(1)).to(DEVICE)
+    host = task.make_batch(np.random.default_rng(c["seed"]), batch_size)
+    batches = {"batch": host}
+    if name == "t5":
+        batches["padded"] = _t5_padded(host, c["seed"])
+    fault = {
+        "bert": ("causal", lambda q, k, v, mask=None, causal=False:
+                 fa.flash_attention(q, k, v, mask, causal=True)),
+        "t5": ("mask_dropped", lambda q, k, v, mask=None, causal=False:
+               fa.flash_attention(q, k, v, None, causal)),
+    }.get(name)
+    out = {}
+    for kind, hb in batches.items():
+        batch = _device(torch, hb)
+        loss_full, g_full = _loss_and_grads(torch, task.loss_fn, model, batch)
+        runs = {"flash": fa.flash_attention}
+        if fault and (name == "bert" or kind == "padded"):
+            runs[f"fault_{fault[0]}"] = fault[1]
+        res = {}
+        for impl, fn in runs.items():
+            _attn_impl(torch, model, fn)
+            try:
+                loss, grads = _loss_and_grads(torch, task.loss_fn, model, batch)
+            finally:
+                _attn_impl(torch, model, None)
+            res[impl] = {"loss_err": abs(loss - loss_full),
+                         "grad_rel_l2": _grads_rel_l2(grads, g_full),
+                         "finite": bool(math.isfinite(loss))}
+            del grads
+        out[kind] = {"loss_full": loss_full, **res}
+        del g_full
+        for impl, r in res.items():
+            within = r["finite"] and r["loss_err"] <= BF16_ATOL and \
+                r["grad_rel_l2"] <= FAMILY_GRAD_REL_L2
+            if impl == "flash" and not within:
+                raise AssertionError(f"{name} {kind}: flash vs plain {r} beyond loss atol "
+                                     f"{BF16_ATOL} / grad rel L2 {FAMILY_GRAD_REL_L2}")
+            if impl != "flash" and within:
+                raise AssertionError(f"{name} {kind}: the planted fault {impl} {r} passes")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _family_f32(torch, fa, name, module):
+    """A small float32 config (TF32 off) through the kernels on the card
+    against the same model through the plain versions on the CPU: loss and
+    every gradient within F32_GRAD_ATOL. T5 on a padded batch, ViT at 49
+    patches (a ragged length)."""
+    import copy
+
+    import numpy as np
+
+    small = dict(dtype=torch.float32, embed_dim=64, num_heads=2, head_dim=32, mlp_dim=128,
+                 num_layers=2)
+    if name == "vit":
+        cfg = module.tiny_config(**small)
+        task = module.make_task(cfg, num_classes=8, image_size=28, patch_size=4, batch_size=2,
+                                attn_fn=fa.flash_attention)
+    else:
+        cfg = module.tiny_config(vocab_size=256, max_len=128, **small)
+        task = module.make_task(cfg, seq_len=96, batch_size=2, attn_fn=fa.flash_attention)
+    host = task.make_batch(np.random.default_rng(5), 2)
+    if name == "t5":
+        host = _t5_padded(host, 5)
+    cpu = task.init(torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(DEVICE)
+    results = []
+    for model, dev in ((cpu, "cpu"), (card, DEVICE)):
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in host.items()}
+        loss, grads = _loss_and_grads(torch, task.loss_fn, model, batch)
+        results.append((loss, {n: g.cpu() for n, g in grads.items()}))
+    l_err = abs(results[0][0] - results[1][0])
+    g_err = max(float((results[0][1][n] - results[1][1][n]).abs().max()) for n in results[0][1])
+    if not (l_err <= F32_GRAD_ATOL and g_err <= F32_GRAD_ATOL):
+        raise AssertionError(f"{name} f32: card kernels vs CPU plain: loss {l_err:.2e}, "
+                             f"grads {g_err:.2e} (atol {F32_GRAD_ATOL})")
+    return {"loss_err": l_err, "max_grad_err": g_err}
+
+
+def _staged_step(torch, task, steps):
+    """A train step of the port's ``Trainer`` on batches staged on the card
+    (CUDA events over ``steps`` steps), and one step's profiler trace: the
+    card's busy time, its idle share of the step, the kernels that take
+    most of it (and the optimizer's device-side range),
+    and the ``[b, l]``-shaped ``aten::_to_copy`` calls (the flash wrappers'
+    mask conversions, with the loss's target cast) with their device time."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from tfk8s_tpu_torch.runtime.train import TrainConfig, Trainer
+    from tfk8s_tpu_torch.tools.gn_sweep import events_ms
+
+    trainer = Trainer(task, TrainConfig(steps=10 ** 6, learning_rate=1e-4), DEVICE)
+    state = trainer.init_state()
+    rng = np.random.default_rng(0)
+    staged = [trainer.to_device(task.make_batch(rng, task.batch_size)) for _ in range(2)]
+    i = [0]
+
+    def step():
+        trainer.train_step(state, staged[i[0] % 2])
+        i[0] += 1
+
+    ms = events_ms(step, steps)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, n_act = _device_busy_ms(torch, prof)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us() * 1e-3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    lead = next(iter(staged[0].values())).shape[:2]
+    copies, copy_ms = 0, 0.0
+    for row in prof.key_averages(group_by_input_shape=True):
+        if row.key == "aten::_to_copy" and row.input_shapes and \
+                list(row.input_shapes[0]) == list(lead):
+            copies += row.count
+            copy_ms += (getattr(row, "device_time_total", None)
+                        or getattr(row, "cuda_time_total", 0.0)) * 1e-3
+    del state, trainer, staged
+    torch.cuda.empty_cache()
+    # the profiler slows the host, so the idle share is taken against the
+    # unprofiled step time
+    return {"staged_step_ms": ms, "profiled_step_wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / ms, "device_activities": n_act,
+            "top_kernels": [{"name": k[:90], "ms": t, "count": n} for k, (t, n) in top],
+            f"to_copy_{list(lead)}_calls": copies, f"to_copy_{list(lead)}_device_ms": copy_ms}
+
+
+def _family_train(torch, fa, name, module):
+    """``<family>:train(env)`` at base width: finite losses and each
+    tensor-core flash kernel launched sites x steps times (the CUDA-core
+    ones never). Returns (summary, launches)."""
+    from tfk8s_tpu_torch.runtime import progress
+
+    f = FAMILIES[name]
+    env = dict(FAMILY_ENV, **f["env"])
+    steps = int(env["TFK8S_TRAIN_STEPS"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    progress.clear()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    history = module.train(env)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    prog = progress.snapshot()
+    losses = [h["loss"] for h in history]
+    t_first = history[0]["step"] / history[0]["steps_per_s"]
+    t_last = history[-1]["step"] / history[-1]["steps_per_s"]
+    step_s = (t_last - t_first) / (history[-1]["step"] - history[0]["step"])
+    unit, per_step = f["per_step"]
+    summary = {
+        "steps": steps, "wall_s": wall, "first_step_s": t_first, "step_ms": step_s * 1e3,
+        f"{unit}_per_s": per_step / step_s, "peak_mem_gib": peak_gib,
+        "first_loss": losses[0], "last_loss": losses[-1],
+        "input_wait_seconds": prog.get("input_wait_seconds"),
+        "input_starved_steps": prog.get("input_starved_steps"),
+        "launches_per_step": {k: v / steps for k, v in launches.items() if v},
+    }
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: losses not finite: {losses}")
+    want = {**dict.fromkeys(fa.SIMT_KERNELS, 0),
+            **dict.fromkeys(fa.TENSOR_CORE_KERNELS, f["sites"] * steps)}
+    if launches != want:
+        raise AssertionError(f"{name}: flash launches {launches}, want {want}")
+    return summary, launches
+
+
+def _t5_generate(torch, fa, t5):
+    """``t5.greedy_generate`` at T5-base width (bf16, flash): 8 sources of
+    512 tokens, 64 generated; the encoder pass launches the masked flash
+    forward once a layer and nothing else does. Encoder ms, per-token ms
+    and the device-idle share of a token, as the generate phase measures
+    them; a sampled stream repeats under its key."""
+    import numpy as np
+
+    g = T5_GENERATE
+    cfg = t5.base_config(attention_impl="flash")
+    model = t5.make_task(cfg, seq_len=g["src"], batch_size=g["batch"],
+                         attn_fn=fa.flash_attention).init(torch.Generator().manual_seed(0))
+    model = model.to(DEVICE).eval()
+    rng = np.random.default_rng(g["seed"])
+    src = torch.from_numpy(rng.integers(2, cfg.vocab_size, (g["batch"], g["src"]))).to(DEVICE)
+    n = g["gen"]
+    t5.greedy_generate(cfg, model, src, n)  # warm-up
+    fa.reset_launches()
+    tokens = t5.greedy_generate(cfg, model, src, n)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    want = {**dict.fromkeys(fa.KERNELS, 0), "flash_fwd_wgmma": cfg.num_layers}
+    if launches != want:
+        raise AssertionError(f"t5 generate launches {launches}, want {want}")
+    tok = tokens.cpu().numpy()
+    if tok.shape != (g["batch"], n) or not ((0 <= tok) & (tok < cfg.vocab_size)).all():
+        raise AssertionError(f"t5 greedy tokens malformed: {tok.shape}")
+    with torch.no_grad():
+        _, enc_ms, enc_dev = _timed(torch, lambda: model.encode(src), profiled=True)
+    _, gen_ms, gen_dev = _timed(torch, lambda: t5.greedy_generate(cfg, model, src, n),
+                                profiled=True)
+    samp = dict(rng=g["key"], temperature=0.8, top_k=50, top_p=0.95)
+    s1 = t5.generate(cfg, model, src, n, **samp)
+    if not torch.equal(s1, t5.generate(cfg, model, src, n, **samp)):
+        raise AssertionError("t5: the same key gave another sampled stream")
+    tok_ms = (gen_ms - enc_ms) / n
+    tok_dev = (gen_dev[0] - enc_dev[0]) / n
+    summary = {"batch": g["batch"], "src": g["src"], "gen": n, "encoder_ms": enc_ms,
+               "encoder_device_ms": enc_dev[0], "generate_ms": gen_ms,
+               "generate_device_ms": gen_dev[0], "generate_activities": gen_dev[1],
+               "token_ms": tok_ms, "token_device_ms": tok_dev,
+               "token_idle_share": 1.0 - tok_dev / tok_ms,
+               "tokens_per_s": g["batch"] * n / (gen_ms * 1e-3),
+               "flash_fwd_launches": launches["flash_fwd_wgmma"]}
+    del model
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
+def phase_families(torch, fa):
+    """BERT-base MLM, ViT-B/16 and T5-base at their published widths on
+    the card (docstring phase 12). Returns the launches of the paths it
+    drives: the three ``train`` runs and T5's greedy generate."""
+    from tfk8s_tpu_torch.models import bert, t5, vit
+
+    modules = {"bert": bert, "vit": vit, "t5": t5}
+    total = dict.fromkeys(fa.KERNELS, 0)
+    for name, module in modules.items():
+        summary, launches = _family_train(torch, fa, name, module)
+        for k, v in launches.items():
+            total[k] += v
+        e = FAMILIES[name]["env"]
+        batch = int(e["TFK8S_BATCH_SIZE"])
+        summary["staged"] = _staged_step(
+            torch, _family_task(name, module, module.base_config(),
+                                batch, attn_fn=fa.flash_attention),
+            FAMILY_CHECK["staged_steps"])
+        unit, per_step = FAMILIES[name]["per_step"]
+        summary["staged"][f"staged_{unit}_per_s"] = \
+            per_step / (summary["staged"]["staged_step_ms"] * 1e-3)
+        log(f"families {name} train: {json.dumps(summary)}")
+        log(f"families {name} flash vs plain: "
+            f"{json.dumps(_family_check(torch, fa, name, module))}")
+        log(f"families {name} f32 small, card vs cpu: "
+            f"{json.dumps(_family_f32(torch, fa, name, module))}")
+    summary, launches = _t5_generate(torch, fa, t5)
+    for k, v in launches.items():
+        total[k] += v
+    log(f"families t5 generate: {json.dumps(summary)}")
+    # the flash kernels at each family's training call, against their plain
+    # versions and SDPA (a boolean attn_mask where masked), device times
+    for i, (case_name, b, length, lengths) in enumerate(FAMILY_KERNEL_CASES):
+        log(f"case {case_name}:")
+        check_case(fa, Case(case_name, b, length, length, 12, 64, torch.bfloat16,
+                            lengths=lengths, seed=31 + i), iters=10, profile=True)
+        torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1908,6 +2296,7 @@ def main() -> int:
         ("generate", lambda: phase_generate(torch, gpt, fa)),
         ("serve", lambda: phase_serve(torch, gpt, (fa, gn, bc))),
         ("distributed", lambda: phase_distributed(torch, gpt, fa, root)),
+        ("families", lambda: phase_families(torch, fa)),
     ]
     if only:
         phases = [p for p in phases if p[0] in ("card", "build", *only)]
@@ -1930,7 +2319,8 @@ def main() -> int:
             log(f"card: {card_line}")
         elif name == "kernels":
             line = value
-        elif name in ("train", "resnet_train", "roofline", "generate", "distributed"):
+        elif name in ("train", "resnet_train", "roofline", "generate", "distributed",
+                      "families"):
             for kernel, count in value.items():  # each path's launches add up
                 launches[kernel] = launches.get(kernel, 0) + count
     for d in (ckpt_dir, rn_ckpt_dir):

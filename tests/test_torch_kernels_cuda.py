@@ -212,6 +212,45 @@ def test_bf16_at_a_training_shape(card):
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2 ** -7)
 
 
+# name -> (lq, lk, key lengths or None): the non-causal shapes the BERT,
+# ViT and T5 families give the kernels at full width (12 heads of 64)
+FAMILY_CASES = {
+    "bert_non_causal_512": (512, 512, None),
+    "vit_b16_ragged_196": (196, 196, None),  # 3 x 64 + 4: the ragged edge
+    "t5_cross_padded_keys_512": (512, 512, [384, 256]),  # a quarter, a half padded
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(FAMILY_CASES))
+def test_kernels_at_the_families_shapes(card, case, dtype):
+    """The forward, then the backward as training runs it, at [2, l, 12,
+    64], non-causal: bfloat16 through the tensor-core kernels, float32
+    through the CUDA-core ones, each against the plain versions."""
+    lq, lk, lengths = FAMILY_CASES[case]
+    gen = torch.Generator(device=card).manual_seed(3)
+    q, g = (torch.randn(2, lq, 12, 64, generator=gen, device=card) for _ in range(2))
+    k, v = (torch.randn(2, lk, 12, 64, generator=gen, device=card) for _ in range(2))
+    q, k, v, g = ((q / 8).to(dtype), k.to(dtype), v.to(dtype), g.to(dtype))
+    mask = None
+    if lengths is not None:
+        mask = torch.tensor(_key_mask(lengths, lk), device=card)
+    tol = BF16_TOL if dtype == torch.bfloat16 else dict(atol=OUT_ATOL, rtol=0)
+    grad_tol = BF16_TOL if dtype == torch.bfloat16 else dict(atol=GRAD_ATOL, rtol=0)
+    tfa.reset_launches()
+    o_c, lse_c = tfa.flash_fwd_cuda(q, k, v, mask, False)
+    o_p, lse_p = tfa.flash_fwd_plain(q, k, v, mask, False)
+    torch.testing.assert_close(o_c.float(), o_p.float(), **tol)
+    torch.testing.assert_close(lse_c, lse_p, **tol)
+    for got, want in zip(tfa.flash_bwd_cuda(q, k, v, g, o_c, lse_c, mask, False),
+                         tfa.flash_bwd_plain(q, k, v, g, o_c, lse_c, mask, False)):
+        torch.testing.assert_close(got.float(), want.float(), **grad_tol)
+    torch.cuda.synchronize()
+    kernels = tfa.TENSOR_CORE_KERNELS if dtype == torch.bfloat16 else tfa.SIMT_KERNELS
+    assert tfa.LAUNCHES == {**dict.fromkeys(tfa.KERNELS, 0), **dict.fromkeys(kernels, 1)}
+
+
 @pytest.mark.cuda
 def test_bf16_dkv_repeats_bit_for_bit(card):
     gen = torch.Generator(device=card).manual_seed(3)

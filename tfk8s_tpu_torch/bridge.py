@@ -34,6 +34,16 @@ So does the slot-per-batch decode cache (``cache_to_torch``/
 head_dim]`` and a per-layer ``cache_index``; the port's
 ``transformer.DecodeCache`` holds the same buffers and one shared index.
 
+The other families reuse those per-layer maps: ViT (``vit_params_to_state_dict``)
+adds ``patch_embed`` and ``head`` (2-D dense kernels), a float32 ``pos``
+[patches, E] and ``layer{i}``/``ln_final`` as above; T5
+(``t5_params_to_state_dict``) has ``embed``, encoder layers ``enc{i}``,
+decoder layers ``dec{i}`` with ``self_attn``, ``cross_attn`` and the
+norms ``ln_self``, ``ln_cross``, ``ln_mlp``, and ``enc_ln``/``dec_ln``,
+under the same names on the port's side. The T5 decoder's cache tree
+(``dec{i}/self_attn/...``) goes through the cache pair with
+``scope=("dec", "self_attn")``.
+
 The MLP classifier (``models/mlp.py``) maps ``fc1``/``fc2`` ``{kernel
 [in, out], bias}`` to ``nn.Linear`` ``weight [out, in]`` and ``bias``
 (``mlp_params_to_state_dict``).
@@ -51,71 +61,165 @@ from tfk8s_tpu_torch.models.transformer import DecodeCache, TransformerConfig
 _PROJ = ("q", "k", "v")
 
 
-def params_to_state_dict(params: Mapping[str, Any], cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
-    """flax param tree (numpy leaves) -> the port's ``state_dict``."""
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def _a(sd: Mapping[str, torch.Tensor], name: str) -> np.ndarray:
+    return sd[name].detach().to("cpu", torch.float32).numpy().copy()
+
+
+def _attn_to_sd(tree: Mapping[str, Any], prefix: str, cfg: TransformerConfig,
+                sd: Dict[str, torch.Tensor]) -> None:
+    """One ``MultiHeadAttention``'s flax subtree -> ``sd[prefix + ...]``."""
     e, h, d = cfg.embed_dim, cfg.num_heads, cfg.head_dim
+    for name in _PROJ:
+        kern = np.asarray(tree[name]["kernel"]).reshape(e, h * d)
+        sd[f"{prefix}.{name}.weight"] = _t(kern.T)
+        sd[f"{prefix}.{name}.bias"] = _t(np.asarray(tree[name]["bias"]).reshape(h * d))
+    out = np.asarray(tree["out"]["kernel"]).reshape(h * d, e)
+    sd[f"{prefix}.out.weight"] = _t(out.T)
+    sd[f"{prefix}.out.bias"] = _t(tree["out"]["bias"])
 
-    def t(a) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
-    sd = {
-        "embed.tok.weight": t(params["embed"]["tok"]["embedding"]),
-        "embed.pos": t(params["embed"]["pos"]),
-        "ln_final.weight": t(params["ln_final"]["scale"]),
-        "ln_final.bias": t(params["ln_final"]["bias"]),
+def _attn_from_sd(sd: Mapping[str, torch.Tensor], prefix: str,
+                  cfg: TransformerConfig) -> Dict[str, Any]:
+    e, h, d = cfg.embed_dim, cfg.num_heads, cfg.head_dim
+    attn = {
+        name: {
+            "kernel": _a(sd, f"{prefix}.{name}.weight").T.reshape(e, h, d),
+            "bias": _a(sd, f"{prefix}.{name}.bias").reshape(h, d),
+        }
+        for name in _PROJ
     }
+    attn["out"] = {
+        "kernel": _a(sd, f"{prefix}.out.weight").T.reshape(h, d, e),
+        "bias": _a(sd, f"{prefix}.out.bias"),
+    }
+    return attn
+
+
+def _dense_to_sd(tree: Mapping[str, Any], prefix: str, sd: Dict[str, torch.Tensor]) -> None:
+    """A 2-D dense ``{kernel [in, out], bias}`` -> ``nn.Linear``."""
+    sd[f"{prefix}.weight"] = _t(np.asarray(tree["kernel"]).T)
+    sd[f"{prefix}.bias"] = _t(tree["bias"])
+
+
+def _dense_from_sd(sd: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, Any]:
+    return {"kernel": _a(sd, f"{prefix}.weight").T.copy(), "bias": _a(sd, f"{prefix}.bias")}
+
+
+def _ln_to_sd(tree: Mapping[str, Any], prefix: str, sd: Dict[str, torch.Tensor]) -> None:
+    sd[f"{prefix}.weight"] = _t(tree["scale"])
+    sd[f"{prefix}.bias"] = _t(tree["bias"])
+
+
+def _ln_from_sd(sd: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, Any]:
+    return {"scale": _a(sd, f"{prefix}.weight"), "bias": _a(sd, f"{prefix}.bias")}
+
+
+# a layer's attention blocks and norms by kind, under the same names on both sides
+_LAYER_PARTS = {
+    "encoder": (("attn",), ("ln_attn", "ln_mlp")),
+    "decoder": (("self_attn", "cross_attn"), ("ln_self", "ln_cross", "ln_mlp")),
+}
+
+
+def _layer_to_sd(tree: Mapping[str, Any], prefix: str, cfg: TransformerConfig,
+                 sd: Dict[str, torch.Tensor], kind: str = "encoder") -> None:
+    attns, norms = _LAYER_PARTS[kind]
+    for name in attns:
+        _attn_to_sd(tree[name], f"{prefix}.{name}", cfg, sd)
+    for name in ("wi", "wo"):
+        _dense_to_sd(tree["mlp"][name], f"{prefix}.mlp.{name}", sd)
+    for name in norms:
+        _ln_to_sd(tree[name], f"{prefix}.{name}", sd)
+
+
+def _layer_from_sd(sd: Mapping[str, torch.Tensor], prefix: str, cfg: TransformerConfig,
+                   kind: str = "encoder") -> Dict[str, Any]:
+    attns, norms = _LAYER_PARTS[kind]
+    out: Dict[str, Any] = {name: _attn_from_sd(sd, f"{prefix}.{name}", cfg) for name in attns}
+    out["mlp"] = {name: _dense_from_sd(sd, f"{prefix}.mlp.{name}") for name in ("wi", "wo")}
+    out.update((name, _ln_from_sd(sd, f"{prefix}.{name}")) for name in norms)
+    return out
+
+
+def _embed_to_sd(tree: Mapping[str, Any], sd: Dict[str, torch.Tensor]) -> None:
+    sd["embed.tok.weight"] = _t(tree["tok"]["embedding"])
+    sd["embed.pos"] = _t(tree["pos"])
+
+
+def _embed_from_sd(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    return {"tok": {"embedding": _a(sd, "embed.tok.weight")}, "pos": _a(sd, "embed.pos")}
+
+
+def params_to_state_dict(params: Mapping[str, Any], cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
+    """flax param tree (numpy leaves) -> the port's ``state_dict``, for the
+    shared stack (``BertWithHead``: BERT and GPT; and ``Encoder``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _embed_to_sd(params["embed"], sd)
+    _ln_to_sd(params["ln_final"], "ln_final", sd)
     for i in range(cfg.num_layers):
-        lp, p = params[f"layer{i}"], f"layers.{i}"
-        for name in _PROJ:
-            kern = np.asarray(lp["attn"][name]["kernel"]).reshape(e, h * d)
-            sd[f"{p}.attn.{name}.weight"] = t(kern.T)
-            sd[f"{p}.attn.{name}.bias"] = t(np.asarray(lp["attn"][name]["bias"]).reshape(h * d))
-        out = np.asarray(lp["attn"]["out"]["kernel"]).reshape(h * d, e)
-        sd[f"{p}.attn.out.weight"] = t(out.T)
-        sd[f"{p}.attn.out.bias"] = t(lp["attn"]["out"]["bias"])
-        for name in ("wi", "wo"):
-            sd[f"{p}.mlp.{name}.weight"] = t(np.asarray(lp["mlp"][name]["kernel"]).T)
-            sd[f"{p}.mlp.{name}.bias"] = t(lp["mlp"][name]["bias"])
-        for name in ("ln_attn", "ln_mlp"):
-            sd[f"{p}.{name}.weight"] = t(lp[name]["scale"])
-            sd[f"{p}.{name}.bias"] = t(lp[name]["bias"])
+        _layer_to_sd(params[f"layer{i}"], f"layers.{i}", cfg, sd)
     return sd
 
 
 def state_dict_to_params(sd: Mapping[str, torch.Tensor], cfg: TransformerConfig) -> Dict[str, Any]:
     """The port's ``state_dict`` -> flax param tree (numpy leaves)."""
-    e, h, d = cfg.embed_dim, cfg.num_heads, cfg.head_dim
+    params: Dict[str, Any] = {"embed": _embed_from_sd(sd), "ln_final": _ln_from_sd(sd, "ln_final")}
+    for i in range(cfg.num_layers):
+        params[f"layer{i}"] = _layer_from_sd(sd, f"layers.{i}", cfg)
+    return params
 
-    def a(name: str) -> np.ndarray:
-        return sd[name].detach().to("cpu", torch.float32).numpy().copy()
 
+def vit_params_to_state_dict(params: Mapping[str, Any],
+                             cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
+    """ViT flax tree (``patch_embed``, ``pos``, ``layer{i}``, ``ln_final``,
+    ``head``) -> the port's ``state_dict`` (``models/vit.ViT``)."""
+    sd: Dict[str, torch.Tensor] = {"pos": _t(params["pos"])}
+    _dense_to_sd(params["patch_embed"], "patch_embed", sd)
+    _dense_to_sd(params["head"], "head", sd)
+    _ln_to_sd(params["ln_final"], "ln_final", sd)
+    for i in range(cfg.num_layers):
+        _layer_to_sd(params[f"layer{i}"], f"layers.{i}", cfg, sd)
+    return sd
+
+
+def vit_state_dict_to_params(sd: Mapping[str, torch.Tensor],
+                             cfg: TransformerConfig) -> Dict[str, Any]:
     params: Dict[str, Any] = {
-        "embed": {"tok": {"embedding": a("embed.tok.weight")}, "pos": a("embed.pos")},
-        "ln_final": {"scale": a("ln_final.weight"), "bias": a("ln_final.bias")},
+        "pos": _a(sd, "pos"), "patch_embed": _dense_from_sd(sd, "patch_embed"),
+        "head": _dense_from_sd(sd, "head"), "ln_final": _ln_from_sd(sd, "ln_final"),
     }
     for i in range(cfg.num_layers):
-        p = f"layers.{i}"
-        attn = {
-            name: {
-                "kernel": a(f"{p}.attn.{name}.weight").T.reshape(e, h, d),
-                "bias": a(f"{p}.attn.{name}.bias").reshape(h, d),
-            }
-            for name in _PROJ
-        }
-        attn["out"] = {
-            "kernel": a(f"{p}.attn.out.weight").T.reshape(h, d, e),
-            "bias": a(f"{p}.attn.out.bias"),
-        }
-        params[f"layer{i}"] = {
-            "attn": attn,
-            "mlp": {
-                name: {"kernel": a(f"{p}.mlp.{name}.weight").T.copy(),
-                       "bias": a(f"{p}.mlp.{name}.bias")}
-                for name in ("wi", "wo")
-            },
-            "ln_attn": {"scale": a(f"{p}.ln_attn.weight"), "bias": a(f"{p}.ln_attn.bias")},
-            "ln_mlp": {"scale": a(f"{p}.ln_mlp.weight"), "bias": a(f"{p}.ln_mlp.bias")},
-        }
+        params[f"layer{i}"] = _layer_from_sd(sd, f"layers.{i}", cfg)
+    return params
+
+
+def t5_params_to_state_dict(params: Mapping[str, Any],
+                            cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
+    """T5 flax tree (``embed``, ``enc{i}``, ``dec{i}`` with ``self_attn``,
+    ``cross_attn`` and three norms, ``enc_ln``, ``dec_ln``) -> the port's
+    ``state_dict`` (``models/t5.T5``, the same names)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _embed_to_sd(params["embed"], sd)
+    for name in ("enc_ln", "dec_ln"):
+        _ln_to_sd(params[name], name, sd)
+    for i in range(cfg.num_layers):
+        _layer_to_sd(params[f"enc{i}"], f"enc{i}", cfg, sd)
+        _layer_to_sd(params[f"dec{i}"], f"dec{i}", cfg, sd, kind="decoder")
+    return sd
+
+
+def t5_state_dict_to_params(sd: Mapping[str, torch.Tensor],
+                            cfg: TransformerConfig) -> Dict[str, Any]:
+    params: Dict[str, Any] = {"embed": _embed_from_sd(sd)}
+    for name in ("enc_ln", "dec_ln"):
+        params[name] = _ln_from_sd(sd, name)
+    for i in range(cfg.num_layers):
+        params[f"enc{i}"] = _layer_from_sd(sd, f"enc{i}", cfg)
+        params[f"dec{i}"] = _layer_from_sd(sd, f"dec{i}", cfg, kind="decoder")
     return params
 
 
@@ -195,11 +299,14 @@ def pages_from_torch(pages: Sequence[Tuple[torch.Tensor, torch.Tensor]]) -> Dict
 
 
 def cache_to_torch(cache: Mapping[str, Any], cfg: TransformerConfig,
-                   device: Any = None) -> DecodeCache:
+                   device: Any = None, scope: Tuple[str, str] = ("layer", "attn")) -> DecodeCache:
     """The reference's decode-cache tree (numpy leaves) -> a port
     :class:`DecodeCache` in ``cfg.dtype``. Every layer's ``cache_index``
-    must agree: the port keeps one."""
-    layers = [cache[f"layer{i}"]["attn"] for i in range(cfg.num_layers)]
+    must agree: the port keeps one. ``scope`` names a layer's subtree:
+    ``("layer", "attn")`` for the GPT stack, ``("dec", "self_attn")`` for
+    the T5 decoder."""
+    layer, attn = scope
+    layers = [cache[f"{layer}{i}"][attn] for i in range(cfg.num_layers)]
     indices = {int(np.asarray(a["cache_index"])) for a in layers}
     if len(indices) != 1:
         raise ValueError(f"layers disagree on the cache index: {sorted(indices)}")
@@ -212,16 +319,19 @@ def cache_to_torch(cache: Mapping[str, Any], cfg: TransformerConfig,
                        torch.tensor(indices.pop(), dtype=torch.int32, device=device))
 
 
-def cache_from_torch(cache: DecodeCache) -> Dict[str, Any]:
+def cache_from_torch(cache: DecodeCache,
+                     scope: Tuple[str, str] = ("layer", "attn")) -> Dict[str, Any]:
     """A port :class:`DecodeCache` -> the reference's decode-cache tree
-    (float32 numpy buffers, an int32 index per layer)."""
+    (float32 numpy buffers, an int32 index per layer), under ``scope`` as
+    for :func:`cache_to_torch`."""
+    layer, attn = scope
 
     def a(x: torch.Tensor) -> np.ndarray:
         return x.detach().to("cpu", torch.float32).numpy().copy()
 
     index = np.asarray(int(cache.index), np.int32)
     return {
-        f"layer{i}": {"attn": {"cached_key": a(k), "cached_value": a(v),
+        f"{layer}{i}": {attn: {"cached_key": a(k), "cached_value": a(v),
                                "cache_index": index.copy()}}
         for i, (k, v) in enumerate(zip(cache.keys, cache.values))
     }

@@ -1,13 +1,24 @@
-"""The shared encoder stack with a tied head, ported from the JAX
-package's ``models/bert.py``: ``BertWithHead`` (``causal=True`` is the GPT
-stack; ``decode=True`` its incremental KV-cache mode and ``sow_kv=True``
-the full forward that also returns every layer's K/V, as the reference's
-flags at ``bert.py:43-100``) and the hermetic chain-token stream both
-families train on. The BERT MLM task itself is ROADMAP item 1.7."""
+"""BERT-base MLM pretraining (``BASELINE.json`` configs[2]) and the shared
+encoder stack with a tied head, ported from the JAX package's
+``models/bert.py``.
+
+``BertWithHead`` is the stack: ``causal=False`` is BERT, ``causal=True``
+the GPT stack; ``decode=True`` its incremental KV-cache mode and
+``sow_kv=True`` the full forward that also returns every layer's K/V, as
+the reference's flags at ``bert.py:43-100``. The MLM task keeps the
+reference's hermetic chain-token stream, its 15% masking with
+``MASK_ID`` (``make_batch_fn``, byte for byte from the same
+``np.random.Generator``), and its float32 cross-entropy and accuracy over
+the masked positions only (``mlm_loss_and_metrics``). ``train`` is the
+``bert:train`` TPUJob entrypoint (``tfk8s_tpu_torch.models.bert:train``)
+with the reference's env contract, on the card unless
+``TFK8S_DEVICE=cpu``; with ``TFK8S_ATTENTION_IMPL=flash`` (or "auto" on
+the card from ``FLASH_SEQ_THRESHOLD``) attention runs the non-causal
+flash kernels, forward and backward."""
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -19,12 +30,18 @@ from tfk8s_tpu_torch.models.transformer import (
     EncoderLayer,
     TransformerConfig,
     _ln,
+    init_params,
+    masked_token_loss,
     page_plan,
+    select_attn_fn,
 )
+from tfk8s_tpu_torch.runtime.launcher import select_device
+from tfk8s_tpu_torch.runtime.train import TrainTask, run_task
 
 MASK_ID = 0  # reserved mask token; chain tokens live in [1, vocab)
 _CHAIN_A, _CHAIN_B = 31, 17
 _RESTART_P = 0.05
+MASK_RATE = 0.15
 
 
 class BertWithHead(nn.Module):
@@ -120,3 +137,109 @@ def make_chain_tokens(
         nxt = (_CHAIN_A * toks[:, i - 1] + _CHAIN_B) % (vocab - 1) + 1
         toks[:, i] = np.where(restarts[:, i], fresh[:, i], nxt)
     return toks
+
+
+def base_config(**overrides) -> TransformerConfig:
+    """BERT-base: 12 layers / 768 hidden / 12 heads / 3072 mlp."""
+    kw = dict(
+        vocab_size=30522, embed_dim=768, num_heads=12, head_dim=64,
+        mlp_dim=3072, num_layers=12, max_len=512,
+    )
+    kw.update(overrides)
+    return TransformerConfig(**kw)
+
+
+def tiny_config(**overrides) -> TransformerConfig:
+    """Test-scale config (runs in seconds on the CPU)."""
+    kw = dict(
+        vocab_size=64, embed_dim=32, num_heads=4, head_dim=8,
+        mlp_dim=64, num_layers=2, max_len=64,
+    )
+    kw.update(overrides)
+    return TransformerConfig(**kw)
+
+
+def make_batch_fn(vocab: int, seq_len: int):
+    def make_batch(rng: np.random.Generator, batch_size: int) -> Dict[str, np.ndarray]:
+        toks = make_chain_tokens(rng, batch_size, seq_len, vocab)
+        mlm_mask = rng.random((batch_size, seq_len)) < MASK_RATE
+        inputs = np.where(mlm_mask, MASK_ID, toks)
+        return {
+            "input": inputs.astype(np.int32),
+            "target": toks.astype(np.int32),
+            "mlm_mask": mlm_mask,
+        }
+
+    return make_batch
+
+
+def mlm_loss_and_metrics(
+    logits: torch.Tensor, batch: Dict[str, torch.Tensor]
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Masked-LM objective: cross-entropy and accuracy over the mlm-masked
+    positions only."""
+    loss, acc = masked_token_loss(logits, batch["target"], batch["mlm_mask"])
+    return loss, {"mlm_accuracy": acc}
+
+
+def make_task(
+    cfg: Optional[TransformerConfig] = None,
+    seq_len: int = 128,
+    batch_size: int = 64,
+    targets: Optional[Dict[str, float]] = None,
+    attn_fn: Optional[Callable] = None,
+) -> TrainTask:
+    cfg = cfg or base_config()
+    seq_len = min(seq_len, cfg.max_len)
+
+    def init(generator: torch.Generator) -> BertWithHead:
+        return init_params(BertWithHead(cfg, attn_fn=attn_fn), generator)
+
+    def loss_fn(model, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        return mlm_loss_and_metrics(model(batch["input"]), batch)
+
+    return TrainTask(
+        name="bert-mlm",
+        init=init,
+        loss_fn=loss_fn,
+        make_batch=make_batch_fn(cfg.vocab_size, seq_len),
+        batch_size=batch_size,
+        targets=targets or {},
+    )
+
+
+def task_for_mesh(
+    device: torch.device,
+    cfg: Optional[TransformerConfig] = None,
+    **task_kw,
+) -> TrainTask:
+    """Build the task with the attention impl its device calls for, at the
+    EFFECTIVE length (``make_task`` clamps to ``cfg.max_len``). The port
+    runs one device per process, so the reference's mesh is just the
+    device here (``transformer.select_attn_fn``)."""
+    cfg = cfg or base_config()
+    seq_len = min(task_kw.get("seq_len", 128), cfg.max_len)
+    return make_task(cfg=cfg, attn_fn=select_attn_fn(cfg, seq_len, device), **task_kw)
+
+
+def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, float]]:
+    """TPUJob entrypoint: ``tfk8s_tpu_torch.models.bert:train``, with the
+    reference's env contract (``TFK8S_SEQ_LEN`` 128, ``TFK8S_BATCH_SIZE``
+    64, 100 steps at lr 1e-4 unless set; ``TFK8S_MODEL_PRESET=tiny``;
+    ``TFK8S_ATTENTION_IMPL``), the runtime's input modes and multi-process
+    data parallelism. ``TFK8S_NUM_EXPERTS`` > 0 (MoE) raises, naming
+    ROADMAP item 1.9. Returns the logged metrics history."""
+    env = dict(env)
+    env.setdefault("TFK8S_TRAIN_STEPS", "100")
+    env.setdefault("TFK8S_LEARNING_RATE", "1e-4")
+    seq = int(env.get("TFK8S_SEQ_LEN", "128"))
+    batch = int(env.get("TFK8S_BATCH_SIZE", "64"))
+    preset = tiny_config if env.get("TFK8S_MODEL_PRESET") == "tiny" else base_config
+    cfg = preset(
+        num_experts=int(env.get("TFK8S_NUM_EXPERTS", "0")),
+        moe_top_k=int(env.get("TFK8S_MOE_TOP_K", "1")),
+        attention_impl=env.get("TFK8S_ATTENTION_IMPL", "auto"),
+    )
+    device = select_device(env)
+    task = task_for_mesh(device, cfg=cfg, seq_len=seq, batch_size=batch)
+    return run_task(task, env, stop, device=device)

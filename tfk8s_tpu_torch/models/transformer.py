@@ -21,6 +21,10 @@ The paged path (:func:`paged_attention`) keeps each layer's K/V in a flat
 ``[kv_max_pages * kv_page_size, heads, head_dim]`` pool per layer, in
 ``cfg.dtype``, written in place.
 
+The encoder-decoder blocks (:class:`DecoderLayer`: causal self-attention,
+cross-attention under the encoder's key mask, MLP) and :class:`Encoder`
+serve the T5 family; :class:`EncoderLayer` serves BERT, GPT and ViT.
+
 The slot-per-batch decode path (:func:`decode_attention`, the reference's
 ``decode=True`` branch, ``transformer.py:253-300``) keeps each layer's K/V
 in ``[batch, cache_len, heads, head_dim]`` buffers of a
@@ -348,6 +352,39 @@ class EncoderLayer(nn.Module):
         return x + self.mlp(_ln(self.ln_mlp, x, dt))
 
 
+class DecoderLayer(nn.Module):
+    """Causal self-attention, cross-attention over the encoder output, then
+    the MLP (the reference's T5-style decoder block), each pre-LN with its
+    own norm (``ln_self``, ``ln_cross``, ``ln_mlp``). Given a layer's
+    decode ``cache`` and ``cache_index`` the self-attention takes the
+    incremental path (:func:`decode_attention`, one token a call); the
+    cross-attention is always a full attention over ``enc`` under
+    ``enc_mask`` and recomputes its K/V every call, as the reference's
+    does. ``attn_fn`` overrides the layer's attention for this call."""
+
+    def __init__(self, cfg: TransformerConfig, attn_fn: Optional[Callable] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.ln_self = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
+        self.self_attn = MultiHeadAttention(cfg, causal=True, attn_fn=attn_fn)
+        self.ln_cross = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
+        self.cross_attn = MultiHeadAttention(cfg, attn_fn=attn_fn)
+        self.ln_mlp = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
+        self.mlp = MlpBlock(cfg)
+
+    def forward(self, x: torch.Tensor, enc: torch.Tensor,
+                enc_mask: Optional[torch.Tensor] = None,
+                cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                cache_index: Optional[torch.Tensor] = None,
+                attn_fn: Optional[Callable] = None) -> torch.Tensor:
+        dt = self.cfg.dtype
+        x = x + self.self_attn(_ln(self.ln_self, x, dt), cache=cache, cache_index=cache_index,
+                               attn_fn=attn_fn)
+        x = x + self.cross_attn(_ln(self.ln_cross, x, dt), kv=enc, mask=enc_mask,
+                                attn_fn=attn_fn)
+        return x + self.mlp(_ln(self.ln_mlp, x, dt))
+
+
 class Embedder(nn.Module):
     """Token + learned positional embeddings; the token table is reused
     transposed as the output head (weight tying)."""
@@ -386,6 +423,21 @@ class Embedder(nn.Module):
         return F.linear(x.float(), self.tok.weight)
 
 
+def masked_token_loss(logits: torch.Tensor, target: torch.Tensor, weight: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(loss, accuracy)`` over the positions ``weight`` selects: float32
+    cross-entropy and argmax accuracy summed over them and divided by
+    ``max(sum(weight), 1)``, as the reference's MLM and seq2seq losses take
+    them (a batch with no selected position gives 0)."""
+    target = target.long()
+    per_tok = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]), target.reshape(-1),
+                              reduction="none").reshape(target.shape)
+    w = weight.float()
+    denom = w.sum().clamp_min(1.0)
+    acc = ((logits.argmax(-1) == target).float() * w).sum() / denom
+    return (per_tok * w).sum() / denom, acc
+
+
 def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """The reference's initializers, drawn from ``generator``: xavier-
     uniform projection weights (fan-in/out of the flattened flax kernel,
@@ -404,6 +456,28 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.tok.weight.normal_(0.0, 0.02, generator=generator)
                 m.pos.normal_(0.0, 0.02, generator=generator)
     return module
+
+
+class Encoder(nn.Module):
+    """Embeddings, the encoder stack and a final norm (the reference's
+    ``Encoder``): ``ids [b, l]`` -> ``[b, l, embed]`` in ``cfg.dtype``,
+    under an optional ``[b, l]`` key mask. Parameter names are
+    ``BertWithHead``'s (``embed``, ``layers``, ``ln_final``)."""
+
+    def __init__(self, cfg: TransformerConfig, attn_fn: Optional[Callable] = None):
+        super().__init__()
+        cfg.require_ported()
+        self.cfg = cfg
+        self.embed = Embedder(cfg)
+        self.layers = nn.ModuleList(EncoderLayer(cfg, attn_fn=attn_fn)
+                                    for _ in range(cfg.num_layers))
+        self.ln_final = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
+
+    def forward(self, ids: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.embed(ids)
+        for layer in self.layers:
+            x = layer(x, mask)
+        return _ln(self.ln_final, x, self.cfg.dtype)
 
 
 def select_attn_fn(cfg: TransformerConfig, seq_len: int, device: torch.device):

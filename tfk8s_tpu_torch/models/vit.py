@@ -1,0 +1,185 @@
+"""ViT image classifier, ported from the JAX package's ``models/vit.py``:
+patches -> linear embed (+ learned positions) -> the shared encoder stack
+(``transformer.EncoderLayer``, the same as BERT's and GPT's) -> mean-pool
+-> linear head, and the ``vit:train`` TPUJob entrypoint
+(``tfk8s_tpu_torch.models.vit:train``).
+
+Numerics kept from the reference so the same bridged parameters give the
+same numbers:
+- NHWC images are cut into patches in the order (grid row, grid col,
+  patch row, patch col, channel);
+- ``patch_embed`` runs in ``cfg.dtype`` and the float32 ``pos`` parameter
+  is added before the cast to ``cfg.dtype``;
+- the mean-pool over tokens reduces ``cfg.dtype`` values in float32 and
+  rounds the mean back to ``cfg.dtype`` (``jnp.mean`` over bfloat16);
+- the ``head`` is a float32 dense layer.
+
+Batches are the class-conditional templates ResNet trains on
+(``models/resnet.make_batch_fn``, the reference's byte for byte). The
+image size fixes the number of patches, and so the shape of ``pos``: the
+module takes it at construction, where the reference infers it at init.
+ViT-B/16 at 224 has 196 patches, a sequence that is not a multiple of the
+flash kernels' tiles; the kernels mask the ragged edge.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from tfk8s_tpu_torch.models import resnet
+from tfk8s_tpu_torch.models.transformer import (
+    EncoderLayer,
+    TransformerConfig,
+    _dense,
+    _ln,
+    init_params,
+    select_attn_fn,
+)
+from tfk8s_tpu_torch.runtime.launcher import select_device
+from tfk8s_tpu_torch.runtime.train import TrainTask, run_task
+
+
+CHANNELS = 3  # RGB: what every image batch of the repo holds
+
+
+class ViT(nn.Module):
+    """NHWC float32 images ``[b, image_size, image_size, 3]`` ->
+    float32 logits ``[b, num_classes]``. Mean-pool instead of a CLS token,
+    as the reference."""
+
+    def __init__(self, cfg: TransformerConfig, num_classes: int, patch_size: int,
+                 image_size: int, attn_fn: Optional[Callable] = None):
+        super().__init__()
+        cfg.require_ported()
+        if image_size % patch_size:
+            raise ValueError(f"image {image_size}x{image_size} not divisible by patch {patch_size}")
+        self.cfg, self.patch_size = cfg, patch_size
+        self.grid = image_size // patch_size
+        self.patch_embed = nn.Linear(patch_size * patch_size * CHANNELS, cfg.embed_dim)
+        self.pos = nn.Parameter(torch.empty(self.grid * self.grid, cfg.embed_dim))
+        self.layers = nn.ModuleList(EncoderLayer(cfg, attn_fn=attn_fn)
+                                    for _ in range(cfg.num_layers))
+        self.ln_final = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
+        self.head = nn.Linear(cfg.embed_dim, num_classes)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        cfg, p = self.cfg, self.patch_size
+        b, h, w, c = images.shape
+        if h % p or w % p:
+            raise ValueError(f"image {h}x{w} not divisible by patch {p}")
+        gh, gw = h // p, w // p
+        if gh * gw != self.pos.shape[0]:
+            raise ValueError(f"{gh * gw} patches, but the positions were built for "
+                             f"{self.pos.shape[0]}")
+        x = images.reshape(b, gh, p, gw, p, c).permute(0, 1, 3, 2, 4, 5)
+        x = _dense(self.patch_embed, x.reshape(b, gh * gw, p * p * c), cfg.dtype)
+        x = (x + self.pos[None]).to(cfg.dtype)
+        for layer in self.layers:
+            x = layer(x)
+        return _dense(self.head, mean_pool(_ln(self.ln_final, x, cfg.dtype)), torch.float32)
+
+
+def mean_pool(x: torch.Tensor) -> torch.Tensor:
+    """The mean over tokens ``[b, l, e] -> [b, e]`` as ``jnp.mean`` takes
+    it: summed in float32, the mean rounded back to ``x``'s dtype."""
+    return x.mean(dim=1, dtype=torch.float32).to(x.dtype)
+
+
+def init_vit(model: ViT, generator: torch.Generator) -> ViT:
+    """The reference's initializers: xavier-uniform dense kernels and zero
+    biases (``transformer.init_params``), normal(0.02) positions."""
+    init_params(model, generator)
+    with torch.no_grad():
+        model.pos.normal_(0.0, 0.02, generator=generator)
+    return model
+
+
+def base_config(**overrides) -> TransformerConfig:
+    """ViT-Base scale: 12 layers / 768 / 12 heads / 3072 (vocab unused:
+    images enter through the patch projection)."""
+    kw = dict(
+        vocab_size=1, embed_dim=768, num_heads=12, head_dim=64,
+        mlp_dim=3072, num_layers=12, max_len=1024,
+    )
+    kw.update(overrides)
+    return TransformerConfig(**kw)
+
+
+def tiny_config(**overrides) -> TransformerConfig:
+    kw = dict(
+        vocab_size=1, embed_dim=32, num_heads=4, head_dim=8,
+        mlp_dim=64, num_layers=2, max_len=256,
+    )
+    kw.update(overrides)
+    return TransformerConfig(**kw)
+
+
+def make_task(
+    cfg: Optional[TransformerConfig] = None,
+    num_classes: int = 8,
+    image_size: int = 32,
+    patch_size: int = 4,
+    batch_size: int = 64,
+    targets: Optional[Dict[str, float]] = None,
+    attn_fn: Optional[Callable] = None,
+) -> TrainTask:
+    cfg = cfg or tiny_config()
+
+    def init(generator: torch.Generator) -> ViT:
+        return init_vit(ViT(cfg, num_classes, patch_size, image_size, attn_fn=attn_fn),
+                        generator)
+
+    def loss_fn(model, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        return resnet.loss_and_metrics(model(batch["image"]), batch["label"])
+
+    return TrainTask(
+        name="vit",
+        init=init,
+        loss_fn=loss_fn,
+        make_batch=resnet.make_batch_fn(num_classes, image_size),
+        batch_size=batch_size,
+        targets=targets or {},
+    )
+
+
+def task_for_mesh(device: torch.device, cfg: Optional[TransformerConfig] = None,
+                  **task_kw) -> TrainTask:
+    """The shared attention policy (``transformer.select_attn_fn``) at the
+    patch sequence's length; the port's mesh is its one device."""
+    cfg = cfg or tiny_config()
+    seq_len = (task_kw.get("image_size", 32) // task_kw.get("patch_size", 4)) ** 2
+    return make_task(cfg=cfg, attn_fn=select_attn_fn(cfg, seq_len, device), **task_kw)
+
+
+def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, float]]:
+    """TPUJob entrypoint: ``tfk8s_tpu_torch.models.vit:train``, with the
+    reference's env contract (``TFK8S_NUM_CLASSES`` 8, ``TFK8S_IMAGE_SIZE``
+    32, ``TFK8S_PATCH_SIZE`` 4, ``TFK8S_BATCH_SIZE`` 64, 150 steps at lr
+    1e-3 unless set; ``TFK8S_MODEL_PRESET=tiny``; ``TFK8S_ATTENTION_IMPL``;
+    ``TFK8S_TARGET_ACCURACY``), on the card unless ``TFK8S_DEVICE=cpu``.
+    Image-format record input (``TFK8S_INPUT_FORMAT=image``) is ROADMAP
+    item 1.5 and raises. Returns the logged metrics history."""
+    env = dict(env)
+    env.setdefault("TFK8S_TRAIN_STEPS", "150")
+    env.setdefault("TFK8S_LEARNING_RATE", "1e-3")
+    preset = tiny_config if env.get("TFK8S_MODEL_PRESET") == "tiny" else base_config
+    cfg = preset(
+        attention_impl=env.get("TFK8S_ATTENTION_IMPL", "auto"),
+        num_experts=int(env.get("TFK8S_NUM_EXPERTS", "0")),
+        moe_top_k=int(env.get("TFK8S_MOE_TOP_K", "1")),
+    )
+    device = select_device(env)
+    target = env.get("TFK8S_TARGET_ACCURACY")
+    task = task_for_mesh(
+        device,
+        cfg=cfg,
+        num_classes=int(env.get("TFK8S_NUM_CLASSES", "8")),
+        image_size=int(env.get("TFK8S_IMAGE_SIZE", "32")),
+        patch_size=int(env.get("TFK8S_PATCH_SIZE", "4")),
+        batch_size=int(env.get("TFK8S_BATCH_SIZE", "64")),
+        targets={"accuracy": float(target)} if target else None,
+    )
+    return run_task(task, env, stop, device=device)
