@@ -160,9 +160,42 @@ must pass:
    repeats under its key. Last, the flash kernels at each family's
    training call (BERT [32, 512], ViT [64, 196], T5 [16, 512] with
    padded keys; 12 heads of 64) against their plain versions and SDPA,
-   with device times.
+   with device times;
+13. parallel: the sequence and expert axes. (a) ``gpt:train`` with
+   ``TFK8S_NUM_EXPERTS=8`` at GPT-2-small width (6 MoE layers, top-1,
+   capacity 1.25; seq 1024, batch 8, bf16, flash, 10 steps): finite losses
+   and ``moe_aux``, 12 launches a step of each tensor-core flash kernel;
+   each step's ms, tokens/s, ``moe_aux`` and peak memory; two steps at
+   ``TFK8S_MOE_TOP_K=2``; the ten steps again in float32 (plain
+   attention), each step's loss and ``moe_aux``; one profiler trace of the staged step split into
+   the float32 dispatch and combine products, the expert FFN, the float32
+   head, flash, AdamW and the rest, beside the FLOPs those products need;
+   the staged step's time and idle share. (b) identical experts with ample
+   capacity against the gate-weighted dense MLP at base width (bf16
+   bounds); a small float32 MoE GPT through the kernels against the CPU
+   plain path (F32_GRAD_ATOL); ``remat`` against none at (a)'s
+   configuration, loss and gradients within F32_GRAD_ATOL, with both peak
+   memories; the flash kernels at Ulysses' local call ([8, 512, 6, 64],
+   non-causal and causal, bf16 and f32) against their plain versions. (c)
+   which collectives gloo takes CUDA tensors for (each in a fresh pair of
+   processes); then two-rank gloo gangs sharing the card, each running its
+   family's ``train(env)`` for two steps with ``TFK8S_MESH`` set, its
+   first update's gradient (read by an optimizer pre-hook) and loss
+   against one process's run of the same entry point with flash attention
+   (loss within PARALLEL_LOSS_ATOL, every gradient within
+   FAMILY_GRAD_REL_L2 relative L2): BERT-base at seq 512 on ``{"sequence":
+   2}`` through Ulysses (the policy's choice, the flash kernels inside:
+   every rank launches each tensor-core kernel layers x steps times) and
+   through ring attention (no flash launch), GPT-2-small through ring, and
+   GPT-2-small through a ring whose causal mask drops the blocks' global
+   offset, which must exceed the bounds. (d) GPT-2-small + 8 experts on
+   ``{"expert": 2}``. Each gang prints its ranks' step time, launches and
+   the collectives gloo staged through host memory;
+14. nccl: (e) with two cards or more the gangs of phase 13 (but the
+   planted fault) run again over NCCL, a card a rank, against one
+   process; with one card, a line says they were skipped and why.
 
-The launch counts are zeroed just before each path (phases 6-12) and
+The launch counts are zeroed just before each path (phases 6-14) and
 read just after it; the line's launches add up the paths'. Then it prints the card line, the ``kernels`` JSON
 line and, last, the ``ok`` line. It exits non-zero, printing no result,
 when a phase fails, when no card is visible, or when the port's package is
@@ -2254,6 +2287,575 @@ def phase_families(torch, fa):
     return total
 
 
+# phase parallel: the sequence and expert axes at full width
+PARALLEL_ENV = {
+    "TFK8S_SEQ_LEN": "1024", "TFK8S_BATCH_SIZE": "8", "TFK8S_ATTENTION_IMPL": "flash",
+    "TFK8S_NUM_EXPERTS": "8", "TFK8S_TRAIN_STEPS": "10", "TFK8S_LOG_EVERY": "1",
+    "TFK8S_LEARNING_RATE": "3e-4", "TFK8S_SEED": "0",
+}
+# the gangs, each through its family's train(env): BERT-base at seq 512 on
+# {"sequence": 2} (Ulysses over the flash kernels, and ring), GPT-2-small at
+# seq 1024 through ring and with the planted ring fault, GPT-2-small + 8
+# experts on {"expert": 2}; the first of gang_steps steps against one process
+PARALLEL = dict(bert_seq=512, bert_batch=8, gpt_seq=1024, gpt_batch=8, seed=41,
+                staged_steps=3, gang_steps=2, timeout_s=600)
+# base-width bounds, gang (or remat) against one process: loss atol, and
+# every gradient's relative L2 distance (FAMILY_GRAD_REL_L2)
+PARALLEL_LOSS_ATOL = 2e-2
+# the dispatch and combine products as the reference formulates them, for
+# GPT-2-small + 8 experts at batch 8, seq 1024, top-1 (6 MoE layers, 160
+# slots an expert): 2 * g * s * e * c * m float32 FLOPs a product. The
+# reckoning counts three products a product with the backward; the step
+# needs five a layer (the dispatch's 0/1 route takes no gradient)
+MOE_PRODUCT_FLOP = 2 * 8 * 1024 * 8 * 160 * 768
+MOE_DISPATCH_TFLOP = 6 * 5 * MOE_PRODUCT_FLOP / 1e12
+MOE_RECKONED_TFLOP = 6 * 2 * 3 * MOE_PRODUCT_FLOP / 1e12
+
+GLOO_PROBE = r"""
+import json, os, sys
+import torch
+import torch.distributed as dist
+
+rank, n = int(os.environ["RANK"]), 2
+dist.init_process_group("gloo", init_method=os.environ["INIT"], rank=rank, world_size=n)
+x = torch.arange(8, dtype=torch.float32) + 100 * rank
+
+
+def run(t):
+    kind = os.environ["KIND"]
+    if kind == "all_reduce":
+        t = t.clone()
+        dist.all_reduce(t)
+        return t
+    if kind == "all_gather":
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t)
+        return torch.cat(parts)
+    if kind == "all_to_all":
+        ins = [c.contiguous() for c in t.chunk(n)]
+        outs = [torch.empty_like(c) for c in ins]
+        dist.all_to_all(outs, ins)
+        return torch.cat(outs)
+    out = torch.empty_like(t)  # send/recv
+    ops = [dist.P2POp(dist.isend, t, 1 - rank), dist.P2POp(dist.irecv, out, 1 - rank)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+try:
+    got = run(x.cuda()).cpu()
+    result = "ok" if torch.equal(got, run(x)) else "wrong"
+except Exception as e:  # noqa: BLE001 - the refusal is the finding
+    result = "error: " + str(e).splitlines()[0][:160]
+print("PROBE " + json.dumps(result), flush=True)
+"""
+GLOO_KINDS = ("all_reduce", "all_gather", "all_to_all", "send/recv")
+
+
+def _gloo_probe():
+    """Which collectives a gloo group takes CUDA tensors for: each kind in
+    a fresh pair of processes on the card (gloo may abort a process on a
+    CUDA tensor), all pairs at once, the card result held to the host's.
+    ``parallel/collectives.py`` stages through host memory the kinds that
+    are not "ok" here. -> {kind: "ok" | "wrong" | "error: ..." | "aborted
+    (exit n)" | "hung"}."""
+    import socket
+
+    pairs = {}
+    for kind in GLOO_KINDS:
+        sock = socket.socket()
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        pairs[kind] = [subprocess.Popen(
+            [sys.executable, "-c", GLOO_PROBE], stdout=subprocess.PIPE,
+            stderr=subprocess.DEVNULL, text=True,
+            env=dict(os.environ, RANK=str(r), KIND=kind, INIT=f"tcp://127.0.0.1:{port}"))
+            for r in range(2)]
+    out = {}
+    for kind, procs in pairs.items():
+        try:
+            text = procs[0].communicate(timeout=120)[0]
+            procs[1].communicate(timeout=30)
+            lines = [ln for ln in text.splitlines() if ln.startswith("PROBE ")]
+            out[kind] = json.loads(lines[0][6:]) if procs[0].returncode == 0 and lines \
+                else f"aborted (exit {procs[0].returncode})"
+        except subprocess.TimeoutExpired:
+            out[kind] = "hung"
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    return out
+
+
+def entry_steps(torch, fa, module, env):
+    """``<family>:train(env)`` as a user calls it, watched from an
+    optimizer step pre-hook: the first step's whole update gradient (on
+    the host, in the optimizer's parameter order, after the entry point's
+    reductions), the ms from the first update to the second (one step:
+    the next batch, forward, backward, reductions, norm), the logged
+    losses and the flash launches of the run (counts zeroed just before
+    it)."""
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    seen = []
+
+    def hook(opt, args, kwargs):
+        grads = None
+        if not seen:
+            grads = [(p.grad if p.grad is not None else torch.zeros_like(p)).float().cpu()
+                     for g in opt.param_groups for p in g["params"]]
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        seen.append((time.perf_counter(), grads))
+
+    handle = register_optimizer_step_pre_hook(hook)
+    fa.reset_launches()
+    try:
+        history = module.train(env)
+    finally:
+        handle.remove()
+    launches = dict(fa.LAUNCHES)
+    step_ms = (seen[1][0] - seen[0][0]) * 1e3 if len(seen) > 1 else None
+    return [h["loss"] for h in history], seen[0][1], step_ms, launches
+
+
+PAR_WORKER = r"""
+import json, os, sys
+sys.path.insert(0, os.environ["CHIP_SMOKE_ROOT"])
+import torch
+
+from chip_smoke import entry_steps
+from tfk8s_tpu_torch.models import bert, gpt
+from tfk8s_tpu_torch.ops import flash_attention as fa
+from tfk8s_tpu_torch.parallel import collectives, ring_attention
+from tfk8s_tpu_torch.runtime.launcher import ProcessContext, initialize_distributed
+
+env = dict(os.environ)
+# the gang's backend: gloo lets two ranks share one card (the entry point
+# would pick NCCL on a card); the entry point then joins this group
+ctx = ProcessContext.from_env(env)
+initialize_distributed(ctx, env, backend=env["GANG_BACKEND"])
+if env.get("FAULT") == "ring_offset":
+    # planted: the ring's causal mask without the blocks' global offset
+    ring_attention._q_pos = lambda q, k, ring, me: (
+        torch.arange(q.shape[1], device=q.device) + ring * (k.shape[1] - q.shape[1]))
+module = bert if env["FAMILY"] == "bert" else gpt
+losses, grads, step_ms, launches = entry_steps(torch, fa, module, env)
+torch.save(grads, env["OUT"] + "-%d.pt" % ctx.process_id)
+print("RANK " + json.dumps({
+    "rank": ctx.process_id, "losses": losses, "step_ms": step_ms, "launches": launches,
+    "host_staged": sorted(collectives.HOST_STAGED)}), flush=True)
+"""
+
+
+def _run_par_gang(name, n_procs, env, out, want, backend="gloo"):
+    """``n_procs`` processes of PAR_WORKER on a free port (gloo ranks share
+    the one card; NCCL ranks take a card each), each driving ``env``'s
+    entry point; their RANK records in rank order, and the whole gradient
+    of the first step put together from their files: an expert-sharded
+    parameter (shaped unlike ``want``'s) concatenated in rank order."""
+    import socket
+
+    import torch
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for rank in range(n_procs):
+        penv = dict(os.environ, **env, CHIP_SMOKE_ROOT=root, TFK8S_DISTRIBUTED="1",
+                    TFK8S_NUM_PROCESSES=str(n_procs), TFK8S_PROCESS_ID=str(rank),
+                    TFK8S_COORDINATOR_ADDRESS=f"127.0.0.1:{port}", GANG_BACKEND=backend,
+                    OUT=out)
+        if DEVICE == "cpu":
+            penv["TFK8S_DEVICE"] = "cpu"
+        procs.append(subprocess.Popen([sys.executable, "-c", PAR_WORKER], env=penv, cwd=root,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=PARALLEL["timeout_s"])[0])
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"{name}: gang of {n_procs} ran past {PARALLEL['timeout_s']} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    records = []
+    for rank, (p, text) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in text.splitlines() if ln.startswith("RANK ")]
+        if p.returncode != 0 or len(lines) != 1:
+            raise AssertionError(f"{name}: rank {rank} exited {p.returncode}:\n{text[-3000:]}")
+        records.append(json.loads(lines[0][5:]))
+    parts = [torch.load(f"{out}-{r}.pt") for r in range(n_procs)]
+    if any(len(p) != len(want) for p in parts):
+        raise AssertionError(f"{name}: {[len(p) for p in parts]} parameters, want {len(want)}")
+    grads = [ps[0] if ps[0].shape == w.shape else torch.cat(ps) for w, ps in
+             zip(want, zip(*parts))]
+    for r in range(n_procs):
+        os.remove(f"{out}-{r}.pt")
+    return sorted(records, key=lambda r: r["rank"]), grads
+
+
+def _gang_check(name, records, grads, loss, want, launches, fault=False):
+    """The gang's first-step loss and gradient against one process's:
+    within the base-width bounds, or (a planted fault) beyond them; and
+    every rank's flash launches exactly ``launches``."""
+    errs = {"loss_err": max(abs(r["losses"][0] - loss) for r in records),
+            "grad_rel_l2": _grads_rel_l2(dict(enumerate(grads)), dict(enumerate(want))),
+            "finite": all(math.isfinite(x) for r in records for x in r["losses"])}
+    within = errs["finite"] and errs["loss_err"] <= PARALLEL_LOSS_ATOL and \
+        errs["grad_rel_l2"] <= FAMILY_GRAD_REL_L2
+    if within == fault:
+        raise AssertionError(f"{name}: {errs} {'passes as a planted fault' if fault else ''}"
+                             f" (bounds: loss {PARALLEL_LOSS_ATOL}, grad rel L2 "
+                             f"{FAMILY_GRAD_REL_L2})")
+    for r in records:
+        if r["launches"] != launches:
+            raise AssertionError(f"{name}: rank {r['rank']} flash launches {r['launches']}, "
+                                 f"want {launches}")
+    return errs
+
+
+def _moe_split(torch, task, seq):
+    """One profiler trace of the MoE GPT's staged step, its device time
+    split by what ran it: the float32 dispatch and combine products
+    (batched products over the ``e * c`` slots), the expert FFN (batched
+    products over ``mlp_dim``), the float32 tied head (products over the
+    vocabulary), the flash kernels, AdamW (``Optimizer.step``), the other
+    products, and the rest."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from tfk8s_tpu_torch.runtime.train import TrainConfig, Trainer
+
+    trainer = Trainer(task, TrainConfig(steps=10 ** 6, learning_rate=1e-4), DEVICE)
+    state = trainer.init_state()
+    staged = trainer.to_device(task.make_batch(np.random.default_rng(0), task.batch_size))
+    trainer.train_step(state, staged)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        trainer.train_step(state, staged)
+        torch.cuda.synchronize()
+    busy, _ = _device_busy_ms(torch, prof)
+    model = state.model
+    moe = next(m for m in model.modules() if type(m).__name__ == "SwitchMoeBlock")
+    ec = moe.wi.shape[0] * max(int(moe.capacity_factor * moe.top_k * seq / moe.num_experts), 1)
+    vocab, mlp = model.cfg.vocab_size, model.cfg.mlp_dim
+    split = dict.fromkeys(("dispatch_combine", "expert_ffn", "head", "flash", "adamw",
+                           "other_products", "rest"), 0.0)
+    gemms = ("aten::bmm", "aten::mm", "aten::addmm", "aten::baddbmm")
+    for row in prof.key_averages(group_by_input_shape=True):
+        dev_ms = (getattr(row, "device_time_total", None)
+                  or getattr(row, "cuda_time_total", 0.0)) * 1e-3
+        if row.key.startswith("Optimizer.step"):
+            split["adamw"] += dev_ms
+            continue
+        if row.key not in gemms:
+            continue
+        dims = {d for shape in (row.input_shapes or []) for d in shape}
+        if vocab in dims:
+            split["head"] += dev_ms
+        elif row.key == "aten::bmm" and mlp in dims:
+            split["expert_ffn"] += dev_ms
+        elif row.key == "aten::bmm" and ec in dims:
+            split["dispatch_combine"] += dev_ms
+        else:
+            split["other_products"] += dev_ms
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "tfk8s_" in e.name:
+            split["flash"] += e.time_range.elapsed_us() * 1e-3
+    split["rest"] = busy - sum(v for k, v in split.items() if k != "rest")
+    split["busy"] = busy
+    split["dispatch_combine_tflop_per_s"] = MOE_DISPATCH_TFLOP / max(
+        split["dispatch_combine"] * 1e-3, 1e-9)
+    del state, trainer, staged
+    torch.cuda.empty_cache()
+    return split
+
+
+def _moe_train(torch, fa, gpt, env, label):
+    """``gpt:train(env)`` with MoE: losses and ``moe_aux`` finite, each
+    tensor-core flash kernel launched 12 times a step; per log step its
+    ms, tokens/s and ``moe_aux``. Returns (summary, launches)."""
+    from tfk8s_tpu_torch.runtime import progress
+
+    steps = int(env["TFK8S_TRAIN_STEPS"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    progress.clear()
+    fa.reset_launches()
+    history = gpt.train(env)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    tokens = int(env["TFK8S_BATCH_SIZE"]) * int(env["TFK8S_SEQ_LEN"])
+    prev = 0.0
+    for h in history:
+        t = h["step"] / h["steps_per_s"]
+        log(f"  {label} step {h['step']}: {json.dumps({'step_ms': (t - prev) * 1e3, 'tokens_per_s': tokens / max(t - prev, 1e-9), 'loss': h['loss'], 'moe_aux': h['moe_aux'], 'peak_gib': torch.cuda.max_memory_allocated() / 2**30})}")
+        prev = t
+    losses = [h["loss"] for h in history] + [h["moe_aux"] for h in history]
+    if len(history) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: losses or moe_aux not finite: {losses}")
+    layers = gpt.base_config().num_layers if env.get("TFK8S_MODEL_PRESET") != "tiny" \
+        else gpt.tiny_config().num_layers
+    want = {**dict.fromkeys(fa.SIMT_KERNELS, 0),
+            **dict.fromkeys(fa.TENSOR_CORE_KERNELS, layers * steps)}
+    if launches != want:
+        raise AssertionError(f"{label}: flash launches {launches}, want {want}")
+    t_first = history[0]["step"] / history[0]["steps_per_s"]
+    t_last = history[-1]["step"] / history[-1]["steps_per_s"]
+    # one step: its time, the first step's (with the start-up it pays)
+    step_s = (t_last - t_first) / (history[-1]["step"] - history[0]["step"]) \
+        if len(history) > 1 else t_first
+    return {"steps": steps, "first_step_s": t_first, "step_ms": step_s * 1e3,
+            "tokens_per_s": tokens / step_s, "peak_mem_gib":
+            torch.cuda.max_memory_allocated() / 2**30,
+            "launches_per_step": {k: v / steps for k, v in launches.items() if v}}, launches
+
+
+def _moe_f32_run(torch, gpt, env):
+    """(a)'s ten steps again with float32 activations (TF32 off) and plain
+    attention, through the same Trainer, initial parameters and batch
+    stream: each step's loss and ``moe_aux``, to tell a bfloat16 effect in
+    the router's balance from the formulation's own."""
+    from tfk8s_tpu_torch.runtime.train import TrainConfig, Trainer
+
+    tiny = env.get("TFK8S_MODEL_PRESET") == "tiny"
+    cfg = (gpt.tiny_config if tiny else gpt.base_config)(
+        num_experts=int(env["TFK8S_NUM_EXPERTS"]), dtype=torch.float32)
+    task = gpt.make_task(cfg, seq_len=int(env["TFK8S_SEQ_LEN"]),
+                         batch_size=int(env["TFK8S_BATCH_SIZE"]))
+    config = TrainConfig(steps=int(env["TFK8S_TRAIN_STEPS"]), log_every=1,
+                         learning_rate=float(env["TFK8S_LEARNING_RATE"]),
+                         seed=int(env["TFK8S_SEED"]))
+    torch.cuda.empty_cache()
+    _, history = Trainer(task, config, DEVICE).fit()
+    torch.cuda.empty_cache()
+    out = [{"loss": h["loss"], "moe_aux": h["moe_aux"]} for h in history]
+    if not all(math.isfinite(v) for r in out for v in r.values()):
+        raise AssertionError(f"moe float32: not finite: {out}")
+    return out
+
+
+def _moe_checks(torch, fa, gpt):
+    """(b): identical experts = the dense MLP at base width; a small f32
+    MoE GPT through the kernels on the card against the CPU plain path;
+    remat against no remat at the trained configuration (peak memory of
+    each)."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from tfk8s_tpu_torch.models.transformer import MlpBlock
+    from tfk8s_tpu_torch.parallel.moe import SwitchMoeBlock
+
+    out = {}
+    tiny = PARALLEL_ENV.get("TFK8S_MODEL_PRESET") == "tiny"
+    base = (gpt.tiny_config if tiny else gpt.base_config)(num_experts=8)
+    gen = torch.Generator().manual_seed(2)
+    dense, block = MlpBlock(base), SwitchMoeBlock(base, 8, capacity_factor=8.0)
+    with torch.no_grad():
+        for lin in (dense.wi, dense.wo):
+            torch.nn.init.xavier_uniform_(lin.weight, generator=gen)
+            lin.bias.zero_()
+        block.init_weights(gen)
+        block.wi.copy_(dense.wi.weight.t().expand_as(block.wi))
+        block.wo.copy_(dense.wo.weight.t().expand_as(block.wo))
+        dense, block = dense.to(DEVICE), block.to(DEVICE)
+        x = torch.randn(4, 256, base.embed_dim, generator=gen).to(DEVICE, base.dtype)
+        y, _ = block(x)
+        gate = torch.softmax(x.float() @ block.router, dim=-1).max(dim=-1).values
+        want = dense(x).float() * gate[..., None]
+    err, ok = _err([(y, want)], BF16_ATOL, BF16_RTOL)
+    out["identical_experts_max_abs_err"] = err
+    if not ok:
+        raise AssertionError(f"identical experts vs dense MLP: {err} beyond bf16 bounds")
+
+    small = gpt.tiny_config(dtype=torch.float32, embed_dim=64, num_heads=2, head_dim=32,
+                            mlp_dim=128, num_layers=2, vocab_size=256, max_len=128,
+                            num_experts=4)
+    task = gpt.make_task(small, seq_len=96, batch_size=2, attn_fn=fa.flash_attention)
+    host = task.make_batch(np.random.default_rng(6), 2)
+    cpu = task.init(torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(DEVICE)
+    res = []
+    for model, dev in ((cpu, "cpu"), (card, DEVICE)):
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in host.items()}
+        loss, grads = _loss_and_grads(torch, task.loss_fn, model, batch)
+        res.append((loss, {n: g.cpu() for n, g in grads.items()}))
+    l_err = abs(res[0][0] - res[1][0])
+    g_err = max(float((res[0][1][n] - res[1][1][n]).abs().max()) for n in res[0][1])
+    out["f32_small_card_vs_cpu"] = {"loss_err": l_err, "max_grad_err": g_err}
+    if not (l_err <= F32_GRAD_ATOL and g_err <= F32_GRAD_ATOL):
+        raise AssertionError(f"f32 MoE GPT card vs CPU: {out['f32_small_card_vs_cpu']}")
+
+    seq, batch = int(PARALLEL_ENV["TFK8S_SEQ_LEN"]), int(PARALLEL_ENV["TFK8S_BATCH_SIZE"])
+    host = gpt.make_batch_fn(base.vocab_size, seq)(np.random.default_rng(7), batch)
+    runs = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(base, remat=remat)
+        task = gpt.make_task(cfg, seq_len=seq, batch_size=batch, attn_fn=fa.flash_attention)
+        model = task.init(torch.Generator().manual_seed(0)).to(DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads = _loss_and_grads(torch, task.loss_fn, model, _device(torch, host))
+        torch.cuda.synchronize()
+        runs[remat] = (loss, {n: g.cpu() for n, g in grads.items()},
+                       torch.cuda.max_memory_allocated() / 2**30)
+        del model, grads
+        torch.cuda.empty_cache()
+    l_err = abs(runs[True][0] - runs[False][0])
+    g_rel = _grads_rel_l2(runs[True][1], runs[False][1])
+    out["remat"] = {"loss_err": l_err, "grad_rel_l2": g_rel,
+                    "peak_gib_no_remat": runs[False][2], "peak_gib_remat": runs[True][2]}
+    if not (l_err <= F32_GRAD_ATOL and g_rel <= F32_GRAD_ATOL):
+        raise AssertionError(f"remat vs no remat: {out['remat']}")
+    return out
+
+
+def phase_parallel(torch, gpt, fa, root):
+    """The sequence and expert axes (docstring phase 13, (a)-(d)). Returns
+    the launches of the paths it drives in this process: the MoE
+    ``gpt:train`` runs."""
+    total = dict.fromkeys(fa.KERNELS, 0)
+    tiny = PARALLEL_ENV.get("TFK8S_MODEL_PRESET") == "tiny"
+    # (a) GPT-2-small + 8 experts through gpt:train, then one top-2 step
+    summary, launches = _moe_train(torch, fa, gpt, dict(PARALLEL_ENV), "moe")
+    for k, v in launches.items():
+        total[k] += v
+    log(f"parallel moe train: {json.dumps(summary)}")
+    # two steps: the second is a steady one
+    top2 = dict(PARALLEL_ENV, TFK8S_MOE_TOP_K="2", TFK8S_TRAIN_STEPS="2")
+    summary2, launches = _moe_train(torch, fa, gpt, top2, "moe top-2")
+    for k, v in launches.items():
+        total[k] += v
+    log(f"parallel moe top-2 step: {json.dumps(summary2)}")
+    log(f"parallel moe float32 steps: {json.dumps(_moe_f32_run(torch, gpt, PARALLEL_ENV))}")
+    seq, batch = int(PARALLEL_ENV["TFK8S_SEQ_LEN"]), int(PARALLEL_ENV["TFK8S_BATCH_SIZE"])
+    moe_cfg = (gpt.tiny_config if tiny else gpt.base_config)(num_experts=8)
+    task = gpt.make_task(moe_cfg, seq_len=seq, batch_size=batch, attn_fn=fa.flash_attention)
+    split = _moe_split(torch, task, seq)
+    split["reckoned_dispatch_combine_tflop"] = MOE_RECKONED_TFLOP
+    split["needed_dispatch_combine_tflop"] = MOE_DISPATCH_TFLOP
+    split["needed_dispatch_combine_min_ms_at_67_tflops"] = MOE_DISPATCH_TFLOP / 67 * 1e3
+    log(f"parallel moe staged-step split (device ms): {json.dumps(split)}")
+    staged = _staged_step(torch, task, PARALLEL["staged_steps"])
+    log(f"parallel moe staged step: {json.dumps(staged)}")
+    # (b) MoE correctness on the card
+    log(f"parallel moe checks: {json.dumps(_moe_checks(torch, fa, gpt))}")
+    # the flash kernels at Ulysses' local call: 12 heads over 2 ranks
+    for i, causal in enumerate((False, True)):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = f"ulysses_local{'_causal' if causal else ''}"
+            log(f"case {name} {dtype}:")
+            check_case(fa, Case(name, PARALLEL["bert_batch"], PARALLEL["bert_seq"],
+                                PARALLEL["bert_seq"], 6, 64, dtype, causal=causal,
+                                seed=51 + i), iters=10, profile=True)
+            torch.cuda.empty_cache()
+    # (c)-(d) the gangs over gloo, two ranks sharing the card
+    log(f"parallel gloo probe (CUDA tensors): {json.dumps(_gloo_probe())}")
+    _parallel_gangs(torch, gpt, fa, root, "gloo")
+    return total
+
+
+# (name, reference, mesh, entry-point env, planted fault): Ulysses by the
+# policy (auto; 12 heads divide by 2), ring pinned
+PARALLEL_GANGS = [
+    ("bert_sequence_ulysses", "bert", '{"sequence": 2}', {"TFK8S_ATTENTION_IMPL": "auto"},
+     False),
+    ("bert_sequence_ring", "bert", '{"sequence": 2}', {"TFK8S_ATTENTION_IMPL": "ring"}, False),
+    ("gpt_sequence_ring", "gpt", '{"sequence": 2}', {"TFK8S_ATTENTION_IMPL": "ring"}, False),
+    ("gpt_sequence_ring_fault", "gpt", '{"sequence": 2}',
+     {"TFK8S_ATTENTION_IMPL": "ring", "FAULT": "ring_offset"}, True),
+    ("gpt_moe_expert", "gpt_moe", '{"expert": 2}',
+     {"TFK8S_ATTENTION_IMPL": "flash", "TFK8S_NUM_EXPERTS": "8"}, False),
+]
+
+
+def _parallel_gangs(torch, gpt, fa, root, backend):
+    """Each gang of PARALLEL_GANGS (the planted fault under gloo only)
+    through its family's ``train(env)``, PARALLEL["gang_steps"] steps, its
+    first step against one process's run of the same entry point on the
+    same global batch (per_host input, one shard) with flash attention.
+    Every rank must launch each tensor-core flash kernel layers x steps
+    times where its attention is flash (inside Ulysses too) and never
+    where it is the ring."""
+    from tfk8s_tpu_torch.models import bert
+
+    work = os.path.join(root, "build", "chip_smoke_parallel")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    tiny = PARALLEL_ENV.get("TFK8S_MODEL_PRESET") == "tiny"
+    p, steps = PARALLEL, PARALLEL["gang_steps"]
+    modules = {"bert": bert, "gpt": gpt}
+
+    def base_env(fam):
+        return dict({"TFK8S_MODEL_PRESET": "tiny"} if tiny else {},
+                    **({"TFK8S_DEVICE": "cpu"} if DEVICE == "cpu" else {}),
+                    TFK8S_SEQ_LEN=str(p[f"{fam}_seq"]), TFK8S_BATCH_SIZE=str(p[f"{fam}_batch"]),
+                    TFK8S_TRAIN_STEPS=str(steps), TFK8S_LOG_EVERY="1",
+                    TFK8S_LEARNING_RATE="1e-4", TFK8S_SEED=str(p["seed"]),
+                    TFK8S_INPUT_MODE="per_host")
+
+    refs = {}
+    for name, ref, mesh, extra, fault in PARALLEL_GANGS:
+        if fault and backend != "gloo":
+            continue
+        fam = "bert" if ref == "bert" else "gpt"
+        module = modules[fam]
+        layers = (module.tiny_config if tiny else module.base_config)().num_layers
+        if ref not in refs:
+            env = dict(base_env(fam), TFK8S_ATTENTION_IMPL="flash")
+            if ref == "gpt_moe":
+                env["TFK8S_NUM_EXPERTS"] = extra["TFK8S_NUM_EXPERTS"]
+            torch.cuda.empty_cache()
+            losses, grads, one_ms, launches = entry_steps(torch, fa, module, env)
+            flash = {**dict.fromkeys(fa.SIMT_KERNELS, 0),
+                     **dict.fromkeys(fa.TENSOR_CORE_KERNELS, layers * steps)}
+            if launches != flash:
+                raise AssertionError(f"{ref} one process: flash launches {launches}, "
+                                     f"want {flash}")
+            refs[ref] = (losses[0], grads, one_ms)
+            torch.cuda.empty_cache()
+        ring = extra["TFK8S_ATTENTION_IMPL"] == "ring"
+        want_launches = {**dict.fromkeys(fa.SIMT_KERNELS, 0),
+                         **dict.fromkeys(fa.TENSOR_CORE_KERNELS, 0 if ring else layers * steps)}
+        env = dict(base_env(fam), TFK8S_MESH=mesh, FAMILY=fam, **extra)
+        t0 = time.perf_counter()
+        loss, want, one_ms = refs[ref]
+        records, grads = _run_par_gang(name, 2, env, os.path.join(work, name), want, backend)
+        errs = _gang_check(f"{name} ({backend})", records, grads, loss, want, want_launches,
+                           fault)
+        del grads
+        log(f"parallel gang {name} ({backend}): {json.dumps({**errs, 'one_process_loss': loss, 'one_process_step_ms': one_ms, 'wall_s': time.perf_counter() - t0, 'ranks': records})}")
+    shutil.rmtree(work, ignore_errors=True)
+    del refs
+    torch.cuda.empty_cache()
+
+
+def phase_nccl(torch, gpt, fa, root):
+    """(e): the gangs of phase 13 over NCCL, a card a rank, where the
+    machine has two cards or more; else one line says why they were
+    skipped (NCCL will not put two ranks on one card)."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"nccl: gangs skipped: {cards} card visible; NCCL will not put two ranks on "
+            "one card, so the gangs ran over gloo only (phase parallel)")
+        return
+    _parallel_gangs(torch, gpt, fa, root, "nccl")
+
+
 def main() -> int:
     import torch
 
@@ -2297,6 +2899,8 @@ def main() -> int:
         ("serve", lambda: phase_serve(torch, gpt, (fa, gn, bc))),
         ("distributed", lambda: phase_distributed(torch, gpt, fa, root)),
         ("families", lambda: phase_families(torch, fa)),
+        ("parallel", lambda: phase_parallel(torch, gpt, fa, root)),
+        ("nccl", lambda: phase_nccl(torch, gpt, fa, root)),
     ]
     if only:
         phases = [p for p in phases if p[0] in ("card", "build", *only)]
@@ -2320,7 +2924,7 @@ def main() -> int:
         elif name == "kernels":
             line = value
         elif name in ("train", "resnet_train", "roofline", "generate", "distributed",
-                      "families"):
+                      "families", "parallel"):
             for kernel, count in value.items():  # each path's launches add up
                 launches[kernel] = launches.get(kernel, 0) + count
     for d in (ckpt_dir, rn_ckpt_dir):

@@ -57,9 +57,10 @@ def assert_trees_equal(got, want):
         np.testing.assert_array_equal(got[name], arr, err_msg=name)
 
 
-def trajectories(jtask, ttask, to_params, train, env, ckpt_dir, steps=3):
-    """((loss, grad_norm) per step of the reference Trainer, the same of
-    the port's ``train(env)``), from the port's initial parameters
+def trajectories(jtask, ttask, to_params, train, env, ckpt_dir, steps=3,
+                 keys=("loss", "grad_norm")):
+    """(``keys`` per step of the reference Trainer, the same of the port's
+    ``train(env)``), from the port's initial parameters
     (``ttask.init``) bridged to the reference's tree by ``to_params``.
     ``ttask`` builds the model the entrypoint builds."""
     trainer = ttrain.Trainer(ttask, ttrain.TrainConfig(), torch.device("cpu"))
@@ -78,5 +79,4 @@ def trajectories(jtask, ttask, to_params, train, env, ckpt_dir, steps=3):
     th = train(dict(env, TFK8S_TRAIN_STEPS=str(steps), TFK8S_LOG_EVERY="1",
                     TFK8S_CHECKPOINT_DIR=ckpt_dir, TFK8S_WORLD_VERSION="1"))
     assert [h["step"] for h in th] == [h["step"] for h in jh] == list(range(1, steps + 1))
-    return ([(h["loss"], h["grad_norm"]) for h in jh],
-            [(h["loss"], h["grad_norm"]) for h in th])
+    return ([tuple(h[k] for k in keys) for h in jh], [tuple(h[k] for k in keys) for h in th])

@@ -44,7 +44,7 @@ from tfk8s_tpu_torch.data.recordio import RecordWriter
 from tfk8s_tpu_torch.models import gpt as tgpt
 from tfk8s_tpu_torch.models import mlp as tmlp
 from tfk8s_tpu_torch.models.bert import make_chain_tokens
-from tfk8s_tpu_torch.parallel.mesh import MeshConfig, build_device_mesh
+from tfk8s_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 from tfk8s_tpu_torch.runtime import train as ttrain
 from tfk8s_tpu_torch.runtime.launcher import ProcessContext, initialize_distributed
 
@@ -367,14 +367,16 @@ def test_mesh_device_count_error_matches_the_reference():
     assert str(got.value) == str(want.value)
     # one process holds one device: a two-device mesh needs a gang
     with pytest.raises(ValueError, match=r"needs 2 devices; 1 available"):
-        build_device_mesh(MeshConfig.create(data=2), torch.device("cpu"))
-    assert build_device_mesh(MeshConfig.create(data=1), torch.device("cpu")) is None
+        build_mesh(MeshConfig.create(data=2), torch.device("cpu"))
+    assert build_mesh(MeshConfig.create(data=1), torch.device("cpu")).device_mesh is None
 
 
 @pytest.mark.parametrize("env,item", [
     ({"TFK8S_MESH": '{"data": 2, "tensor": 2}', "TFK8S_NUM_PROCESSES": "4"}, "1.9"),
-    ({"TFK8S_MESH": '{"sequence": 2}', "TFK8S_NUM_PROCESSES": "2"}, "1.9"),
-    ({"TFK8S_MESH": '{"expert": 2}', "TFK8S_NUM_PROCESSES": "2"}, "1.9"),
+    # sequence and expert run now (tests/test_torch_sequence_parallel.py);
+    # beside tensor or pipeline they still raise
+    ({"TFK8S_MESH": '{"sequence": 2, "tensor": 2}', "TFK8S_NUM_PROCESSES": "4"}, "1.9"),
+    ({"TFK8S_MESH": '{"expert": 2, "pipeline": 2}', "TFK8S_NUM_PROCESSES": "4"}, "1.9"),
     ({"TFK8S_MESH": '{"pipeline": 2}', "TFK8S_NUM_PROCESSES": "2"}, "1.9"),
     ({"TFK8S_NUM_SLICES": "2"}, "1.5"),
     ({"TFK8S_MESH": '{"data": 4}', "TFK8S_NUM_PROCESSES": "2"}, "1.5"),

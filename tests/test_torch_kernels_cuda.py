@@ -229,9 +229,13 @@ def test_kernels_at_the_families_shapes(card, case, dtype):
     64], non-causal: bfloat16 through the tensor-core kernels, float32
     through the CUDA-core ones, each against the plain versions."""
     lq, lk, lengths = FAMILY_CASES[case]
+    _check_at_shape(card, lq, lk, 12, lengths, False, dtype)
+
+
+def _check_at_shape(card, lq, lk, heads, lengths, causal, dtype):
     gen = torch.Generator(device=card).manual_seed(3)
-    q, g = (torch.randn(2, lq, 12, 64, generator=gen, device=card) for _ in range(2))
-    k, v = (torch.randn(2, lk, 12, 64, generator=gen, device=card) for _ in range(2))
+    q, g = (torch.randn(2, lq, heads, 64, generator=gen, device=card) for _ in range(2))
+    k, v = (torch.randn(2, lk, heads, 64, generator=gen, device=card) for _ in range(2))
     q, k, v, g = ((q / 8).to(dtype), k.to(dtype), v.to(dtype), g.to(dtype))
     mask = None
     if lengths is not None:
@@ -239,16 +243,26 @@ def test_kernels_at_the_families_shapes(card, case, dtype):
     tol = BF16_TOL if dtype == torch.bfloat16 else dict(atol=OUT_ATOL, rtol=0)
     grad_tol = BF16_TOL if dtype == torch.bfloat16 else dict(atol=GRAD_ATOL, rtol=0)
     tfa.reset_launches()
-    o_c, lse_c = tfa.flash_fwd_cuda(q, k, v, mask, False)
-    o_p, lse_p = tfa.flash_fwd_plain(q, k, v, mask, False)
+    o_c, lse_c = tfa.flash_fwd_cuda(q, k, v, mask, causal)
+    o_p, lse_p = tfa.flash_fwd_plain(q, k, v, mask, causal)
     torch.testing.assert_close(o_c.float(), o_p.float(), **tol)
     torch.testing.assert_close(lse_c, lse_p, **tol)
-    for got, want in zip(tfa.flash_bwd_cuda(q, k, v, g, o_c, lse_c, mask, False),
-                         tfa.flash_bwd_plain(q, k, v, g, o_c, lse_c, mask, False)):
+    for got, want in zip(tfa.flash_bwd_cuda(q, k, v, g, o_c, lse_c, mask, causal),
+                         tfa.flash_bwd_plain(q, k, v, g, o_c, lse_c, mask, causal)):
         torch.testing.assert_close(got.float(), want.float(), **grad_tol)
     torch.cuda.synchronize()
     kernels = tfa.TENSOR_CORE_KERNELS if dtype == torch.bfloat16 else tfa.SIMT_KERNELS
     assert tfa.LAUNCHES == {**dict.fromkeys(tfa.KERNELS, 0), **dict.fromkeys(kernels, 1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["non_causal", "causal"])
+def test_kernels_at_the_ulysses_local_shape(card, causal, dtype):
+    """Ulysses' local call over two sequence ranks at BERT-base and
+    GPT-2-small width: the whole 512-token sequence, 6 of the 12 heads
+    ([2, 512, 6, 64]), through the kernels against the plain versions."""
+    _check_at_shape(card, 512, 512, 6, None, causal, dtype)
 
 
 @pytest.mark.cuda

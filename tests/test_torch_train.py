@@ -9,6 +9,7 @@ the learning-rate schedules, the checkpoint commit-marker gate and the
 device rule (the card unless the caller asks for the CPU).
 """
 
+import functools
 import os
 
 import jax
@@ -171,9 +172,6 @@ def test_drain_commits_a_checkpoint_and_raises_pod_drained(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    {"TFK8S_NUM_EXPERTS": "2"},
-    {"TFK8S_ATTENTION_IMPL": "ring"},
-    {"TFK8S_ATTENTION_IMPL": "ulysses"},
     {"TFK8S_NUM_SLICES": "2"},
     {"TFK8S_MESH": '{"data": 2}'},
     {"TFK8S_INPUT_FILES": "part-*.rio", "TFK8S_INPUT_FORMAT": "image"},
@@ -186,9 +184,48 @@ def test_unported_features_raise(extra):
         tgpt.train(_env(**extra))
 
 
+@pytest.mark.parametrize("extra", [
+    {"TFK8S_NUM_EXPERTS": "2"},
+    {"TFK8S_ATTENTION_IMPL": "ring"},
+    {"TFK8S_ATTENTION_IMPL": "ulysses"},
+])
+def test_item_9_features_train_as_the_reference(extra, tmp_path, monkeypatch):
+    """MoE layers and the ring and Ulysses pins, once refused, run through
+    ``gpt.train`` in one process (a ring of one is exact attention) and
+    follow the reference ``Trainer`` (full attention) to rtol 1e-4."""
+    from _torch_parity import trajectories
+
+    monkeypatch.setattr(tgpt, "tiny_config",
+                        functools.partial(tgpt.tiny_config, dtype=torch.float32))
+    experts = int(extra.get("TFK8S_NUM_EXPERTS", "0"))
+    jtask = jgpt.make_task(jgpt.tiny_config(dtype=jnp.float32, num_experts=experts),
+                           seq_len=SEQ, batch_size=BATCH)
+    tcfg = tgpt.tiny_config(num_experts=experts)
+    env = {"TFK8S_DEVICE": "cpu", "TFK8S_MODEL_PRESET": "tiny", "TFK8S_SEQ_LEN": str(SEQ),
+           "TFK8S_BATCH_SIZE": str(BATCH), "TFK8S_LEARNING_RATE": "3e-3", **extra}
+    want, got = trajectories(jtask, tgpt.make_task(tcfg, seq_len=SEQ, batch_size=BATCH),
+                             lambda sd: bridge.state_dict_to_params(sd, tcfg), tgpt.train, env,
+                             str(tmp_path / "ckpt"))
+    np.testing.assert_allclose(np.array(got), np.array(want), rtol=RTOL)
+
+
 def test_remat_raises():
-    with pytest.raises(NotImplementedError, match="remat"):
-        tgpt.GPTLM(tgpt.tiny_config(remat=True))
+    """(Named for the refusal it replaced.) ``remat=True`` now recomputes
+    each layer in the backward: the same loss and gradients as without."""
+    task_kw = dict(seq_len=SEQ, batch_size=BATCH)
+    batch = {"input": torch.from_numpy(
+        tgpt.make_task(tgpt.tiny_config(), **task_kw).make_batch(np.random.default_rng(0), BATCH)
+        ["input"])}
+    grads = []
+    for remat in (False, True):
+        task = tgpt.make_task(tgpt.tiny_config(dtype=torch.float32, remat=remat), **task_kw)
+        model = task.init(torch.Generator().manual_seed(0))
+        loss, _ = task.loss_fn(model, batch)
+        loss.backward()
+        grads.append((loss.item(), [p.grad for p in model.parameters()]))
+    assert grads[0][0] == grads[1][0]
+    for a, b in zip(grads[0][1], grads[1][1]):
+        torch.testing.assert_close(b, a, atol=1e-6, rtol=0)
 
 
 def test_next_token_loss_falls_and_predicts_chain():

@@ -44,6 +44,12 @@ under the same names on the port's side. The T5 decoder's cache tree
 (``dec{i}/self_attn/...``) goes through the cache pair with
 ``scope=("dec", "self_attn")``.
 
+An MoE layer (``cfg.layer_uses_moe``) holds ``moe/{router [E_model,
+experts], wi [experts, E_model, mlp], wo [experts, mlp, E_model]}`` in
+place of ``mlp``, the same layouts on both sides (``layers.{i}.moe.*``);
+given ``experts=(lo, hi)``, the maps into the port take that slice of
+``wi``/``wo``, an expert rank's share.
+
 The MLP classifier (``models/mlp.py``) maps ``fc1``/``fc2`` ``{kernel
 [in, out], bias}`` to ``nn.Linear`` ``weight [out, in]`` and ``bias``
 (``mlp_params_to_state_dict``).
@@ -51,7 +57,7 @@ The MLP classifier (``models/mlp.py``) maps ``fc1``/``fc2`` ``{kernel
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -126,12 +132,19 @@ _LAYER_PARTS = {
 
 
 def _layer_to_sd(tree: Mapping[str, Any], prefix: str, cfg: TransformerConfig,
-                 sd: Dict[str, torch.Tensor], kind: str = "encoder") -> None:
+                 sd: Dict[str, torch.Tensor], kind: str = "encoder",
+                 experts: Optional[Tuple[int, int]] = None) -> None:
     attns, norms = _LAYER_PARTS[kind]
     for name in attns:
         _attn_to_sd(tree[name], f"{prefix}.{name}", cfg, sd)
-    for name in ("wi", "wo"):
-        _dense_to_sd(tree["mlp"][name], f"{prefix}.mlp.{name}", sd)
+    if "moe" in tree:
+        lo, hi = experts or (0, cfg.num_experts)
+        sd[f"{prefix}.moe.router"] = _t(tree["moe"]["router"])
+        for name in ("wi", "wo"):
+            sd[f"{prefix}.moe.{name}"] = _t(np.asarray(tree["moe"][name])[lo:hi])
+    else:
+        for name in ("wi", "wo"):
+            _dense_to_sd(tree["mlp"][name], f"{prefix}.mlp.{name}", sd)
     for name in norms:
         _ln_to_sd(tree[name], f"{prefix}.{name}", sd)
 
@@ -140,7 +153,10 @@ def _layer_from_sd(sd: Mapping[str, torch.Tensor], prefix: str, cfg: Transformer
                    kind: str = "encoder") -> Dict[str, Any]:
     attns, norms = _LAYER_PARTS[kind]
     out: Dict[str, Any] = {name: _attn_from_sd(sd, f"{prefix}.{name}", cfg) for name in attns}
-    out["mlp"] = {name: _dense_from_sd(sd, f"{prefix}.mlp.{name}") for name in ("wi", "wo")}
+    if f"{prefix}.moe.router" in sd:
+        out["moe"] = {name: _a(sd, f"{prefix}.moe.{name}") for name in ("router", "wi", "wo")}
+    else:
+        out["mlp"] = {name: _dense_from_sd(sd, f"{prefix}.mlp.{name}") for name in ("wi", "wo")}
     out.update((name, _ln_from_sd(sd, f"{prefix}.{name}")) for name in norms)
     return out
 
@@ -154,14 +170,16 @@ def _embed_from_sd(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     return {"tok": {"embedding": _a(sd, "embed.tok.weight")}, "pos": _a(sd, "embed.pos")}
 
 
-def params_to_state_dict(params: Mapping[str, Any], cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
+def params_to_state_dict(params: Mapping[str, Any], cfg: TransformerConfig,
+                         experts: Optional[Tuple[int, int]] = None) -> Dict[str, torch.Tensor]:
     """flax param tree (numpy leaves) -> the port's ``state_dict``, for the
-    shared stack (``BertWithHead``: BERT and GPT; and ``Encoder``)."""
+    shared stack (``BertWithHead``: BERT and GPT; and ``Encoder``);
+    ``experts``: the expert rows an expert rank holds."""
     sd: Dict[str, torch.Tensor] = {}
     _embed_to_sd(params["embed"], sd)
     _ln_to_sd(params["ln_final"], "ln_final", sd)
     for i in range(cfg.num_layers):
-        _layer_to_sd(params[f"layer{i}"], f"layers.{i}", cfg, sd)
+        _layer_to_sd(params[f"layer{i}"], f"layers.{i}", cfg, sd, experts=experts)
     return sd
 
 
@@ -173,8 +191,9 @@ def state_dict_to_params(sd: Mapping[str, torch.Tensor], cfg: TransformerConfig)
     return params
 
 
-def vit_params_to_state_dict(params: Mapping[str, Any],
-                             cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
+def vit_params_to_state_dict(params: Mapping[str, Any], cfg: TransformerConfig,
+                             experts: Optional[Tuple[int, int]] = None
+                             ) -> Dict[str, torch.Tensor]:
     """ViT flax tree (``patch_embed``, ``pos``, ``layer{i}``, ``ln_final``,
     ``head``) -> the port's ``state_dict`` (``models/vit.ViT``)."""
     sd: Dict[str, torch.Tensor] = {"pos": _t(params["pos"])}
@@ -182,7 +201,7 @@ def vit_params_to_state_dict(params: Mapping[str, Any],
     _dense_to_sd(params["head"], "head", sd)
     _ln_to_sd(params["ln_final"], "ln_final", sd)
     for i in range(cfg.num_layers):
-        _layer_to_sd(params[f"layer{i}"], f"layers.{i}", cfg, sd)
+        _layer_to_sd(params[f"layer{i}"], f"layers.{i}", cfg, sd, experts=experts)
     return sd
 
 
@@ -197,8 +216,9 @@ def vit_state_dict_to_params(sd: Mapping[str, torch.Tensor],
     return params
 
 
-def t5_params_to_state_dict(params: Mapping[str, Any],
-                            cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
+def t5_params_to_state_dict(params: Mapping[str, Any], cfg: TransformerConfig,
+                            experts: Optional[Tuple[int, int]] = None
+                            ) -> Dict[str, torch.Tensor]:
     """T5 flax tree (``embed``, ``enc{i}``, ``dec{i}`` with ``self_attn``,
     ``cross_attn`` and three norms, ``enc_ln``, ``dec_ln``) -> the port's
     ``state_dict`` (``models/t5.T5``, the same names)."""
@@ -207,7 +227,7 @@ def t5_params_to_state_dict(params: Mapping[str, Any],
     for name in ("enc_ln", "dec_ln"):
         _ln_to_sd(params[name], name, sd)
     for i in range(cfg.num_layers):
-        _layer_to_sd(params[f"enc{i}"], f"enc{i}", cfg, sd)
+        _layer_to_sd(params[f"enc{i}"], f"enc{i}", cfg, sd, experts=experts)
         _layer_to_sd(params[f"dec{i}"], f"dec{i}", cfg, sd, kind="decoder")
     return sd
 

@@ -14,7 +14,10 @@ the masked positions only (``mlm_loss_and_metrics``). ``train`` is the
 with the reference's env contract, on the card unless
 ``TFK8S_DEVICE=cpu``; with ``TFK8S_ATTENTION_IMPL=flash`` (or "auto" on
 the card from ``FLASH_SEQ_THRESHOLD``) attention runs the non-causal
-flash kernels, forward and backward."""
+flash kernels, forward and backward. ``TFK8S_NUM_EXPERTS`` > 0 swaps every
+other MLP for a ``SwitchMoeBlock`` (its aux loss in the objective and in
+the metrics as ``moe_aux``); on a mesh with a sequence axis each rank
+trains on its block of the sequence through ring or Ulysses attention."""
 
 from __future__ import annotations
 
@@ -27,16 +30,20 @@ from torch import nn
 from tfk8s_tpu_torch.models.transformer import (
     DecodeCache,
     Embedder,
-    EncoderLayer,
     TransformerConfig,
     _ln,
+    add_moe_aux,
+    apply_with_aux,
+    call_layer,
     init_params,
+    make_layers,
     masked_token_loss,
     page_plan,
     select_attn_fn,
+    seq_group,
+    seq_index,
 )
-from tfk8s_tpu_torch.runtime.launcher import select_device
-from tfk8s_tpu_torch.runtime.train import TrainTask, run_task
+from tfk8s_tpu_torch.runtime.train import TrainTask, join_mesh, run_task
 
 MASK_ID = 0  # reserved mask token; chain tokens live in [1, vocab)
 _CHAIN_A, _CHAIN_B = 31, 17
@@ -58,21 +65,19 @@ class BertWithHead(nn.Module):
       being every layer's raw ``(k, v)`` projections in layer order
       (batched prefill seeds a decode cache from them).
     ``models/gpt.mode_view`` gives a module in another mode over the same
-    parameters."""
+    parameters. ``mesh`` (a ``parallel.mesh.Mesh``) places the module on
+    its rank's block of the sequence and share of the experts."""
 
     def __init__(self, cfg: TransformerConfig, attn_fn: Optional[Callable] = None,
-                 causal: bool = False, decode: bool = False, sow_kv: bool = False):
+                 causal: bool = False, decode: bool = False, sow_kv: bool = False,
+                 mesh=None):
         super().__init__()
-        cfg.require_ported()
         if decode and sow_kv:
             raise ValueError("decode and sow_kv are separate modes")
         self.cfg = cfg
         self.decode, self.sow_kv = decode, sow_kv
-        self.embed = Embedder(cfg)
-        self.layers = nn.ModuleList(
-            EncoderLayer(cfg, attn_fn=attn_fn, causal=causal)
-            for _ in range(cfg.num_layers)
-        )
+        self.embed = Embedder(cfg, seq_index(mesh))
+        self.layers = make_layers(cfg, attn_fn=attn_fn, causal=causal, mesh=mesh)
         self.ln_final = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
 
     def forward(self, ids: torch.Tensor, mask: Optional[torch.Tensor] = None,
@@ -81,6 +86,7 @@ class BertWithHead(nn.Module):
                 pages: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None,
                 cache: Optional[DecodeCache] = None,
                 attn_fn: Optional[Callable] = None,
+                aux_sink: Optional[list] = None,
                 ):
         """``pages`` (one ``(k, v)`` pool per layer) with ``page_tables``
         runs the block-paged path; ``pos_offset`` is then the per-row
@@ -89,14 +95,15 @@ class BertWithHead(nn.Module):
         reference's ``paged=True`` stack. ``cache`` is the decode mode's
         cache (``pos_offset`` then the tokens' position, as in the
         reference a separate argument). ``attn_fn`` overrides the layers'
-        attention for this call."""
+        attention for this call; ``aux_sink`` collects the MoE layers' aux
+        losses."""
         if self.decode and cache is None:
             raise ValueError("decode mode needs the decode cache")
         if cache is not None and not self.decode:
             raise ValueError("a decode cache needs a decode-mode module")
         x = self.embed(ids, pos_offset=pos_offset)
         sown = [] if self.sow_kv else None
-        attn_kw = dict(kv_sink=sown, attn_fn=attn_fn)
+        attn_kw = dict(kv_sink=sown, attn_fn=attn_fn, aux_sink=aux_sink)
         if cache is not None:
             attn_kw["cache_index"] = cache.index
         plan = None
@@ -113,7 +120,7 @@ class BertWithHead(nn.Module):
             if pages is not None:
                 x = layer(x, mask, pool=pages[i], plan=plan, **attn_kw)
             else:
-                x = layer(x, mask, **attn_kw)
+                x = call_layer(self.cfg, layer, x, mask, **attn_kw)
         x = _ln(self.ln_final, x, self.cfg.dtype)
         logits = self.embed.logits(x)  # [b, l, vocab], float32
         if cache is not None:
@@ -174,11 +181,11 @@ def make_batch_fn(vocab: int, seq_len: int):
 
 
 def mlm_loss_and_metrics(
-    logits: torch.Tensor, batch: Dict[str, torch.Tensor]
+    logits: torch.Tensor, batch: Dict[str, torch.Tensor], group=None
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Masked-LM objective: cross-entropy and accuracy over the mlm-masked
-    positions only."""
-    loss, acc = masked_token_loss(logits, batch["target"], batch["mlm_mask"])
+    positions only (over the whole sequence group's, given one)."""
+    loss, acc = masked_token_loss(logits, batch["target"], batch["mlm_mask"], group)
     return loss, {"mlm_accuracy": acc}
 
 
@@ -188,15 +195,19 @@ def make_task(
     batch_size: int = 64,
     targets: Optional[Dict[str, float]] = None,
     attn_fn: Optional[Callable] = None,
+    mesh=None,
 ) -> TrainTask:
     cfg = cfg or base_config()
     seq_len = min(seq_len, cfg.max_len)
+    group = seq_group(mesh)
 
     def init(generator: torch.Generator) -> BertWithHead:
-        return init_params(BertWithHead(cfg, attn_fn=attn_fn), generator)
+        return init_params(BertWithHead(cfg, attn_fn=attn_fn, mesh=mesh), generator)
 
     def loss_fn(model, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        return mlm_loss_and_metrics(model(batch["input"]), batch)
+        logits, aux = apply_with_aux(model, cfg, batch["input"])
+        loss, metrics = mlm_loss_and_metrics(logits, batch, group)
+        return add_moe_aux(cfg, loss, metrics, aux), metrics
 
     return TrainTask(
         name="bert-mlm",
@@ -209,26 +220,26 @@ def make_task(
 
 
 def task_for_mesh(
-    device: torch.device,
+    mesh,
     cfg: Optional[TransformerConfig] = None,
     **task_kw,
 ) -> TrainTask:
-    """Build the task with the attention impl its device calls for, at the
-    EFFECTIVE length (``make_task`` clamps to ``cfg.max_len``). The port
-    runs one device per process, so the reference's mesh is just the
-    device here (``transformer.select_attn_fn``)."""
+    """Build the task with the attention impl the mesh calls for
+    (``transformer.select_attn_fn``), at the EFFECTIVE length
+    (``make_task`` clamps to ``cfg.max_len``). ``mesh`` is a
+    ``parallel.mesh.Mesh``, or the device of a one-process run."""
     cfg = cfg or base_config()
     seq_len = min(task_kw.get("seq_len", 128), cfg.max_len)
-    return make_task(cfg=cfg, attn_fn=select_attn_fn(cfg, seq_len, device), **task_kw)
+    return make_task(cfg=cfg, attn_fn=select_attn_fn(cfg, seq_len, mesh), mesh=mesh, **task_kw)
 
 
 def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, float]]:
     """TPUJob entrypoint: ``tfk8s_tpu_torch.models.bert:train``, with the
     reference's env contract (``TFK8S_SEQ_LEN`` 128, ``TFK8S_BATCH_SIZE``
     64, 100 steps at lr 1e-4 unless set; ``TFK8S_MODEL_PRESET=tiny``;
-    ``TFK8S_ATTENTION_IMPL``), the runtime's input modes and multi-process
-    data parallelism. ``TFK8S_NUM_EXPERTS`` > 0 (MoE) raises, naming
-    ROADMAP item 1.9. Returns the logged metrics history."""
+    ``TFK8S_ATTENTION_IMPL``; ``TFK8S_NUM_EXPERTS``, ``TFK8S_MOE_TOP_K``),
+    the runtime's input modes and the mesh's data, expert and sequence
+    axes. Returns the logged metrics history."""
     env = dict(env)
     env.setdefault("TFK8S_TRAIN_STEPS", "100")
     env.setdefault("TFK8S_LEARNING_RATE", "1e-4")
@@ -240,6 +251,6 @@ def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, flo
         moe_top_k=int(env.get("TFK8S_MOE_TOP_K", "1")),
         attention_impl=env.get("TFK8S_ATTENTION_IMPL", "auto"),
     )
-    device = select_device(env)
-    task = task_for_mesh(device, cfg=cfg, seq_len=seq, batch_size=batch)
-    return run_task(task, env, stop, device=device)
+    _ctx, device, mesh = join_mesh(env)
+    task = task_for_mesh(mesh, cfg=cfg, seq_len=seq, batch_size=batch)
+    return run_task(task, env, stop, device=device, mesh=mesh)

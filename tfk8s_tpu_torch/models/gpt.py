@@ -4,10 +4,14 @@ next-token cross-entropy over shifted targets, the same hermetic chain
 data, and the ``gpt:train`` TPUJob entrypoint
 (``tfk8s_tpu_torch.models.gpt:train``).
 
-``train`` keeps the reference's env contract and runs on one device: the
-card unless ``TFK8S_DEVICE=cpu``. With ``TFK8S_ATTENTION_IMPL=flash`` (or
-"auto" on the card at ``TFK8S_SEQ_LEN`` >= 1024) attention goes through
-the port's CUDA flash kernels, forward and backward.
+``train`` keeps the reference's env contract and runs on the card unless
+``TFK8S_DEVICE=cpu``. With ``TFK8S_ATTENTION_IMPL=flash`` (or "auto" on
+the card at ``TFK8S_SEQ_LEN`` >= 1024) attention goes through the port's
+CUDA flash kernels, forward and backward. ``TFK8S_NUM_EXPERTS`` > 0 swaps
+every other MLP for a ``SwitchMoeBlock`` (top-``TFK8S_MOE_TOP_K``), its
+aux loss in the objective; a mesh with an ``expert`` axis shards the
+experts, one with a ``sequence`` axis the sequence (:func:`split_sequence`
+gives each rank its tokens and their next-token targets).
 
 The device half of paged continuous-batching decode is here too:
 ``clean_pages``, ``_paged_apply``, the packed ``decode``/``prefill``/
@@ -41,19 +45,22 @@ from tfk8s_tpu_torch.ops import jax_random
 from tfk8s_tpu_torch.models.transformer import (
     DecodeCache,
     TransformerConfig,
+    add_moe_aux,
+    apply_with_aux,
     clean_cache,
     dot_product_attention,
     init_params,
+    masked_token_loss,
     select_attn_fn,
+    seq_group,
 )
-from tfk8s_tpu_torch.runtime.launcher import select_device
-from tfk8s_tpu_torch.runtime.train import TrainTask, run_task
+from tfk8s_tpu_torch.runtime.train import TrainTask, join_mesh, run_task
 
 
-def GPTLM(cfg: TransformerConfig, attn_fn: Optional[Callable] = None) -> BertWithHead:
+def GPTLM(cfg: TransformerConfig, attn_fn: Optional[Callable] = None, mesh=None) -> BertWithHead:
     """Decoder-only causal LM: the shared ``BertWithHead`` stack with
     ``causal=True``."""
-    return BertWithHead(cfg, attn_fn=attn_fn, causal=True)
+    return BertWithHead(cfg, attn_fn=attn_fn, causal=True, mesh=mesh)
 
 
 def base_config(**overrides) -> TransformerConfig:
@@ -108,21 +115,46 @@ def lm_loss_and_metrics(
     return loss, {"next_token_accuracy": acc}
 
 
+def split_sequence(batch: Dict[str, np.ndarray], index: int, n: int) -> Dict[str, np.ndarray]:
+    """Rank ``index``'s block of a sequence split ``n`` ways: its tokens,
+    the token after each (the next block's first for its last; none after
+    the sequence's end, weight 0 there), so the shifted objective needs no
+    exchange between ranks."""
+    ids = batch["input"]
+    length = ids.shape[1]
+    if length % n:
+        raise ValueError(f"seq_len={length} does not divide over sequence={n}")
+    lo, hi = index * length // n, (index + 1) * length // n
+    nxt = np.concatenate([ids[:, 1:], np.zeros_like(ids[:, :1])], axis=1)
+    weight = np.broadcast_to(np.arange(length) < length - 1, ids.shape)
+    return {"input": ids[:, lo:hi], "target": nxt[:, lo:hi],
+            "weight": np.ascontiguousarray(weight[:, lo:hi])}
+
+
 def make_task(
     cfg: Optional[TransformerConfig] = None,
     seq_len: int = 128,
     batch_size: int = 64,
     targets: Optional[Dict[str, float]] = None,
     attn_fn: Optional[Callable] = None,
+    mesh=None,
 ) -> TrainTask:
     cfg = cfg or base_config()
     seq_len = min(seq_len, cfg.max_len)
+    group = seq_group(mesh)
 
     def init(generator: torch.Generator):
-        return init_params(GPTLM(cfg, attn_fn=attn_fn), generator)
+        return init_params(GPTLM(cfg, attn_fn=attn_fn, mesh=mesh), generator)
 
     def loss_fn(model, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        return lm_loss_and_metrics(model(batch["input"]), batch["input"])
+        logits, aux = apply_with_aux(model, cfg, batch["input"])
+        if "target" in batch:
+            # a sequence block: the next tokens come with it
+            loss, acc = masked_token_loss(logits, batch["target"], batch["weight"], group)
+            metrics = {"next_token_accuracy": acc}
+        else:
+            loss, metrics = lm_loss_and_metrics(logits, batch["input"])
+        return add_moe_aux(cfg, loss, metrics, aux), metrics
 
     return TrainTask(
         name="gpt-lm",
@@ -131,21 +163,22 @@ def make_task(
         make_batch=make_batch_fn(cfg.vocab_size, seq_len),
         batch_size=batch_size,
         targets=targets or {},
+        split_sequence=split_sequence,
     )
 
 
 def task_for_mesh(
-    device: torch.device,
+    mesh,
     cfg: Optional[TransformerConfig] = None,
     **task_kw,
 ) -> TrainTask:
-    """Build the task with the attention impl its device calls for. The
-    port runs one device per process, so the reference's mesh is just the
-    device here (``transformer.select_attn_fn``)."""
+    """Build the task with the attention impl the mesh calls for
+    (``transformer.select_attn_fn``); ``mesh`` is a ``parallel.mesh.Mesh``
+    or the device of a one-process run."""
     cfg = cfg or base_config()
     seq_len = min(task_kw.get("seq_len", 128), cfg.max_len)
-    attn_fn = select_attn_fn(cfg, seq_len, device)
-    return make_task(cfg=cfg, attn_fn=attn_fn, **task_kw)
+    attn_fn = select_attn_fn(cfg, seq_len, mesh)
+    return make_task(cfg=cfg, attn_fn=attn_fn, mesh=mesh, **task_kw)
 
 
 # ---------------------------------------------------------------------------
@@ -658,7 +691,10 @@ def save_hf_gpt2(cfg: TransformerConfig, model: Union[BertWithHead, Dict[str, to
     if e != h * d:
         raise ValueError(f"HF GPT-2 requires embed_dim == num_heads*head_dim; got {e} != {h}*{d}")
     if cfg.num_experts > 0:
-        raise ValueError("MoE models have no GPT-2 equivalent")
+        raise ValueError(
+            "MoE models have no GPT-2 equivalent — dense-distill or "
+            "export per-expert weights yourself"
+        )
     src = model.state_dict() if isinstance(model, torch.nn.Module) else model
     src = {k: v.detach().to("cpu", torch.float32) for k, v in src.items()}
     hf = GPT2LMHeadModel(GPT2Config(
@@ -697,10 +733,11 @@ def save_hf_gpt2(cfg: TransformerConfig, model: Union[BertWithHead, Dict[str, to
 def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, float]]:
     """TPUJob entrypoint: ``tfk8s_tpu_torch.models.gpt:train``.
     ``TFK8S_MODEL_PRESET=tiny`` selects the test-scale config;
-    ``TFK8S_ATTENTION_IMPL`` pins an attention impl. Takes the runtime's
-    input modes (``TFK8S_INPUT_FILES``, ``TFK8S_INPUT_MODE``) and
-    multi-process data parallelism. Returns the logged metrics history
-    (the last entry is the final metrics)."""
+    ``TFK8S_ATTENTION_IMPL`` pins an attention impl; ``TFK8S_NUM_EXPERTS``
+    > 0 enables MoE layers over the ``expert`` mesh axis. Takes the
+    runtime's input modes (``TFK8S_INPUT_FILES``, ``TFK8S_INPUT_MODE``) and
+    the mesh's data, expert and sequence axes. Returns the logged metrics
+    history (the last entry is the final metrics)."""
     env = dict(env)
     env.setdefault("TFK8S_TRAIN_STEPS", "100")
     env.setdefault("TFK8S_LEARNING_RATE", "1e-4")
@@ -715,6 +752,6 @@ def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, flo
     if env.get("TFK8S_VOCAB_SIZE"):
         cfg_kw["vocab_size"] = int(env["TFK8S_VOCAB_SIZE"])
     cfg = preset(**cfg_kw)
-    device = select_device(env)
-    task = task_for_mesh(device, cfg=cfg, seq_len=seq, batch_size=batch)
-    return run_task(task, env, stop, device=device)
+    _ctx, device, mesh = join_mesh(env)
+    task = task_for_mesh(mesh, cfg=cfg, seq_len=seq, batch_size=batch)
+    return run_task(task, env, stop, device=device, mesh=mesh)

@@ -12,6 +12,12 @@ kernels and the decoder's self-attention the causal ones. Parameter names
 are the reference's (``embed``, ``enc{i}``, ``dec{i}``, ``enc_ln``,
 ``dec_ln``); ``bridge.t5_params_to_state_dict`` maps them.
 
+With ``cfg.num_experts`` > 0 the ENCODER layers interleave
+``SwitchMoeBlock``s (the decoder stays dense, as the reference's), their
+aux loss in the objective; on a sequence-sharded mesh each rank holds its
+block of the source and of the target, and the cross-attention runs ring
+or Ulysses attention over the encoder's blocks.
+
 Generation takes the module, not a parameter tree, and runs the encoder
 once through the module's attention (the masked flash forward on the card
 when flash is chosen; the reference encodes with plain attention, the
@@ -38,15 +44,20 @@ from tfk8s_tpu_torch.models.transformer import (
     EncoderLayer,
     TransformerConfig,
     _ln,
+    add_moe_aux,
+    apply_with_aux,
+    call_layer,
     clean_cache,
     dot_product_attention,
     init_params,
     masked_token_loss,
     select_attn_fn,
+    seq_group,
+    seq_index,
 )
 from tfk8s_tpu_torch.ops import jax_random
-from tfk8s_tpu_torch.runtime.launcher import select_device
-from tfk8s_tpu_torch.runtime.train import TrainTask, run_task
+from tfk8s_tpu_torch.parallel.moe import ExpertShard
+from tfk8s_tpu_torch.runtime.train import TrainTask, join_mesh, run_task
 
 PAD_ID = 0
 BOS_ID = 1
@@ -56,15 +67,18 @@ BOS_ID = 1
 class T5(nn.Module):
     """Encoder-decoder with a shared embedding table and tied head.
     ``attn_fn`` swaps the inner attention of every layer (the flash
-    kernels plug in here; they take the ``[b, lk]`` key mask)."""
+    kernels plug in here; they take the ``[b, lk]`` key mask). ``mesh`` places it on its
+    rank's sequence blocks and share of the encoder's experts."""
 
-    def __init__(self, cfg: TransformerConfig, attn_fn: Optional[Callable] = None):
+    def __init__(self, cfg: TransformerConfig, attn_fn: Optional[Callable] = None, mesh=None):
         super().__init__()
-        cfg.require_ported()
         self.cfg = cfg
-        self.embed = Embedder(cfg)
+        self.embed = Embedder(cfg, seq_index(mesh))
+        experts = ExpertShard.of(mesh)
         for i in range(cfg.num_layers):
-            self.add_module(f"enc{i}", EncoderLayer(cfg, attn_fn=attn_fn))
+            self.add_module(f"enc{i}", EncoderLayer(cfg, attn_fn=attn_fn,
+                                                    use_moe=cfg.layer_uses_moe(i),
+                                                    experts=experts))
         for i in range(cfg.num_layers):
             self.add_module(f"dec{i}", DecoderLayer(cfg, attn_fn=attn_fn))
         self.enc_ln = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
@@ -76,13 +90,15 @@ class T5(nn.Module):
     def decoder_layers(self) -> List[DecoderLayer]:
         return [getattr(self, f"dec{i}") for i in range(self.cfg.num_layers)]
 
-    def encode(self, src: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def encode(self, src: torch.Tensor, aux_sink: Optional[list] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``src [b, ls]`` -> (encoder output ``[b, ls, embed]`` in
-        ``cfg.dtype``, key mask ``src != PAD_ID``)."""
+        ``cfg.dtype``, key mask ``src != PAD_ID``); the MoE layers' aux
+        losses go to ``aux_sink``."""
         mask = src != PAD_ID
         x = self.embed(src)
         for layer in self.encoder_layers():
-            x = layer(x, mask)
+            x = call_layer(self.cfg, layer, x, mask, aux_sink=aux_sink)
         return _ln(self.enc_ln, x, self.cfg.dtype), mask
 
     def decode(self, tgt_in: torch.Tensor, enc: torch.Tensor, enc_mask: torch.Tensor,
@@ -99,14 +115,15 @@ class T5(nn.Module):
         for i, layer in enumerate(self.decoder_layers()):
             kw = {} if cache is None else dict(cache=(cache.keys[i], cache.values[i]),
                                                cache_index=cache.index)
-            x = layer(x, enc, enc_mask, attn_fn=attn_fn, **kw)
+            x = call_layer(self.cfg, layer, x, enc, enc_mask, attn_fn=attn_fn, **kw)
         logits = self.embed.logits(_ln(self.dec_ln, x, self.cfg.dtype))
         if cache is not None:
             return logits, cache.advanced(tgt_in.shape[-1])
         return logits
 
-    def forward(self, src: torch.Tensor, tgt_in: torch.Tensor) -> torch.Tensor:
-        enc, mask = self.encode(src)
+    def forward(self, src: torch.Tensor, tgt_in: torch.Tensor,
+                aux_sink: Optional[list] = None) -> torch.Tensor:
+        enc, mask = self.encode(src, aux_sink)
         return self.decode(tgt_in, enc, mask)
 
 
@@ -148,11 +165,11 @@ def make_batch_fn(vocab: int, seq_len: int):
     return make_batch
 
 
-def loss_and_metrics(logits: torch.Tensor, tgt_out: torch.Tensor
+def loss_and_metrics(logits: torch.Tensor, tgt_out: torch.Tensor, group=None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Cross-entropy and accuracy over the target positions that are not
-    ``PAD_ID``."""
-    loss, acc = masked_token_loss(logits, tgt_out, tgt_out != PAD_ID)
+    ``PAD_ID`` (over the whole sequence group's, given one)."""
+    loss, acc = masked_token_loss(logits, tgt_out, tgt_out != PAD_ID, group)
     return loss, {"token_accuracy": acc}
 
 
@@ -162,15 +179,19 @@ def make_task(
     batch_size: int = 32,
     targets: Optional[Dict[str, float]] = None,
     attn_fn: Optional[Callable] = None,
+    mesh=None,
 ) -> TrainTask:
     cfg = cfg or base_config()
     seq_len = min(seq_len, cfg.max_len)
+    group = seq_group(mesh)
 
     def init(generator: torch.Generator) -> T5:
-        return init_params(T5(cfg, attn_fn=attn_fn), generator)
+        return init_params(T5(cfg, attn_fn=attn_fn, mesh=mesh), generator)
 
     def loss_fn(model, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        return loss_and_metrics(model(batch["src"], batch["tgt_in"]), batch["tgt_out"])
+        logits, aux = apply_with_aux(model, cfg, batch["src"], batch["tgt_in"])
+        loss, metrics = loss_and_metrics(logits, batch["tgt_out"], group)
+        return add_moe_aux(cfg, loss, metrics, aux), metrics
 
     return TrainTask(
         name="t5-seq2seq",
@@ -182,13 +203,13 @@ def make_task(
     )
 
 
-def task_for_mesh(device: torch.device, cfg: Optional[TransformerConfig] = None,
-                  **task_kw) -> TrainTask:
+def task_for_mesh(mesh, cfg: Optional[TransformerConfig] = None, **task_kw) -> TrainTask:
     """The shared attention policy (``transformer.select_attn_fn``) at the
-    effective length; the port's mesh is its one device."""
+    effective length; ``mesh`` is a ``parallel.mesh.Mesh`` or the device of
+    a one-process run."""
     cfg = cfg or base_config()
     seq_len = min(task_kw.get("seq_len", 128), cfg.max_len)
-    return make_task(cfg=cfg, attn_fn=select_attn_fn(cfg, seq_len, device), **task_kw)
+    return make_task(cfg=cfg, attn_fn=select_attn_fn(cfg, seq_len, mesh), mesh=mesh, **task_kw)
 
 
 # ---------------------------------------------------------------------------
@@ -336,9 +357,9 @@ def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, flo
     """TPUJob entrypoint: ``tfk8s_tpu_torch.models.t5:train``, with the
     reference's env contract (``TFK8S_SEQ_LEN`` 128, ``TFK8S_BATCH_SIZE``
     32, 100 steps at lr 1e-4 unless set; ``TFK8S_MODEL_PRESET=tiny``;
-    ``TFK8S_ATTENTION_IMPL``), on the card unless ``TFK8S_DEVICE=cpu``.
-    ``TFK8S_NUM_EXPERTS`` > 0 (MoE) raises, naming ROADMAP item 1.9.
-    Returns the logged metrics history."""
+    ``TFK8S_ATTENTION_IMPL``; ``TFK8S_NUM_EXPERTS`` > 0 puts MoE layers in
+    the encoder), on the card unless ``TFK8S_DEVICE=cpu``, over the mesh's
+    data, expert and sequence axes. Returns the logged metrics history."""
     env = dict(env)
     env.setdefault("TFK8S_TRAIN_STEPS", "100")
     env.setdefault("TFK8S_LEARNING_RATE", "1e-4")
@@ -350,6 +371,6 @@ def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, flo
         moe_top_k=int(env.get("TFK8S_MOE_TOP_K", "1")),
         attention_impl=env.get("TFK8S_ATTENTION_IMPL", "auto"),
     )
-    device = select_device(env)
-    task = task_for_mesh(device, cfg=cfg, seq_len=seq, batch_size=batch)
-    return run_task(task, env, stop, device=device)
+    _ctx, device, mesh = join_mesh(env)
+    task = task_for_mesh(mesh, cfg=cfg, seq_len=seq, batch_size=batch)
+    return run_task(task, env, stop, device=device, mesh=mesh)

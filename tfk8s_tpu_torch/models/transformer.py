@@ -32,21 +32,34 @@ in ``[batch, cache_len, heads, head_dim]`` buffers of a
 back (no hidden module state), with the write position as a 0-d tensor on
 the device. A full forward can hand each layer's raw K/V projections to a
 caller's list (the reference's ``sow_kv``, ``:147-177``), whichever
-attention implementation runs. MoE, remat and sequence parallelism are
-later ROADMAP items and raise ``NotImplementedError``.
+attention implementation runs.
+
+MoE: with ``cfg.num_experts > 0`` every ``moe_every``-th layer swaps its
+MLP for a ``parallel.moe.SwitchMoeBlock`` (``layer_uses_moe``); a stack
+called with ``aux_sink`` (a list) collects each MoE layer's load-balance
+loss, and :func:`apply_with_aux` sums them (the reference's sown
+``losses``). ``cfg.remat`` recomputes each layer in the backward
+(:func:`call_layer`, ``torch.utils.checkpoint`` without reentry).
+:func:`select_attn_fn` is the reference's policy over a
+``parallel.mesh.Mesh``: ring or Ulysses attention on a sequence-sharded
+mesh, the flash kernels or plain attention otherwise.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from tfk8s_tpu_torch.ops.flash_attention import auto_flash_attn_fn
+from tfk8s_tpu_torch.ops.flash_attention import HEAD_DIMS, auto_flash_attn_fn, flash_attention
+from tfk8s_tpu_torch.parallel.collectives import all_reduce_sum, sum_over
+from tfk8s_tpu_torch.parallel.mesh import AXIS_SEQUENCE, Mesh
+from tfk8s_tpu_torch.parallel.moe import ExpertShard, SwitchMoeBlock
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,11 +73,16 @@ class TransformerConfig:
     max_len: int = 512
     dtype: torch.dtype = torch.bfloat16
     remat: bool = False
-    # 'auto' | 'full' | 'flash' ('ring' | 'ulysses' are ROADMAP item 1.9)
+    # 'auto' | 'full' | 'flash' | 'ring' | 'ulysses' (select_attn_fn)
     attention_impl: str = "auto"
-    # MoE (ROADMAP item 1.9): kept so the env contract parses; >0 raises
+    # MoE: 0 = dense MLP everywhere; >0 swaps the MLP of every
+    # moe_every-th layer for a SwitchMoeBlock with this many experts, whose
+    # aux loss enters the objective with weight moe_aux_weight
     num_experts: int = 0
+    moe_every: int = 2
     moe_top_k: int = 1
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 1e-2
     ln_eps: float = 1e-6
     # block-paged KV cache (continuous-batching decode): each layer's K/V
     # live in a pool of kv_max_pages pages of kv_page_size tokens; page 0
@@ -82,19 +100,10 @@ class TransformerConfig:
             raise ValueError("kv_page_size is unset; not a paged config")
         return -(-self.max_len // self.kv_page_size)
 
-    def require_ported(self) -> None:
-        """Raise for the features this slice of the port does not run."""
-        if self.num_experts > 0:
-            raise NotImplementedError(
-                f"num_experts={self.num_experts}: MoE layers are ROADMAP item 1.9"
-            )
-        if self.remat:
-            raise NotImplementedError("remat: activation recompute is ROADMAP item 1.9")
-        if self.attention_impl in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"attention_impl={self.attention_impl!r}: sequence parallelism "
-                "is ROADMAP item 1.9"
-            )
+    def layer_uses_moe(self, layer_idx: int) -> bool:
+        """MoE layers interleave dense ones: every ``moe_every``-th layer,
+        counting from the top of each group (the Switch/GShard layout)."""
+        return self.num_experts > 0 and layer_idx % self.moe_every == self.moe_every - 1
 
 
 def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -331,25 +340,39 @@ class MlpBlock(nn.Module):
 
 class EncoderLayer(nn.Module):
     """Pre-LN residual block; ``causal=True`` makes it a decoder-only
-    (GPT-style) layer."""
+    (GPT-style) layer. With ``use_moe`` the MLP is a ``SwitchMoeBlock``
+    (``moe``, holding ``experts``' share when the mesh has an expert
+    axis), whose aux loss goes to ``aux_sink`` when one is given."""
 
     def __init__(self, cfg: TransformerConfig, attn_fn: Optional[Callable] = None,
-                 causal: bool = False):
+                 causal: bool = False, use_moe: bool = False,
+                 experts: Optional[ExpertShard] = None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.use_moe = cfg, use_moe
         self.ln_attn = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
         self.attn = MultiHeadAttention(cfg, causal=causal, attn_fn=attn_fn)
         self.ln_mlp = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
-        self.mlp = MlpBlock(cfg)
+        if use_moe:
+            self.moe = SwitchMoeBlock(cfg, cfg.num_experts, cfg.moe_capacity_factor,
+                                      cfg.moe_top_k, experts)
+        else:
+            self.mlp = MlpBlock(cfg)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 pool: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                plan: Optional[PagePlan] = None, **attn_kw) -> torch.Tensor:
+                plan: Optional[PagePlan] = None, aux_sink: Optional[list] = None,
+                **attn_kw) -> torch.Tensor:
         """``attn_kw`` (``cache``, ``cache_index``, ``kv_sink``,
         ``attn_fn``) goes to the attention as is."""
         dt = self.cfg.dtype
         x = x + self.attn(_ln(self.ln_attn, x, dt), mask=mask, pool=pool, plan=plan, **attn_kw)
-        return x + self.mlp(_ln(self.ln_mlp, x, dt))
+        h = _ln(self.ln_mlp, x, dt)
+        if not self.use_moe:
+            return x + self.mlp(h)
+        y, aux = self.moe(h)
+        if aux_sink is not None:
+            aux_sink.append(aux)
+        return x + y
 
 
 class DecoderLayer(nn.Module):
@@ -389,9 +412,12 @@ class Embedder(nn.Module):
     """Token + learned positional embeddings; the token table is reused
     transposed as the output head (weight tying)."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, seq_index: int = 0):
         super().__init__()
         self.cfg = cfg
+        # this rank's block of a sequence-sharded mesh: with no pos_offset,
+        # its positions start at seq_index * (the local length)
+        self.seq_index = seq_index
         self.tok = nn.Embedding(cfg.vocab_size, cfg.embed_dim)
         self.pos = nn.Parameter(torch.empty(cfg.max_len, cfg.embed_dim))
 
@@ -414,7 +440,7 @@ class Embedder(nn.Module):
             start = pos_offset.long().clamp(0, max_len - length)
             pos = self.pos.index_select(0, start + torch.arange(length, device=ids.device))
         else:
-            start = 0 if pos_offset is None else int(pos_offset)
+            start = self.seq_index * length if pos_offset is None else int(pos_offset)
             pos = self.pos[start:start + length]
         return (self.tok(ids) + pos).to(self.cfg.dtype)
 
@@ -423,19 +449,22 @@ class Embedder(nn.Module):
         return F.linear(x.float(), self.tok.weight)
 
 
-def masked_token_loss(logits: torch.Tensor, target: torch.Tensor, weight: torch.Tensor
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+def masked_token_loss(logits: torch.Tensor, target: torch.Tensor, weight: torch.Tensor,
+                      group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(loss, accuracy)`` over the positions ``weight`` selects: float32
     cross-entropy and argmax accuracy summed over them and divided by
     ``max(sum(weight), 1)``, as the reference's MLM and seq2seq losses take
-    them (a batch with no selected position gives 0)."""
+    them (a batch with no selected position gives 0). On a sequence-sharded
+    mesh (``group``: the sequence group) the sums run over every rank's
+    tokens, so each rank holds the global mean; its gradient is this
+    rank's tokens' part."""
     target = target.long()
     per_tok = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]), target.reshape(-1),
                               reduction="none").reshape(target.shape)
     w = weight.float()
-    denom = w.sum().clamp_min(1.0)
-    acc = ((logits.argmax(-1) == target).float() * w).sum() / denom
-    return (per_tok * w).sum() / denom, acc
+    denom = all_reduce_sum(w.sum(), group).clamp_min(1.0)
+    hits = all_reduce_sum(((logits.argmax(-1) == target).float() * w).sum(), group)
+    return sum_over((per_tok * w).sum(), group) / denom, hits / denom
 
 
 def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -455,7 +484,67 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
             elif isinstance(m, Embedder):
                 m.tok.weight.normal_(0.0, 0.02, generator=generator)
                 m.pos.normal_(0.0, 0.02, generator=generator)
+            elif isinstance(m, SwitchMoeBlock):
+                m.init_weights(generator)
     return module
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device of a :class:`Mesh`, or ``mesh`` itself when it is one
+    (the port's one-process mesh)."""
+    return mesh.device if isinstance(mesh, Mesh) else torch.device(mesh)
+
+
+def seq_index(mesh) -> int:
+    """This rank's block of the sequence (0 off a sequence-sharded mesh)."""
+    return mesh.index(AXIS_SEQUENCE) if isinstance(mesh, Mesh) else 0
+
+
+def seq_group(mesh):
+    """The sequence group of a sequence-sharded mesh, else None."""
+    return mesh.group(AXIS_SEQUENCE) if isinstance(mesh, Mesh) else None
+
+
+def make_layers(cfg: TransformerConfig, attn_fn: Optional[Callable] = None,
+                causal: bool = False, mesh=None) -> nn.ModuleList:
+    """The encoder stack's layers, MoE where ``cfg.layer_uses_moe`` says,
+    holding the mesh's expert share."""
+    experts = ExpertShard.of(mesh)
+    return nn.ModuleList(
+        EncoderLayer(cfg, attn_fn=attn_fn, causal=causal, use_moe=cfg.layer_uses_moe(i),
+                     experts=experts)
+        for i in range(cfg.num_layers)
+    )
+
+
+def call_layer(cfg: TransformerConfig, layer: nn.Module, *args, **kw):
+    """``layer(*args, **kw)``, recomputed in the backward when
+    ``cfg.remat`` (the reference's ``maybe_remat``: activations are not
+    held, ``torch.utils.checkpoint`` without reentry runs the layer again)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(layer, *args, use_reentrant=False, **kw)
+    return layer(*args, **kw)
+
+
+def apply_with_aux(model: nn.Module, cfg: TransformerConfig, *inputs, **kw):
+    """``model(*inputs, **kw)`` with the MoE layers' aux losses -> ``(out,
+    aux)``, aux the SUM over MoE layers (the reference's sown ``losses``);
+    dense configs give aux 0."""
+    if cfg.num_experts > 0:
+        sink: List[torch.Tensor] = []
+        out = model(*inputs, aux_sink=sink, **kw)
+        return out, sum(sink, torch.zeros((), device=sink[0].device) if sink else 0.0)
+    return model(*inputs, **kw), 0.0
+
+
+def add_moe_aux(cfg: TransformerConfig, loss: torch.Tensor, metrics: Dict[str, torch.Tensor],
+                aux) -> torch.Tensor:
+    """The reference's MoE objective: ``loss + moe_aux_weight * aux``, with
+    ``moe_aux`` among the metrics (dense configs: ``loss`` as is)."""
+    if cfg.num_experts > 0:
+        metrics["moe_aux"] = aux
+        loss = loss + cfg.moe_aux_weight * aux
+    return loss
 
 
 class Encoder(nn.Module):
@@ -464,26 +553,59 @@ class Encoder(nn.Module):
     under an optional ``[b, l]`` key mask. Parameter names are
     ``BertWithHead``'s (``embed``, ``layers``, ``ln_final``)."""
 
-    def __init__(self, cfg: TransformerConfig, attn_fn: Optional[Callable] = None):
+    def __init__(self, cfg: TransformerConfig, attn_fn: Optional[Callable] = None, mesh=None):
         super().__init__()
-        cfg.require_ported()
         self.cfg = cfg
-        self.embed = Embedder(cfg)
-        self.layers = nn.ModuleList(EncoderLayer(cfg, attn_fn=attn_fn)
-                                    for _ in range(cfg.num_layers))
+        self.embed = Embedder(cfg, seq_index(mesh))
+        self.layers = make_layers(cfg, attn_fn=attn_fn, mesh=mesh)
         self.ln_final = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
 
-    def forward(self, ids: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, ids: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                aux_sink: Optional[list] = None) -> torch.Tensor:
         x = self.embed(ids)
         for layer in self.layers:
-            x = layer(x, mask)
+            x = call_layer(self.cfg, layer, x, mask, aux_sink=aux_sink)
         return _ln(self.ln_final, x, self.cfg.dtype)
 
 
-def select_attn_fn(cfg: TransformerConfig, seq_len: int, device: torch.device):
-    """The attention-impl policy on one device: ``flash`` -> the CUDA
-    kernels (their plain versions on the CPU), ``full`` -> plain attention,
-    ``auto`` -> flash on the card from FLASH_SEQ_THRESHOLD up.
-    ``ring``/``ulysses`` need a sequence-sharded mesh (ROADMAP item 1.9)."""
-    cfg.require_ported()
+def select_attn_fn(cfg: TransformerConfig, seq_len: int, mesh):
+    """The attention-impl policy (the reference's, shared by every family's
+    ``task_for_mesh``) over ``mesh``, a :class:`Mesh` or, for one
+    process, its device. ``seq_len`` is the global sequence length.
+
+    - ``ring``/``ulysses`` pins are honoured on any mesh with a sequence
+      axis, and in a one-process run (a ring of one, Ulysses with nothing
+      to exchange); a multi-rank mesh without the axis raises the
+      reference's ``ValueError``.
+    - On a sequence-sharded mesh, ``auto`` is Ulysses while the head count
+      divides by the sequence degree and ring beyond it; a ``full`` or
+      ``flash`` pin raises ``ValueError``.
+    - Otherwise ``flash`` -> the CUDA kernels (their plain versions on the
+      CPU), ``full`` -> plain attention, ``auto`` -> flash on the card
+      from FLASH_SEQ_THRESHOLD up.
+
+    Ulysses' local attention (full sequence, ``h/n`` heads) is the flash
+    kernels on the card at every length, for the head widths they are
+    built for (``tests/test_ulysses.py``'s composition), and the
+    reference's plain attention else."""
+    from tfk8s_tpu_torch.parallel.ring_attention import make_ring_attn_fn
+    from tfk8s_tpu_torch.parallel.ulysses import make_ulysses_attn_fn
+
+    device = mesh_device(mesh)
+    inner = flash_attention if device.type == "cuda" and cfg.head_dim in HEAD_DIMS else None
+    sp = mesh.size(AXIS_SEQUENCE) if isinstance(mesh, Mesh) else 1
+    if cfg.attention_impl == "ring":
+        return make_ring_attn_fn(mesh)
+    if cfg.attention_impl == "ulysses":
+        return make_ulysses_attn_fn(mesh, inner=inner)
+    if sp > 1:
+        if cfg.attention_impl != "auto":
+            raise ValueError(
+                f"attention_impl={cfg.attention_impl!r} pinned on a "
+                "sequence-sharded mesh; sequence parallelism needs 'auto', "
+                "'ring', or 'ulysses'"
+            )
+        if cfg.num_heads % sp == 0:
+            return make_ulysses_attn_fn(mesh, inner=inner)
+        return make_ring_attn_fn(mesh)
     return auto_flash_attn_fn(cfg.attention_impl, seq_len, device)

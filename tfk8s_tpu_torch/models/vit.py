@@ -20,6 +20,12 @@ image size fixes the number of patches, and so the shape of ``pos``: the
 module takes it at construction, where the reference infers it at init.
 ViT-B/16 at 224 has 196 patches, a sequence that is not a multiple of the
 flash kernels' tiles; the kernels mask the ragged edge.
+
+``TFK8S_NUM_EXPERTS`` > 0 interleaves ``SwitchMoeBlock``s as the text
+families do. On a sequence-sharded mesh each rank embeds its block of the
+patch sequence; the mean-pool sums the blocks over the sequence group, and
+the head and loss after it, computed alike on every rank, carry ``1 / n``
+of the gradient each (``collectives.sum_replicated``, ``scale_grad``).
 """
 
 from __future__ import annotations
@@ -31,15 +37,20 @@ from torch import nn
 
 from tfk8s_tpu_torch.models import resnet
 from tfk8s_tpu_torch.models.transformer import (
-    EncoderLayer,
     TransformerConfig,
     _dense,
     _ln,
+    add_moe_aux,
+    apply_with_aux,
+    call_layer,
     init_params,
+    make_layers,
     select_attn_fn,
+    seq_group,
+    seq_index,
 )
-from tfk8s_tpu_torch.runtime.launcher import select_device
-from tfk8s_tpu_torch.runtime.train import TrainTask, run_task
+from tfk8s_tpu_torch.parallel.collectives import group_size, scale_grad, sum_replicated
+from tfk8s_tpu_torch.runtime.train import TrainTask, join_mesh, run_task
 
 
 CHANNELS = 3  # RGB: what every image batch of the repo holds
@@ -51,21 +62,20 @@ class ViT(nn.Module):
     as the reference."""
 
     def __init__(self, cfg: TransformerConfig, num_classes: int, patch_size: int,
-                 image_size: int, attn_fn: Optional[Callable] = None):
+                 image_size: int, attn_fn: Optional[Callable] = None, mesh=None):
         super().__init__()
-        cfg.require_ported()
         if image_size % patch_size:
             raise ValueError(f"image {image_size}x{image_size} not divisible by patch {patch_size}")
         self.cfg, self.patch_size = cfg, patch_size
         self.grid = image_size // patch_size
         self.patch_embed = nn.Linear(patch_size * patch_size * CHANNELS, cfg.embed_dim)
         self.pos = nn.Parameter(torch.empty(self.grid * self.grid, cfg.embed_dim))
-        self.layers = nn.ModuleList(EncoderLayer(cfg, attn_fn=attn_fn)
-                                    for _ in range(cfg.num_layers))
+        self.layers = make_layers(cfg, attn_fn=attn_fn, mesh=mesh)
         self.ln_final = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
         self.head = nn.Linear(cfg.embed_dim, num_classes)
+        self.seq_index, self.seq_group = seq_index(mesh), seq_group(mesh)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, aux_sink: Optional[list] = None) -> torch.Tensor:
         cfg, p = self.cfg, self.patch_size
         b, h, w, c = images.shape
         if h % p or w % p:
@@ -75,11 +85,24 @@ class ViT(nn.Module):
             raise ValueError(f"{gh * gw} patches, but the positions were built for "
                              f"{self.pos.shape[0]}")
         x = images.reshape(b, gh, p, gw, p, c).permute(0, 1, 3, 2, 4, 5)
-        x = _dense(self.patch_embed, x.reshape(b, gh * gw, p * p * c), cfg.dtype)
-        x = (x + self.pos[None]).to(cfg.dtype)
+        x, pos = x.reshape(b, gh * gw, p * p * c), self.pos
+        sp = group_size(self.seq_group)
+        if sp > 1:
+            # this rank's block of the patch sequence
+            if (gh * gw) % sp:
+                raise ValueError(f"{gh * gw} patches do not divide over sequence={sp}")
+            blk = gh * gw // sp
+            rows = slice(self.seq_index * blk, (self.seq_index + 1) * blk)
+            x, pos = x[:, rows], pos[rows]
+        x = (_dense(self.patch_embed, x, cfg.dtype) + pos[None]).to(cfg.dtype)
         for layer in self.layers:
-            x = layer(x)
-        return _dense(self.head, mean_pool(_ln(self.ln_final, x, cfg.dtype)), torch.float32)
+            x = call_layer(cfg, layer, x, None, aux_sink=aux_sink)
+        x = _ln(self.ln_final, x, cfg.dtype)
+        if sp == 1:
+            return _dense(self.head, mean_pool(x), torch.float32)
+        pooled = sum_replicated(x.sum(dim=1, dtype=torch.float32), self.seq_group)
+        logits = _dense(self.head, (pooled / (gh * gw)).to(x.dtype), torch.float32)
+        return scale_grad(logits, 1.0 / sp)
 
 
 def mean_pool(x: torch.Tensor) -> torch.Tensor:
@@ -125,15 +148,18 @@ def make_task(
     batch_size: int = 64,
     targets: Optional[Dict[str, float]] = None,
     attn_fn: Optional[Callable] = None,
+    mesh=None,
 ) -> TrainTask:
     cfg = cfg or tiny_config()
 
     def init(generator: torch.Generator) -> ViT:
-        return init_vit(ViT(cfg, num_classes, patch_size, image_size, attn_fn=attn_fn),
-                        generator)
+        return init_vit(ViT(cfg, num_classes, patch_size, image_size, attn_fn=attn_fn,
+                            mesh=mesh), generator)
 
     def loss_fn(model, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        return resnet.loss_and_metrics(model(batch["image"]), batch["label"])
+        logits, aux = apply_with_aux(model, cfg, batch["image"])
+        loss, metrics = resnet.loss_and_metrics(logits, batch["label"])
+        return add_moe_aux(cfg, loss, metrics, aux), metrics
 
     return TrainTask(
         name="vit",
@@ -142,16 +168,18 @@ def make_task(
         make_batch=resnet.make_batch_fn(num_classes, image_size),
         batch_size=batch_size,
         targets=targets or {},
+        # whole images: the model takes its block of the patch sequence
+        split_sequence=lambda batch, index, n: batch,
     )
 
 
-def task_for_mesh(device: torch.device, cfg: Optional[TransformerConfig] = None,
-                  **task_kw) -> TrainTask:
+def task_for_mesh(mesh, cfg: Optional[TransformerConfig] = None, **task_kw) -> TrainTask:
     """The shared attention policy (``transformer.select_attn_fn``) at the
-    patch sequence's length; the port's mesh is its one device."""
+    patch sequence's length; ``mesh`` is a ``parallel.mesh.Mesh`` or the
+    device of a one-process run."""
     cfg = cfg or tiny_config()
     seq_len = (task_kw.get("image_size", 32) // task_kw.get("patch_size", 4)) ** 2
-    return make_task(cfg=cfg, attn_fn=select_attn_fn(cfg, seq_len, device), **task_kw)
+    return make_task(cfg=cfg, attn_fn=select_attn_fn(cfg, seq_len, mesh), mesh=mesh, **task_kw)
 
 
 def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, float]]:
@@ -171,10 +199,10 @@ def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, flo
         num_experts=int(env.get("TFK8S_NUM_EXPERTS", "0")),
         moe_top_k=int(env.get("TFK8S_MOE_TOP_K", "1")),
     )
-    device = select_device(env)
+    _ctx, device, mesh = join_mesh(env)
     target = env.get("TFK8S_TARGET_ACCURACY")
     task = task_for_mesh(
-        device,
+        mesh,
         cfg=cfg,
         num_classes=int(env.get("TFK8S_NUM_CLASSES", "8")),
         image_size=int(env.get("TFK8S_IMAGE_SIZE", "32")),
@@ -182,4 +210,4 @@ def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, flo
         batch_size=int(env.get("TFK8S_BATCH_SIZE", "64")),
         targets={"accuracy": float(target)} if target else None,
     )
-    return run_task(task, env, stop, device=device)
+    return run_task(task, env, stop, device=device, mesh=mesh)

@@ -1,6 +1,7 @@
-"""Data parallelism over the mesh's ``data`` and ``fsdp`` axes, in place
-of the JAX package's ``parallel/sharding.py`` rules for those axes
-(``batch`` over data+fsdp, parameters sharded over fsdp).
+"""The job's parallel layout over the mesh, in place of the JAX package's
+``parallel/sharding.py`` rules: ``batch`` over data+fsdp, parameters
+sharded over fsdp, MoE experts over ``expert``, and the sequence over
+``sequence``.
 
 - ``data`` alone: ``DistributedDataParallel``; under gradient
   accumulation every microbatch but the last runs in ``no_sync``.
@@ -8,39 +9,76 @@ of the JAX package's ``parallel/sharding.py`` rules for those axes
   (replicated over data, sharded over fsdp) when both axes are above 1.
   FSDP2 shards each parameter on dim 0, not by the reference's logical
   rules; the numbers do not depend on the layout.
+- ``expert`` and/or ``sequence`` (mode "mesh"): bucketed all-reduces of
+  the gradients after the step's backward, one bucket per group. The
+  ranks of a sequence group hold parts of their rows' gradient (their
+  tokens'), so it is summed over the group; the ranks of an expert group
+  hold the same rows and, for every parameter but their experts', the
+  same whole gradient, so those count once. So replicated parameters are
+  summed over every rank and divided by ``data x expert``; an expert
+  shard's ``wi``/``wo`` are summed over the ranks holding that shard
+  (data x sequence) and divided by ``data``.
 
-Each rank holds a contiguous block of the global batch (``local_rows``),
-computes its local mean loss, and the gradient all-reduce averages over
-the ranks, so the update is the global batch's. Metrics are averaged over
-the ranks only where a caller asks (``reduce_metrics``, at log
-boundaries), so steps between them read nothing back from the device.
+Each rank holds a contiguous block of the global batch (``local_rows``,
+by its place on the data and fsdp axes), computes its local mean loss
+(the sequence group's mean, on a sequence-sharded mesh), and the gradient
+reduction averages over the blocks, so the update is the global batch's.
+Metrics are averaged over the ranks only where a caller asks
+(``reduce_metrics``, at log boundaries), so steps between them read
+nothing back from the device.
+
+Checkpoints hold whole parameters: an expert shard's ``wi``/``wo`` and
+their AdamW moments are gathered over the expert group to save
+(``state_dicts``), and each rank takes its slice of them to restore
+(``load_full_state_dicts``), so any layout resumes any other.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Union
 
 import torch
 import torch.distributed as dist
 from torch import nn
 
-from tfk8s_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_FSDP, MeshConfig, build_device_mesh, rank, world_size
+from tfk8s_tpu_torch.parallel.collectives import all_gather
+from tfk8s_tpu_torch.parallel.mesh import (
+    AXIS_DATA,
+    AXIS_EXPERT,
+    AXIS_FSDP,
+    AXIS_SEQUENCE,
+    Mesh,
+    MeshConfig,
+    build_mesh,
+)
+from tfk8s_tpu_torch.parallel.moe import SwitchMoeBlock
 
 
 class DataParallel:
-    """The job's data-parallel layout, for one rank. ``mode`` is "none"
-    (one process), "ddp", "fsdp" or "hsdp"."""
+    """The job's parallel layout, for one rank. ``mode`` is "none" (one
+    process), "ddp", "fsdp", "hsdp" or "mesh" (expert and/or sequence
+    axes). ``layout`` is the job's ``MeshConfig`` (None: data over every
+    rank) or an already built :class:`Mesh`."""
 
-    def __init__(self, cfg: Optional[MeshConfig], device: torch.device):
+    def __init__(self, layout: Union[MeshConfig, Mesh, None], device: torch.device):
         self.device = torch.device(device)
-        self.cfg = cfg or MeshConfig.create(data=world_size())
-        self.mesh = build_device_mesh(self.cfg, self.device)
-        self.world = world_size()
-        self.rank = rank()
+        self.layout = layout if isinstance(layout, Mesh) else build_mesh(layout, self.device)
+        self.cfg = self.layout.cfg
+        self.mesh = self.layout.device_mesh
+        self.world = self.layout.cfg.size()
+        self.rank = self.layout.rank
+        # this rank's block of the global batch, of batch_world blocks
+        self.batch_rank, self.batch_world = self.layout.batch_index, self.layout.batch_size
+        self.seq_index, self.seq_size = (self.layout.index(AXIS_SEQUENCE),
+                                         self.layout.size(AXIS_SEQUENCE))
+        # name -> (lo, hi): the expert rows each expert-sharded parameter holds
+        self.expert_params: Dict[str, tuple] = {}
         data, fsdp = self.cfg.axis_size(AXIS_DATA), self.cfg.axis_size(AXIS_FSDP)
         if self.world == 1:
             self.mode = "none"
+        elif self.layout.size(AXIS_EXPERT, AXIS_SEQUENCE) > 1:
+            self.mode = "mesh"
         elif fsdp == 1:
             self.mode = "ddp"
         else:
@@ -53,15 +91,21 @@ class DataParallel:
         return self.mode in ("fsdp", "hsdp")
 
     def local_rows(self, batch_size: int) -> int:
-        if batch_size % self.world:
+        if batch_size % self.batch_world:
             raise ValueError(
-                f"batch_size={batch_size} does not divide over {self.world} ranks"
+                f"batch_size={batch_size} does not divide over {self.batch_world} ranks"
             )
-        return batch_size // self.world
+        return batch_size // self.batch_world
 
     def wrap(self, model: nn.Module) -> nn.Module:
         """The model as the step runs it (the optimizer must be built over
         the wrapped parameters)."""
+        self.expert_params = {
+            f"{name}.{p}": m.expert_range
+            for name, m in model.named_modules()
+            if isinstance(m, SwitchMoeBlock) and m.experts is not None and m.experts.size > 1
+            for p in ("wi", "wo")
+        }
         if self.mode == "ddp":
             ids = [self.device.index] if self.device.type == "cuda" else None
             return nn.parallel.DistributedDataParallel(model, device_ids=ids)
@@ -72,11 +116,42 @@ class DataParallel:
             return fully_shard(model, mesh=mesh)
         return model
 
+    def _buckets(self, model: nn.Module):
+        """``[(params, group, divisor)]``: replicated parameters over every
+        rank / (data x expert); expert shards over their group / data."""
+        rep, exp = [], []
+        for name, p in model.named_parameters():
+            (exp if name in self.expert_params else rep).append(p)
+        lay = self.layout
+        data = lay.size(AXIS_DATA)
+        buckets = [(rep, dist.group.WORLD, data * lay.size(AXIS_EXPERT))]
+        if exp:
+            buckets.append((exp, lay.group(AXIS_DATA, AXIS_FSDP, AXIS_SEQUENCE), data))
+        return buckets
+
+    def reduce_gradients(self, model: nn.Module) -> None:
+        """Mode "mesh": reduce the step's gradients (one all-reduce a
+        bucket); a no-op in the other modes, whose wrappers reduce."""
+        if self.mode != "mesh":
+            return
+        for params, group, divisor in self._buckets(model):
+            grads = [p.grad for p in params if p.grad is not None]
+            if not grads:
+                continue
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            if group is not None:
+                dist.all_reduce(flat, group=group)
+            flat /= divisor
+            offset = 0
+            for g in grads:
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
+
     @contextlib.contextmanager
     def no_sync(self, model: nn.Module, last: bool) -> Iterator[None]:
         """Skip the gradient all-reduce for a microbatch that is not the
         step's last."""
-        if last or self.mode == "none":
+        if last or self.mode in ("none", "mesh"):
             yield
         elif self.mode == "ddp":
             with model.no_sync():
@@ -88,8 +163,17 @@ class DataParallel:
             finally:
                 model.set_requires_gradient_sync(True)
 
-    def grad_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+    def grad_norm(self, grads: List[torch.Tensor], model: Optional[nn.Module] = None
+                  ) -> torch.Tensor:
         """The global L2 norm of the (already averaged) gradients."""
+        if self.mode == "mesh" and model is not None and self.layout.size(AXIS_EXPERT) > 1:
+            # expert shards differ over the expert group: sum their squares
+            sq = [torch.zeros((), device=self.device), torch.zeros((), device=self.device)]
+            for name, p in model.named_parameters():
+                if p.grad is not None:
+                    sq[name in self.expert_params] += p.grad.float().square().sum()
+            dist.all_reduce(sq[1], group=self.layout.group(AXIS_EXPERT))
+            return (sq[0] + sq[1]).sqrt()
         norm = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(_local(g).float()) for g in grads])
         )
@@ -117,9 +201,22 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if hasattr(t, "to_local") else t
 
 
-def state_dicts(model: nn.Module, optimizer: torch.optim.Optimizer) -> Dict[str, dict]:
+def _expert_tensors(sd: Dict[str, dict], names) -> List[tuple]:
+    """``(container, key, name)`` of every tensor of the parameters
+    ``names``: the model entry and its optimizer moments."""
+    out = [(sd["model"], n, n) for n in names if n in sd["model"]]
+    for n in names:
+        st = sd["optimizer"]["state"].get(n, {})
+        out += [(st, k, n) for k, v in st.items() if k != "step" and torch.is_tensor(v)]
+    return out
+
+
+def state_dicts(model: nn.Module, optimizer: torch.optim.Optimizer,
+                parallel: Optional[DataParallel] = None) -> Dict[str, dict]:
     """Model and optimizer state keyed by parameter name, the same for a
-    plain, DDP or FSDP2 model (DTensor shards under FSDP2)."""
+    plain, DDP or FSDP2 model (DTensor shards under FSDP2). With expert
+    shards (``parallel``), their parameters and moments are gathered over
+    the expert group into whole ``[num_experts, ...]`` tensors."""
     from torch.distributed.checkpoint.state_dict import get_state_dict
 
     fresh = not optimizer.state
@@ -131,18 +228,37 @@ def state_dicts(model: nn.Module, optimizer: torch.optim.Optimizer) -> Dict[str,
         for st in osd["state"].values():
             st["step"] = torch.zeros_like(st["step"])
         optimizer.state.clear()
-    return {"model": msd, "optimizer": osd}
+    sd = {"model": msd, "optimizer": osd}
+    group = parallel.layout.group(AXIS_EXPERT) if parallel is not None else None
+    if group is not None:
+        # the state dicts hold the live optimizer's per-parameter dicts
+        sd["optimizer"] = {**osd, "state": {k: dict(v) for k, v in osd["state"].items()}}
+        for box, key, _ in _expert_tensors(sd, parallel.expert_params):
+            box[key] = all_gather(box[key], 0, group)
+    return sd
 
 
 def load_full_state_dicts(model: nn.Module, optimizer: torch.optim.Optimizer,
-                          saved: Dict[str, dict]) -> None:
+                          saved: Dict[str, dict],
+                          parallel: Optional[DataParallel] = None) -> None:
     """Load unsharded, name-keyed state (``state_dicts`` of any layout,
-    gathered) into ``model``/``optimizer`` of this rank's layout."""
+    gathered) into ``model``/``optimizer`` of this rank's layout: an
+    expert shard takes its experts' rows."""
     from torch.distributed.checkpoint.state_dict import StateDictOptions, set_state_dict
 
+    saved = {"model": dict(saved["model"]), "optimizer": saved["optimizer"]}
+    if parallel is not None and parallel.expert_params:
+        saved["optimizer"] = {
+            **saved["optimizer"],
+            "state": {k: dict(v) for k, v in saved["optimizer"]["state"].items()},
+        }
+        for box, key, name in _expert_tensors(saved, parallel.expert_params):
+            lo, hi = parallel.expert_params[name]
+            box[key] = box[key][lo:hi]
     set_state_dict(
         model, optimizer,
-        model_state_dict=dict(saved["model"]),
+        model_state_dict=saved["model"],
         optim_state_dict=saved["optimizer"],
         options=StateDictOptions(full_state_dict=True),
     )
+

@@ -1,12 +1,16 @@
 """The job's logical mesh, ported from the JAX package's
 ``parallel/mesh.py``: ``MeshConfig`` keeps the reference's canonically
 ordered axes (pipeline, data, fsdp, expert, sequence, tensor) read from
-``TFK8S_MESH``, and ``build_device_mesh`` turns the ``data`` and ``fsdp``
-axes into a ``torch.distributed`` ``DeviceMesh``.
+``TFK8S_MESH``, and ``build_mesh`` turns them into a :class:`Mesh`: this
+rank's coordinates on every axis and one ``torch.distributed`` process
+group per axis (and per set of axes a gradient is reduced over), the
+counterpart of the reference's ``jax.sharding.Mesh``.
 
 The port runs one process per device, so the devices a job has are the
-ranks of its process group. The tensor, sequence, expert and pipeline
-axes are ROADMAP item 1.9 and raise ``NotImplementedError`` above size 1.
+ranks of its process group, laid out in the reference's canonical order
+(later axes vary fastest over the ranks). The data, fsdp, expert and
+sequence axes are ported; tensor and pipeline are ROADMAP item 1.9 and
+raise ``NotImplementedError`` above size 1.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import dataclasses
 import json
 import math
 import os
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -36,7 +40,9 @@ CANONICAL_ORDER: Tuple[str, ...] = (
     AXIS_SEQUENCE,
     AXIS_TENSOR,
 )
-PORTED_AXES = (AXIS_DATA, AXIS_FSDP)
+PORTED_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_EXPERT, AXIS_SEQUENCE)
+# the axes a batch is split over (the reference's ``batch`` logical axis)
+BATCH_AXES = (AXIS_DATA, AXIS_FSDP)
 
 
 def world_size() -> int:
@@ -106,9 +112,34 @@ class MeshConfig:
         other = {n: s for n, s in self.axes if n not in PORTED_AXES}
         if other:
             raise NotImplementedError(
-                f"mesh axes {other}: tensor, sequence, expert and pipeline "
-                "parallelism are ROADMAP item 1.9"
+                f"mesh axes {other}: tensor and pipeline parallelism are "
+                "ROADMAP item 1.9"
             )
+        if self.axis_size(AXIS_FSDP) > 1 and (
+                self.axis_size(AXIS_EXPERT) > 1 or self.axis_size(AXIS_SEQUENCE) > 1):
+            raise NotImplementedError(
+                f"mesh {dict(self.axes)}: fsdp together with the expert or "
+                "sequence axis is ROADMAP item 1.9"
+            )
+
+    def coords(self, r: int) -> Dict[str, int]:
+        """Rank ``r``'s index on every axis: the reference's C-order
+        reshape of the device list, later axes fastest."""
+        out: Dict[str, int] = {}
+        for name, size in reversed(self.axes):
+            out[name] = r % size
+            r //= size
+        return {n: out[n] for n in self.names}
+
+    def ranks_along(self, axes: Sequence[str]) -> List[List[int]]:
+        """The rank blocks that vary over ``axes`` only (the other axes
+        fixed), in order of their first rank: one process group each."""
+        blocks: Dict[Tuple[int, ...], List[int]] = {}
+        for r in range(self.size()):
+            c = self.coords(r)
+            key = tuple(c[n] for n in self.names if n not in axes)
+            blocks.setdefault(key, []).append(r)
+        return list(blocks.values())
 
     def check_devices(self, available: int) -> None:
         """The reference's device-count check, with its text."""
@@ -119,9 +150,63 @@ class MeshConfig:
             )
 
 
-def build_device_mesh(cfg: MeshConfig, device: torch.device):
-    """The ``("data", "fsdp")`` ``DeviceMesh`` over the process group, one
-    rank per device; None for a one-process job."""
+# the axis sets a process group is made for: each model axis on its own
+# (the MoE combine, the ring and Ulysses exchanges), the batch axes (the
+# MoE load-balance statistics are global-batch means), and the ranks that
+# share an expert shard (its gradients are reduced over them)
+_GROUP_AXES: Tuple[Tuple[str, ...], ...] = (
+    (AXIS_EXPERT,), (AXIS_SEQUENCE,), BATCH_AXES, (AXIS_DATA, AXIS_FSDP, AXIS_SEQUENCE),
+)
+
+
+@dataclasses.dataclass(eq=False)
+class Mesh:
+    """The job's mesh as one rank sees it: the config, this rank's device
+    and coordinates, and a process group for each axis set of
+    ``_GROUP_AXES`` whose ranks number more than one. ``device_mesh`` is
+    the ``("data", "fsdp")`` ``DeviceMesh`` FSDP2 shards over (None unless
+    the mesh has only those axes and more than one rank)."""
+
+    cfg: MeshConfig
+    device: torch.device
+    rank: int = 0
+    coords: Dict[str, int] = dataclasses.field(default_factory=dict)
+    groups: Dict[Tuple[str, ...], object] = dataclasses.field(default_factory=dict)
+    device_mesh: object = None
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return self.cfg.names
+
+    def size(self, *axes: str) -> int:
+        return math.prod(self.cfg.axis_size(a) for a in axes)
+
+    def index(self, axis: str) -> int:
+        return self.coords.get(axis, 0)
+
+    def group(self, *axes: str):
+        """The process group over ``axes`` (this rank's block); None when
+        they hold one rank."""
+        if self.size(*axes) == 1:
+            return None
+        return self.groups[tuple(axes)]
+
+    @property
+    def batch_index(self) -> int:
+        """This rank's block of the global batch (data-major, then fsdp)."""
+        return self.index(AXIS_DATA) * self.size(AXIS_FSDP) + self.index(AXIS_FSDP)
+
+    @property
+    def batch_size(self) -> int:
+        """The number of blocks the batch is split into."""
+        return self.size(*BATCH_AXES)
+
+
+def build_mesh(cfg: Optional[MeshConfig], device: torch.device) -> Mesh:
+    """This rank's :class:`Mesh` over the process group, one rank per
+    device (the data axis over every rank when ``cfg`` is None). Every rank
+    must call it: the process groups are made collectively."""
+    cfg = cfg or MeshConfig.create(data=world_size())
     cfg.require_ported()
     world = world_size()
     cfg.check_devices(world)
@@ -130,12 +215,26 @@ def build_device_mesh(cfg: MeshConfig, device: torch.device):
             f"mesh {dict(cfg.axes)} spans {cfg.size()} devices; the process "
             f"group has {world} ranks, one device each"
         )
+    me = rank()
+    mesh = Mesh(cfg, torch.device(device), me, cfg.coords(me))
     if world == 1:
-        return None
-    from torch.distributed.device_mesh import init_device_mesh
+        return mesh
+    for axes in _GROUP_AXES:
+        # the expert-shard group only matters when there are shards
+        if mesh.size(*axes) == 1 or (AXIS_SEQUENCE in axes and len(axes) > 1
+                                     and mesh.size(AXIS_EXPERT) == 1):
+            continue
+        for block in cfg.ranks_along(axes):
+            g = dist.new_group(block)
+            if me in block:
+                mesh.groups[axes] = g
+    if set(cfg.names) <= set(BATCH_AXES):
+        from torch.distributed.device_mesh import init_device_mesh
 
-    return init_device_mesh(
-        torch.device(device).type,
-        (cfg.axis_size(AXIS_DATA), cfg.axis_size(AXIS_FSDP)),
-        mesh_dim_names=(AXIS_DATA, AXIS_FSDP),
-    )
+        mesh.device_mesh = init_device_mesh(
+            torch.device(device).type,
+            (cfg.axis_size(AXIS_DATA), cfg.axis_size(AXIS_FSDP)),
+            mesh_dim_names=(AXIS_DATA, AXIS_FSDP),
+        )
+    return mesh
+

@@ -11,8 +11,8 @@ than one process AND ``TFK8S_DISTRIBUTED=1`` does it call
 ``torch.distributed.init_process_group`` (NCCL on a card, gloo on the
 CPU), so replicas run as threads of one process never bind ports.
 Multislice, more than one device per process (ROADMAP item 1.5) and the
-tensor, sequence, expert and pipeline axes (item 1.9) raise
-``NotImplementedError``.
+tensor and pipeline axes (item 1.9) raise ``NotImplementedError``; the
+data, fsdp, expert and sequence axes run (``parallel/mesh.build_mesh``).
 """
 
 from __future__ import annotations
@@ -89,8 +89,7 @@ class ProcessContext:
     def require_single_device(self, processes: int = 1) -> None:
         """Raise for the layouts the port does not run yet: multislice,
         more than one device per process (a mesh larger than the
-        ``processes`` that share it), and mesh axes beyond data and
-        fsdp."""
+        ``processes`` that share it), and the tensor and pipeline axes."""
         if self.num_slices > 1:
             raise NotImplementedError(
                 f"{self.num_slices} slices: multislice training is ROADMAP item 1.5"

@@ -17,10 +17,13 @@ What is kept from the reference:
   opening its round-robin share, fast-forwarded to the resume step, the
   first batch held to the task's schema. Host batches are synthesized
   ahead on a prefetch thread;
-- multi-process data parallelism over the mesh's ``data`` and ``fsdp``
-  axes (``parallel.data_parallel``): each rank trains on its contiguous
-  rows of the global batch; losses and metrics are global means, read
-  back and averaged over the ranks only at log boundaries;
+- multi-process parallelism over the mesh's ``data``, ``fsdp``,
+  ``expert`` and ``sequence`` axes (``parallel.data_parallel``): each
+  rank trains on its contiguous rows of the global batch (by its place on
+  data and fsdp) and, on a sequence-sharded mesh, its contiguous block of
+  the sequence (``TrainTask.split_sequence``) of the same numpy batch;
+  losses and metrics are global means, read back and averaged over the
+  ranks only at log boundaries;
 - progress reports from each process, convergence targets, checkpoint/
   resume (a checkpoint saved by N processes restores in M), and the drain
   on a reclaim notice (``stop.drain_requested``) ending in ``PodDrained``;
@@ -55,7 +58,7 @@ from torch import nn
 from tfk8s_tpu_torch.data.dataset import RecordDataset
 from tfk8s_tpu_torch.obs.trace import TRACEPARENT_ENV, get_tracer
 from tfk8s_tpu_torch.parallel.data_parallel import DataParallel, load_full_state_dicts, state_dicts
-from tfk8s_tpu_torch.parallel.mesh import world_size
+from tfk8s_tpu_torch.parallel.mesh import Mesh, build_mesh, world_size
 from tfk8s_tpu_torch.runtime import node_agent, progress
 from tfk8s_tpu_torch.runtime.checkpoint import Checkpointer
 from tfk8s_tpu_torch.runtime.launcher import ProcessContext, initialize_distributed, select_device
@@ -80,7 +83,10 @@ class TrainTask:
     ``init(generator)`` builds the model on the CPU with its initial
     parameters drawn from ``generator``; ``loss_fn(model, batch) -> (loss,
     metrics)`` computes the scalar objective on a batch of device tensors;
-    ``make_batch(np_rng, batch_size)`` produces one host-side numpy batch."""
+    ``make_batch(np_rng, batch_size)`` produces one host-side numpy batch;
+    ``split_sequence(batch, index, n)`` gives rank ``index``'s block of it
+    on a sequence-sharded mesh of ``n`` (None: the ``n`` contiguous blocks
+    of every array's axis 1)."""
 
     name: str
     init: Callable[[torch.Generator], nn.Module]
@@ -90,6 +96,20 @@ class TrainTask:
     batch_size: int = 32
     # metric name -> target the run should reach (convergence check)
     targets: Dict[str, float] = dataclasses.field(default_factory=dict)
+    split_sequence: Optional[Callable[[Dict[str, np.ndarray], int, int],
+                                      Dict[str, np.ndarray]]] = None
+
+
+def split_sequence_axis1(batch: Dict[str, np.ndarray], index: int, n: int
+                         ) -> Dict[str, np.ndarray]:
+    """Block ``index`` of ``n`` of every array's axis 1 (the sequence)."""
+    out = {}
+    for k, v in batch.items():
+        if v.shape[1] % n:
+            raise ValueError(f"{k}: length {v.shape[1]} does not divide over sequence={n}")
+        blk = v.shape[1] // n
+        out[k] = np.ascontiguousarray(v[:, index * blk:(index + 1) * blk])
+    return out
 
 
 @dataclasses.dataclass
@@ -161,15 +181,17 @@ class TrainState:
     step: int
     model: nn.Module
     optimizer: torch.optim.Optimizer
+    parallel: Optional[DataParallel] = None
 
     def state_dict(self) -> Dict[str, Any]:
         """Model and optimizer state keyed by parameter name, whatever
-        wraps the model (this rank's shards under FSDP)."""
-        return {"step": self.step, **state_dicts(self.model, self.optimizer)}
+        wraps the model (this rank's shards under FSDP; expert shards
+        gathered whole)."""
+        return {"step": self.step, **state_dicts(self.model, self.optimizer, self.parallel)}
 
     def load_state_dict(self, saved: Dict[str, Any]) -> None:
         """Load a whole (unsharded) saved state into this rank's layout."""
-        load_full_state_dicts(self.model, self.optimizer, saved)
+        load_full_state_dicts(self.model, self.optimizer, saved, self.parallel)
         self.step = int(saved["step"])
 
 
@@ -320,7 +342,7 @@ class Trainer:
             model.parameters(), lr=self.schedule(0), betas=(0.9, 0.999),
             eps=1e-8, weight_decay=self.config.weight_decay,
         )
-        return TrainState(step=0, model=model, optimizer=optimizer)
+        return TrainState(step=0, model=model, optimizer=optimizer, parallel=self.parallel)
 
     def to_device(self, host_batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return {
@@ -346,8 +368,9 @@ class Trainer:
             loss = loss + loss_i.detach().float() / accum
             for k, v in aux_i.items():
                 aux[k] = aux.get(k, 0.0) + v.detach().float() / accum
+        self.parallel.reduce_gradients(model)
         grads = [p.grad for p in model.parameters() if p.grad is not None]
-        grad_norm = self.parallel.grad_norm(grads)
+        grad_norm = self.parallel.grad_norm(grads, model)
         lr = self.schedule(state.step)  # optax reads the pre-update count
         for group in opt.param_groups:
             group["lr"] = lr
@@ -384,7 +407,7 @@ class Trainer:
         reference reads off its sharding); the shards must not straddle
         ranks. ``num_shards=None`` uses the config (per_host mode)."""
         cfg, task = self.config, self.task
-        num_shards = num_shards or cfg.input_shards or self.parallel.world
+        num_shards = num_shards or cfg.input_shards or self.parallel.batch_world
         accum = max(cfg.grad_accum_steps, 1)
         if task.batch_size % num_shards:
             raise ValueError(
@@ -396,7 +419,7 @@ class Trainer:
                 f"a multiple of grad_accum_steps={accum}"
             )
         local = self.parallel.local_rows(task.batch_size)
-        lo, hi = self.parallel.rank * local, (self.parallel.rank + 1) * local
+        lo, hi = self.parallel.batch_rank * local, (self.parallel.batch_rank + 1) * local
         rows_per_shard = task.batch_size // num_shards
         if lo % rows_per_shard or hi % rows_per_shard:
             raise ValueError(
@@ -418,25 +441,27 @@ class Trainer:
             log.warning(
                 "%s: input_shards=%d is ignored in input_mode='files' "
                 "(file input divides per process: %d); unset it or use "
-                "input_mode='per_host'", task.name, cfg.input_shards, par.world,
+                "input_mode='per_host'", task.name, cfg.input_shards, par.batch_world,
             )
-        if par.world > 1:
-            lo, hi, n = self._input_shard_plan(num_shards=par.world)
+        if par.batch_world > 1:
+            lo, hi, n = self._input_shard_plan(num_shards=par.batch_world)
             self.input_shard_range = (lo, hi, n)
         local_rows = par.local_rows(task.batch_size)
-        ds = RecordDataset(paths, batch_size=local_rows, host_index=par.rank,
-                           num_hosts=par.world, seed=cfg.seed)
-        if ds.shard_by == "records" and par.world > 1:
+        # the ranks of one batch block (its expert and sequence ranks) read
+        # the same records
+        ds = RecordDataset(paths, batch_size=local_rows, host_index=par.batch_rank,
+                           num_hosts=par.batch_world, seed=cfg.seed)
+        if ds.shard_by == "records" and par.batch_world > 1:
             log.warning(
                 "%s: only %d record files for %d processes — falling back "
                 "to RECORD striping (every process reads all files; write "
                 ">= one file per host to restore per-host file IO)",
-                task.name, len(ds.files), par.world,
+                task.name, len(ds.files), par.batch_world,
             )
         log.info(
             "%s: array file input (%s-sharded) — process %d/%d reads %d files / "
             "%d records, %d rows/step, resuming at batch %d",
-            task.name, ds.shard_by, par.rank, par.world, len(ds.files), len(ds),
+            task.name, ds.shard_by, par.batch_rank, par.batch_world, len(ds.files), len(ds),
             local_rows, start_step,
         )
         want = task.make_batch(np.random.default_rng(0), 1)
@@ -492,15 +517,22 @@ class Trainer:
             # loop); with several processes each keeps its own rows
             np_rng = np.random.default_rng(cfg.seed + start_step)
             local = par.local_rows(self.task.batch_size)
-            rows = slice(par.rank * local, (par.rank + 1) * local)
+            rows = slice(par.batch_rank * local, (par.batch_rank + 1) * local)
+        split = self.task.split_sequence or split_sequence_axis1
 
-        def _make_host_batch(step: int) -> Dict[str, np.ndarray]:
+        def _rows_batch(step: int) -> Dict[str, np.ndarray]:
             if files_iter is not None:
                 return next(files_iter)
             if mode == "per_host":
                 return self._make_shard_batch(step, shard_lo, shard_hi, num_shards)
             batch = self.task.make_batch(np_rng, self.task.batch_size)
-            return batch if par.world == 1 else {k: v[rows] for k, v in batch.items()}
+            return batch if par.batch_world == 1 else {k: v[rows] for k, v in batch.items()}
+
+        def _make_host_batch(step: int) -> Dict[str, np.ndarray]:
+            batch = _rows_batch(step)
+            if par.seq_size > 1:
+                batch = split(batch, par.seq_index, par.seq_size)
+            return batch
 
         prefetcher = (
             _BatchPrefetcher(_make_host_batch, start_step, cfg.steps, cfg.prefetch)
@@ -642,6 +674,14 @@ def config_from_env(env: Dict[str, str], ctx: ProcessContext) -> TrainConfig:
     )
 
 
+def join_mesh(env: Dict[str, str], device: Optional[torch.device] = None,
+              ) -> Tuple[ProcessContext, torch.device, Mesh]:
+    """:func:`join_job`, then this rank's :class:`parallel.mesh.Mesh`: what
+    an entrypoint builds its task over (the reference's ``build_mesh``)."""
+    ctx, device = join_job(env, device)
+    return ctx, device, build_mesh(ctx.mesh, device)
+
+
 def join_job(env: Dict[str, str], device: Optional[torch.device] = None,
              ) -> Tuple[ProcessContext, torch.device]:
     """Env -> process context, the process group (when the job has one)
@@ -665,9 +705,12 @@ def run_task(
     stop: Optional[Any] = None,
     config: Optional[TrainConfig] = None,
     device: Optional[torch.device] = None,
+    mesh: Optional[Mesh] = None,
 ) -> List[Dict[str, float]]:
-    """Entrypoint glue: env contract -> process group and device ->
-    (resume ->) fit -> metrics history. Raises if the task declares
+    """Entrypoint glue: env contract -> process group, device and mesh
+    (:func:`join_mesh`, or the ``mesh`` the caller joined and built the
+    task over) -> (resume ->) fit
+    -> metrics history. Raises if the task declares
     convergence targets and misses them — a failed pod is how the control
     plane learns training went wrong — and ``PodDrained`` after a drain
     (the node agent's class when ``stop`` comes from one). Progress goes
@@ -681,9 +724,12 @@ def run_task(
             attributes={"task": task.name},
         ):
             with tracer.start_span("trainer.startup", attributes={"task": task.name}):
-                ctx, device = join_job(env, device)
+                if mesh is None:
+                    ctx, device, mesh = join_mesh(env, device)
+                else:
+                    ctx, device = ProcessContext.from_env(env), mesh.device
                 config = config or config_from_env(env, ctx)
-                trainer = Trainer(task, config, device, DataParallel(ctx.mesh, device))
+                trainer = Trainer(task, config, device, DataParallel(mesh, device))
             _state, history = trainer.fit(stop=stop)
     if trainer.drained_at is not None:
         raise node_agent.pod_drained_class(stop)(
