@@ -191,11 +191,33 @@ must pass:
    offset, which must exceed the bounds. (d) GPT-2-small + 8 experts on
    ``{"expert": 2}``. Each gang prints its ranks' step time, launches and
    the collectives gloo staged through host memory;
-14. nccl: (e) with two cards or more the gangs of phase 13 (but the
+14. tensor: the tensor axis. The flash kernels at a tensor rank's calls
+   (6 of 12 heads: GPT-2-small's causal [8, 1024, 6, 64], BERT-base's
+   [32, 512, 6, 64], T5-base's key-masked [16, 512, 6, 64], ViT-B/16's
+   ragged [64, 196, 6, 64]) against their plain versions and SDPA, with
+   device times. Then two-rank gloo gangs sharing the card on ``{"tensor": 2}``,
+   each running its family's ``train(env)`` for two steps at full width
+   (GPT-2-small seq 1024 batch 8, BERT-base seq 512 batch 32, T5-base seq
+   512 batch 16, ViT-B/16 224/16 batch 64; bf16, flash), its first
+   update's gradient and loss against one process's run of the same entry
+   point (PARALLEL_LOSS_ATOL, FAMILY_GRAD_REL_L2), every rank launching
+   each tensor-core kernel layers x steps times (T5: three sites a layer)
+   with every forward at 6 heads; GPT-2-small with every row split left unsummed must exceed the
+   bounds. Then ``dlrm:train`` at its defaults (eight tables of 100,000 x
+   64, batch 4,096, bf16 compute) for 20 steps in one process, whose loss
+   must fall and which launches no flash kernel, and its ``{"tensor": 2}``
+   gang's first update against it (the whole gradient's relative L2, and
+   each table's own: the tables hold too little of the norm to show in
+   the whole). Each gang prints its ranks' step time
+   beside one process's: two gloo ranks on one card measure gloo, not
+   scaling;
+15. nccl: with two cards or more the gangs of phase 13 (but the
    planted fault) run again over NCCL, a card a rank, against one
-   process; with one card, a line says they were skipped and why.
+   process, and with four cards T5-base on ``{"data": 2, "tensor": 2}``
+   (``BASELINE.json`` configs[3]) and GPT-2-small on ``{"tensor": 4}`` (3
+   heads a rank); with fewer cards, a line says what was skipped and why.
 
-The launch counts are zeroed just before each path (phases 6-14) and
+The launch counts are zeroed just before each path (phases 6-15) and
 read just after it; the line's launches add up the paths'. Then it prints the card line, the ``kernels`` JSON
 line and, last, the ``ok`` line. It exits non-zero, printing no result,
 when a phase fails, when no card is visible, or when the port's package is
@@ -2424,14 +2446,13 @@ def entry_steps(torch, fa, module, env):
 
 
 PAR_WORKER = r"""
-import json, os, sys
+import importlib, json, os, sys
 sys.path.insert(0, os.environ["CHIP_SMOKE_ROOT"])
 import torch
 
 from chip_smoke import entry_steps
-from tfk8s_tpu_torch.models import bert, gpt
 from tfk8s_tpu_torch.ops import flash_attention as fa
-from tfk8s_tpu_torch.parallel import collectives, ring_attention
+from tfk8s_tpu_torch.parallel import collectives, ring_attention, tensor_parallel
 from tfk8s_tpu_torch.runtime.launcher import ProcessContext, initialize_distributed
 
 env = dict(os.environ)
@@ -2443,21 +2464,29 @@ if env.get("FAULT") == "ring_offset":
     # planted: the ring's causal mask without the blocks' global offset
     ring_attention._q_pos = lambda q, k, ring, me: (
         torch.arange(q.shape[1], device=q.device) + ring * (k.shape[1] - q.shape[1]))
-module = bert if env["FAMILY"] == "bert" else gpt
+if env.get("FAULT") == "row_unsummed":
+    # planted: every row split's output left as this rank's part, unsummed
+    tensor_parallel.sum_over = lambda x, group: x
+# the head count of every flash forward this rank runs
+heads, flash_fwd = set(), fa.flash_fwd
+fa.flash_fwd = lambda q, *a, **kw: heads.add(q.shape[2]) or flash_fwd(q, *a, **kw)
+module = importlib.import_module("tfk8s_tpu_torch.models." + env["FAMILY"])
 losses, grads, step_ms, launches = entry_steps(torch, fa, module, env)
 torch.save(grads, env["OUT"] + "-%d.pt" % ctx.process_id)
 print("RANK " + json.dumps({
     "rank": ctx.process_id, "losses": losses, "step_ms": step_ms, "launches": launches,
-    "host_staged": sorted(collectives.HOST_STAGED)}), flush=True)
+    "heads": sorted(heads), "host_staged": sorted(collectives.HOST_STAGED)}), flush=True)
 """
 
 
-def _run_par_gang(name, n_procs, env, out, want, backend="gloo"):
+def _run_par_gang(name, n_procs, env, out, want, backend="gloo", whole=None):
     """``n_procs`` processes of PAR_WORKER on a free port (gloo ranks share
     the one card; NCCL ranks take a card each), each driving ``env``'s
     entry point; their RANK records in rank order, and the whole gradient
-    of the first step put together from their files: an expert-sharded
-    parameter (shaped unlike ``want``'s) concatenated in rank order."""
+    of the first step put together from their files: a parameter shaped
+    unlike ``want``'s (an expert shard, a tensor block) is the blocks of
+    the ranks ``whole`` (default: every rank) concatenated in rank order
+    along the dimension they split."""
     import socket
 
     import torch
@@ -2498,17 +2527,24 @@ def _run_par_gang(name, n_procs, env, out, want, backend="gloo"):
     parts = [torch.load(f"{out}-{r}.pt") for r in range(n_procs)]
     if any(len(p) != len(want) for p in parts):
         raise AssertionError(f"{name}: {[len(p) for p in parts]} parameters, want {len(want)}")
-    grads = [ps[0] if ps[0].shape == w.shape else torch.cat(ps) for w, ps in
-             zip(want, zip(*parts))]
+    whole = range(n_procs) if whole is None else whole
+    grads = []
+    for w, ps in zip(want, zip(*parts)):
+        if ps[0].shape == w.shape:
+            grads.append(ps[0])
+            continue
+        dim = next(d for d in range(w.dim()) if ps[0].shape[d] != w.shape[d])
+        grads.append(torch.cat([ps[r] for r in whole], dim=dim))
     for r in range(n_procs):
         os.remove(f"{out}-{r}.pt")
     return sorted(records, key=lambda r: r["rank"]), grads
 
 
-def _gang_check(name, records, grads, loss, want, launches, fault=False):
+def _gang_check(name, records, grads, loss, want, launches, fault=False, heads=None):
     """The gang's first-step loss and gradient against one process's:
-    within the base-width bounds, or (a planted fault) beyond them; and
-    every rank's flash launches exactly ``launches``."""
+    within the base-width bounds, or (a planted fault) beyond them; every
+    rank's flash launches exactly ``launches``, and (``heads``) every
+    flash forward at that many heads."""
     errs = {"loss_err": max(abs(r["losses"][0] - loss) for r in records),
             "grad_rel_l2": _grads_rel_l2(dict(enumerate(grads)), dict(enumerate(want))),
             "finite": all(math.isfinite(x) for r in records for x in r["losses"])}
@@ -2522,6 +2558,9 @@ def _gang_check(name, records, grads, loss, want, launches, fault=False):
         if r["launches"] != launches:
             raise AssertionError(f"{name}: rank {r['rank']} flash launches {r['launches']}, "
                                  f"want {launches}")
+        if heads is not None and r["heads"] != heads:
+            raise AssertionError(f"{name}: rank {r['rank']} flash heads {r['heads']}, "
+                                 f"want {heads}")
     return errs
 
 
@@ -2844,16 +2883,177 @@ def _parallel_gangs(torch, gpt, fa, root, backend):
     torch.cuda.empty_cache()
 
 
+# phase tensor: the tensor axis at full width. Each family's gang runs its
+# train(env) on TENSOR_MESH for gang_steps steps, its first update against
+# one process's run of the same entry point (flash, per_host input of two
+# shards in both, so a data axis sees the same global batch):
+# (name, family, entry-point env, flash call sites a layer, planted fault)
+TENSOR = dict(seed=61, gang_steps=2, dlrm_steps=20)
+TENSOR_GANGS = [
+    ("gpt_tensor", "gpt", {"TFK8S_SEQ_LEN": "1024", "TFK8S_BATCH_SIZE": "8"}, 1, None),
+    ("bert_tensor", "bert", {"TFK8S_SEQ_LEN": "512", "TFK8S_BATCH_SIZE": "32"}, 1, None),
+    ("t5_tensor", "t5", {"TFK8S_SEQ_LEN": "512", "TFK8S_BATCH_SIZE": "16"}, 3, None),
+    ("vit_tensor", "vit", {"TFK8S_IMAGE_SIZE": "224", "TFK8S_PATCH_SIZE": "16",
+                           "TFK8S_NUM_CLASSES": "1000", "TFK8S_BATCH_SIZE": "64"}, 1, None),
+    ("gpt_tensor_row_unsummed", "gpt", {"TFK8S_SEQ_LEN": "1024", "TFK8S_BATCH_SIZE": "8"}, 1,
+     "row_unsummed"),
+]
+TENSOR_MESH = {"tensor": 2}
+# over NCCL on four cards: BASELINE.json configs[3]'s T5 layout, and GPT-2-small
+# at three heads a rank: (name, family, mesh, entry-point env, sites a layer)
+TENSOR_NCCL_GANGS = [
+    ("t5_data_tensor", "t5", {"data": 2, "tensor": 2},
+     {"TFK8S_SEQ_LEN": "512", "TFK8S_BATCH_SIZE": "16"}, 3),
+    ("gpt_tensor4", "gpt", {"tensor": 4}, {"TFK8S_SEQ_LEN": "1024", "TFK8S_BATCH_SIZE": "8"}, 1),
+]
+# the flash kernels at each family's call on a tensor rank, 6 of 12 heads,
+# bf16: (name, batch, length, causal, key lengths); T5's keys as its
+# FAMILY_KERNEL_CASES row pads them, ViT's 196 tokens ragged
+TENSOR_KERNEL_CASES = [
+    ("gpt_tensor_rank_causal", 8, 1024, True, None),
+    ("bert_tensor_rank", 32, 512, False, None),
+    ("t5_tensor_rank_key_mask", 16, 512, False, FAMILY_KERNEL_CASES[2][3]),
+    ("vit_tensor_rank_ragged_196", 64, 196, False, None),
+]
+
+
+def _tensor_env(extra):
+    tiny = PARALLEL_ENV.get("TFK8S_MODEL_PRESET") == "tiny"
+    return dict({"TFK8S_MODEL_PRESET": "tiny"} if tiny else {},
+                **({"TFK8S_DEVICE": "cpu"} if DEVICE == "cpu" else {}),
+                **extra, TFK8S_TRAIN_STEPS=str(TENSOR["gang_steps"]), TFK8S_LOG_EVERY="1",
+                TFK8S_LEARNING_RATE="1e-4", TFK8S_SEED=str(TENSOR["seed"]),
+                TFK8S_INPUT_MODE="per_host", TFK8S_INPUT_SHARDS="2",
+                TFK8S_ATTENTION_IMPL="flash")
+
+
+def _tensor_gangs(torch, fa, root, backend, gangs):
+    """Each gang ``(name, family, mesh, env, sites, fault)`` through its
+    family's ``train(env)`` with ``TFK8S_MESH`` set, its first step against
+    one process's (loss within PARALLEL_LOSS_ATOL, every gradient within
+    FAMILY_GRAD_REL_L2, a planted fault beyond them); every rank launches
+    each tensor-core flash kernel sites x layers x steps times (T5's three
+    sites a layer), every forward at h / tensor heads. Returns the launches
+    of the one-process runs."""
+    import importlib
+
+    work = os.path.join(root, "build", "chip_smoke_tensor")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    steps, refs = TENSOR["gang_steps"], {}
+    total = dict.fromkeys(fa.KERNELS, 0)
+    for name, family, mesh, extra, sites, fault in gangs:
+        module = importlib.import_module(f"tfk8s_tpu_torch.models.{family}")
+        env = _tensor_env(extra)
+        cfg = (module.tiny_config if "TFK8S_MODEL_PRESET" in env else module.base_config)()
+        launches = {**dict.fromkeys(fa.SIMT_KERNELS, 0),
+                    **dict.fromkeys(fa.TENSOR_CORE_KERNELS, sites * cfg.num_layers * steps)}
+        if family not in refs:
+            torch.cuda.empty_cache()
+            losses, grads, one_ms, got = entry_steps(torch, fa, module, env)
+            if got != launches:
+                raise AssertionError(f"{family} one process: flash launches {got}, "
+                                     f"want {launches}")
+            for k, v in got.items():
+                total[k] += v
+            refs[family] = (losses[0], grads, one_ms)
+            torch.cuda.empty_cache()
+        loss, want, one_ms = refs[family]
+        n = math.prod(mesh.values())
+        t = mesh["tensor"]
+        t0 = time.perf_counter()
+        records, grads = _run_par_gang(
+            name, n, dict(env, TFK8S_MESH=json.dumps(mesh), FAMILY=family,
+                          **({"FAULT": fault} if fault else {})),
+            os.path.join(work, name), want, backend, whole=range(t))
+        errs = _gang_check(f"{name} ({backend})", records, grads, loss, want, launches,
+                           fault=bool(fault), heads=[cfg.num_heads // t])
+        del grads
+        log(f"tensor gang {name} {json.dumps(mesh)} ({backend}): {json.dumps({**errs, 'one_process_loss': loss, 'one_process_step_ms': one_ms, 'wall_s': time.perf_counter() - t0, 'ranks': records})}")
+    shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
+def _dlrm(torch, fa, root):
+    """``dlrm:train`` at its defaults (eight tables of 100,000 x 64, batch
+    4,096, bf16 compute): TENSOR["dlrm_steps"] steps in one process, whose
+    loss must fall, then a TENSOR_MESH gang's first update against the one
+    process's, and the step on batches staged on the card with its
+    profiler split. No flash kernel runs on this path."""
+    from tfk8s_tpu_torch.models import dlrm
+
+    none = dict.fromkeys(fa.KERNELS, 0)
+    env = dict({"TFK8S_DEVICE": "cpu"} if DEVICE == "cpu" else {},
+               TFK8S_TRAIN_STEPS=str(TENSOR["dlrm_steps"]), TFK8S_LOG_EVERY="1",
+               TFK8S_SEED=str(TENSOR["seed"]), TFK8S_INPUT_MODE="per_host")
+    if DEVICE == "cpu":
+        env.update(TFK8S_VOCAB_SIZES="1001,64,37", TFK8S_BATCH_SIZE="64", TFK8S_EMBED_DIM="16")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses, want, one_ms, launches = entry_steps(torch, fa, dlrm, env)
+    summary = {"steps": len(losses), "losses": losses, "step_ms": one_ms,
+               "wall_s": time.perf_counter() - t0,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "flash_launches": sum(launches.values())}
+    log(f"tensor dlrm one process (no flash kernel runs on this path): {json.dumps(summary)}")
+    if launches != none:
+        raise AssertionError(f"dlrm: flash launches {launches} on a path with no attention")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"dlrm: the loss did not fall: {losses}")
+    log(f"tensor dlrm staged step: {json.dumps(_staged_step(torch, dlrm.make_task(), 5))}")
+    work = os.path.join(root, "build", "chip_smoke_dlrm")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    gang_env = dict(env, TFK8S_TRAIN_STEPS=str(TENSOR["gang_steps"]),
+                    TFK8S_MESH=json.dumps(TENSOR_MESH), FAMILY="dlrm")
+    records, grads = _run_par_gang("dlrm_tensor", 2, gang_env, os.path.join(work, "dlrm"), want)
+    errs = _gang_check("dlrm_tensor (gloo)", records, grads, losses[0], want, none)
+    # the tables lead the optimizer's parameter order; each on its own
+    vocab = env.get("TFK8S_VOCAB_SIZES")
+    tables = range(len(vocab.split(",")) if vocab else len(dlrm.DEFAULT_VOCAB_SIZES))
+    errs["worst_table_rel_l2"] = max(_grads_rel_l2({0: grads[t]}, {0: want[t]}) for t in tables)
+    if not errs["worst_table_rel_l2"] <= FAMILY_GRAD_REL_L2:
+        raise AssertionError(f"dlrm_tensor: a table's gradient beyond {FAMILY_GRAD_REL_L2}: "
+                             f"{errs}")
+    log(f"tensor gang dlrm_tensor {json.dumps(TENSOR_MESH)} (gloo): {json.dumps({**errs, 'one_process_step_ms': one_ms, 'wall_s': time.perf_counter() - t0, 'ranks': records})}")
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_tensor(torch, fa, root):
+    """The tensor axis (docstring phase 14): the flash kernels at a tensor
+    rank's calls, each family's TENSOR_MESH gang over gloo (two ranks
+    sharing the card) with the planted fault, and DLRM. Returns the
+    launches of the one-process entry-point runs it drives here."""
+    for i, (case_name, b, length, causal, lengths) in enumerate(TENSOR_KERNEL_CASES):
+        log(f"case {case_name}:")
+        check_case(fa, Case(case_name, b, length, length, 6, 64, torch.bfloat16,
+                            causal=causal, lengths=lengths, seed=71 + i), iters=10, profile=True)
+        torch.cuda.empty_cache()
+    log("tensor: the gangs' steps are two gloo ranks sharing one card; they measure gloo's "
+        "host round trips, not scaling")
+    total = _tensor_gangs(torch, fa, root, "gloo",
+                          [(n, f, TENSOR_MESH, e, s, x) for n, f, e, s, x in TENSOR_GANGS])
+    _dlrm(torch, fa, root)
+    return total
+
+
 def phase_nccl(torch, gpt, fa, root):
-    """(e): the gangs of phase 13 over NCCL, a card a rank, where the
-    machine has two cards or more; else one line says why they were
-    skipped (NCCL will not put two ranks on one card)."""
+    """The gangs of phase 13 over NCCL, a card a rank, where the machine
+    has two cards or more, and with four the tensor gangs of
+    TENSOR_NCCL_GANGS; else one line says why they were skipped (NCCL will
+    not put two ranks on one card)."""
     cards = torch.cuda.device_count()
     if cards < 2:
         log(f"nccl: gangs skipped: {cards} card visible; NCCL will not put two ranks on "
-            "one card, so the gangs ran over gloo only (phase parallel)")
+            "one card, so the gangs ran over gloo only (phases parallel and tensor)")
         return
     _parallel_gangs(torch, gpt, fa, root, "nccl")
+    if cards < 4:
+        log(f"nccl: tensor gangs skipped: {cards} cards, they need 4")
+        return
+    _tensor_gangs(torch, fa, root, "nccl",
+                  [(n, f, m, e, s, None) for n, f, m, e, s in TENSOR_NCCL_GANGS])
 
 
 def main() -> int:
@@ -2900,6 +3100,7 @@ def main() -> int:
         ("distributed", lambda: phase_distributed(torch, gpt, fa, root)),
         ("families", lambda: phase_families(torch, fa)),
         ("parallel", lambda: phase_parallel(torch, gpt, fa, root)),
+        ("tensor", lambda: phase_tensor(torch, fa, root)),
         ("nccl", lambda: phase_nccl(torch, gpt, fa, root)),
     ]
     if only:
@@ -2924,7 +3125,7 @@ def main() -> int:
         elif name == "kernels":
             line = value
         elif name in ("train", "resnet_train", "roofline", "generate", "distributed",
-                      "families", "parallel"):
+                      "families", "parallel", "tensor"):
             for kernel, count in value.items():  # each path's launches add up
                 launches[kernel] = launches.get(kernel, 0) + count
     for d in (ckpt_dir, rn_ckpt_dir):

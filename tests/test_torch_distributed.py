@@ -372,7 +372,10 @@ def test_mesh_device_count_error_matches_the_reference():
 
 
 @pytest.mark.parametrize("env,item", [
-    ({"TFK8S_MESH": '{"data": 2, "tensor": 2}', "TFK8S_NUM_PROCESSES": "4"}, "1.9"),
+    # tensor runs alone and beside data (tests/test_torch_tensor_parallel.py);
+    # beside fsdp, expert or sequence it still raises
+    ({"TFK8S_MESH": '{"fsdp": 2, "tensor": 2}', "TFK8S_NUM_PROCESSES": "4"}, "1.9"),
+    ({"TFK8S_MESH": '{"expert": 2, "tensor": 2}', "TFK8S_NUM_PROCESSES": "4"}, "1.9"),
     # sequence and expert run now (tests/test_torch_sequence_parallel.py);
     # beside tensor or pipeline they still raise
     ({"TFK8S_MESH": '{"sequence": 2, "tensor": 2}', "TFK8S_NUM_PROCESSES": "4"}, "1.9"),

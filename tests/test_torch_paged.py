@@ -184,6 +184,23 @@ def test_paged_apply_logits_match_reference(bridged):
     _leaves_close(jp, tp)
 
 
+def test_prefill_into_slots_matches_the_reference(bridged):
+    """The reference's chunked-prefill name: one request's ``[1, C]``
+    slice written into its pages at its position."""
+    jcfg, tcfg, params, model = _paged(bridged)
+    chunk = np.random.default_rng(9).integers(1, tcfg.vocab_size, (1, 6)).astype(np.int32)
+    table = np.zeros((1, tcfg.pages_per_slot()), np.int32)
+    table[0, :4] = [3, 7, 2, 9]
+    position = np.array([5], np.int32)
+    jl, jp = jgpt.prefill_into_slots(jcfg, params, jgpt.clean_pages(jcfg), chunk, table, position)
+    with torch.no_grad():
+        tl, tp = tgpt.prefill_into_slots(tcfg, model, tgpt.clean_pages(tcfg),
+                                         torch.from_numpy(chunk), torch.from_numpy(table),
+                                         torch.from_numpy(position))
+    np.testing.assert_allclose(np.asarray(jl), tl.numpy(), atol=LOGIT_ATOL, rtol=0)
+    _leaves_close(jp, tp)
+
+
 def test_pool_leaves_follow_the_reference_tree_order(bridged):
     """``page_leaves`` flattens the pools in flax's sorted-key order
     (layer0, layer1, layer10, layer11, layer2, ...)."""

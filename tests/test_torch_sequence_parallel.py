@@ -296,9 +296,16 @@ def test_impl_selection_policy_matches_the_reference():
 
 
 def test_tensor_and_pipeline_axes_still_raise():
-    for axes in ({"tensor": 2}, {"pipeline": 2}):
+    """The tensor axis runs alone and beside data
+    (``tests/test_torch_tensor_parallel.py``); beside fsdp, expert or
+    sequence, and the pipeline axis, it still raises."""
+    for axes in ({"fsdp": 2, "tensor": 2}, {"expert": 2, "tensor": 2},
+                 {"sequence": 2, "tensor": 2}, {"pipeline": 2}):
         with pytest.raises(NotImplementedError, match=r"ROADMAP item 1\.9\b"):
             MeshConfig.from_dict(axes).require_ported()
+    for axes in ({"tensor": 2}, {"data": 2, "tensor": 2}):
+        MeshConfig.from_dict(axes).require_ported()
+        assert _mesh(**axes).size("tensor") == 2
 
 
 def test_mesh_coordinates_follow_the_reference_order():

@@ -52,7 +52,14 @@ given ``experts=(lo, hi)``, the maps into the port take that slice of
 
 The MLP classifier (``models/mlp.py``) maps ``fc1``/``fc2`` ``{kernel
 [in, out], bias}`` to ``nn.Linear`` ``weight [out, in]`` and ``bias``
-(``mlp_params_to_state_dict``).
+(``mlp_params_to_state_dict``); DLRM (``models/dlrm.py``) its tables
+``table{t}/embedding`` and the dense layers of ``bottom``/``top`` the same
+way (``dlrm_params_to_state_dict``).
+
+Every map is of whole parameters. A tensor-split model takes its rank's
+blocks of a bridged state dict (``parallel/tensor_parallel.shard_state_dict``)
+and gives whole ones back through a checkpoint's gather
+(``parallel/data_parallel.state_dicts``).
 """
 
 from __future__ import annotations
@@ -366,3 +373,32 @@ def mlp_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
             np.ascontiguousarray(np.asarray(params[name]["kernel"], np.float32).T).copy())
         sd[f"{name}.bias"] = torch.from_numpy(np.array(params[name]["bias"], np.float32, copy=True))
     return sd
+
+
+def dlrm_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """DLRM's flax tree (numpy leaves: ``table{t}/embedding`` [V_t, E],
+    ``bottom|top/fc{i}/{kernel [in, out], bias}``) -> the port's
+    ``state_dict`` (``table{t}.weight``, ``bottom|top.fc{i}.weight [out,
+    in]`` and ``bias``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, tree in params.items():
+        if name.startswith("table"):
+            sd[f"{name}.weight"] = _t(tree["embedding"])
+        else:
+            for layer, dense in tree.items():
+                _dense_to_sd(dense, f"{name}.{layer}", sd)
+    return sd
+
+
+def dlrm_state_dict_to_params(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's DLRM ``state_dict`` (whole, not a tensor rank's blocks)
+    -> the reference's flax tree."""
+    out: Dict[str, Any] = {}
+    for key in sd:
+        name, rest = key.split(".", 1)
+        if name.startswith("table"):
+            out[name] = {"embedding": _a(sd, key)}
+        elif rest.endswith(".weight"):
+            layer = rest[:-len(".weight")]
+            out.setdefault(name, {})[layer] = _dense_from_sd(sd, f"{name}.{layer}")
+    return out

@@ -17,7 +17,9 @@ the card from ``FLASH_SEQ_THRESHOLD``) attention runs the non-causal
 flash kernels, forward and backward. ``TFK8S_NUM_EXPERTS`` > 0 swaps every
 other MLP for a ``SwitchMoeBlock`` (its aux loss in the objective and in
 the metrics as ``moe_aux``); on a mesh with a sequence axis each rank
-trains on its block of the sequence through ring or Ulysses attention."""
+trains on its block of the sequence through ring or Ulysses attention; on
+one with a tensor axis each rank holds its block of the heads, the MLP
+and the vocabulary, and the loss is the vocab-parallel cross-entropy."""
 
 from __future__ import annotations
 
@@ -42,7 +44,9 @@ from tfk8s_tpu_torch.models.transformer import (
     select_attn_fn,
     seq_group,
     seq_index,
+    tensor_shard,
 )
+from tfk8s_tpu_torch.parallel.tensor_parallel import init_sharded, vocab_split
 from tfk8s_tpu_torch.runtime.train import TrainTask, join_mesh, run_task
 
 MASK_ID = 0  # reserved mask token; chain tokens live in [1, vocab)
@@ -66,7 +70,8 @@ class BertWithHead(nn.Module):
       (batched prefill seeds a decode cache from them).
     ``models/gpt.mode_view`` gives a module in another mode over the same
     parameters. ``mesh`` (a ``parallel.mesh.Mesh``) places the module on
-    its rank's block of the sequence and share of the experts."""
+    its rank's block of the sequence, share of the experts and tensor
+    blocks (then the logits are its vocab columns)."""
 
     def __init__(self, cfg: TransformerConfig, attn_fn: Optional[Callable] = None,
                  causal: bool = False, decode: bool = False, sow_kv: bool = False,
@@ -76,7 +81,7 @@ class BertWithHead(nn.Module):
             raise ValueError("decode and sow_kv are separate modes")
         self.cfg = cfg
         self.decode, self.sow_kv = decode, sow_kv
-        self.embed = Embedder(cfg, seq_index(mesh))
+        self.embed = Embedder(cfg, seq_index(mesh), tensor_shard(cfg, mesh))
         self.layers = make_layers(cfg, attn_fn=attn_fn, causal=causal, mesh=mesh)
         self.ln_final = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
 
@@ -181,11 +186,12 @@ def make_batch_fn(vocab: int, seq_len: int):
 
 
 def mlm_loss_and_metrics(
-    logits: torch.Tensor, batch: Dict[str, torch.Tensor], group=None
+    logits: torch.Tensor, batch: Dict[str, torch.Tensor], group=None, vocab=None
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Masked-LM objective: cross-entropy and accuracy over the mlm-masked
-    positions only (over the whole sequence group's, given one)."""
-    loss, acc = masked_token_loss(logits, batch["target"], batch["mlm_mask"], group)
+    positions only (over the whole sequence group's, given one; ``vocab``:
+    the logits are a vocab split's columns)."""
+    loss, acc = masked_token_loss(logits, batch["target"], batch["mlm_mask"], group, vocab)
     return loss, {"mlm_accuracy": acc}
 
 
@@ -199,14 +205,15 @@ def make_task(
 ) -> TrainTask:
     cfg = cfg or base_config()
     seq_len = min(seq_len, cfg.max_len)
-    group = seq_group(mesh)
+    group, vocab = seq_group(mesh), vocab_split(mesh, cfg.vocab_size)
 
     def init(generator: torch.Generator) -> BertWithHead:
-        return init_params(BertWithHead(cfg, attn_fn=attn_fn, mesh=mesh), generator)
+        return init_sharded(lambda m: BertWithHead(cfg, attn_fn=attn_fn, mesh=m), init_params,
+                            generator, mesh)
 
     def loss_fn(model, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         logits, aux = apply_with_aux(model, cfg, batch["input"])
-        loss, metrics = mlm_loss_and_metrics(logits, batch, group)
+        loss, metrics = mlm_loss_and_metrics(logits, batch, group, vocab)
         return add_moe_aux(cfg, loss, metrics, aux), metrics
 
     return TrainTask(
@@ -238,8 +245,8 @@ def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, flo
     reference's env contract (``TFK8S_SEQ_LEN`` 128, ``TFK8S_BATCH_SIZE``
     64, 100 steps at lr 1e-4 unless set; ``TFK8S_MODEL_PRESET=tiny``;
     ``TFK8S_ATTENTION_IMPL``; ``TFK8S_NUM_EXPERTS``, ``TFK8S_MOE_TOP_K``),
-    the runtime's input modes and the mesh's data, expert and sequence
-    axes. Returns the logged metrics history."""
+    the runtime's input modes and the mesh's data, expert, sequence and
+    tensor axes. Returns the logged metrics history."""
     env = dict(env)
     env.setdefault("TFK8S_TRAIN_STEPS", "100")
     env.setdefault("TFK8S_LEARNING_RATE", "1e-4")

@@ -11,7 +11,9 @@ CUDA flash kernels, forward and backward. ``TFK8S_NUM_EXPERTS`` > 0 swaps
 every other MLP for a ``SwitchMoeBlock`` (top-``TFK8S_MOE_TOP_K``), its
 aux loss in the objective; a mesh with an ``expert`` axis shards the
 experts, one with a ``sequence`` axis the sequence (:func:`split_sequence`
-gives each rank its tokens and their next-token targets).
+gives each rank its tokens and their next-token targets), one with a
+``tensor`` axis the heads, the MLP and the vocabulary (the loss and the
+accuracy over the vocab split).
 
 The device half of paged continuous-batching decode is here too:
 ``clean_pages``, ``_paged_apply``, the packed ``decode``/``prefill``/
@@ -38,7 +40,6 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from tfk8s_tpu_torch.models.bert import BertWithHead, make_chain_tokens
 from tfk8s_tpu_torch.ops import jax_random
@@ -53,7 +54,9 @@ from tfk8s_tpu_torch.models.transformer import (
     masked_token_loss,
     select_attn_fn,
     seq_group,
+    token_loss,
 )
+from tfk8s_tpu_torch.parallel.tensor_parallel import init_sharded, vocab_split
 from tfk8s_tpu_torch.runtime.train import TrainTask, join_mesh, run_task
 
 
@@ -102,17 +105,13 @@ def make_batch_fn(vocab: int, seq_len: int):
 
 
 def lm_loss_and_metrics(
-    logits: torch.Tensor, ids: torch.Tensor
+    logits: torch.Tensor, ids: torch.Tensor, vocab=None
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token objective: position i predicts token i+1 (the final
-    position has no target and is dropped)."""
-    shift_logits = logits[:, :-1]
-    shift_targets = ids[:, 1:].long()
-    loss = F.cross_entropy(
-        shift_logits.reshape(-1, shift_logits.shape[-1]), shift_targets.reshape(-1)
-    )
-    acc = (shift_logits.argmax(-1) == shift_targets).float().mean()
-    return loss, {"next_token_accuracy": acc}
+    position has no target and is dropped). ``vocab``: the logits are a
+    vocab split's columns (``tensor_parallel.vocab_split``)."""
+    per_tok, hit = token_loss(logits[:, :-1], ids[:, 1:], vocab)
+    return per_tok.mean(), {"next_token_accuracy": hit.mean()}
 
 
 def split_sequence(batch: Dict[str, np.ndarray], index: int, n: int) -> Dict[str, np.ndarray]:
@@ -141,10 +140,11 @@ def make_task(
 ) -> TrainTask:
     cfg = cfg or base_config()
     seq_len = min(seq_len, cfg.max_len)
-    group = seq_group(mesh)
+    group, vocab = seq_group(mesh), vocab_split(mesh, cfg.vocab_size)
 
     def init(generator: torch.Generator):
-        return init_params(GPTLM(cfg, attn_fn=attn_fn, mesh=mesh), generator)
+        return init_sharded(lambda m: GPTLM(cfg, attn_fn=attn_fn, mesh=m), init_params,
+                            generator, mesh)
 
     def loss_fn(model, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         logits, aux = apply_with_aux(model, cfg, batch["input"])
@@ -153,7 +153,7 @@ def make_task(
             loss, acc = masked_token_loss(logits, batch["target"], batch["weight"], group)
             metrics = {"next_token_accuracy": acc}
         else:
-            loss, metrics = lm_loss_and_metrics(logits, batch["input"])
+            loss, metrics = lm_loss_and_metrics(logits, batch["input"], vocab)
         return add_moe_aux(cfg, loss, metrics, aux), metrics
 
     return TrainTask(
@@ -228,6 +228,11 @@ def _paged_apply(cfg: TransformerConfig, model: BertWithHead, pages: Pages,
     [b, T, vocab], pages)``."""
     logits = model(tokens, pos_offset=positions, page_tables=page_tables, pages=pages)
     return logits.float(), pages
+
+
+# the reference's name of the paged forward a prefill chunk runs
+# (reference ``gpt.py:272``)
+prefill_into_slots = _paged_apply
 
 
 @torch.no_grad()
@@ -736,8 +741,8 @@ def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, flo
     ``TFK8S_ATTENTION_IMPL`` pins an attention impl; ``TFK8S_NUM_EXPERTS``
     > 0 enables MoE layers over the ``expert`` mesh axis. Takes the
     runtime's input modes (``TFK8S_INPUT_FILES``, ``TFK8S_INPUT_MODE``) and
-    the mesh's data, expert and sequence axes. Returns the logged metrics
-    history (the last entry is the final metrics)."""
+    the mesh's data, expert, sequence and tensor axes. Returns the logged
+    metrics history (the last entry is the final metrics)."""
     env = dict(env)
     env.setdefault("TFK8S_TRAIN_STEPS", "100")
     env.setdefault("TFK8S_LEARNING_RATE", "1e-4")

@@ -10,6 +10,13 @@ names ``fc1``/``fc2`` (``bridge.mlp_params_to_state_dict`` maps them),
 initialized as flax's ``lecun_normal`` (a normal of variance ``1 /
 fan_in`` truncated at two standard deviations) with zero biases.
 
+On a mesh with a ``tensor`` axis each rank holds a block of the hidden
+width, as the reference's rules split it (``fc1`` ``("embed", "mlp")``, a
+column split; ``fc2`` ``("mlp", "vocab")``, whose ``vocab`` falls away
+because ``tensor`` is taken, a row split): the logits are whole on every
+rank after the row split's sum, so the loss and accuracy are the
+one-process ones.
+
 ``evaluate`` is the Evaluator replica's entrypoint
 (``tfk8s_tpu_torch.models.mlp:evaluate``): ``run_eval`` scores each
 checkpoint the workers write.
@@ -25,7 +32,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tfk8s_tpu_torch.runtime.train import TrainTask, run_eval, run_task
+from tfk8s_tpu_torch.parallel.tensor_parallel import (
+    Split,
+    TensorShard,
+    column_splits,
+    enter,
+    init_sharded,
+    row_dense,
+)
+from tfk8s_tpu_torch.runtime.train import TrainTask, join_mesh, run_eval, run_task
 
 IMAGE_DIM = 784
 NUM_CLASSES = 10
@@ -37,15 +52,23 @@ _TRUNC_STD = 0.87962566103423978
 
 class MLP(nn.Module):
     """2-layer MLP: ``fc1`` (ReLU) then ``fc2``, float32 (reference
-    ``mlp.py:25``)."""
+    ``mlp.py:25``); ``mesh`` with a tensor axis: this rank's block of the
+    hidden width."""
 
-    def __init__(self, hidden: int = 256, classes: int = NUM_CLASSES):
+    def __init__(self, hidden: int = 256, classes: int = NUM_CLASSES, mesh=None):
         super().__init__()
-        self.fc1 = nn.Linear(IMAGE_DIM, hidden)
-        self.fc2 = nn.Linear(hidden, classes)
+        self.tp = TensorShard.of(mesh)
+        lo, hi = (0, hidden) if self.tp is None else self.tp.block(hidden, "hidden")
+        self.fc1 = nn.Linear(IMAGE_DIM, hi - lo)
+        self.fc2 = nn.Linear(hi - lo, classes)
+        if self.tp is not None:
+            self.tensor_splits = {f"fc1.{p}": split for p, split in
+                                  column_splits(lo, hi, hidden).items()}
+            self.tensor_splits["fc2.weight"] = Split(1, lo, hi, hidden)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.relu(self.fc1(x)))
+        h = F.relu(self.fc1(enter(x, self.tp)))
+        return row_dense(self.fc2, h, torch.float32, self.tp)
 
 
 def init_params(model: MLP, generator: torch.Generator) -> MLP:
@@ -95,9 +118,12 @@ def loss_and_metrics(logits: torch.Tensor,
     return loss, {"accuracy": acc}
 
 
-def make_task(batch_size: int = 128, hidden: int = 256) -> TrainTask:
+def make_task(batch_size: int = 128, hidden: int = 256, mesh=None) -> TrainTask:
+    """The classifier's task; ``mesh`` (a ``parallel.mesh.Mesh``) places the
+    model on its tensor block."""
+
     def init(generator: torch.Generator) -> MLP:
-        return init_params(MLP(hidden=hidden), generator)
+        return init_sharded(lambda m: MLP(hidden=hidden, mesh=m), init_params, generator, mesh)
 
     def loss_fn(model, batch):
         return loss_and_metrics(model(batch["image"]), batch["label"])
@@ -114,12 +140,13 @@ def make_task(batch_size: int = 128, hidden: int = 256) -> TrainTask:
 
 def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, float]]:
     """TPUJob entrypoint: ``tfk8s_tpu_torch.models.mlp:train``, with the
-    reference's defaults (300 steps at learning rate 3e-3). Returns the
-    logged metrics history."""
+    reference's defaults (300 steps at learning rate 3e-3), over the
+    mesh's data and tensor axes. Returns the logged metrics history."""
     env = dict(env)
     env.setdefault("TFK8S_TRAIN_STEPS", "300")
     env.setdefault("TFK8S_LEARNING_RATE", "3e-3")
-    return run_task(make_task(), env, stop)
+    _ctx, device, mesh = join_mesh(env)
+    return run_task(make_task(mesh=mesh), env, stop, device=device, mesh=mesh)
 
 
 def evaluate(env: Dict[str, str], stop: Optional[Any] = None) -> Dict[str, float]:

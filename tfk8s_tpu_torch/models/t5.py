@@ -16,7 +16,11 @@ With ``cfg.num_experts`` > 0 the ENCODER layers interleave
 ``SwitchMoeBlock``s (the decoder stays dense, as the reference's), their
 aux loss in the objective; on a sequence-sharded mesh each rank holds its
 block of the source and of the target, and the cross-attention runs ring
-or Ulysses attention over the encoder's blocks.
+or Ulysses attention over the encoder's blocks. On a tensor mesh every
+attention (the decoder's cross-attention too) and MLP holds its rank's
+block of the heads and hidden width, the shared table its block of rows,
+and the loss is the vocab-parallel cross-entropy (``BASELINE.json``
+configs[3]: ``{"data": 2, "tensor": 2}``).
 
 Generation takes the module, not a parameter tree, and runs the encoder
 once through the module's attention (the masked flash forward on the card
@@ -54,9 +58,11 @@ from tfk8s_tpu_torch.models.transformer import (
     select_attn_fn,
     seq_group,
     seq_index,
+    tensor_shard,
 )
 from tfk8s_tpu_torch.ops import jax_random
 from tfk8s_tpu_torch.parallel.moe import ExpertShard
+from tfk8s_tpu_torch.parallel.tensor_parallel import init_sharded, vocab_split
 from tfk8s_tpu_torch.runtime.train import TrainTask, join_mesh, run_task
 
 PAD_ID = 0
@@ -68,19 +74,21 @@ class T5(nn.Module):
     """Encoder-decoder with a shared embedding table and tied head.
     ``attn_fn`` swaps the inner attention of every layer (the flash
     kernels plug in here; they take the ``[b, lk]`` key mask). ``mesh`` places it on its
-    rank's sequence blocks and share of the encoder's experts."""
+    rank's sequence blocks, share of the encoder's experts and tensor
+    blocks (then the logits are its vocab columns)."""
 
     def __init__(self, cfg: TransformerConfig, attn_fn: Optional[Callable] = None, mesh=None):
         super().__init__()
         self.cfg = cfg
-        self.embed = Embedder(cfg, seq_index(mesh))
+        tp = tensor_shard(cfg, mesh)
+        self.embed = Embedder(cfg, seq_index(mesh), tp)
         experts = ExpertShard.of(mesh)
         for i in range(cfg.num_layers):
             self.add_module(f"enc{i}", EncoderLayer(cfg, attn_fn=attn_fn,
                                                     use_moe=cfg.layer_uses_moe(i),
-                                                    experts=experts))
+                                                    experts=experts, tp=tp))
         for i in range(cfg.num_layers):
-            self.add_module(f"dec{i}", DecoderLayer(cfg, attn_fn=attn_fn))
+            self.add_module(f"dec{i}", DecoderLayer(cfg, attn_fn=attn_fn, tp=tp))
         self.enc_ln = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
         self.dec_ln = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
 
@@ -165,11 +173,12 @@ def make_batch_fn(vocab: int, seq_len: int):
     return make_batch
 
 
-def loss_and_metrics(logits: torch.Tensor, tgt_out: torch.Tensor, group=None
+def loss_and_metrics(logits: torch.Tensor, tgt_out: torch.Tensor, group=None, vocab=None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Cross-entropy and accuracy over the target positions that are not
-    ``PAD_ID`` (over the whole sequence group's, given one)."""
-    loss, acc = masked_token_loss(logits, tgt_out, tgt_out != PAD_ID, group)
+    ``PAD_ID`` (over the whole sequence group's, given one; ``vocab``: the
+    logits are a vocab split's columns)."""
+    loss, acc = masked_token_loss(logits, tgt_out, tgt_out != PAD_ID, group, vocab)
     return loss, {"token_accuracy": acc}
 
 
@@ -183,14 +192,15 @@ def make_task(
 ) -> TrainTask:
     cfg = cfg or base_config()
     seq_len = min(seq_len, cfg.max_len)
-    group = seq_group(mesh)
+    group, vocab = seq_group(mesh), vocab_split(mesh, cfg.vocab_size)
 
     def init(generator: torch.Generator) -> T5:
-        return init_params(T5(cfg, attn_fn=attn_fn, mesh=mesh), generator)
+        return init_sharded(lambda m: T5(cfg, attn_fn=attn_fn, mesh=m), init_params,
+                            generator, mesh)
 
     def loss_fn(model, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         logits, aux = apply_with_aux(model, cfg, batch["src"], batch["tgt_in"])
-        loss, metrics = loss_and_metrics(logits, batch["tgt_out"], group)
+        loss, metrics = loss_and_metrics(logits, batch["tgt_out"], group, vocab)
         return add_moe_aux(cfg, loss, metrics, aux), metrics
 
     return TrainTask(
@@ -359,7 +369,8 @@ def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, flo
     32, 100 steps at lr 1e-4 unless set; ``TFK8S_MODEL_PRESET=tiny``;
     ``TFK8S_ATTENTION_IMPL``; ``TFK8S_NUM_EXPERTS`` > 0 puts MoE layers in
     the encoder), on the card unless ``TFK8S_DEVICE=cpu``, over the mesh's
-    data, expert and sequence axes. Returns the logged metrics history."""
+    data, expert, sequence and tensor axes. Returns the logged metrics
+    history."""
     env = dict(env)
     env.setdefault("TFK8S_TRAIN_STEPS", "100")
     env.setdefault("TFK8S_LEARNING_RATE", "1e-4")

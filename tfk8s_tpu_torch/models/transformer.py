@@ -43,6 +43,18 @@ loss, and :func:`apply_with_aux` sums them (the reference's sown
 :func:`select_attn_fn` is the reference's policy over a
 ``parallel.mesh.Mesh``: ring or Ulysses attention on a sequence-sharded
 mesh, the flash kernels or plain attention otherwise.
+
+On a mesh with a ``tensor`` axis (``parallel/tensor_parallel.py``) each
+rank holds a contiguous block of the heads (q/k/v column splits, ``out`` a
+row split whose bias is added once after the sum), of the MLP's hidden
+width (``wi`` column, ``wo`` row) and of the token table's rows (a
+vocab-parallel lookup; the tied head gives this rank's float32 logit
+columns), the reference's ``heads``/``mlp``/``vocab`` rules; layer norms,
+positions and row-split biases are whole on every rank. The attention
+function sees ``[b, l, h/t, d]``. :func:`masked_token_loss` then takes the
+cross-entropy and argmax over the vocab split (``vocab``). Decode and
+paged serving of a tensor-split model, and the MoE FFN's split
+(``expert_mlp``), are ROADMAP item 1.9 and raise.
 """
 
 from __future__ import annotations
@@ -57,9 +69,23 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tfk8s_tpu_torch.ops.flash_attention import HEAD_DIMS, auto_flash_attn_fn, flash_attention
-from tfk8s_tpu_torch.parallel.collectives import all_reduce_sum, sum_over
+from tfk8s_tpu_torch.parallel.collectives import (
+    all_reduce_sum,
+    sum_over,
+    vocab_parallel_argmax,
+    vocab_parallel_cross_entropy,
+    vocab_parallel_lookup,
+)
 from tfk8s_tpu_torch.parallel.mesh import AXIS_SEQUENCE, Mesh
 from tfk8s_tpu_torch.parallel.moe import ExpertShard, SwitchMoeBlock
+from tfk8s_tpu_torch.parallel.tensor_parallel import (
+    Split,
+    TensorShard,
+    column_splits,
+    enter,
+    group_of,
+    row_dense,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,17 +289,24 @@ class MultiHeadAttention(nn.Module):
     the forward's :class:`PagePlan`; given a layer's decode ``cache`` and
     ``cache_index``, the incremental path (:func:`decode_attention`), one
     token a call. ``kv_sink``, a list, receives this call's raw ``(k, v)``
-    projections (the reference's ``sow_kv``)."""
+    projections (the reference's ``sow_kv``). With ``tp`` it holds that
+    rank's block of the heads."""
 
     def __init__(self, cfg: TransformerConfig, causal: bool = False,
-                 attn_fn: Optional[Callable] = None):
+                 attn_fn: Optional[Callable] = None, tp: Optional[TensorShard] = None):
         super().__init__()
-        self.cfg, self.causal, self.attn_fn = cfg, causal, attn_fn
-        inner = cfg.num_heads * cfg.head_dim
-        self.q = nn.Linear(cfg.embed_dim, inner)
-        self.k = nn.Linear(cfg.embed_dim, inner)
-        self.v = nn.Linear(cfg.embed_dim, inner)
-        self.out = nn.Linear(inner, cfg.embed_dim)
+        self.cfg, self.causal, self.attn_fn, self.tp = cfg, causal, attn_fn, tp
+        lo, hi = (0, cfg.num_heads) if tp is None else tp.block(cfg.num_heads, "num_heads")
+        self.heads = hi - lo
+        d, inner = cfg.head_dim, cfg.num_heads * cfg.head_dim
+        self.q = nn.Linear(cfg.embed_dim, self.heads * d)
+        self.k = nn.Linear(cfg.embed_dim, self.heads * d)
+        self.v = nn.Linear(cfg.embed_dim, self.heads * d)
+        self.out = nn.Linear(self.heads * d, cfg.embed_dim)
+        if tp is not None:
+            self.tensor_splits = {f"{n}.{p}": split for n in "qkv"
+                                  for p, split in column_splits(lo * d, hi * d, inner).items()}
+            self.tensor_splits["out.weight"] = Split(1, lo * d, hi * d, inner)
         # q / sqrt(head_dim) with the divisor rounded to cfg.dtype first
         self.q_scale = float(torch.tensor(math.sqrt(cfg.head_dim)).to(cfg.dtype))
 
@@ -286,9 +319,13 @@ class MultiHeadAttention(nn.Module):
                 kv_sink: Optional[list] = None,
                 attn_fn: Optional[Callable] = None) -> torch.Tensor:
         cfg = self.cfg
-        kv = x if kv is None else kv
+        if self.tp is not None and (cache is not None or pool is not None):
+            raise NotImplementedError(
+                "decode and paged serving of a tensor-split model is ROADMAP item 1.9")
+        x = enter(x, self.tp)
+        kv = x if kv is None else enter(kv, self.tp)
         b, lq, lk = x.shape[0], x.shape[1], kv.shape[1]
-        heads = (cfg.num_heads, cfg.head_dim)
+        heads = (self.heads, cfg.head_dim)
         q = _dense(self.q, x, cfg.dtype).view(b, lq, *heads) / self.q_scale
         k = _dense(self.k, kv, cfg.dtype).view(b, lk, *heads)
         v = _dense(self.v, kv, cfg.dtype).view(b, lk, *heads)
@@ -323,40 +360,49 @@ class MultiHeadAttention(nn.Module):
             out = attn_fn(q, k, v, mask=mask, causal=self.causal)
         else:
             out = dot_product_attention(q, k, v, mask=mask, causal=self.causal)
-        return _dense(self.out, out.reshape(b, lq, -1), cfg.dtype)
+        return row_dense(self.out, out.reshape(b, lq, -1), cfg.dtype, self.tp)
 
 
 class MlpBlock(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    """``wi``, tanh gelu, ``wo``; with ``tp`` that rank's block of the
+    hidden width (``wi`` a column split, ``wo`` a row split)."""
+
+    def __init__(self, cfg: TransformerConfig, tp: Optional[TensorShard] = None):
         super().__init__()
-        self.cfg = cfg
-        self.wi = nn.Linear(cfg.embed_dim, cfg.mlp_dim)
-        self.wo = nn.Linear(cfg.mlp_dim, cfg.embed_dim)
+        self.cfg, self.tp = cfg, tp
+        lo, hi = (0, cfg.mlp_dim) if tp is None else tp.block(cfg.mlp_dim, "mlp_dim")
+        self.wi = nn.Linear(cfg.embed_dim, hi - lo)
+        self.wo = nn.Linear(hi - lo, cfg.embed_dim)
+        if tp is not None:
+            self.tensor_splits = {f"wi.{p}": split for p, split in
+                                  column_splits(lo, hi, cfg.mlp_dim).items()}
+            self.tensor_splits["wo.weight"] = Split(1, lo, hi, cfg.mlp_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.gelu(_dense(self.wi, x, self.cfg.dtype), approximate="tanh")
-        return _dense(self.wo, h, self.cfg.dtype)
+        h = F.gelu(_dense(self.wi, enter(x, self.tp), self.cfg.dtype), approximate="tanh")
+        return row_dense(self.wo, h, self.cfg.dtype, self.tp)
 
 
 class EncoderLayer(nn.Module):
     """Pre-LN residual block; ``causal=True`` makes it a decoder-only
     (GPT-style) layer. With ``use_moe`` the MLP is a ``SwitchMoeBlock``
     (``moe``, holding ``experts``' share when the mesh has an expert
-    axis), whose aux loss goes to ``aux_sink`` when one is given."""
+    axis), whose aux loss goes to ``aux_sink`` when one is given; ``tp``
+    splits the attention and the MLP over the tensor axis."""
 
     def __init__(self, cfg: TransformerConfig, attn_fn: Optional[Callable] = None,
                  causal: bool = False, use_moe: bool = False,
-                 experts: Optional[ExpertShard] = None):
+                 experts: Optional[ExpertShard] = None, tp: Optional[TensorShard] = None):
         super().__init__()
         self.cfg, self.use_moe = cfg, use_moe
         self.ln_attn = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
-        self.attn = MultiHeadAttention(cfg, causal=causal, attn_fn=attn_fn)
+        self.attn = MultiHeadAttention(cfg, causal=causal, attn_fn=attn_fn, tp=tp)
         self.ln_mlp = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
         if use_moe:
             self.moe = SwitchMoeBlock(cfg, cfg.num_experts, cfg.moe_capacity_factor,
                                       cfg.moe_top_k, experts)
         else:
-            self.mlp = MlpBlock(cfg)
+            self.mlp = MlpBlock(cfg, tp)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 pool: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -383,17 +429,19 @@ class DecoderLayer(nn.Module):
     incremental path (:func:`decode_attention`, one token a call); the
     cross-attention is always a full attention over ``enc`` under
     ``enc_mask`` and recomputes its K/V every call, as the reference's
-    does. ``attn_fn`` overrides the layer's attention for this call."""
+    does. ``attn_fn`` overrides the layer's attention for this call;
+    ``tp`` splits both attentions and the MLP over the tensor axis."""
 
-    def __init__(self, cfg: TransformerConfig, attn_fn: Optional[Callable] = None):
+    def __init__(self, cfg: TransformerConfig, attn_fn: Optional[Callable] = None,
+                 tp: Optional[TensorShard] = None):
         super().__init__()
         self.cfg = cfg
         self.ln_self = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
-        self.self_attn = MultiHeadAttention(cfg, causal=True, attn_fn=attn_fn)
+        self.self_attn = MultiHeadAttention(cfg, causal=True, attn_fn=attn_fn, tp=tp)
         self.ln_cross = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
-        self.cross_attn = MultiHeadAttention(cfg, attn_fn=attn_fn)
+        self.cross_attn = MultiHeadAttention(cfg, attn_fn=attn_fn, tp=tp)
         self.ln_mlp = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
-        self.mlp = MlpBlock(cfg)
+        self.mlp = MlpBlock(cfg, tp)
 
     def forward(self, x: torch.Tensor, enc: torch.Tensor,
                 enc_mask: Optional[torch.Tensor] = None,
@@ -410,16 +458,23 @@ class DecoderLayer(nn.Module):
 
 class Embedder(nn.Module):
     """Token + learned positional embeddings; the token table is reused
-    transposed as the output head (weight tying)."""
+    transposed as the output head (weight tying). With ``tp`` it holds
+    that rank's rows ``[vocab_lo, vocab_hi)`` of the table (split unevenly
+    where the vocabulary does not divide) and the head gives the matching
+    logit columns."""
 
-    def __init__(self, cfg: TransformerConfig, seq_index: int = 0):
+    def __init__(self, cfg: TransformerConfig, seq_index: int = 0,
+                 tp: Optional[TensorShard] = None):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.tp = cfg, tp
         # this rank's block of a sequence-sharded mesh: with no pos_offset,
         # its positions start at seq_index * (the local length)
         self.seq_index = seq_index
-        self.tok = nn.Embedding(cfg.vocab_size, cfg.embed_dim)
+        self.vocab_lo, hi = (0, cfg.vocab_size) if tp is None else tp.rows(cfg.vocab_size)
+        self.tok = nn.Embedding(hi - self.vocab_lo, cfg.embed_dim)
         self.pos = nn.Parameter(torch.empty(cfg.max_len, cfg.embed_dim))
+        if tp is not None:
+            self.tensor_splits = {"tok.weight": Split(0, self.vocab_lo, hi, cfg.vocab_size)}
 
     def forward(self, ids: torch.Tensor,
                 pos_offset: Union[int, torch.Tensor, None] = None) -> torch.Tensor:
@@ -442,28 +497,46 @@ class Embedder(nn.Module):
         else:
             start = self.seq_index * length if pos_offset is None else int(pos_offset)
             pos = self.pos[start:start + length]
-        return (self.tok(ids) + pos).to(self.cfg.dtype)
+        tok = vocab_parallel_lookup(self.tok.weight, ids, self.vocab_lo, group_of(self.tp))
+        return (tok + pos).to(self.cfg.dtype)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        # tied output head; float32 logits for a stable softmax
-        return F.linear(x.float(), self.tok.weight)
+        # tied output head; float32 logits for a stable softmax (this
+        # rank's vocab columns on a tensor mesh)
+        return F.linear(enter(x.float(), self.tp), self.tok.weight)
+
+
+def token_loss(logits: torch.Tensor, target: torch.Tensor,
+               vocab: Optional[Tuple[int, object]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(per-position float32 cross-entropy, per-position hit)`` of
+    ``logits [..., V]`` against ``target [...]``; over a vocab split
+    (``vocab``: ``(first column, tensor group)``) through the
+    vocab-parallel cross-entropy and argmax."""
+    target = target.long()
+    if vocab is None:
+        per_tok = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                                  target.reshape(-1), reduction="none").reshape(target.shape)
+        return per_tok, (logits.argmax(-1) == target).float()
+    lo, group = vocab
+    return (vocab_parallel_cross_entropy(logits, target, lo, group),
+            (vocab_parallel_argmax(logits, lo, group) == target).float())
 
 
 def masked_token_loss(logits: torch.Tensor, target: torch.Tensor, weight: torch.Tensor,
-                      group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                      group=None, vocab: Optional[Tuple[int, object]] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(loss, accuracy)`` over the positions ``weight`` selects: float32
     cross-entropy and argmax accuracy summed over them and divided by
     ``max(sum(weight), 1)``, as the reference's MLM and seq2seq losses take
     them (a batch with no selected position gives 0). On a sequence-sharded
     mesh (``group``: the sequence group) the sums run over every rank's
     tokens, so each rank holds the global mean; its gradient is this
-    rank's tokens' part."""
-    target = target.long()
-    per_tok = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]), target.reshape(-1),
-                              reduction="none").reshape(target.shape)
+    rank's tokens' part. ``vocab`` (``tensor_parallel.vocab_split``): the
+    logits are a vocab split's columns."""
+    per_tok, hit = token_loss(logits, target, vocab)
     w = weight.float()
     denom = all_reduce_sum(w.sum(), group).clamp_min(1.0)
-    hits = all_reduce_sum(((logits.argmax(-1) == target).float() * w).sum(), group)
+    hits = all_reduce_sum((hit * w).sum(), group)
     return sum_over((per_tok * w).sum(), group) / denom, hits / denom
 
 
@@ -505,14 +578,24 @@ def seq_group(mesh):
     return mesh.group(AXIS_SEQUENCE) if isinstance(mesh, Mesh) else None
 
 
+def tensor_shard(cfg: TransformerConfig, mesh) -> Optional[TensorShard]:
+    """The mesh's tensor place for the stack (None off a tensor mesh); the
+    MoE FFN's split over it (``expert_mlp``) is not ported."""
+    tp = TensorShard.of(mesh)
+    if tp is not None and cfg.num_experts > 0:
+        raise NotImplementedError(
+            "MoE layers on a tensor mesh (the expert_mlp split) are ROADMAP item 1.9")
+    return tp
+
+
 def make_layers(cfg: TransformerConfig, attn_fn: Optional[Callable] = None,
                 causal: bool = False, mesh=None) -> nn.ModuleList:
     """The encoder stack's layers, MoE where ``cfg.layer_uses_moe`` says,
-    holding the mesh's expert share."""
-    experts = ExpertShard.of(mesh)
+    holding the mesh's expert share and tensor blocks."""
+    experts, tp = ExpertShard.of(mesh), tensor_shard(cfg, mesh)
     return nn.ModuleList(
         EncoderLayer(cfg, attn_fn=attn_fn, causal=causal, use_moe=cfg.layer_uses_moe(i),
-                     experts=experts)
+                     experts=experts, tp=tp)
         for i in range(cfg.num_layers)
     )
 
@@ -556,7 +639,7 @@ class Encoder(nn.Module):
     def __init__(self, cfg: TransformerConfig, attn_fn: Optional[Callable] = None, mesh=None):
         super().__init__()
         self.cfg = cfg
-        self.embed = Embedder(cfg, seq_index(mesh))
+        self.embed = Embedder(cfg, seq_index(mesh), tensor_shard(cfg, mesh))
         self.layers = make_layers(cfg, attn_fn=attn_fn, mesh=mesh)
         self.ln_final = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
 

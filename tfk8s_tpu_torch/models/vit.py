@@ -25,7 +25,10 @@ flash kernels' tiles; the kernels mask the ragged edge.
 families do. On a sequence-sharded mesh each rank embeds its block of the
 patch sequence; the mean-pool sums the blocks over the sequence group, and
 the head and loss after it, computed alike on every rank, carry ``1 / n``
-of the gradient each (``collectives.sum_replicated``, ``scale_grad``).
+of the gradient each (``collectives.sum_replicated``, ``scale_grad``). On
+a tensor mesh the encoder layers hold their rank's heads and MLP block;
+``patch_embed``, ``pos`` and the float32 head stay whole on every rank, as
+the reference's rules leave them.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from tfk8s_tpu_torch.models.transformer import (
     seq_index,
 )
 from tfk8s_tpu_torch.parallel.collectives import group_size, scale_grad, sum_replicated
+from tfk8s_tpu_torch.parallel.tensor_parallel import init_sharded
 from tfk8s_tpu_torch.runtime.train import TrainTask, join_mesh, run_task
 
 
@@ -153,8 +157,8 @@ def make_task(
     cfg = cfg or tiny_config()
 
     def init(generator: torch.Generator) -> ViT:
-        return init_vit(ViT(cfg, num_classes, patch_size, image_size, attn_fn=attn_fn,
-                            mesh=mesh), generator)
+        return init_sharded(lambda m: ViT(cfg, num_classes, patch_size, image_size,
+                                          attn_fn=attn_fn, mesh=m), init_vit, generator, mesh)
 
     def loss_fn(model, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         logits, aux = apply_with_aux(model, cfg, batch["image"])

@@ -1,7 +1,7 @@
-"""The collectives the expert and sequence axes run, over one process group
-each, with the autograd rules the model needs. They stand where GSPMD and
-``shard_map`` put ``psum``, ``all_to_all`` and ``ppermute`` in the JAX
-package.
+"""The collectives the expert, sequence and tensor axes run, over one
+process group each, with the autograd rules the model needs. They stand
+where GSPMD and ``shard_map`` put ``psum``, ``all_to_all`` and
+``ppermute`` in the JAX package.
 
 - :func:`sum_over` / :func:`copy_over`: the conjugate pair of a region
   computed in parts by the ranks of a group (each expert rank's experts,
@@ -11,6 +11,17 @@ package.
   the way back.
 - :func:`gather_along`: a sequence block gathered whole, for the MoE
   routing that queues tokens over the whole sequence;
+- :func:`gather_whole`: a tensor split's column blocks gathered whole for
+  a computation every rank then runs alike (DLRM's dense layers): the
+  gradient of this rank's block is its block of the whole, replicated
+  gradient;
+- the vocab-parallel head of the tensor axis, each rank holding rows
+  ``[lo, lo + n)`` of a table and so the matching columns of the logits:
+  :func:`vocab_parallel_lookup` (ids outside the rows masked, looked up,
+  summed over the group), :func:`vocab_parallel_cross_entropy` (a global
+  max, a global sum of exponentials and the target's logit, one
+  all-reduce each) and :func:`vocab_parallel_argmax` (ties to the lowest
+  global index, as ``jnp.argmax``);
 - :func:`all_to_all`: Ulysses' exchange of a sequence split for a head
   split, whose gradient is the exchange back.
 - :func:`all_gather` and :func:`ring_shift` (no autograd): a key mask
@@ -32,6 +43,7 @@ from typing import List, Optional, Sequence, Set
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from tfk8s_tpu_torch.utils.logging import get_logger
 
@@ -58,6 +70,15 @@ def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
         return t
     out = t.clone()
     dist.all_reduce(out, group=group)
+    return out
+
+
+def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max over ``group`` of ``t`` (no gradient)."""
+    if group is None:
+        return t
+    out = t.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out
 
 
@@ -156,6 +177,18 @@ class _GatherAlong(torch.autograd.Function):
         return part.contiguous(), None, None
 
 
+class _GatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.size = dim, x.shape[dim]
+        ctx.me = dist.get_group_rank(group, dist.get_rank())
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.me * ctx.size, ctx.size).contiguous(), None, None
+
+
 class _ScaleGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale):
@@ -204,6 +237,62 @@ def gather_along(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     each rank of ``group`` then computes whole from its own block's
     gradient: this rank's block's gradient is the sum of every rank's."""
     return x if group is None else _GatherAlong.apply(x, dim, group)
+
+
+def gather_whole(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's equal block of ``x`` concatenated along ``dim``, for a
+    computation every rank of ``group`` then runs alike: the gradient
+    that comes back is the same on every rank, and this rank's block of
+    it is its block's gradient."""
+    return x if group is None else _GatherWhole.apply(x, dim, group)
+
+
+def vocab_parallel_lookup(weight: torch.Tensor, ids: torch.Tensor, lo: int,
+                          group) -> torch.Tensor:
+    """Rows ``ids`` of a table whose rows ``[lo, lo + len(weight))`` this
+    rank holds: each rank looks up the ids it holds, zeros the others,
+    and the group sums (each id is held by one rank, so the sum is
+    exact). The gradient reaches only the rows looked up here."""
+    if group is None:
+        return F.embedding(ids, weight)
+    local = ids.long() - lo
+    inside = (local >= 0) & (local < weight.shape[0])
+    rows = F.embedding(local.clamp(0, weight.shape[0] - 1), weight)
+    return sum_over(rows.masked_fill(~inside[..., None], 0.0), group)
+
+
+def _local_targets(target: torch.Tensor, lo: int, n: int):
+    local = target.long() - lo
+    inside = (local >= 0) & (local < n)
+    return local.clamp(0, n - 1), inside
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, target: torch.Tensor, lo: int,
+                                 group) -> torch.Tensor:
+    """The per-position softmax cross-entropy of float32 logits split by
+    columns over ``group`` (this rank's are vocab ``[lo, lo + n)``): a
+    global max, a global sum of exponentials and the target's logit, one
+    all-reduce each. Its gradient is this rank's columns of ``softmax -
+    one_hot``."""
+    logits = logits.float()
+    m = all_reduce_max(logits.detach().amax(dim=-1), group)
+    shifted = logits - m[..., None]
+    total = sum_over(shifted.exp().sum(dim=-1), group)
+    local, inside = _local_targets(target, lo, logits.shape[-1])
+    picked = shifted.gather(-1, local[..., None])[..., 0].masked_fill(~inside, 0.0)
+    return total.log() - sum_over(picked, group)
+
+
+def vocab_parallel_argmax(logits: torch.Tensor, lo: int, group) -> torch.Tensor:
+    """The global argmax over logits split by columns over ``group``:
+    each rank's first maximum, then the first rank holding the largest,
+    so a tie goes to the lowest global index, as ``jnp.argmax``'s."""
+    if group is None:
+        return logits.argmax(dim=-1)
+    value, index = logits.detach().max(dim=-1)
+    values = all_gather(value[None].contiguous(), 0, group)
+    indices = all_gather((index + lo)[None].contiguous(), 0, group)
+    return indices.gather(0, values.argmax(dim=0, keepdim=True))[0]
 
 
 def scale_grad(x: torch.Tensor, scale: float) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """The job's parallel layout over the mesh, in place of the JAX package's
 ``parallel/sharding.py`` rules: ``batch`` over data+fsdp, parameters
-sharded over fsdp, MoE experts over ``expert``, and the sequence over
-``sequence``.
+sharded over fsdp, MoE experts over ``expert``, the sequence over
+``sequence``, and heads, MLP widths and vocabularies over ``tensor``.
 
 - ``data`` alone: ``DistributedDataParallel``; under gradient
   accumulation every microbatch but the last runs in ``no_sync``.
@@ -18,6 +18,13 @@ sharded over fsdp, MoE experts over ``expert``, and the sequence over
   summed over every rank and divided by ``data x expert``; an expert
   shard's ``wi``/``wo`` are summed over the ranks holding that shard
   (data x sequence) and divided by ``data``.
+- ``tensor`` (mode "mesh", with or without ``data``): the ranks of a
+  tensor group share their rows and compute every replicated parameter's
+  whole gradient alike (layer norms, row-split biases, positions), and
+  each holds its own blocks' (``parallel/tensor_parallel.py``); so every
+  gradient is averaged over the data group only, and the gradient norm
+  sums the blocks' squares over the tensor group and counts the
+  replicated ones once.
 
 Each rank holds a contiguous block of the global batch (``local_rows``,
 by its place on the data and fsdp axes), computes its local mean loss
@@ -27,10 +34,11 @@ Metrics are averaged over the ranks only where a caller asks
 (``reduce_metrics``, at log boundaries), so steps between them read
 nothing back from the device.
 
-Checkpoints hold whole parameters: an expert shard's ``wi``/``wo`` and
-their AdamW moments are gathered over the expert group to save
-(``state_dicts``), and each rank takes its slice of them to restore
-(``load_full_state_dicts``), so any layout resumes any other.
+Checkpoints hold whole parameters: an expert shard's ``wi``/``wo`` and a
+tensor split's blocks, and their AdamW moments, are gathered over the
+expert or tensor group to save (``state_dicts``), and each rank takes its
+slice of them to restore (``load_full_state_dicts``), so any layout
+resumes any other.
 """
 
 from __future__ import annotations
@@ -42,23 +50,31 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from tfk8s_tpu_torch.parallel.collectives import all_gather
 from tfk8s_tpu_torch.parallel.mesh import (
     AXIS_DATA,
     AXIS_EXPERT,
     AXIS_FSDP,
     AXIS_SEQUENCE,
+    AXIS_TENSOR,
+    BATCH_AXES,
     Mesh,
     MeshConfig,
     build_mesh,
 )
 from tfk8s_tpu_torch.parallel.moe import SwitchMoeBlock
+from tfk8s_tpu_torch.parallel.tensor_parallel import (
+    Split,
+    TensorShard,
+    gather_tensor,
+    shard_tensor,
+    tensor_splits,
+)
 
 
 class DataParallel:
     """The job's parallel layout, for one rank. ``mode`` is "none" (one
-    process), "ddp", "fsdp", "hsdp" or "mesh" (expert and/or sequence
-    axes). ``layout`` is the job's ``MeshConfig`` (None: data over every
+    process), "ddp", "fsdp", "hsdp" or "mesh" (expert, sequence or
+    tensor axes). ``layout`` is the job's ``MeshConfig`` (None: data over every
     rank) or an already built :class:`Mesh`."""
 
     def __init__(self, layout: Union[MeshConfig, Mesh, None], device: torch.device):
@@ -72,12 +88,15 @@ class DataParallel:
         self.batch_rank, self.batch_world = self.layout.batch_index, self.layout.batch_size
         self.seq_index, self.seq_size = (self.layout.index(AXIS_SEQUENCE),
                                          self.layout.size(AXIS_SEQUENCE))
-        # name -> (lo, hi): the expert rows each expert-sharded parameter holds
-        self.expert_params: Dict[str, tuple] = {}
+        # name -> Split: the expert rows each expert-sharded parameter holds,
+        # and the block each tensor-split parameter holds
+        self.expert_params: Dict[str, Split] = {}
+        self.tensor_params: Dict[str, Split] = {}
+        self.tp = TensorShard.of(self.layout)
         data, fsdp = self.cfg.axis_size(AXIS_DATA), self.cfg.axis_size(AXIS_FSDP)
         if self.world == 1:
             self.mode = "none"
-        elif self.layout.size(AXIS_EXPERT, AXIS_SEQUENCE) > 1:
+        elif self.layout.size(AXIS_EXPERT, AXIS_SEQUENCE, AXIS_TENSOR) > 1:
             self.mode = "mesh"
         elif fsdp == 1:
             self.mode = "ddp"
@@ -101,11 +120,17 @@ class DataParallel:
         """The model as the step runs it (the optimizer must be built over
         the wrapped parameters)."""
         self.expert_params = {
-            f"{name}.{p}": m.expert_range
+            f"{name}.{p}": Split(0, *m.expert_range, m.num_experts)
             for name, m in model.named_modules()
             if isinstance(m, SwitchMoeBlock) and m.experts is not None and m.experts.size > 1
             for p in ("wi", "wo")
         }
+        self.tensor_params = tensor_splits(model)
+        if self.tp is not None and not self.tensor_params:
+            raise ValueError(
+                "a tensor mesh needs a model built over it (the family's "
+                "task_for_mesh); this one holds no tensor blocks"
+            )
         if self.mode == "ddp":
             ids = [self.device.index] if self.device.type == "cuda" else None
             return nn.parallel.DistributedDataParallel(model, device_ids=ids)
@@ -118,12 +143,15 @@ class DataParallel:
 
     def _buckets(self, model: nn.Module):
         """``[(params, group, divisor)]``: replicated parameters over every
-        rank / (data x expert); expert shards over their group / data."""
+        rank / (data x expert); expert shards over their group / data; on a
+        tensor mesh everything over the data group / data."""
+        lay = self.layout
+        data = lay.size(AXIS_DATA)
+        if self.tp is not None:
+            return [(list(model.parameters()), lay.group(*BATCH_AXES), data)]
         rep, exp = [], []
         for name, p in model.named_parameters():
             (exp if name in self.expert_params else rep).append(p)
-        lay = self.layout
-        data = lay.size(AXIS_DATA)
         buckets = [(rep, dist.group.WORLD, data * lay.size(AXIS_EXPERT))]
         if exp:
             buckets.append((exp, lay.group(AXIS_DATA, AXIS_FSDP, AXIS_SEQUENCE), data))
@@ -136,7 +164,7 @@ class DataParallel:
             return
         for params, group, divisor in self._buckets(model):
             grads = [p.grad for p in params if p.grad is not None]
-            if not grads:
+            if not grads or (group is None and divisor == 1):
                 continue
             flat = torch.cat([g.reshape(-1) for g in grads])
             if group is not None:
@@ -166,14 +194,16 @@ class DataParallel:
     def grad_norm(self, grads: List[torch.Tensor], model: Optional[nn.Module] = None
                   ) -> torch.Tensor:
         """The global L2 norm of the (already averaged) gradients."""
-        if self.mode == "mesh" and model is not None and self.layout.size(AXIS_EXPERT) > 1:
-            # expert shards differ over the expert group: sum their squares
-            sq = [torch.zeros((), device=self.device), torch.zeros((), device=self.device)]
-            for name, p in model.named_parameters():
-                if p.grad is not None:
-                    sq[name in self.expert_params] += p.grad.float().square().sum()
-            dist.all_reduce(sq[1], group=self.layout.group(AXIS_EXPERT))
-            return (sq[0] + sq[1]).sqrt()
+        split = {AXIS_EXPERT: self.expert_params, AXIS_TENSOR: self.tensor_params}
+        for axis, shards in split.items():
+            if self.mode == "mesh" and model is not None and self.layout.size(axis) > 1:
+                # the shards differ over the axis: sum their squares over it
+                sq = [torch.zeros((), device=self.device), torch.zeros((), device=self.device)]
+                for name, p in model.named_parameters():
+                    if p.grad is not None:
+                        sq[name in shards] += p.grad.float().square().sum()
+                dist.all_reduce(sq[1], group=self.layout.group(axis))
+                return (sq[0] + sq[1]).sqrt()
         norm = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(_local(g).float()) for g in grads])
         )
@@ -201,7 +231,7 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if hasattr(t, "to_local") else t
 
 
-def _expert_tensors(sd: Dict[str, dict], names) -> List[tuple]:
+def _param_tensors(sd: Dict[str, dict], names) -> List[tuple]:
     """``(container, key, name)`` of every tensor of the parameters
     ``names``: the model entry and its optimizer moments."""
     out = [(sd["model"], n, n) for n in names if n in sd["model"]]
@@ -216,7 +246,8 @@ def state_dicts(model: nn.Module, optimizer: torch.optim.Optimizer,
     """Model and optimizer state keyed by parameter name, the same for a
     plain, DDP or FSDP2 model (DTensor shards under FSDP2). With expert
     shards (``parallel``), their parameters and moments are gathered over
-    the expert group into whole ``[num_experts, ...]`` tensors."""
+    the expert group into whole ``[num_experts, ...]`` tensors; with
+    tensor blocks, over the tensor group into whole tensors."""
     from torch.distributed.checkpoint.state_dict import get_state_dict
 
     fresh = not optimizer.state
@@ -229,12 +260,15 @@ def state_dicts(model: nn.Module, optimizer: torch.optim.Optimizer,
             st["step"] = torch.zeros_like(st["step"])
         optimizer.state.clear()
     sd = {"model": msd, "optimizer": osd}
-    group = parallel.layout.group(AXIS_EXPERT) if parallel is not None else None
-    if group is not None:
-        # the state dicts hold the live optimizer's per-parameter dicts
-        sd["optimizer"] = {**osd, "state": {k: dict(v) for k, v in osd["state"].items()}}
-        for box, key, _ in _expert_tensors(sd, parallel.expert_params):
-            box[key] = all_gather(box[key], 0, group)
+    if parallel is None or parallel.mode != "mesh":
+        return sd
+    # the state dicts hold the live optimizer's per-parameter dicts
+    sd["optimizer"] = {**osd, "state": {k: dict(v) for k, v in osd["state"].items()}}
+    for axis, splits in ((AXIS_EXPERT, parallel.expert_params),
+                         (AXIS_TENSOR, parallel.tensor_params)):
+        group = parallel.layout.group(axis)
+        for box, key, name in _param_tensors(sd, splits if group is not None else {}):
+            box[key] = gather_tensor(box[key], splits[name], group, parallel.layout.size(axis))
     return sd
 
 
@@ -243,18 +277,18 @@ def load_full_state_dicts(model: nn.Module, optimizer: torch.optim.Optimizer,
                           parallel: Optional[DataParallel] = None) -> None:
     """Load unsharded, name-keyed state (``state_dicts`` of any layout,
     gathered) into ``model``/``optimizer`` of this rank's layout: an
-    expert shard takes its experts' rows."""
+    expert shard takes its experts' rows, a tensor rank its blocks."""
     from torch.distributed.checkpoint.state_dict import StateDictOptions, set_state_dict
 
     saved = {"model": dict(saved["model"]), "optimizer": saved["optimizer"]}
-    if parallel is not None and parallel.expert_params:
+    if parallel is not None and (parallel.expert_params or parallel.tensor_params):
         saved["optimizer"] = {
             **saved["optimizer"],
             "state": {k: dict(v) for k, v in saved["optimizer"]["state"].items()},
         }
-        for box, key, name in _expert_tensors(saved, parallel.expert_params):
-            lo, hi = parallel.expert_params[name]
-            box[key] = box[key][lo:hi]
+        for splits in (parallel.expert_params, parallel.tensor_params):
+            for box, key, name in _param_tensors(saved, splits):
+                box[key] = shard_tensor(box[key], splits[name]).contiguous()
     set_state_dict(
         model, optimizer,
         model_state_dict=saved["model"],

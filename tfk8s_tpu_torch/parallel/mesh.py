@@ -8,9 +8,10 @@ counterpart of the reference's ``jax.sharding.Mesh``.
 
 The port runs one process per device, so the devices a job has are the
 ranks of its process group, laid out in the reference's canonical order
-(later axes vary fastest over the ranks). The data, fsdp, expert and
-sequence axes are ported; tensor and pipeline are ROADMAP item 1.9 and
-raise ``NotImplementedError`` above size 1.
+(later axes vary fastest over the ranks). The data, fsdp, expert,
+sequence and tensor axes are ported; pipeline, and tensor or fsdp beside
+the model axes they are not yet combined with, are ROADMAP item 1.9 and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ CANONICAL_ORDER: Tuple[str, ...] = (
     AXIS_SEQUENCE,
     AXIS_TENSOR,
 )
-PORTED_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_EXPERT, AXIS_SEQUENCE)
+PORTED_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_EXPERT, AXIS_SEQUENCE, AXIS_TENSOR)
 # the axes a batch is split over (the reference's ``batch`` logical axis)
 BATCH_AXES = (AXIS_DATA, AXIS_FSDP)
 
@@ -108,19 +109,20 @@ class MeshConfig:
         return 1
 
     def require_ported(self) -> None:
-        """Raise for an axis the port does not shard over yet."""
+        """Raise for an axis, or a pair of axes, the port does not shard
+        over yet."""
         other = {n: s for n, s in self.axes if n not in PORTED_AXES}
         if other:
             raise NotImplementedError(
-                f"mesh axes {other}: tensor and pipeline parallelism are "
-                "ROADMAP item 1.9"
+                f"mesh axes {other}: pipeline parallelism is ROADMAP item 1.9"
             )
-        if self.axis_size(AXIS_FSDP) > 1 and (
-                self.axis_size(AXIS_EXPERT) > 1 or self.axis_size(AXIS_SEQUENCE) > 1):
-            raise NotImplementedError(
-                f"mesh {dict(self.axes)}: fsdp together with the expert or "
-                "sequence axis is ROADMAP item 1.9"
-            )
+        for axis, beside in ((AXIS_TENSOR, (AXIS_FSDP, AXIS_EXPERT, AXIS_SEQUENCE)),
+                             (AXIS_FSDP, (AXIS_EXPERT, AXIS_SEQUENCE))):
+            if self.axis_size(axis) > 1 and any(self.axis_size(b) > 1 for b in beside):
+                raise NotImplementedError(
+                    f"mesh {dict(self.axes)}: {axis} together with the "
+                    f"{' or '.join(beside)} axis is ROADMAP item 1.9"
+                )
 
     def coords(self, r: int) -> Dict[str, int]:
         """Rank ``r``'s index on every axis: the reference's C-order
@@ -151,11 +153,14 @@ class MeshConfig:
 
 
 # the axis sets a process group is made for: each model axis on its own
-# (the MoE combine, the ring and Ulysses exchanges), the batch axes (the
-# MoE load-balance statistics are global-batch means), and the ranks that
-# share an expert shard (its gradients are reduced over them)
+# (the MoE combine, the ring and Ulysses exchanges, the tensor splits'
+# sums and gathers), the batch axes (the MoE load-balance statistics are
+# global-batch means; a tensor mesh's gradients are averaged over them),
+# and the ranks that share an expert shard (its gradients are reduced
+# over them)
 _GROUP_AXES: Tuple[Tuple[str, ...], ...] = (
-    (AXIS_EXPERT,), (AXIS_SEQUENCE,), BATCH_AXES, (AXIS_DATA, AXIS_FSDP, AXIS_SEQUENCE),
+    (AXIS_EXPERT,), (AXIS_SEQUENCE,), (AXIS_TENSOR,), BATCH_AXES,
+    (AXIS_DATA, AXIS_FSDP, AXIS_SEQUENCE),
 )
 
 

@@ -18,10 +18,13 @@ What is kept from the reference:
   first batch held to the task's schema. Host batches are synthesized
   ahead on a prefetch thread;
 - multi-process parallelism over the mesh's ``data``, ``fsdp``,
-  ``expert`` and ``sequence`` axes (``parallel.data_parallel``): each
-  rank trains on its contiguous rows of the global batch (by its place on
-  data and fsdp) and, on a sequence-sharded mesh, its contiguous block of
-  the sequence (``TrainTask.split_sequence``) of the same numpy batch;
+  ``expert``, ``sequence`` and ``tensor`` axes
+  (``parallel.data_parallel``): each rank trains on its contiguous rows
+  of the global batch (by its place on data and fsdp; the ranks of a
+  tensor group share theirs) and, on a sequence-sharded mesh, its
+  contiguous block of the sequence (``TrainTask.split_sequence``) of the
+  same numpy batch; the model a task builds over the mesh holds the
+  rank's shares of it (``task_for_mesh``);
   losses and metrics are global means, read back and averaged over the
   ranks only at log boundaries;
 - progress reports from each process, convergence targets, checkpoint/
