@@ -213,11 +213,32 @@ must pass:
    scaling;
 15. nccl: with two cards or more the gangs of phase 13 (but the
    planted fault) run again over NCCL, a card a rank, against one
-   process, and with four cards T5-base on ``{"data": 2, "tensor": 2}``
-   (``BASELINE.json`` configs[3]) and GPT-2-small on ``{"tensor": 4}`` (3
-   heads a rank); with fewer cards, a line says what was skipped and why.
+   process, and so does the pipelined BERT-MLM of phase 16 on
+   ``{"pipeline": 2}``; with four cards T5-base on ``{"data": 2, "tensor":
+   2}`` (``BASELINE.json`` configs[3]), GPT-2-small on ``{"tensor": 4}`` (3
+   heads a rank), and the pipelined BERT-MLM on the reference's
+   ``{"pipeline": 2, "data": 2}`` and on ``{"pipeline": 4}`` (3 layers a
+   stage); with fewer cards, a line says what was skipped and why;
+16. pipeline: ``tfk8s_tpu_torch.models.pipelined.train(env)``, the
+   ``pipelined:train`` entrypoint (GPipe over the ``pipeline`` axis), at
+   BERT-base width (12 layers, 768 wide, 12 heads, vocab 30,522, bf16)
+   with the reference's defaults (seq 128, batch 64, 4 microbatches): one
+   process (one stage holding every layer) for 10 steps, finite losses,
+   its step time and peak memory, and its step on batches staged on the
+   card beside BERT's unpipelined stack on the same batch, each with a
+   profiler trace (busy time, idle share, leading kernels); then two gloo
+   ranks sharing the card on
+   ``{"pipeline": 2}`` over two slices (``TFK8S_NUM_SLICES=2``: the stage
+   send crosses the slice boundary), two steps, their first update's loss
+   and whole gradient (the stages' layers put together) against the one
+   process's (PARALLEL_LOSS_ATOL, FAMILY_GRAD_REL_L2), which a planted
+   fault (the last stage records microbatch t - s - 1 for t - s) must
+   exceed; each rank's step time beside the one process's, the collectives
+   gloo staged through host memory and peak memory. The stages run plain
+   attention, as the reference's do: no kernel of the port may launch on
+   any rank, flash or GroupNorm.
 
-The launch counts are zeroed just before each path (phases 6-15) and
+The launch counts are zeroed just before each path (phases 6-16) and
 read just after it; the line's launches add up the paths'. Then it prints the card line, the ``kernels`` JSON
 line and, last, the ``ok`` line. It exits non-zero, printing no result,
 when a phase fails, when no card is visible, or when the port's package is
@@ -2452,7 +2473,8 @@ import torch
 
 from chip_smoke import entry_steps
 from tfk8s_tpu_torch.ops import flash_attention as fa
-from tfk8s_tpu_torch.parallel import collectives, ring_attention, tensor_parallel
+from tfk8s_tpu_torch.ops import group_norm as gn
+from tfk8s_tpu_torch.parallel import collectives, pipeline, ring_attention, tensor_parallel
 from tfk8s_tpu_torch.runtime.launcher import ProcessContext, initialize_distributed
 
 env = dict(os.environ)
@@ -2467,26 +2489,36 @@ if env.get("FAULT") == "ring_offset":
 if env.get("FAULT") == "row_unsummed":
     # planted: every row split's output left as this rank's part, unsummed
     tensor_parallel.sum_over = lambda x, group: x
+if env.get("FAULT") == "record_shifted":
+    # planted: the last stage records microbatch t - s - 1 for t - s
+    pipeline._Schedule._record = lambda self, outputs, mu, y: outputs.__setitem__(mu - 1, y)
 # the head count of every flash forward this rank runs
 heads, flash_fwd = set(), fa.flash_fwd
 fa.flash_fwd = lambda q, *a, **kw: heads.add(q.shape[2]) or flash_fwd(q, *a, **kw)
 module = importlib.import_module("tfk8s_tpu_torch.models." + env["FAMILY"])
+gn.reset_launches()
+if torch.cuda.is_available():
+    torch.cuda.reset_peak_memory_stats()
 losses, grads, step_ms, launches = entry_steps(torch, fa, module, env)
 torch.save(grads, env["OUT"] + "-%d.pt" % ctx.process_id)
 print("RANK " + json.dumps({
     "rank": ctx.process_id, "losses": losses, "step_ms": step_ms, "launches": launches,
-    "heads": sorted(heads), "host_staged": sorted(collectives.HOST_STAGED)}), flush=True)
+    "gn_launches": dict(gn.LAUNCHES), "heads": sorted(heads),
+    "host_staged": sorted(collectives.HOST_STAGED),
+    "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if torch.cuda.is_available()
+    else None}), flush=True)
 """
 
 
-def _run_par_gang(name, n_procs, env, out, want, backend="gloo", whole=None):
+def _run_par_gang(name, n_procs, env, out, want, backend="gloo", whole=None, assemble=None):
     """``n_procs`` processes of PAR_WORKER on a free port (gloo ranks share
     the one card; NCCL ranks take a card each), each driving ``env``'s
     entry point; their RANK records in rank order, and the whole gradient
     of the first step put together from their files: a parameter shaped
     unlike ``want``'s (an expert shard, a tensor block) is the blocks of
     the ranks ``whole`` (default: every rank) concatenated in rank order
-    along the dimension they split."""
+    along the dimension they split; ``assemble(parts)`` puts together
+    ranks holding different parameters (pipeline stages)."""
     import socket
 
     import torch
@@ -2525,9 +2557,13 @@ def _run_par_gang(name, n_procs, env, out, want, backend="gloo", whole=None):
             raise AssertionError(f"{name}: rank {rank} exited {p.returncode}:\n{text[-3000:]}")
         records.append(json.loads(lines[0][5:]))
     parts = [torch.load(f"{out}-{r}.pt") for r in range(n_procs)]
+    for r in range(n_procs):
+        os.remove(f"{out}-{r}.pt")
+    if assemble is not None:
+        parts = [assemble(parts)]
     if any(len(p) != len(want) for p in parts):
         raise AssertionError(f"{name}: {[len(p) for p in parts]} parameters, want {len(want)}")
-    whole = range(n_procs) if whole is None else whole
+    whole = range(len(parts)) if whole is None else whole
     grads = []
     for w, ps in zip(want, zip(*parts)):
         if ps[0].shape == w.shape:
@@ -2535,8 +2571,6 @@ def _run_par_gang(name, n_procs, env, out, want, backend="gloo", whole=None):
             continue
         dim = next(d for d in range(w.dim()) if ps[0].shape[d] != w.shape[d])
         grads.append(torch.cat([ps[r] for r in whole], dim=dim))
-    for r in range(n_procs):
-        os.remove(f"{out}-{r}.pt")
     return sorted(records, key=lambda r: r["rank"]), grads
 
 
@@ -3038,22 +3072,148 @@ def phase_tensor(torch, fa, root):
     return total
 
 
-def phase_nccl(torch, gpt, fa, root):
+def phase_nccl(torch, gpt, fa, gn, root):
     """The gangs of phase 13 over NCCL, a card a rank, where the machine
-    has two cards or more, and with four the tensor gangs of
-    TENSOR_NCCL_GANGS; else one line says why they were skipped (NCCL will
-    not put two ranks on one card)."""
+    has two cards or more, and the pipelined gangs of PIPELINE_NCCL_GANGS
+    that fit its cards; with four the tensor gangs of TENSOR_NCCL_GANGS;
+    else one line says why they were skipped (NCCL will not put two ranks
+    on one card)."""
     cards = torch.cuda.device_count()
     if cards < 2:
         log(f"nccl: gangs skipped: {cards} card visible; NCCL will not put two ranks on "
-            "one card, so the gangs ran over gloo only (phases parallel and tensor)")
+            "one card, so the gangs ran over gloo only (phases parallel, tensor and "
+            "pipeline)")
         return
     _parallel_gangs(torch, gpt, fa, root, "nccl")
+    fits = [g for g in PIPELINE_NCCL_GANGS if math.prod(g[1].values()) <= cards]
+    _pipeline_gangs(torch, fa, gn, root, "nccl", fits, _pipeline_reference(torch, fa, gn)[0])
     if cards < 4:
-        log(f"nccl: tensor gangs skipped: {cards} cards, they need 4")
+        log(f"nccl: tensor gangs and the four-rank pipelined gangs skipped: {cards} cards, "
+            "they need 4")
         return
     _tensor_gangs(torch, fa, root, "nccl",
                   [(n, f, m, e, s, None) for n, f, m, e, s in TENSOR_NCCL_GANGS])
+
+
+# phase pipeline: the pipelined BERT-MLM (GPipe) at BERT-base width with the
+# reference's defaults; the gangs' first update against one process's
+PIPELINE = dict(seed=81, one_steps=10, gang_steps=2)
+PIPELINE_ENV = {"TFK8S_SEQ_LEN": "128", "TFK8S_BATCH_SIZE": "64", "TFK8S_NUM_MICRO": "4",
+                "TFK8S_NUM_LAYERS": "12", "TFK8S_LEARNING_RATE": "1e-3",
+                "TFK8S_INPUT_MODE": "replicated", "TFK8S_LOG_EVERY": "1"}
+# (name, mesh, extra env, planted fault): two ranks sharing the card, one
+# stage a slice, so the stage send crosses the slice boundary
+PIPELINE_GANGS = [
+    ("pipeline2_two_slices", {"pipeline": 2}, {"TFK8S_NUM_SLICES": "2"}, None),
+    ("pipeline2_record_shifted", {"pipeline": 2}, {"TFK8S_NUM_SLICES": "2"}, "record_shifted"),
+]
+# over NCCL, a card a rank: (name, mesh, extra env, fault)
+PIPELINE_NCCL_GANGS = [
+    ("pipeline2", {"pipeline": 2}, {}, None),
+    ("pipeline2_data2", {"pipeline": 2, "data": 2}, {}, None),
+    ("pipeline4", {"pipeline": 4}, {}, None),
+]
+
+
+def _pipeline_env(steps):
+    tiny = PARALLEL_ENV.get("TFK8S_MODEL_PRESET") == "tiny"
+    return dict(PIPELINE_ENV, **({"TFK8S_MODEL_PRESET": "tiny", "TFK8S_NUM_LAYERS": "4"}
+                                 if tiny else {}),
+                **({"TFK8S_DEVICE": "cpu"} if DEVICE == "cpu" else {}),
+                TFK8S_TRAIN_STEPS=str(steps), TFK8S_SEED=str(PIPELINE["seed"]))
+
+
+def _pipeline_reference(torch, fa, gn, steps=None):
+    """One process's ``pipelined:train`` (one stage holding every layer):
+    ``(first loss, first update's gradient, step ms)`` and its summary,
+    with no kernel launched (counts zeroed just before it)."""
+    from tfk8s_tpu_torch.models import pipelined
+
+    steps = steps or PIPELINE["gang_steps"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gn.reset_launches()
+    t0 = time.perf_counter()
+    losses, want, one_ms, launches = entry_steps(torch, fa, pipelined, _pipeline_env(steps))
+    summary = {"steps": len(losses), "losses": losses, "step_ms": one_ms,
+               "wall_s": time.perf_counter() - t0,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "flash_launches": launches, "group_norm_launches": dict(gn.LAUNCHES)}
+    if any(launches.values()) or any(gn.LAUNCHES.values()):
+        raise AssertionError(f"pipelined one process: kernel launches {summary}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"pipelined one process: losses {losses}")
+    return (losses[0], want, one_ms), summary
+
+
+def _pipeline_stages(mesh):
+    """``assemble`` for ``_run_par_gang``: the whole gradient in the one
+    process's parameter order from the ranks' (each ``[embedding...,
+    its stage's layers..., final norm...]``): the embedding and the final
+    norm from rank 0, each stage's layers from its first data rank."""
+    data = mesh.get("data", 1)
+
+    def assemble(parts):
+        stages = [parts[s * data] for s in range(mesh["pipeline"])]
+        return stages[0][:2] + [g for p in stages for g in p[2:-2]] + stages[0][-2:]
+
+    return assemble
+
+
+def _pipeline_gangs(torch, fa, gn, root, backend, gangs, reference):
+    """Each gang ``(name, mesh, extra env, fault)`` through
+    ``pipelined:train`` for PIPELINE["gang_steps"] steps, its first update
+    against one process's ``reference`` (loss within PARALLEL_LOSS_ATOL,
+    the whole gradient within FAMILY_GRAD_REL_L2, a planted fault beyond
+    them; ``reference``: its first loss, gradient and step ms); no rank
+    may launch a flash or GroupNorm kernel."""
+    work = os.path.join(root, "build", "chip_smoke_pipeline")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    loss, want, one_ms = reference
+    none = dict.fromkeys(fa.KERNELS, 0)
+    for name, mesh, extra, fault in gangs:
+        t0 = time.perf_counter()
+        env = dict(_pipeline_env(PIPELINE["gang_steps"]), TFK8S_MESH=json.dumps(mesh),
+                   FAMILY="pipelined", **extra, **({"FAULT": fault} if fault else {}))
+        records, grads = _run_par_gang(name, math.prod(mesh.values()), env,
+                                       os.path.join(work, name), want, backend,
+                                       assemble=_pipeline_stages(mesh))
+        errs = _gang_check(f"{name} ({backend})", records, grads, loss, want, none,
+                           fault=bool(fault))
+        for r in records:
+            if any(r["gn_launches"].values()):
+                raise AssertionError(f"{name}: rank {r['rank']} GroupNorm launches "
+                                     f"{r['gn_launches']}")
+        del grads
+        log(f"pipeline gang {name} {json.dumps(mesh)} {json.dumps(extra)} ({backend}): {json.dumps({**errs, 'one_process_loss': loss, 'one_process_step_ms': one_ms, 'wall_s': time.perf_counter() - t0, 'ranks': records})}")
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def phase_pipeline(torch, fa, gn, root):
+    """The pipeline axis (docstring phase 16): one process's
+    ``pipelined:train`` at BERT-base width, then the PIPELINE_GANGS over
+    gloo (two ranks sharing the card) with the planted fault. No kernel
+    runs on this path: returns its launches, all zero."""
+    from tfk8s_tpu_torch.models import bert, pipelined
+
+    reference, summary = _pipeline_reference(torch, fa, gn, PIPELINE["one_steps"])
+    log(f"pipeline one process (one stage, no kernel runs on this path): {json.dumps(summary)}")
+    # the same step on batches staged on the card, and BERT's unpipelined
+    # stack on the same batch: what the schedule costs in one process
+    env = _pipeline_env(1)
+    cfg = (bert.tiny_config if "TFK8S_MODEL_PRESET" in env else bert.base_config)(
+        num_layers=int(env["TFK8S_NUM_LAYERS"]))
+    shape = dict(seq_len=int(env["TFK8S_SEQ_LEN"]), batch_size=int(env["TFK8S_BATCH_SIZE"]))
+    for name, task in (("pipelined", pipelined.make_task(
+            DEVICE, cfg=cfg, num_micro=int(env["TFK8S_NUM_MICRO"]), **shape)),
+            ("bert", bert.make_task(cfg=cfg, **shape))):
+        log(f"pipeline staged step, {name}: {json.dumps(_staged_step(torch, task, 5))}")
+    log("pipeline: the gangs' steps are two gloo ranks sharing one card; they measure gloo's "
+        "host round trips, not scaling")
+    _pipeline_gangs(torch, fa, gn, root, "gloo", PIPELINE_GANGS, reference)
+    return {**summary["flash_launches"], **summary["group_norm_launches"]}
 
 
 def main() -> int:
@@ -3101,7 +3261,8 @@ def main() -> int:
         ("families", lambda: phase_families(torch, fa)),
         ("parallel", lambda: phase_parallel(torch, gpt, fa, root)),
         ("tensor", lambda: phase_tensor(torch, fa, root)),
-        ("nccl", lambda: phase_nccl(torch, gpt, fa, root)),
+        ("nccl", lambda: phase_nccl(torch, gpt, fa, gn, root)),
+        ("pipeline", lambda: phase_pipeline(torch, fa, gn, root)),
     ]
     if only:
         phases = [p for p in phases if p[0] in ("card", "build", *only)]
@@ -3125,7 +3286,7 @@ def main() -> int:
         elif name == "kernels":
             line = value
         elif name in ("train", "resnet_train", "roofline", "generate", "distributed",
-                      "families", "parallel", "tensor"):
+                      "families", "parallel", "tensor", "pipeline"):
             for kernel, count in value.items():  # each path's launches add up
                 launches[kernel] = launches.get(kernel, 0) + count
     for d in (ckpt_dir, rn_ckpt_dir):

@@ -380,8 +380,13 @@ def test_mesh_device_count_error_matches_the_reference():
     # beside tensor or pipeline they still raise
     ({"TFK8S_MESH": '{"sequence": 2, "tensor": 2}', "TFK8S_NUM_PROCESSES": "4"}, "1.9"),
     ({"TFK8S_MESH": '{"expert": 2, "pipeline": 2}', "TFK8S_NUM_PROCESSES": "4"}, "1.9"),
-    ({"TFK8S_MESH": '{"pipeline": 2}', "TFK8S_NUM_PROCESSES": "2"}, "1.9"),
-    ({"TFK8S_NUM_SLICES": "2"}, "1.5"),
+    # pipeline runs alone and beside data (tests/test_torch_pipeline.py);
+    # beside tensor it still raises
+    ({"TFK8S_MESH": '{"pipeline": 2, "tensor": 2}', "TFK8S_NUM_PROCESSES": "4"}, "1.9"),
+    # multislice runs (tests/test_torch_multislice.py); a multislice mesh
+    # of more devices than processes still raises
+    ({"TFK8S_NUM_SLICES": "2", "TFK8S_MESH": '{"data": 4}', "TFK8S_NUM_PROCESSES": "2"},
+     "1.5"),
     ({"TFK8S_MESH": '{"data": 4}', "TFK8S_NUM_PROCESSES": "2"}, "1.5"),
     ({"TFK8S_INPUT_FILES": "x-*.rio", "TFK8S_INPUT_FORMAT": "image"}, "1.5"),
     ({"TFK8S_SCAN_STEPS": "2"}, "1.11"),

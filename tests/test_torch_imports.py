@@ -70,6 +70,7 @@ def test_every_port_module_imports_without_jax_or_the_reference():
     "tfk8s_tpu_torch.ops.jax_random", "tfk8s_tpu_torch.runtime.paging",
     "tfk8s_tpu_torch.runtime.handoff", "tfk8s_tpu_torch.runtime.kvtier",
     "tfk8s_tpu_torch.runtime.sched", "tfk8s_tpu_torch.runtime.server",
+    "tfk8s_tpu_torch.parallel.pipeline", "tfk8s_tpu_torch.models.pipelined",
 ])
 def test_each_resnet_and_roofline_module_imports_on_its_own(module):
     proc = _run(_BLOCK + f"import {module}\n"

@@ -240,7 +240,9 @@ def test_train_entrypoint_checkpoints_and_counts_no_card_launch(tmp_path):
 
 @pytest.mark.parametrize("extra", [
     {"TFK8S_INPUT_FILES": "shards/*.rio", "TFK8S_INPUT_FORMAT": "image"},
-    {"TFK8S_NUM_SLICES": "2"},
+    # multislice runs (tests/test_torch_multislice.py); pipeline beside
+    # expert still raises
+    {"TFK8S_NUM_PROCESSES": "4", "TFK8S_MESH": '{"pipeline": 2, "expert": 2}'},
 ])
 def test_unported_input_raises(extra):
     with pytest.raises(NotImplementedError):

@@ -297,10 +297,11 @@ def test_impl_selection_policy_matches_the_reference():
 
 def test_tensor_and_pipeline_axes_still_raise():
     """The tensor axis runs alone and beside data
-    (``tests/test_torch_tensor_parallel.py``); beside fsdp, expert or
-    sequence, and the pipeline axis, it still raises."""
+    (``tests/test_torch_tensor_parallel.py``), and so does the pipeline
+    axis (``tests/test_torch_pipeline.py``); tensor beside fsdp, expert or
+    sequence, and pipeline beside sequence, still raise."""
     for axes in ({"fsdp": 2, "tensor": 2}, {"expert": 2, "tensor": 2},
-                 {"sequence": 2, "tensor": 2}, {"pipeline": 2}):
+                 {"sequence": 2, "tensor": 2}, {"pipeline": 2, "sequence": 2}):
         with pytest.raises(NotImplementedError, match=r"ROADMAP item 1\.9\b"):
             MeshConfig.from_dict(axes).require_ported()
     for axes in ({"tensor": 2}, {"data": 2, "tensor": 2}):

@@ -172,7 +172,9 @@ def test_drain_commits_a_checkpoint_and_raises_pod_drained(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    {"TFK8S_NUM_SLICES": "2"},
+    # multislice runs (tests/test_torch_multislice.py); pipeline beside
+    # tensor still raises
+    {"TFK8S_NUM_PROCESSES": "4", "TFK8S_MESH": '{"pipeline": 2, "tensor": 2}'},
     {"TFK8S_MESH": '{"data": 2}'},
     {"TFK8S_INPUT_FILES": "part-*.rio", "TFK8S_INPUT_FORMAT": "image"},
     {"TFK8S_SCAN_STEPS": "4"},

@@ -56,6 +56,12 @@ The MLP classifier (``models/mlp.py``) maps ``fc1``/``fc2`` ``{kernel
 ``table{t}/embedding`` and the dense layers of ``bottom``/``top`` the same
 way (``dlrm_params_to_state_dict``).
 
+The pipelined BERT (``models/pipelined.py``) holds ``embed`` and
+``ln_final`` as above and ``stages/layer{j}``, each leaf stacked ``[S,
+...]`` over the stages; stage s's ``layer{j}`` is the port's global layer
+``layers.{s * L / S + j}`` (``pipelined_params_to_state_dict``, with
+``stage=`` one rank's share).
+
 Every map is of whole parameters. A tensor-split model takes its rank's
 blocks of a bridged state dict (``parallel/tensor_parallel.shard_state_dict``)
 and gives whole ones back through a checkpoint's gather
@@ -196,6 +202,46 @@ def state_dict_to_params(sd: Mapping[str, torch.Tensor], cfg: TransformerConfig)
     for i in range(cfg.num_layers):
         params[f"layer{i}"] = _layer_from_sd(sd, f"layers.{i}", cfg)
     return params
+
+
+def pipelined_params_to_state_dict(params: Mapping[str, Any], cfg: TransformerConfig,
+                                   num_stages: int, stage: Optional[int] = None
+                                   ) -> Dict[str, torch.Tensor]:
+    """The reference's pipelined BERT tree (``embed``, ``stages/layer{j}``
+    with ``[S, ...]`` leaves, ``ln_final``) -> the port's ``state_dict``
+    (``models/pipelined.PipelinedBert``): every layer under its global
+    index, or only stage ``stage``'s (with the embedding and final norm,
+    which every stage holds)."""
+    per = cfg.num_layers // num_stages
+    sd: Dict[str, torch.Tensor] = {}
+    _embed_to_sd(params["embed"], sd)
+    _ln_to_sd(params["ln_final"], "ln_final", sd)
+    for s in range(num_stages) if stage is None else (stage,):
+        for j in range(per):
+            tree = _index_tree(params["stages"][f"layer{j}"], s)
+            _layer_to_sd(tree, f"layers.{s * per + j}", cfg, sd)
+    return sd
+
+
+def pipelined_state_dict_to_params(sd: Mapping[str, torch.Tensor], cfg: TransformerConfig,
+                                   num_stages: int) -> Dict[str, Any]:
+    """The port's whole pipelined ``state_dict`` -> the reference's tree,
+    each stage's ``layer{j}`` stacked ``[S, ...]``."""
+    per = cfg.num_layers // num_stages
+    layers = [_layer_from_sd(sd, f"layers.{i}", cfg) for i in range(cfg.num_layers)]
+    stages = {f"layer{j}": _stack_trees([layers[s * per + j] for s in range(num_stages)])
+              for j in range(per)}
+    return {"embed": _embed_from_sd(sd), "stages": stages, "ln_final": _ln_from_sd(sd, "ln_final")}
+
+
+def _index_tree(tree: Mapping[str, Any], i: int) -> Dict[str, Any]:
+    return {k: _index_tree(v, i) if isinstance(v, Mapping) else np.asarray(v)[i]
+            for k, v in tree.items()}
+
+
+def _stack_trees(trees: Sequence[Mapping[str, Any]]) -> Dict[str, Any]:
+    return {k: _stack_trees([t[k] for t in trees]) if isinstance(v, Mapping)
+            else np.stack([t[k] for t in trees]) for k, v in trees[0].items()}
 
 
 def vit_params_to_state_dict(params: Mapping[str, Any], cfg: TransformerConfig,

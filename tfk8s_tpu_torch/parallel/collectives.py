@@ -26,7 +26,12 @@ where GSPMD and ``shard_map`` put ``psum``, ``all_to_all`` and
   split, whose gradient is the exchange back.
 - :func:`all_gather` and :func:`ring_shift` (no autograd): a key mask
   gathered along the sequence, and the ring's rotation of K/V blocks to
-  the next rank.
+  the next rank;
+- :func:`exchange` and :func:`broadcast_from` (no autograd): the
+  pipeline's non-circular neighbour sends (a stage's output to the next
+  stage and its input gradient to the previous one, the reference's
+  ``ppermute`` with ``perm = [(i, i + 1)]``) and the last stage's outputs
+  (the first stage's input gradient) given to every stage.
 
 On the card, gloo takes CUDA tensors for ``all_reduce``, ``broadcast``
 and ``all_gather`` but not for point-to-point sends, and some torch
@@ -130,6 +135,37 @@ def ring_shift(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return [o.to(t.device) for o, t in zip(outs, tensors)]
+
+
+def exchange(send: Optional[torch.Tensor], dst: Optional[int], like: Optional[torch.Tensor],
+             src: Optional[int], group) -> Optional[torch.Tensor]:
+    """Send ``send`` to global rank ``dst`` and receive a tensor shaped and
+    typed as ``like`` from global rank ``src``, posted as one
+    ``batch_isend_irecv``; either half may be absent (None), and the
+    received tensor is returned (None when nothing is received). Every
+    send must meet its receive in the peer's call of the same turn."""
+    ops, host = [], False
+    for t in (send, like):
+        host = host or (t is not None and _staged("send/recv", t, group))
+    out = None
+    if send is not None:
+        ops.append(dist.P2POp(dist.isend, (send.cpu() if host else send).contiguous(), dst,
+                              group))
+    if like is not None:
+        out = torch.empty(like.shape, dtype=like.dtype, device="cpu" if host else like.device)
+        ops.append(dist.P2POp(dist.irecv, out, src, group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out.to(like.device) if out is not None else None
+
+
+def broadcast_from(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """``t`` as global rank ``src`` of ``group`` holds it, on every rank
+    (in place; ``t`` if no group)."""
+    if group is not None:
+        dist.broadcast(t, src=src, group=group)
+    return t
 
 
 class _SumOver(torch.autograd.Function):

@@ -25,6 +25,15 @@ sharded over fsdp, MoE experts over ``expert``, the sequence over
   gradient is averaged over the data group only, and the gradient norm
   sums the blocks' squares over the tensor group and counts the
   replicated ones once.
+- ``pipeline`` (mode "mesh", with or without ``data``): the ranks of a
+  pipeline group share their rows; each holds its own stage's layers
+  (``parallel/pipeline.stage_params``) and computes the whole gradient of
+  what every rank runs alike (the embedding, final norm and head of
+  ``models/pipelined.py``); so every gradient is averaged over the data
+  group only, the norm sums the stages' squares over the pipeline group,
+  and the metrics, alike over it, are averaged over the data group. A
+  family with no stage runs its whole model on every pipeline rank, as
+  GSPMD replicates a step with no pipeline region over the axis.
 
 Each rank holds a contiguous block of the global batch (``local_rows``,
 by its place on the data and fsdp axes), computes its local mean loss
@@ -37,14 +46,15 @@ nothing back from the device.
 Checkpoints hold whole parameters: an expert shard's ``wi``/``wo`` and a
 tensor split's blocks, and their AdamW moments, are gathered over the
 expert or tensor group to save (``state_dicts``), and each rank takes its
-slice of them to restore (``load_full_state_dicts``), so any layout
-resumes any other.
+slice of them to restore (``load_full_state_dicts``); the stages' layers,
+named by their global index, are gathered over the pipeline group and
+each rank takes its own. So any layout resumes any other.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Iterator, List, Optional, Union
+from typing import Dict, Iterator, List, Optional, Set, Union
 
 import torch
 import torch.distributed as dist
@@ -54,6 +64,7 @@ from tfk8s_tpu_torch.parallel.mesh import (
     AXIS_DATA,
     AXIS_EXPERT,
     AXIS_FSDP,
+    AXIS_PIPELINE,
     AXIS_SEQUENCE,
     AXIS_TENSOR,
     BATCH_AXES,
@@ -62,6 +73,7 @@ from tfk8s_tpu_torch.parallel.mesh import (
     build_mesh,
 )
 from tfk8s_tpu_torch.parallel.moe import SwitchMoeBlock
+from tfk8s_tpu_torch.parallel.pipeline import stage_params
 from tfk8s_tpu_torch.parallel.tensor_parallel import (
     Split,
     TensorShard,
@@ -73,8 +85,8 @@ from tfk8s_tpu_torch.parallel.tensor_parallel import (
 
 class DataParallel:
     """The job's parallel layout, for one rank. ``mode`` is "none" (one
-    process), "ddp", "fsdp", "hsdp" or "mesh" (expert, sequence or
-    tensor axes). ``layout`` is the job's ``MeshConfig`` (None: data over every
+    process), "ddp", "fsdp", "hsdp" or "mesh" (expert, sequence, tensor or
+    pipeline axes). ``layout`` is the job's ``MeshConfig`` (None: data over every
     rank) or an already built :class:`Mesh`."""
 
     def __init__(self, layout: Union[MeshConfig, Mesh, None], device: torch.device):
@@ -92,11 +104,13 @@ class DataParallel:
         # and the block each tensor-split parameter holds
         self.expert_params: Dict[str, Split] = {}
         self.tensor_params: Dict[str, Split] = {}
+        # the names of this rank's pipeline-stage parameters
+        self.stage_params: Set[str] = set()
         self.tp = TensorShard.of(self.layout)
         data, fsdp = self.cfg.axis_size(AXIS_DATA), self.cfg.axis_size(AXIS_FSDP)
         if self.world == 1:
             self.mode = "none"
-        elif self.layout.size(AXIS_EXPERT, AXIS_SEQUENCE, AXIS_TENSOR) > 1:
+        elif self.layout.size(AXIS_EXPERT, AXIS_SEQUENCE, AXIS_TENSOR, AXIS_PIPELINE) > 1:
             self.mode = "mesh"
         elif fsdp == 1:
             self.mode = "ddp"
@@ -126,6 +140,7 @@ class DataParallel:
             for p in ("wi", "wo")
         }
         self.tensor_params = tensor_splits(model)
+        self.stage_params = stage_params(model)
         if self.tp is not None and not self.tensor_params:
             raise ValueError(
                 "a tensor mesh needs a model built over it (the family's "
@@ -144,10 +159,10 @@ class DataParallel:
     def _buckets(self, model: nn.Module):
         """``[(params, group, divisor)]``: replicated parameters over every
         rank / (data x expert); expert shards over their group / data; on a
-        tensor mesh everything over the data group / data."""
+        tensor or pipeline mesh everything over the data group / data."""
         lay = self.layout
         data = lay.size(AXIS_DATA)
-        if self.tp is not None:
+        if self.tp is not None or lay.size(AXIS_PIPELINE) > 1:
             return [(list(model.parameters()), lay.group(*BATCH_AXES), data)]
         rep, exp = [], []
         for name, p in model.named_parameters():
@@ -194,7 +209,8 @@ class DataParallel:
     def grad_norm(self, grads: List[torch.Tensor], model: Optional[nn.Module] = None
                   ) -> torch.Tensor:
         """The global L2 norm of the (already averaged) gradients."""
-        split = {AXIS_EXPERT: self.expert_params, AXIS_TENSOR: self.tensor_params}
+        split = {AXIS_EXPERT: self.expert_params, AXIS_TENSOR: self.tensor_params,
+                 AXIS_PIPELINE: self.stage_params}
         for axis, shards in split.items():
             if self.mode == "mesh" and model is not None and self.layout.size(axis) > 1:
                 # the shards differ over the axis: sum their squares over it
@@ -217,13 +233,17 @@ class DataParallel:
 
     def reduce_metrics(self, values: torch.Tensor, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Mean over the ranks of a stacked metrics vector (each rank's
-        local means over equal row counts average to the global batch's);
-        entries where ``keep`` is True are left as they are."""
-        if self.world == 1:
+        local means over equal row counts average to the global batch's;
+        on a pipeline mesh over the data group, the pipeline ranks holding
+        the same values); entries where ``keep`` is True are left as they
+        are."""
+        pipeline = self.layout.size(AXIS_PIPELINE) > 1
+        group = self.layout.group(*BATCH_AXES) if pipeline else dist.group.WORLD
+        if self.world == 1 or group is None:
             return values
         total = values.clone()
-        dist.all_reduce(total)
-        mean = total / self.world
+        dist.all_reduce(total, group=group)
+        mean = total / (self.layout.size(*BATCH_AXES) if pipeline else self.world)
         return torch.where(keep, values, mean) if keep is not None else mean
 
 
@@ -247,7 +267,8 @@ def state_dicts(model: nn.Module, optimizer: torch.optim.Optimizer,
     plain, DDP or FSDP2 model (DTensor shards under FSDP2). With expert
     shards (``parallel``), their parameters and moments are gathered over
     the expert group into whole ``[num_experts, ...]`` tensors; with
-    tensor blocks, over the tensor group into whole tensors."""
+    tensor blocks, over the tensor group into whole tensors; with pipeline
+    stages, every stage's layers over the pipeline group."""
     from torch.distributed.checkpoint.state_dict import get_state_dict
 
     fresh = not optimizer.state
@@ -269,7 +290,56 @@ def state_dicts(model: nn.Module, optimizer: torch.optim.Optimizer,
         group = parallel.layout.group(axis)
         for box, key, name in _param_tensors(sd, splits if group is not None else {}):
             box[key] = gather_tensor(box[key], splits[name], group, parallel.layout.size(axis))
+    group = parallel.layout.group(AXIS_PIPELINE)
+    if group is not None and parallel.stage_params:
+        _gather_stages(sd, parallel.stage_params, group, parallel.layout.index(AXIS_PIPELINE))
     return sd
+
+
+def _gather_stages(sd: Dict[str, dict], mine: Set[str], group, stage: int) -> None:
+    """Every stage's parameters and moments added to ``sd`` from the ranks
+    of the pipeline ``group`` (host copies, in stage order), the optimizer's
+    parameter list put in the whole model's order: what comes before the
+    stages, the stages' in stage order (``stage``: this rank's), what comes
+    after."""
+    opt = sd["optimizer"]
+    own = {
+        "model": {n: sd["model"][n].detach().cpu() for n in mine},
+        "state": {n: {k: v.detach().cpu() if torch.is_tensor(v) else v
+                      for k, v in opt["state"][n].items()} for n in mine if n in opt["state"]},
+        "names": [[n for n in g["params"] if n in mine] for g in opt["param_groups"]],
+        "stage": stage,
+    }
+    parts: List[Optional[dict]] = [None] * dist.get_world_size(group)
+    dist.all_gather_object(parts, own, group=group)
+    by_stage = sorted(parts, key=lambda p: p["stage"])
+    groups = []
+    for i, g in enumerate(opt["param_groups"]):
+        names = g["params"]
+        first = next((j for j, n in enumerate(names) if n in mine), len(names))
+        last = max((j + 1 for j, n in enumerate(names) if n in mine), default=first)
+        groups.append({**g, "params": names[:first] + [n for p in by_stage
+                                                      for n in p["names"][i]] + names[last:]})
+    for p in parts:
+        sd["model"].update(p["model"])
+        opt["state"].update(p["state"])
+    sd["optimizer"] = {**opt, "param_groups": groups}
+
+
+def _own_stage(saved: Dict[str, dict], names: Set[str]) -> Dict[str, dict]:
+    """Whole saved state cut to a stage's model: the parameters ``names``
+    the model holds (every stage's share of the whole model's), their
+    moments and the optimizer's list of them."""
+    opt = saved["optimizer"]
+    return {
+        "model": {n: v for n, v in saved["model"].items() if n in names},
+        "optimizer": {
+            **opt,
+            "state": {n: v for n, v in opt["state"].items() if n in names},
+            "param_groups": [{**g, "params": [n for n in g["params"] if n in names]}
+                             for g in opt["param_groups"]],
+        },
+    }
 
 
 def load_full_state_dicts(model: nn.Module, optimizer: torch.optim.Optimizer,
@@ -281,6 +351,8 @@ def load_full_state_dicts(model: nn.Module, optimizer: torch.optim.Optimizer,
     from torch.distributed.checkpoint.state_dict import StateDictOptions, set_state_dict
 
     saved = {"model": dict(saved["model"]), "optimizer": saved["optimizer"]}
+    if parallel is not None and parallel.stage_params:
+        saved = _own_stage(saved, set(model.state_dict()))
     if parallel is not None and (parallel.expert_params or parallel.tensor_params):
         saved["optimizer"] = {
             **saved["optimizer"],

@@ -8,10 +8,21 @@ counterpart of the reference's ``jax.sharding.Mesh``.
 
 The port runs one process per device, so the devices a job has are the
 ranks of its process group, laid out in the reference's canonical order
-(later axes vary fastest over the ranks). The data, fsdp, expert,
-sequence and tensor axes are ported; pipeline, and tensor or fsdp beside
-the model axes they are not yet combined with, are ROADMAP item 1.9 and
-raise ``NotImplementedError``.
+(later axes vary fastest over the ranks). Every axis is ported: pipeline
+alone or beside data (the reference's one composition,
+``pipeline_apply(data_axis=...)``); tensor, and fsdp, beside the model
+axes they are not yet combined with, and pipeline beside any axis but
+data, are ROADMAP item 1.9 and raise ``NotImplementedError``.
+
+Multislice (``TFK8S_NUM_SLICES`` > 1): ``MeshConfig.slice_axis_split``
+keeps the reference's rule that only pipeline, data and fsdp may cross a
+slice boundary, and ``build_mesh`` places the ranks slice-major, as the
+reference's ``slice_major_devices`` orders devices: every rank's
+``TFK8S_SLICE_ID`` is gathered, the slices are taken in the order of
+their ids and the ranks of a slice in rank order, so the C-order
+reshape puts the slice boundaries on the slowest axes. Without slice ids
+the contiguous blocks of ranks are the slices (the reference's emulation
+on a pool without ``slice_index``).
 """
 
 from __future__ import annotations
@@ -41,7 +52,7 @@ CANONICAL_ORDER: Tuple[str, ...] = (
     AXIS_SEQUENCE,
     AXIS_TENSOR,
 )
-PORTED_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_EXPERT, AXIS_SEQUENCE, AXIS_TENSOR)
+PORTED_AXES = (AXIS_PIPELINE, AXIS_DATA, AXIS_FSDP, AXIS_EXPERT, AXIS_SEQUENCE, AXIS_TENSOR)
 # the axes a batch is split over (the reference's ``batch`` logical axis)
 BATCH_AXES = (AXIS_DATA, AXIS_FSDP)
 
@@ -114,15 +125,56 @@ class MeshConfig:
         other = {n: s for n, s in self.axes if n not in PORTED_AXES}
         if other:
             raise NotImplementedError(
-                f"mesh axes {other}: pipeline parallelism is ROADMAP item 1.9"
+                f"mesh axes {other}: axes outside {list(CANONICAL_ORDER)} are not ported"
             )
-        for axis, beside in ((AXIS_TENSOR, (AXIS_FSDP, AXIS_EXPERT, AXIS_SEQUENCE)),
+        for axis, beside in ((AXIS_PIPELINE, (AXIS_FSDP, AXIS_EXPERT, AXIS_SEQUENCE,
+                                              AXIS_TENSOR)),
+                             (AXIS_TENSOR, (AXIS_FSDP, AXIS_EXPERT, AXIS_SEQUENCE)),
                              (AXIS_FSDP, (AXIS_EXPERT, AXIS_SEQUENCE))):
             if self.axis_size(axis) > 1 and any(self.axis_size(b) > 1 for b in beside):
                 raise NotImplementedError(
                     f"mesh {dict(self.axes)}: {axis} together with the "
                     f"{' or '.join(beside)} axis is ROADMAP item 1.9"
                 )
+
+    def slice_axis_split(self, num_slices: int) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+        """The reference's ``(dcn_axes, ici_axes)`` of a ``num_slices``-slice
+        job: with slice-major placement and the C-order reshape, an axis's
+        hops stay within one slice iff its span (the product of the faster
+        axes times its own size) divides the devices of a slice. Every
+        other axis crosses a slice boundary, and only pipeline, data and
+        fsdp may (data may straddle: partly within a slice, partly
+        across); tensor, sequence or expert across slices raises the
+        reference's ``ValueError``."""
+        n = self.size()
+        if num_slices <= 1:
+            return (), self.names
+        if n % num_slices:
+            raise ValueError(
+                f"mesh {dict(self.axes)} has {n} devices, not divisible "
+                f"into {num_slices} slices"
+            )
+        per_slice = n // num_slices
+        dcn: List[str] = []
+        ici: List[str] = []
+        stride = 1  # product of faster (later) axes
+        for name, size in reversed(self.axes):
+            span = stride * size
+            if size == 1 or per_slice % span == 0:
+                ici.append(name)
+            else:
+                dcn.append(name)
+                if name not in (AXIS_PIPELINE, AXIS_DATA, AXIS_FSDP):
+                    raise ValueError(
+                        f"mesh {dict(self.axes)}: axis {name!r} (size "
+                        f"{size}) would span slices (DCN) with "
+                        f"{per_slice} devices/slice; only {AXIS_PIPELINE}"
+                        f"/{AXIS_DATA}/{AXIS_FSDP} tolerate DCN latency "
+                        "— put tensor/sequence/expert parallelism inside "
+                        "a slice"
+                    )
+            stride = span
+        return tuple(reversed(dcn)), tuple(reversed(ici))
 
     def coords(self, r: int) -> Dict[str, int]:
         """Rank ``r``'s index on every axis: the reference's C-order
@@ -133,9 +185,18 @@ class MeshConfig:
             r //= size
         return {n: out[n] for n in self.names}
 
+    def position(self, coords: Dict[str, int]) -> int:
+        """The place in the device order of the coordinates ``coords``
+        (the inverse of :meth:`coords`; an axis left out is at 0)."""
+        p = 0
+        for name, size in self.axes:
+            p = p * size + coords.get(name, 0)
+        return p
+
     def ranks_along(self, axes: Sequence[str]) -> List[List[int]]:
-        """The rank blocks that vary over ``axes`` only (the other axes
-        fixed), in order of their first rank: one process group each."""
+        """The blocks of places in the device order that vary over
+        ``axes`` only (the other axes fixed), in order of their first
+        place: one process group each."""
         blocks: Dict[Tuple[int, ...], List[int]] = {}
         for r in range(self.size()):
             c = self.coords(r)
@@ -154,14 +215,57 @@ class MeshConfig:
 
 # the axis sets a process group is made for: each model axis on its own
 # (the MoE combine, the ring and Ulysses exchanges, the tensor splits'
-# sums and gathers), the batch axes (the MoE load-balance statistics are
-# global-batch means; a tensor mesh's gradients are averaged over them),
-# and the ranks that share an expert shard (its gradients are reduced
-# over them)
+# sums and gathers, the pipeline's stage-to-stage sends and broadcasts),
+# the batch axes (the MoE load-balance statistics and the pipelined
+# loss are global-batch means; a tensor or pipeline mesh's gradients are
+# averaged over them), and the ranks that share an expert shard (its
+# gradients are reduced over them)
 _GROUP_AXES: Tuple[Tuple[str, ...], ...] = (
-    (AXIS_EXPERT,), (AXIS_SEQUENCE,), (AXIS_TENSOR,), BATCH_AXES,
+    (AXIS_PIPELINE,), (AXIS_EXPERT,), (AXIS_SEQUENCE,), (AXIS_TENSOR,), BATCH_AXES,
     (AXIS_DATA, AXIS_FSDP, AXIS_SEQUENCE),
 )
+
+
+def slice_major_ranks(slice_ids: Sequence[str], num_slices: int) -> List[int]:
+    """The ranks in device order for a ``num_slices``-slice job whose rank
+    ``r`` sits in slice ``slice_ids[r]``: all of the first slice, then the
+    next, the slices in the order of their ids (numeric ids as numbers,
+    as the reference sorts ``slice_index``) and the ranks of a slice in
+    rank order (the reference's ``slice_major_devices``, which orders a
+    slice's devices by id). With no slice ids at all, the
+    contiguous blocks of ranks are the slices (the reference's emulation),
+    so the order is the ranks'."""
+    n = len(slice_ids)
+    if num_slices <= 1:
+        return list(range(n))
+    if n % num_slices:
+        raise ValueError(f"{n} devices not divisible into {num_slices} slices")
+    per = n // num_slices
+    given = [bool(s) for s in slice_ids]
+    if not any(given):
+        return list(range(n))
+    if not all(given):
+        raise ValueError(
+            "device pool mixes slice-indexed and unindexed devices; "
+            "cannot infer a slice layout"
+        )
+    by_slice: Dict[str, List[int]] = {}
+    for r, s in enumerate(slice_ids):
+        by_slice.setdefault(s, []).append(r)
+    if len(by_slice) != num_slices:
+        raise ValueError(
+            f"device pool spans {len(by_slice)} physical slices; job "
+            f"wants {num_slices}"
+        )
+    order: List[int] = []
+    for s in sorted(by_slice, key=lambda s: (not s.isdigit(), int(s) if s.isdigit() else 0, s)):
+        ranks = by_slice[s]
+        if len(ranks) != per:
+            raise ValueError(
+                f"slice {s} has {len(ranks)} devices; need {per} per slice"
+            )
+        order.extend(ranks)
+    return order
 
 
 @dataclasses.dataclass(eq=False)
@@ -170,7 +274,8 @@ class Mesh:
     and coordinates, and a process group for each axis set of
     ``_GROUP_AXES`` whose ranks number more than one. ``device_mesh`` is
     the ``("data", "fsdp")`` ``DeviceMesh`` FSDP2 shards over (None unless
-    the mesh has only those axes and more than one rank)."""
+    the mesh has only those axes and more than one rank). ``order`` is the
+    ranks in device order (empty: the ranks' own order)."""
 
     cfg: MeshConfig
     device: torch.device
@@ -178,6 +283,7 @@ class Mesh:
     coords: Dict[str, int] = dataclasses.field(default_factory=dict)
     groups: Dict[Tuple[str, ...], object] = dataclasses.field(default_factory=dict)
     device_mesh: object = None
+    order: List[int] = dataclasses.field(default_factory=list)
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
@@ -196,6 +302,12 @@ class Mesh:
             return None
         return self.groups[tuple(axes)]
 
+    def rank_at(self, axis: str, index: int) -> int:
+        """The global rank at this rank's coordinates but ``index`` on
+        ``axis`` (a point-to-point peer)."""
+        p = self.cfg.position({**self.coords, axis: index})
+        return self.order[p] if self.order else p
+
     @property
     def batch_index(self) -> int:
         """This rank's block of the global batch (data-major, then fsdp)."""
@@ -207,10 +319,14 @@ class Mesh:
         return self.size(*BATCH_AXES)
 
 
-def build_mesh(cfg: Optional[MeshConfig], device: torch.device) -> Mesh:
+def build_mesh(cfg: Optional[MeshConfig], device: torch.device, num_slices: int = 1,
+               slice_id: str = "") -> Mesh:
     """This rank's :class:`Mesh` over the process group, one rank per
     device (the data axis over every rank when ``cfg`` is None). Every rank
-    must call it: the process groups are made collectively."""
+    must call it: the process groups are made collectively. With
+    ``num_slices`` > 1 the layout is held to
+    :meth:`MeshConfig.slice_axis_split` and the ranks are placed
+    slice-major by every rank's ``slice_id`` (:func:`slice_major_ranks`)."""
     cfg = cfg or MeshConfig.create(data=world_size())
     cfg.require_ported()
     world = world_size()
@@ -221,7 +337,16 @@ def build_mesh(cfg: Optional[MeshConfig], device: torch.device) -> Mesh:
             f"group has {world} ranks, one device each"
         )
     me = rank()
-    mesh = Mesh(cfg, torch.device(device), me, cfg.coords(me))
+    order: List[int] = []
+    if num_slices > 1:
+        cfg.slice_axis_split(num_slices)  # the reference's layout check
+        ids: List[Optional[str]] = [None] * world
+        dist.all_gather_object(ids, slice_id)
+        order = slice_major_ranks(ids, num_slices)
+        if order == list(range(world)):
+            order = []
+    position = order.index(me) if order else me
+    mesh = Mesh(cfg, torch.device(device), me, cfg.coords(position), order=order)
     if world == 1:
         return mesh
     for axes in _GROUP_AXES:
@@ -230,15 +355,21 @@ def build_mesh(cfg: Optional[MeshConfig], device: torch.device) -> Mesh:
                                      and mesh.size(AXIS_EXPERT) == 1):
             continue
         for block in cfg.ranks_along(axes):
-            g = dist.new_group(block)
-            if me in block:
+            ranks = sorted(order[p] for p in block) if order else block
+            g = dist.new_group(ranks)
+            if me in ranks:
                 mesh.groups[axes] = g
+    if AXIS_PIPELINE in cfg.names and dist.get_backend() == "nccl":
+        # NCCL's batched point-to-point sends want every rank of a group in
+        # the group's first call: the stages' first sends pair two ranks
+        dist.all_reduce(torch.zeros(1, device=device), group=mesh.groups[(AXIS_PIPELINE,)])
     if set(cfg.names) <= set(BATCH_AXES):
-        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.device_mesh import DeviceMesh
 
-        mesh.device_mesh = init_device_mesh(
+        mesh.device_mesh = DeviceMesh(
             torch.device(device).type,
-            (cfg.axis_size(AXIS_DATA), cfg.axis_size(AXIS_FSDP)),
+            torch.tensor(order or range(world)).reshape(
+                cfg.axis_size(AXIS_DATA), cfg.axis_size(AXIS_FSDP)),
             mesh_dim_names=(AXIS_DATA, AXIS_FSDP),
         )
     return mesh

@@ -10,10 +10,12 @@ such request it raises rather than quietly running on the CPU.
 than one process AND ``TFK8S_DISTRIBUTED=1`` does it call
 ``torch.distributed.init_process_group`` (NCCL on a card, gloo on the
 CPU), so replicas run as threads of one process never bind ports.
-Multislice, more than one device per process (ROADMAP item 1.5), the
-pipeline axis and the axis pairs not combined yet (item 1.9,
-``MeshConfig.require_ported``) raise ``NotImplementedError``; the data,
-fsdp, expert, sequence and tensor axes run (``parallel/mesh.build_mesh``).
+More than one device per process (ROADMAP item 1.5) and the axis pairs
+not combined yet (item 1.9, ``MeshConfig.require_ported``) raise
+``NotImplementedError``; every axis runs (``parallel/mesh.build_mesh``),
+and a multislice job's ``num_slices`` and ``slice_id`` go to
+``build_mesh``, which holds the layout to the reference's slice rule and
+places the ranks slice-major.
 """
 
 from __future__ import annotations
@@ -88,13 +90,9 @@ class ProcessContext:
         return self.gang_restarts > 0 or self.world_version > 0
 
     def require_single_device(self, processes: int = 1) -> None:
-        """Raise for the layouts the port does not run yet: multislice,
-        more than one device per process (a mesh larger than the
-        ``processes`` that share it), and the mesh layouts of item 1.9."""
-        if self.num_slices > 1:
-            raise NotImplementedError(
-                f"{self.num_slices} slices: multislice training is ROADMAP item 1.5"
-            )
+        """Raise for the layouts the port does not run yet: more than one
+        device per process (a mesh larger than the ``processes`` that share
+        it) and the mesh layouts of item 1.9."""
         if self.mesh is None:
             return
         self.mesh.require_ported()

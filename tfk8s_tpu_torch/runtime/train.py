@@ -680,9 +680,10 @@ def config_from_env(env: Dict[str, str], ctx: ProcessContext) -> TrainConfig:
 def join_mesh(env: Dict[str, str], device: Optional[torch.device] = None,
               ) -> Tuple[ProcessContext, torch.device, Mesh]:
     """:func:`join_job`, then this rank's :class:`parallel.mesh.Mesh`: what
-    an entrypoint builds its task over (the reference's ``build_mesh``)."""
+    an entrypoint builds its task over (the reference's ``build_mesh``,
+    slice-major for a multislice job)."""
     ctx, device = join_job(env, device)
-    return ctx, device, build_mesh(ctx.mesh, device)
+    return ctx, device, build_mesh(ctx.mesh, device, ctx.num_slices, ctx.slice_id)
 
 
 def join_job(env: Dict[str, str], device: Optional[torch.device] = None,
