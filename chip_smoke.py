@@ -197,8 +197,8 @@ must pass:
    ragged [64, 196, 6, 64]) against their plain versions and SDPA, with
    device times. Then two-rank gloo gangs sharing the card on ``{"tensor": 2}``,
    each running its family's ``train(env)`` for two steps at full width
-   (GPT-2-small seq 1024 batch 8, BERT-base seq 512 batch 32, T5-base seq
-   512 batch 16, ViT-B/16 224/16 batch 64; bf16, flash), its first
+   (GPT-2-small seq 1024 batch 8, BERT-base seq 512 batch 8, T5-base seq
+   512 batch 8, ViT-B/16 224/16 batch 16; bf16, flash), its first
    update's gradient and loss against one process's run of the same entry
    point (PARALLEL_LOSS_ATOL, FAMILY_GRAD_REL_L2), every rank launching
    each tensor-core kernel layers x steps times (T5: three sites a layer)
@@ -211,15 +211,43 @@ must pass:
    the whole). Each gang prints its ranks' step time
    beside one process's: two gloo ranks on one card measure gloo, not
    scaling;
-15. nccl: with two cards or more the gangs of phase 13 (but the
+15. axes: the combined model axes. The flash kernels at the new calls
+   (Ulysses beside tensor at BERT-base's [8, 512, 3, 64], 12 heads over
+   tensor 2 and sequence 2, bf16; a ``{"tensor": 2}`` rank's generate
+   prefill at GPT-2-small's causal [8, 512, 6, 64], bf16 and f32) against
+   their plain versions and SDPA, with device times. Then four-rank gloo
+   gangs sharing the card, each running its family's ``train(env)`` for
+   two steps with ``TFK8S_MESH`` set, its first update's whole gradient
+   (the fsdp, expert and tensor shards gathered on rank 0) and loss
+   against one process's run of the same entry point with flash
+   (PARALLEL_LOSS_ATOL, FAMILY_GRAD_REL_L2): (a) GPT-2-small (seq 1024,
+   batch 8) on ``{"fsdp": 2, "tensor": 2}``; (b) GPT-2-small + 8 experts
+   on ``{"expert": 2, "tensor": 2}`` (each expert's hidden width split),
+   and the same with each expert's ``wo`` block left unsummed over tensor,
+   which must exceed the bounds; (c) BERT-base (seq 512, batch 8) on
+   ``{"sequence": 2, "tensor": 2}`` through the policy (Ulysses, flash
+   inside at 3 heads), and the same with Ulysses' exchange back putting
+   the head blocks in reverse order, which must exceed the bounds; (d)
+   the MoE GPT on ``{"fsdp": 2, "expert": 2}``; (e) BERT-base on
+   ``{"fsdp": 2, "sequence": 2}``. Every rank launches each tensor-core
+   kernel layers x steps times, every forward at the heads its layout
+   gives; each gang prints its ranks' step time and peak memory beside
+   one process's step. Then ``gpt.greedy_generate`` at GPT-2-small width,
+   8 prompts of 512, 32 tokens, on a ``{"tensor": 2}`` gang: in float32
+   the tokens equal one process's but at near ties (GENERATE_F32_TIE_ATOL,
+   against the one process's full forward), in bfloat16 the share of
+   equal tokens is printed; each rank's prefill launches the flash forward
+   once a layer at 6 heads;
+16. nccl: with two cards or more the gangs of phase 13 (but the
    planted fault) run again over NCCL, a card a rank, against one
-   process, and so does the pipelined BERT-MLM of phase 16 on
+   process, and so does the pipelined BERT-MLM of phase 17 on
    ``{"pipeline": 2}``; with four cards T5-base on ``{"data": 2, "tensor":
    2}`` (``BASELINE.json`` configs[3]), GPT-2-small on ``{"tensor": 4}`` (3
-   heads a rank), and the pipelined BERT-MLM on the reference's
-   ``{"pipeline": 2, "data": 2}`` and on ``{"pipeline": 4}`` (3 layers a
-   stage); with fewer cards, a line says what was skipped and why;
-16. pipeline: ``tfk8s_tpu_torch.models.pipelined.train(env)``, the
+   heads a rank), the combined-axes gangs (a)-(c) of phase 15, and the
+   pipelined BERT-MLM on the reference's ``{"pipeline": 2, "data": 2}``
+   and on ``{"pipeline": 4}`` (3 layers a stage); with fewer cards, a line
+   says what was skipped and why;
+17. pipeline: ``tfk8s_tpu_torch.models.pipelined.train(env)``, the
    ``pipelined:train`` entrypoint (GPipe over the ``pipeline`` axis), at
    BERT-base width (12 layers, 768 wide, 12 heads, vocab 30,522, bf16)
    with the reference's defaults (seq 128, batch 64, 4 microbatches): one
@@ -238,7 +266,7 @@ must pass:
    attention, as the reference's do: no kernel of the port may launch on
    any rank, flash or GroupNorm.
 
-The launch counts are zeroed just before each path (phases 6-16) and
+The launch counts are zeroed just before each path (phases 6-17) and
 read just after it; the line's launches add up the paths'. Then it prints the card line, the ``kernels`` JSON
 line and, last, the ``ok`` line. It exits non-zero, printing no result,
 when a phase fails, when no card is visible, or when the port's package is
@@ -249,6 +277,7 @@ card and build) and prints no result: a development aid.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import json
 import math
@@ -2434,21 +2463,23 @@ def _gloo_probe():
     return out
 
 
-def entry_steps(torch, fa, module, env):
+def entry_steps(torch, fa, module, env, grads_of=None):
     """``<family>:train(env)`` as a user calls it, watched from an
     optimizer step pre-hook: the first step's whole update gradient (on
     the host, in the optimizer's parameter order, after the entry point's
-    reductions), the ms from the first update to the second (one step:
-    the next batch, forward, backward, reductions, norm), the logged
-    losses and the flash launches of the run (counts zeroed just before
-    it)."""
+    reductions; ``grads_of()`` gives it where the rank holds shards), the
+    ms from the first update to the second (one step: the next batch,
+    forward, backward, reductions, norm), the logged losses and the flash
+    launches of the run (counts zeroed just before it)."""
     from torch.optim.optimizer import register_optimizer_step_pre_hook
 
     seen = []
 
     def hook(opt, args, kwargs):
         grads = None
-        if not seen:
+        if not seen and grads_of is not None:
+            grads = grads_of()
+        elif not seen:
             grads = [(p.grad if p.grad is not None else torch.zeros_like(p)).float().cpu()
                      for g in opt.param_groups for p in g["params"]]
         if torch.cuda.is_available():
@@ -2471,54 +2502,125 @@ import importlib, json, os, sys
 sys.path.insert(0, os.environ["CHIP_SMOKE_ROOT"])
 import torch
 
-from chip_smoke import entry_steps
+from chip_smoke import entry_steps, moe_block_out, planted
 from tfk8s_tpu_torch.ops import flash_attention as fa
 from tfk8s_tpu_torch.ops import group_norm as gn
-from tfk8s_tpu_torch.parallel import collectives, pipeline, ring_attention, tensor_parallel
+from tfk8s_tpu_torch.parallel import collectives
+from tfk8s_tpu_torch.runtime import train as ttrain
 from tfk8s_tpu_torch.runtime.launcher import ProcessContext, initialize_distributed
 
-env = dict(os.environ)
-# the gang's backend: gloo lets two ranks share one card (the entry point
-# would pick NCCL on a card); the entry point then joins this group
-ctx = ProcessContext.from_env(env)
-initialize_distributed(ctx, env, backend=env["GANG_BACKEND"])
-if env.get("FAULT") == "ring_offset":
-    # planted: the ring's causal mask without the blocks' global offset
-    ring_attention._q_pos = lambda q, k, ring, me: (
-        torch.arange(q.shape[1], device=q.device) + ring * (k.shape[1] - q.shape[1]))
-if env.get("FAULT") == "row_unsummed":
-    # planted: every row split's output left as this rank's part, unsummed
-    tensor_parallel.sum_over = lambda x, group: x
-if env.get("FAULT") == "record_shifted":
-    # planted: the last stage records microbatch t - s - 1 for t - s
-    pipeline._Schedule._record = lambda self, outputs, mu, y: outputs.__setitem__(mu - 1, y)
+base = dict(os.environ)
+# the gang's backend: gloo lets ranks share one card (the entry point
+# would pick NCCL on a card); each run's entry point joins this group
+ctx = ProcessContext.from_env(base)
+initialize_distributed(ctx, base, backend=base["GANG_BACKEND"])
 # the head count of every flash forward this rank runs
 heads, flash_fwd = set(), fa.flash_fwd
 fa.flash_fwd = lambda q, *a, **kw: heads.add(q.shape[2]) or flash_fwd(q, *a, **kw)
-module = importlib.import_module("tfk8s_tpu_torch.models." + env["FAMILY"])
-gn.reset_launches()
-if torch.cuda.is_available():
-    torch.cuda.reset_peak_memory_stats()
-losses, grads, step_ms, launches = entry_steps(torch, fa, module, env)
-torch.save(grads, env["OUT"] + "-%d.pt" % ctx.process_id)
-print("RANK " + json.dumps({
-    "rank": ctx.process_id, "losses": losses, "step_ms": step_ms, "launches": launches,
-    "gn_launches": dict(gn.LAUNCHES), "heads": sorted(heads),
-    "host_staged": sorted(collectives.HOST_STAGED),
-    "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if torch.cuda.is_available()
-    else None}), flush=True)
+# each run's layout and model: where the rank holds shards (fsdp, expert,
+# tensor), its first update's whole gradient is gathered over the mesh
+held, init_state = [], ttrain.Trainer.init_state
+
+
+def holding(self):
+    state = init_state(self)
+    held.append((self.parallel, state.model))
+    return state
+
+
+def grads_of():
+    parallel, model = held[-1]
+    return [g.float().cpu() for g in parallel.whole_grads(model).values()]
+
+
+ttrain.Trainer.init_state = holding
+for run in json.loads(base["RUNS"]):
+    env = dict(base, **run["env"])
+    heads.clear()
+    held.clear()
+    collectives.HOST_STAGED.clear()
+    gn.reset_launches()
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    module = importlib.import_module("tfk8s_tpu_torch.models." + env["FAMILY"])
+    whole = bool(env.get("WHOLE_GRADS"))
+    with planted(torch, env.get("FAULT")):
+        losses, grads, step_ms, launches = entry_steps(torch, fa, module, env,
+                                                       grads_of if whole else None)
+        # the MoE block over this rank's mesh on a fixed input; every rank
+        # holds the whole output
+        block = moe_block_out(torch, held[-1][0].layout, env) if env.get("MOE_BLOCK") else None
+    # whole gradients are the same on every rank: the first one's is kept
+    keep = not whole or ctx.process_id == 0
+    torch.save(grads if keep else None, "%s-%d.pt" % (run["out"], ctx.process_id))
+    if block is not None and ctx.process_id == 0:
+        torch.save(block, run["out"] + "-moe.pt")
+    print("RANK " + json.dumps({
+        "name": run["name"], "rank": ctx.process_id, "losses": losses, "step_ms": step_ms,
+        "launches": launches, "gn_launches": dict(gn.LAUNCHES), "heads": sorted(heads),
+        "host_staged": sorted(collectives.HOST_STAGED),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if torch.cuda.is_available()
+        else None}), flush=True)
+    del grads, block
+    held.clear()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
 """
 
 
-def _run_par_gang(name, n_procs, env, out, want, backend="gloo", whole=None, assemble=None):
-    """``n_procs`` processes of PAR_WORKER on a free port (gloo ranks share
-    the one card; NCCL ranks take a card each), each driving ``env``'s
-    entry point; their RANK records in rank order, and the whole gradient
-    of the first step put together from their files: a parameter shaped
-    unlike ``want``'s (an expert shard, a tensor block) is the blocks of
-    the ranks ``whole`` (default: every rank) concatenated in rank order
-    along the dimension they split; ``assemble(parts)`` puts together
-    ranks holding different parameters (pipeline stages)."""
+@contextlib.contextmanager
+def planted(torch, fault):
+    """The planted fault ``fault`` (None: none) for one gang run, undone
+    after it: ``ring_offset``, the ring's causal mask without the blocks'
+    global offset; ``row_unsummed``, every row split's output left as this
+    rank's part; ``record_shifted``, the last stage records microbatch
+    t - s - 1 for t - s; ``expert_wo_unsummed``, each expert's ``wo`` block
+    left unsummed over tensor; ``ulysses_heads_reversed``, Ulysses'
+    exchange back puts the sequence ranks' head blocks in reverse order."""
+    if fault is None:
+        yield
+        return
+    from tfk8s_tpu_torch.parallel import (collectives, moe, pipeline, ring_attention,
+                                          tensor_parallel, ulysses)
+
+    exchange = ulysses.all_to_all
+
+    def reversed_back(x, split_dim, concat_dim, group):
+        out = exchange(x, split_dim, concat_dim, group)
+        if concat_dim != 2:
+            return out
+        return torch.cat(out.chunk(collectives.group_size(group), dim=2)[::-1], dim=2)
+
+    owner, attr, fn = {
+        "ring_offset": (ring_attention, "_q_pos", lambda q, k, ring, me: (
+            torch.arange(q.shape[1], device=q.device) + ring * (k.shape[1] - q.shape[1]))),
+        "row_unsummed": (tensor_parallel, "sum_over", lambda x, group: x),
+        "record_shifted": (pipeline._Schedule, "_record",
+                           lambda self, outputs, mu, y: outputs.__setitem__(mu - 1, y)),
+        "expert_wo_unsummed": (moe, "sum_blocks", lambda part, tp, bias=None: part),
+        "ulysses_heads_reversed": (ulysses, "all_to_all", reversed_back),
+    }[fault]
+    saved = getattr(owner, attr)
+    setattr(owner, attr, fn)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, saved)
+
+
+def _run_par_gangs(n_procs, runs, backend="gloo"):
+    """One launch of ``n_procs`` PAR_WORKER processes on a free port (gloo
+    ranks share the one card; NCCL ranks take a card each) that drive the
+    ``runs`` in order, each ``{"name", "env", "out", "want"}`` (and
+    ``whole``, ``assemble``): an entry point's env over the process's own
+    (its ``FAMILY``, ``TFK8S_MESH``, ``FAULT`` ...). Returns ``{name:
+    (records, grads)}``: the run's RANK records in rank order, and the
+    whole gradient of its first step put together from the ranks' files: a
+    parameter shaped unlike ``want``'s (an expert shard, a tensor block) is
+    the blocks of the ranks ``whole`` (default: every rank) concatenated in
+    rank order along the dimension they split; ``assemble(parts)`` puts
+    together ranks holding different parameters (pipeline stages); with
+    ``WHOLE_GRADS`` only rank 0's file holds the gathered gradient."""
     import socket
 
     import torch
@@ -2528,12 +2630,14 @@ def _run_par_gang(name, n_procs, env, out, want, backend="gloo", whole=None, ass
     port = sock.getsockname()[1]
     sock.close()
     root = os.path.dirname(os.path.abspath(__file__))
+    label = ", ".join(r["name"] for r in runs)
+    spec = json.dumps([{k: r[k] for k in ("name", "env", "out")} for r in runs])
     procs = []
     for rank in range(n_procs):
-        penv = dict(os.environ, **env, CHIP_SMOKE_ROOT=root, TFK8S_DISTRIBUTED="1",
+        penv = dict(os.environ, CHIP_SMOKE_ROOT=root, TFK8S_DISTRIBUTED="1",
                     TFK8S_NUM_PROCESSES=str(n_procs), TFK8S_PROCESS_ID=str(rank),
                     TFK8S_COORDINATOR_ADDRESS=f"127.0.0.1:{port}", GANG_BACKEND=backend,
-                    OUT=out)
+                    RUNS=spec)
         if DEVICE == "cpu":
             penv["TFK8S_DEVICE"] = "cpu"
         procs.append(subprocess.Popen([sys.executable, "-c", PAR_WORKER], env=penv, cwd=root,
@@ -2544,49 +2648,66 @@ def _run_par_gang(name, n_procs, env, out, want, backend="gloo", whole=None, ass
         for p in procs:
             outs.append(p.communicate(timeout=PARALLEL["timeout_s"])[0])
     except subprocess.TimeoutExpired:
-        raise AssertionError(f"{name}: gang of {n_procs} ran past {PARALLEL['timeout_s']} s")
+        raise AssertionError(f"{label}: gang of {n_procs} ran past {PARALLEL['timeout_s']} s")
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    records = []
+    records = {r["name"]: [] for r in runs}
     for rank, (p, text) in enumerate(zip(procs, outs)):
-        lines = [ln for ln in text.splitlines() if ln.startswith("RANK ")]
-        if p.returncode != 0 or len(lines) != 1:
-            raise AssertionError(f"{name}: rank {rank} exited {p.returncode}:\n{text[-3000:]}")
-        records.append(json.loads(lines[0][5:]))
-    parts = [torch.load(f"{out}-{r}.pt") for r in range(n_procs)]
-    for r in range(n_procs):
-        os.remove(f"{out}-{r}.pt")
-    if assemble is not None:
-        parts = [assemble(parts)]
-    if any(len(p) != len(want) for p in parts):
-        raise AssertionError(f"{name}: {[len(p) for p in parts]} parameters, want {len(want)}")
-    whole = range(len(parts)) if whole is None else whole
-    grads = []
-    for w, ps in zip(want, zip(*parts)):
-        if ps[0].shape == w.shape:
-            grads.append(ps[0])
-            continue
-        dim = next(d for d in range(w.dim()) if ps[0].shape[d] != w.shape[d])
-        grads.append(torch.cat([ps[r] for r in whole], dim=dim))
-    return sorted(records, key=lambda r: r["rank"]), grads
+        lines = [json.loads(ln[5:]) for ln in text.splitlines() if ln.startswith("RANK ")]
+        if p.returncode != 0 or len(lines) != len(runs):
+            raise AssertionError(f"{label}: rank {rank} exited {p.returncode}:\n{text[-3000:]}")
+        for rec in lines:
+            records[rec["name"]].append(rec)
+    result = {}
+    for run in runs:
+        name, out, want = run["name"], run["out"], run["want"]
+        parts = [torch.load(f"{out}-{r}.pt") for r in range(n_procs)]
+        parts = [p for p in parts if p is not None]  # whole gradients: rank 0's only
+        for r in range(n_procs):
+            os.remove(f"{out}-{r}.pt")
+        if run.get("assemble") is not None:
+            parts = [run["assemble"](parts)]
+        if any(len(p) != len(want) for p in parts):
+            raise AssertionError(f"{name}: {[len(p) for p in parts]} parameters, "
+                                 f"want {len(want)}")
+        whole = range(len(parts)) if run.get("whole") is None else run["whole"]
+        grads = []
+        for w, ps in zip(want, zip(*parts)):
+            if ps[0].shape == w.shape:
+                grads.append(ps[0])
+                continue
+            dim = next(d for d in range(w.dim()) if ps[0].shape[d] != w.shape[d])
+            grads.append(torch.cat([ps[r] for r in whole], dim=dim))
+        result[name] = (sorted(records[name], key=lambda r: r["rank"]), grads)
+    return result
 
 
-def _gang_check(name, records, grads, loss, want, launches, fault=False, heads=None):
-    """The gang's first-step loss and gradient against one process's:
-    within the base-width bounds, or (a planted fault) beyond them; every
-    rank's flash launches exactly ``launches``, and (``heads``) every
-    flash forward at that many heads."""
+def _run_par_gang(name, n_procs, env, out, want, backend="gloo", whole=None, assemble=None):
+    """One gang of one run (:func:`_run_par_gangs`): ``(records, grads)``."""
+    run = dict(name=name, env=env, out=out, want=want, whole=whole, assemble=assemble)
+    return _run_par_gangs(n_procs, [run], backend)[name]
+
+
+def _gang_check(name, records, grads, loss, want, launches, fault=False, heads=None,
+                block_rel_l2=None):
+    """The gang's first-step loss and gradient against one process's (and
+    ``block_rel_l2``, an MoE block's output's relative L2 distance from one
+    process's on the same input): within the base-width bounds, or (a
+    planted fault) beyond one of them; every rank's flash launches exactly
+    ``launches``, and (``heads``) every flash forward at that many heads."""
     errs = {"loss_err": max(abs(r["losses"][0] - loss) for r in records),
             "grad_rel_l2": _grads_rel_l2(dict(enumerate(grads)), dict(enumerate(want))),
             "finite": all(math.isfinite(x) for r in records for x in r["losses"])}
-    within = errs["finite"] and errs["loss_err"] <= PARALLEL_LOSS_ATOL and \
-        errs["grad_rel_l2"] <= FAMILY_GRAD_REL_L2
+    if block_rel_l2 is not None:
+        errs["moe_block_rel_l2"] = block_rel_l2
+    within = errs["finite"] and errs["loss_err"] <= PARALLEL_LOSS_ATOL and all(
+        errs[k] <= FAMILY_GRAD_REL_L2 for k in ("grad_rel_l2", "moe_block_rel_l2") if k in errs)
     if within == fault:
         raise AssertionError(f"{name}: {errs} {'passes as a planted fault' if fault else ''}"
-                             f" (bounds: loss {PARALLEL_LOSS_ATOL}, grad rel L2 "
+                             f" (bounds: loss {PARALLEL_LOSS_ATOL}, relative L2 "
                              f"{FAMILY_GRAD_REL_L2})")
     for r in records:
         if r["launches"] != launches:
@@ -2881,7 +3002,7 @@ def _parallel_gangs(torch, gpt, fa, root, backend):
                     TFK8S_LEARNING_RATE="1e-4", TFK8S_SEED=str(p["seed"]),
                     TFK8S_INPUT_MODE="per_host")
 
-    refs = {}
+    refs, runs = {}, []
     for name, ref, mesh, extra, fault in PARALLEL_GANGS:
         if fault and backend != "gloo":
             continue
@@ -2905,13 +3026,21 @@ def _parallel_gangs(torch, gpt, fa, root, backend):
         want_launches = {**dict.fromkeys(fa.SIMT_KERNELS, 0),
                          **dict.fromkeys(fa.TENSOR_CORE_KERNELS, 0 if ring else layers * steps)}
         env = dict(base_env(fam), TFK8S_MESH=mesh, FAMILY=fam, **extra)
-        t0 = time.perf_counter()
-        loss, want, one_ms = refs[ref]
-        records, grads = _run_par_gang(name, 2, env, os.path.join(work, name), want, backend)
-        errs = _gang_check(f"{name} ({backend})", records, grads, loss, want, want_launches,
-                           fault)
+        runs.append(dict(name=name, env=env, out=os.path.join(work, name), want=refs[ref][1],
+                         ref=ref, launches=want_launches, fault=fault))
+    # the gangs run in one launch of two ranks, in turn
+    t0 = time.perf_counter()
+    results = _run_par_gangs(2, runs, backend)
+    log(f"parallel: {len(runs)} gangs of 2 ranks in one launch ({backend}), "
+        f"{time.perf_counter() - t0:.1f} s")
+    for run in runs:
+        name = run["name"]
+        records, grads = results.pop(name)
+        loss, want, one_ms = refs[run["ref"]]
+        errs = _gang_check(f"{name} ({backend})", records, grads, loss, want, run["launches"],
+                           run["fault"])
         del grads
-        log(f"parallel gang {name} ({backend}): {json.dumps({**errs, 'one_process_loss': loss, 'one_process_step_ms': one_ms, 'wall_s': time.perf_counter() - t0, 'ranks': records})}")
+        log(f"parallel gang {name} ({backend}): {json.dumps({**errs, 'one_process_loss': loss, 'one_process_step_ms': one_ms, 'ranks': records})}")
     shutil.rmtree(work, ignore_errors=True)
     del refs
     torch.cuda.empty_cache()
@@ -2923,12 +3052,15 @@ def _parallel_gangs(torch, gpt, fa, root, backend):
 # shards in both, so a data axis sees the same global batch):
 # (name, family, entry-point env, flash call sites a layer, planted fault)
 TENSOR = dict(seed=61, gang_steps=2, dlrm_steps=20)
+# (BERT's and ViT's batches are a quarter of the families phase's, T5's a
+# half, to make room for the axes phase: a gang's step is gloo's host round
+# trips, and the kernels at those families' calls are held apart below)
 TENSOR_GANGS = [
     ("gpt_tensor", "gpt", {"TFK8S_SEQ_LEN": "1024", "TFK8S_BATCH_SIZE": "8"}, 1, None),
-    ("bert_tensor", "bert", {"TFK8S_SEQ_LEN": "512", "TFK8S_BATCH_SIZE": "32"}, 1, None),
-    ("t5_tensor", "t5", {"TFK8S_SEQ_LEN": "512", "TFK8S_BATCH_SIZE": "16"}, 3, None),
+    ("bert_tensor", "bert", {"TFK8S_SEQ_LEN": "512", "TFK8S_BATCH_SIZE": "8"}, 1, None),
+    ("t5_tensor", "t5", {"TFK8S_SEQ_LEN": "512", "TFK8S_BATCH_SIZE": "8"}, 3, None),
     ("vit_tensor", "vit", {"TFK8S_IMAGE_SIZE": "224", "TFK8S_PATCH_SIZE": "16",
-                           "TFK8S_NUM_CLASSES": "1000", "TFK8S_BATCH_SIZE": "64"}, 1, None),
+                           "TFK8S_NUM_CLASSES": "1000", "TFK8S_BATCH_SIZE": "16"}, 1, None),
     ("gpt_tensor_row_unsummed", "gpt", {"TFK8S_SEQ_LEN": "1024", "TFK8S_BATCH_SIZE": "8"}, 1,
      "row_unsummed"),
 ]
@@ -2974,7 +3106,7 @@ def _tensor_gangs(torch, fa, root, backend, gangs):
     work = os.path.join(root, "build", "chip_smoke_tensor")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    steps, refs = TENSOR["gang_steps"], {}
+    steps, refs, runs = TENSOR["gang_steps"], {}, []
     total = dict.fromkeys(fa.KERNELS, 0)
     for name, family, mesh, extra, sites, fault in gangs:
         module = importlib.import_module(f"tfk8s_tpu_torch.models.{family}")
@@ -2992,18 +3124,27 @@ def _tensor_gangs(torch, fa, root, backend, gangs):
                 total[k] += v
             refs[family] = (losses[0], grads, one_ms)
             torch.cuda.empty_cache()
-        loss, want, one_ms = refs[family]
-        n = math.prod(mesh.values())
         t = mesh["tensor"]
+        runs.append(dict(name=name, out=os.path.join(work, name), want=refs[family][1],
+                         whole=range(t), n=math.prod(mesh.values()), family=family,
+                         mesh=mesh, fault=fault, launches=launches, heads=cfg.num_heads // t,
+                         env=dict(env, TFK8S_MESH=json.dumps(mesh), FAMILY=family,
+                                  **({"FAULT": fault} if fault else {}))))
+    # the gangs of one size run in one launch, in turn
+    for n in sorted({r["n"] for r in runs}):
+        batch = [r for r in runs if r["n"] == n]
         t0 = time.perf_counter()
-        records, grads = _run_par_gang(
-            name, n, dict(env, TFK8S_MESH=json.dumps(mesh), FAMILY=family,
-                          **({"FAULT": fault} if fault else {})),
-            os.path.join(work, name), want, backend, whole=range(t))
-        errs = _gang_check(f"{name} ({backend})", records, grads, loss, want, launches,
-                           fault=bool(fault), heads=[cfg.num_heads // t])
-        del grads
-        log(f"tensor gang {name} {json.dumps(mesh)} ({backend}): {json.dumps({**errs, 'one_process_loss': loss, 'one_process_step_ms': one_ms, 'wall_s': time.perf_counter() - t0, 'ranks': records})}")
+        results = _run_par_gangs(n, batch, backend)
+        log(f"tensor: {len(batch)} gangs of {n} ranks in one launch ({backend}), "
+            f"{time.perf_counter() - t0:.1f} s")
+        for run in batch:
+            name = run["name"]
+            records, grads = results.pop(name)
+            loss, want, one_ms = refs[run["family"]]
+            errs = _gang_check(f"{name} ({backend})", records, grads, loss, want,
+                               run["launches"], fault=bool(run["fault"]), heads=[run["heads"]])
+            del grads
+            log(f"tensor gang {name} {json.dumps(run['mesh'])} ({backend}): {json.dumps({**errs, 'one_process_loss': loss, 'one_process_step_ms': one_ms, 'ranks': records})}")
     shutil.rmtree(work, ignore_errors=True)
     return total
 
@@ -3072,27 +3213,340 @@ def phase_tensor(torch, fa, root):
     return total
 
 
+# phase axes: the combined model axes at full width. Each gang runs its
+# family's train(env) with TFK8S_MESH set, four gloo ranks sharing the
+# card, for AXES["gang_steps"] steps (a planted fault's gang one), its
+# first update's whole gradient (gathered over the mesh on rank 0) and
+# loss against one process's run of the same entry point with flash
+# attention, per_host input of two shards in both:
+# (name, family, mesh, entry-point env, planted fault); every flash forward
+# sees h / tensor heads, h / (tensor x sequence) inside Ulysses
+AXES = dict(seed=91, gang_steps=2, fault_steps=1, gen_batch=8, gen_prompt=512, gen_tokens=32,
+            gen_seed=93)
+AXES_GPT = {"TFK8S_SEQ_LEN": "1024", "TFK8S_BATCH_SIZE": "8"}
+AXES_MOE = dict(AXES_GPT, TFK8S_NUM_EXPERTS="8")
+AXES_BERT = {"TFK8S_SEQ_LEN": "512", "TFK8S_BATCH_SIZE": "8"}
+AXES_GANGS = [
+    ("gpt_fsdp_tensor", "gpt", {"fsdp": 2, "tensor": 2}, AXES_GPT, None),
+    ("gpt_moe_expert_tensor", "gpt", {"expert": 2, "tensor": 2}, AXES_MOE, None),
+    ("gpt_moe_expert_tensor_wo_unsummed", "gpt", {"expert": 2, "tensor": 2}, AXES_MOE,
+     "expert_wo_unsummed"),
+    ("bert_sequence_tensor", "bert", {"sequence": 2, "tensor": 2}, AXES_BERT, None),
+    ("bert_sequence_tensor_heads_reversed", "bert", {"sequence": 2, "tensor": 2}, AXES_BERT,
+     "ulysses_heads_reversed"),
+    ("gpt_moe_fsdp_expert", "gpt", {"fsdp": 2, "expert": 2}, AXES_MOE, None),
+    ("bert_fsdp_sequence", "bert", {"fsdp": 2, "sequence": 2}, AXES_BERT, None),
+]
+# over NCCL on four cards, a card a rank: gangs (a)-(c)
+AXES_NCCL_GANGS = ("gpt_fsdp_tensor", "gpt_moe_expert_tensor", "bert_sequence_tensor")
+# the flash kernels at the new calls: Ulysses beside tensor (BERT-base,
+# 12 heads / (2 x 2)), and generate's prefill on a {"tensor": 2} rank
+# (GPT-2-small, 6 of 12 heads) in both dtypes:
+# (name, batch, length, heads, causal, dtype)
+AXES_KERNEL_CASES = [
+    ("ulysses_tensor_local", 8, 512, 3, False, "bfloat16"),
+    ("prefill_tensor_rank_causal", 8, 512, 6, True, "bfloat16"),
+    ("prefill_tensor_rank_causal", 8, 512, 6, True, "float32"),
+]
+AXES_GEN_DTYPES = ("float32", "bfloat16")
+AXES_GEN_WORKER = r"""
+import json, os, sys
+sys.path.insert(0, os.environ["CHIP_SMOKE_ROOT"])
+import torch
+
+import chip_smoke
+from tfk8s_tpu_torch.ops import flash_attention as fa
+from tfk8s_tpu_torch.runtime.launcher import ProcessContext, initialize_distributed
+
+env = dict(os.environ)
+initialize_distributed(ProcessContext.from_env(env), env, backend=env["GANG_BACKEND"])
+heads, flash_fwd = set(), fa.flash_fwd
+fa.flash_fwd = lambda q, *a, **kw: heads.add(q.shape[2]) or flash_fwd(q, *a, **kw)
+for dtype in chip_smoke.AXES_GEN_DTYPES:
+    heads.clear()
+    rank, model, prompts = chip_smoke._axes_gen_model(torch, dict(env, GEN_DTYPE=dtype))
+    record = chip_smoke._axes_gen_run(torch, fa, model, prompts)
+    print("RANK " + json.dumps({"rank": rank, "dtype": dtype, **record,
+                                "heads": sorted(heads)}), flush=True)
+    del model
+"""
+
+
+def moe_block_out(torch, mesh, env):
+    """One MoE block of the MoE GPT (8 experts, top-1, capacity 1.25) of
+    the gang ``env``'s preset on a fixed ``cfg.dtype`` input ``[8, seq,
+    embed]`` (``env``'s seq): over ``mesh`` each
+    rank holds its experts' rows and tensor blocks of the whole block's
+    parameters (drawn from the AXES seed); ``mesh`` a device: the whole
+    block in one process. Its output, float32 on the host."""
+    from tfk8s_tpu_torch.models import gpt
+    from tfk8s_tpu_torch.models.transformer import mesh_device
+    from tfk8s_tpu_torch.parallel.moe import ExpertShard, SwitchMoeBlock
+    from tfk8s_tpu_torch.parallel.tensor_parallel import (TensorShard, named_splits,
+                                                          shard_state_dict, tensor_splits)
+
+    tiny = env.get("TFK8S_MODEL_PRESET") == "tiny"
+    cfg = (gpt.tiny_config if tiny else gpt.base_config)(num_experts=8)
+    whole = SwitchMoeBlock(cfg, 8)
+    whole.init_weights(torch.Generator().manual_seed(AXES["seed"]))
+    block = SwitchMoeBlock(cfg, 8, experts=ExpertShard.of(mesh), tp=TensorShard.of(mesh))
+    block.load_state_dict(shard_state_dict(whole.state_dict(),
+                                           named_splits(block, "expert_splits"),
+                                           tensor_splits(block)))
+    device = mesh_device(mesh)
+    gen = torch.Generator().manual_seed(AXES["seed"])
+    x = torch.randn(8, int(env["TFK8S_SEQ_LEN"]), cfg.embed_dim, generator=gen)
+    x = x.to(cfg.dtype).to(device)
+    with torch.no_grad():
+        y, _ = block.to(device)(x)
+    return y.float().cpu()
+
+
+def _axes_env(extra, steps):
+    tiny = PARALLEL_ENV.get("TFK8S_MODEL_PRESET") == "tiny"
+    return dict({"TFK8S_MODEL_PRESET": "tiny"} if tiny else {},
+                **({"TFK8S_DEVICE": "cpu"} if DEVICE == "cpu" else {}),
+                **extra, TFK8S_TRAIN_STEPS=str(steps), TFK8S_LOG_EVERY="1",
+                TFK8S_LEARNING_RATE="1e-4", TFK8S_SEED=str(AXES["seed"]),
+                TFK8S_INPUT_MODE="per_host", TFK8S_INPUT_SHARDS="2")
+
+
+def _axes_gangs(torch, fa, root, backend, gangs):
+    """Each gang ``(name, family, mesh, env, fault)`` through its
+    family's ``train(env)`` (Ulysses by the policy where the mesh has a
+    sequence axis, the flash kernels inside; flash elsewhere), its first
+    step against one process's with flash (PARALLEL_LOSS_ATOL,
+    FAMILY_GRAD_REL_L2; a planted fault beyond them), every rank launching
+    each tensor-core kernel layers x steps times, every forward at the
+    heads the layout gives. The gangs of four ranks run in one launch, in
+    turn (:func:`_run_par_gangs`). Returns the launches of the one-process
+    runs."""
+    import importlib
+
+    work = os.path.join(root, "build", "chip_smoke_axes")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    refs, total, runs, checks = {}, dict.fromkeys(fa.KERNELS, 0), [], {}
+    tiny = PARALLEL_ENV.get("TFK8S_MODEL_PRESET") == "tiny"
+    for name, family, mesh, extra, fault in gangs:
+        module = importlib.import_module(f"tfk8s_tpu_torch.models.{family}")
+        steps = AXES["fault_steps" if fault else "gang_steps"]
+        cfg = (module.tiny_config if tiny else module.base_config)()
+        key = (family, extra.get("TFK8S_NUM_EXPERTS"))
+        if key not in refs:
+            env = _axes_env(dict(extra, TFK8S_ATTENTION_IMPL="flash"), AXES["gang_steps"])
+            torch.cuda.empty_cache()
+            losses, grads, one_ms, got = entry_steps(torch, fa, module, env)
+            want = {**dict.fromkeys(fa.SIMT_KERNELS, 0),
+                    **dict.fromkeys(fa.TENSOR_CORE_KERNELS, cfg.num_layers * AXES["gang_steps"])}
+            if got != want:
+                raise AssertionError(f"{key} one process: flash launches {got}, want {want}")
+            for k, v in got.items():
+                total[k] += v
+            refs[key] = (losses[0], grads, one_ms)
+            torch.cuda.empty_cache()
+        impl = "auto" if "sequence" in mesh else "flash"
+        # an expert x tensor gang also runs one MoE block on a fixed input:
+        # the unsummed wo blocks halve its output, which the first update
+        # barely feels (the block's output is small beside the residual)
+        block = "expert" in mesh and "tensor" in mesh
+        env = dict(_axes_env(dict(extra, TFK8S_ATTENTION_IMPL=impl), steps),
+                   TFK8S_MESH=json.dumps(mesh), FAMILY=family, WHOLE_GRADS="1",
+                   **({"FAULT": fault} if fault else {}), **({"MOE_BLOCK": "1"} if block else {}))
+        runs.append(dict(name=name, env=env, out=os.path.join(work, name),
+                         want=refs[key][1], n=math.prod(mesh.values())))
+        checks[name] = (mesh, key, fault, block, env, {
+            **dict.fromkeys(fa.SIMT_KERNELS, 0),
+            **dict.fromkeys(fa.TENSOR_CORE_KERNELS, cfg.num_layers * steps)},
+            cfg.num_heads // mesh.get("tensor", 1) // mesh.get("sequence", 1))
+    one_block = None
+    for n in sorted({r["n"] for r in runs}):
+        t0 = time.perf_counter()
+        batch = [r for r in runs if r["n"] == n]
+        results = _run_par_gangs(n, batch, backend)
+        log(f"axes: {len(batch)} gangs of {n} ranks in one launch, {time.perf_counter() - t0:.1f} s")
+        for run in batch:
+            name = run["name"]
+            mesh, key, fault, block, env, launches, heads = checks[name]
+            records, grads = results.pop(name)
+            loss, want_grads, one_ms = refs[key]
+            block_rel = None
+            if block:
+                if one_block is None:
+                    one_block = moe_block_out(torch, DEVICE, env)
+                block_rel = _rel_l2(torch.load(f"{run['out']}-moe.pt"), one_block)
+            errs = _gang_check(f"{name} ({backend})", records, grads, loss, want_grads,
+                               launches, fault=bool(fault), heads=[heads],
+                               block_rel_l2=block_rel)
+            del grads
+            log(f"axes gang {name} {json.dumps(mesh)} ({backend}): {json.dumps({**errs, 'one_process_loss': loss, 'one_process_step_ms': one_ms, 'ranks': records})}")
+    shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
+def _axes_gen_model(torch, env):
+    """``(rank, model, prompts)``: GPT-2-small in ``env["GEN_DTYPE"]`` with
+    flash attention, its initial parameters those of one process at
+    AXES["gen_seed"], over ``env``'s mesh (a process group's
+    ``TFK8S_MESH``, else one process), and the AXES prompts on the card."""
+    import numpy as np
+
+    from tfk8s_tpu_torch.models import gpt
+    from tfk8s_tpu_torch.models.transformer import init_params
+    from tfk8s_tpu_torch.parallel.tensor_parallel import init_sharded
+    from tfk8s_tpu_torch.runtime import train as ttrain
+
+    preset = gpt.tiny_config if env.get("TFK8S_MODEL_PRESET") == "tiny" else gpt.base_config
+    cfg = preset(dtype=getattr(torch, env["GEN_DTYPE"]), attention_impl="flash")
+    _ctx, device, mesh = ttrain.join_mesh(dict(env, TFK8S_DEVICE=env.get("TFK8S_DEVICE",
+                                                                          DEVICE)))
+    model = init_sharded(lambda m: gpt.GPTLM(cfg, mesh=m), init_params,
+                         torch.Generator().manual_seed(AXES["gen_seed"]), mesh).to(device)
+    b, plen = AXES["gen_batch"], min(AXES["gen_prompt"], cfg.max_len // 2)
+    prompts = np.random.default_rng(AXES["gen_seed"]).integers(1, cfg.vocab_size, (b, plen))
+    return mesh.rank, model.eval(), torch.from_numpy(prompts).to(device)
+
+
+def _axes_gen_run(torch, fa, model, prompts):
+    """``gpt.greedy_generate`` of AXES["gen_tokens"] tokens: the tokens,
+    ms, flash launches (counts zeroed just before) and peak memory."""
+    from tfk8s_tpu_torch.models import gpt
+
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    tokens = gpt.greedy_generate(model.cfg, model, prompts, AXES["gen_tokens"])
+    if cuda:
+        torch.cuda.synchronize()
+    return {"tokens": tokens.tolist(), "ms": (time.perf_counter() - t0) * 1e3,
+            "launches": dict(fa.LAUNCHES),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None}
+
+
+def _axes_generate(torch, fa, root):
+    """GPT-2-small ``greedy_generate`` (8 prompts of 512, 32 tokens, flash
+    prefill) on a ``{"tensor": 2}`` gang of two gloo ranks sharing the
+    card against one process, in float32 then bfloat16 (one launch of the
+    gang): in float32 the tokens equal except at a near tie
+    (``_greedy_check``: the serving phases' rule, against the one
+    process's full forward), in bfloat16 the share of equal tokens is
+    printed. Every rank's prefill launches the flash forward once a layer
+    at 6 heads. Returns the one-process runs' launches."""
+    import socket
+
+    total = dict.fromkeys(fa.KERNELS, 0)
+    tiny = PARALLEL_ENV.get("TFK8S_MODEL_PRESET") == "tiny"
+    base = {"TFK8S_MODEL_PRESET": "tiny"} if tiny else {}
+    ones = {}
+    for dtype in AXES_GEN_DTYPES:
+        _rank, model, prompts = _axes_gen_model(torch, dict(base, GEN_DTYPE=dtype))
+        one = _axes_gen_run(torch, fa, model, prompts)
+        for k, v in one["launches"].items():
+            total[k] += v
+        fwd = "flash_fwd_wgmma" if dtype == "bfloat16" else "flash_fwd_simt"
+        want = {**dict.fromkeys(fa.KERNELS, 0), fwd: model.cfg.num_layers}
+        if one["launches"] != want:
+            raise AssertionError(f"generate {dtype} one process: launches {one['launches']}, "
+                                 f"want {want}")
+        # the float32 model stays for the tie rule's full forwards
+        ones[dtype] = (model if dtype == "float32" else None, prompts, one, want,
+                       model.cfg.num_heads // 2)
+        del model
+        torch.cuda.empty_cache()
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", AXES_GEN_WORKER], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, **base, CHIP_SMOKE_ROOT=root, TFK8S_DISTRIBUTED="1",
+                 TFK8S_NUM_PROCESSES="2", TFK8S_PROCESS_ID=str(r),
+                 TFK8S_COORDINATOR_ADDRESS=f"127.0.0.1:{port}", GANG_BACKEND="gloo",
+                 TFK8S_MESH=json.dumps({"tensor": 2}),
+                 **({"TFK8S_DEVICE": "cpu"} if DEVICE == "cpu" else {})))
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=PARALLEL["timeout_s"])[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    records = []
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in text.splitlines() if ln.startswith("RANK ")]
+        if p.returncode != 0 or len(lines) != len(AXES_GEN_DTYPES):
+            raise AssertionError(f"generate rank {r} exited {p.returncode}:\n{text[-3000:]}")
+        records += [json.loads(ln[5:]) for ln in lines]
+    for dtype, (model, prompts, one, want, heads) in ones.items():
+        mine = [rec for rec in records if rec["dtype"] == dtype]
+        for rec in mine:
+            if rec["launches"] != want or rec["heads"] != [heads]:
+                raise AssertionError(f"generate {dtype} rank {rec['rank']}: launches "
+                                     f"{rec['launches']} heads {rec['heads']}, want {want} "
+                                     f"at {heads}")
+            if rec["tokens"] != mine[0]["tokens"]:
+                raise AssertionError(f"generate {dtype}: the tensor ranks' tokens differ")
+        gang_tokens = mine[0]["tokens"]
+        same = sum(a == b for x, y in zip(one["tokens"], gang_tokens) for a, b in zip(x, y))
+        summary = {"dtype": dtype, "one_process_ms": one["ms"],
+                   "one_process_peak_gib": one["peak_gib"],
+                   "equal_token_share": same / sum(len(x) for x in one["tokens"]),
+                   "ranks": [{k: r[k] for k in ("rank", "ms", "peak_gib", "heads")}
+                             for r in mine]}
+        if model is not None:
+            checked, ties = _greedy_check(torch, model, [p.cpu().numpy() for p in prompts],
+                                          one["tokens"], others=(gang_tokens,))
+            summary.update(tokens_checked=checked, near_ties=ties)
+        log(f"axes generate {{\"tensor\": 2}} (gloo): {json.dumps(summary)}")
+    del ones
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_axes(torch, fa, root):
+    """The combined model axes (docstring phase 15): the flash kernels at
+    the new calls, the gangs of AXES_GANGS over gloo (four ranks sharing
+    the card) with their planted faults, and tensor-parallel generation.
+    Returns the launches of the one-process runs it drives here."""
+    for i, (case_name, b, length, heads, causal, dtype) in enumerate(AXES_KERNEL_CASES):
+        log(f"case {case_name} {dtype}:")
+        check_case(fa, Case(case_name, b, length, length, heads, 64, getattr(torch, dtype),
+                            causal=causal, seed=95 + i), iters=10, profile=True)
+        torch.cuda.empty_cache()
+    log("axes: the gangs' steps are four gloo ranks sharing one card; they measure gloo's "
+        "host round trips, not scaling")
+    total = _axes_gangs(torch, fa, root, "gloo", AXES_GANGS)
+    for k, v in _axes_generate(torch, fa, root).items():
+        total[k] += v
+    return total
+
+
 def phase_nccl(torch, gpt, fa, gn, root):
     """The gangs of phase 13 over NCCL, a card a rank, where the machine
     has two cards or more, and the pipelined gangs of PIPELINE_NCCL_GANGS
-    that fit its cards; with four the tensor gangs of TENSOR_NCCL_GANGS;
-    else one line says why they were skipped (NCCL will not put two ranks
-    on one card)."""
+    that fit its cards; with four the tensor gangs of TENSOR_NCCL_GANGS and
+    the combined-axes gangs of AXES_NCCL_GANGS; else one line says why
+    they were skipped (NCCL will not put two ranks on one card)."""
     cards = torch.cuda.device_count()
     if cards < 2:
         log(f"nccl: gangs skipped: {cards} card visible; NCCL will not put two ranks on "
-            "one card, so the gangs ran over gloo only (phases parallel, tensor and "
-            "pipeline)")
+            "one card, so the gangs ran over gloo only (phases parallel, tensor, axes "
+            "and pipeline)")
         return
     _parallel_gangs(torch, gpt, fa, root, "nccl")
     fits = [g for g in PIPELINE_NCCL_GANGS if math.prod(g[1].values()) <= cards]
     _pipeline_gangs(torch, fa, gn, root, "nccl", fits, _pipeline_reference(torch, fa, gn)[0])
     if cards < 4:
-        log(f"nccl: tensor gangs and the four-rank pipelined gangs skipped: {cards} cards, "
-            "they need 4")
+        log(f"nccl: tensor and combined-axes gangs and the four-rank pipelined gangs "
+            f"skipped: {cards} cards, they need 4")
         return
     _tensor_gangs(torch, fa, root, "nccl",
                   [(n, f, m, e, s, None) for n, f, m, e, s in TENSOR_NCCL_GANGS])
+    _axes_gangs(torch, fa, root, "nccl", [g for g in AXES_GANGS if g[0] in AXES_NCCL_GANGS])
 
 
 # phase pipeline: the pipelined BERT-MLM (GPipe) at BERT-base width with the
@@ -3192,7 +3646,7 @@ def _pipeline_gangs(torch, fa, gn, root, backend, gangs, reference):
 
 
 def phase_pipeline(torch, fa, gn, root):
-    """The pipeline axis (docstring phase 16): one process's
+    """The pipeline axis (docstring phase 17): one process's
     ``pipelined:train`` at BERT-base width, then the PIPELINE_GANGS over
     gloo (two ranks sharing the card) with the planted fault. No kernel
     runs on this path: returns its launches, all zero."""
@@ -3261,6 +3715,7 @@ def main() -> int:
         ("families", lambda: phase_families(torch, fa)),
         ("parallel", lambda: phase_parallel(torch, gpt, fa, root)),
         ("tensor", lambda: phase_tensor(torch, fa, root)),
+        ("axes", lambda: phase_axes(torch, fa, root)),
         ("nccl", lambda: phase_nccl(torch, gpt, fa, gn, root)),
         ("pipeline", lambda: phase_pipeline(torch, fa, gn, root)),
     ]
@@ -3286,7 +3741,7 @@ def main() -> int:
         elif name == "kernels":
             line = value
         elif name in ("train", "resnet_train", "roofline", "generate", "distributed",
-                      "families", "parallel", "tensor", "pipeline"):
+                      "families", "parallel", "tensor", "axes", "pipeline"):
             for kernel, count in value.items():  # each path's launches add up
                 launches[kernel] = launches.get(kernel, 0) + count
     for d in (ckpt_dir, rn_ckpt_dir):

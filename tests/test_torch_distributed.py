@@ -371,14 +371,21 @@ def test_mesh_device_count_error_matches_the_reference():
     assert build_mesh(MeshConfig.create(data=1), torch.device("cpu")).device_mesh is None
 
 
+@pytest.mark.parametrize("mesh", [
+    # tensor beside fsdp, expert or sequence runs
+    # (tests/test_torch_axes_tensor.py)
+    '{"fsdp": 2, "tensor": 2}', '{"expert": 2, "tensor": 2}', '{"sequence": 2, "tensor": 2}',
+])
+def test_combined_layouts_pass_the_launcher_check(mesh):
+    ctx = ProcessContext.from_env({"TFK8S_MESH": mesh, "TFK8S_NUM_PROCESSES": "4"})
+    ctx.require_single_device(4)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP item 1\.5\b"):
+        ctx.require_single_device(2)
+
+
 @pytest.mark.parametrize("env,item", [
-    # tensor runs alone and beside data (tests/test_torch_tensor_parallel.py);
-    # beside fsdp, expert or sequence it still raises
-    ({"TFK8S_MESH": '{"fsdp": 2, "tensor": 2}', "TFK8S_NUM_PROCESSES": "4"}, "1.9"),
-    ({"TFK8S_MESH": '{"expert": 2, "tensor": 2}', "TFK8S_NUM_PROCESSES": "4"}, "1.9"),
-    # sequence and expert run now (tests/test_torch_sequence_parallel.py);
-    # beside tensor or pipeline they still raise
-    ({"TFK8S_MESH": '{"sequence": 2, "tensor": 2}', "TFK8S_NUM_PROCESSES": "4"}, "1.9"),
+    # sequence, expert and tensor run beside each other and fsdp
+    # (tests/test_torch_axes_*.py); pipeline beside any of them still raises
     ({"TFK8S_MESH": '{"expert": 2, "pipeline": 2}', "TFK8S_NUM_PROCESSES": "4"}, "1.9"),
     # pipeline runs alone and beside data (tests/test_torch_pipeline.py);
     # beside tensor it still raises

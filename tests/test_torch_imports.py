@@ -71,6 +71,12 @@ def test_every_port_module_imports_without_jax_or_the_reference():
     "tfk8s_tpu_torch.runtime.handoff", "tfk8s_tpu_torch.runtime.kvtier",
     "tfk8s_tpu_torch.runtime.sched", "tfk8s_tpu_torch.runtime.server",
     "tfk8s_tpu_torch.parallel.pipeline", "tfk8s_tpu_torch.models.pipelined",
+    # the combined axes
+    "tfk8s_tpu_torch.parallel.mesh", "tfk8s_tpu_torch.parallel.data_parallel",
+    "tfk8s_tpu_torch.parallel.tensor_parallel", "tfk8s_tpu_torch.parallel.moe",
+    "tfk8s_tpu_torch.parallel.ulysses", "tfk8s_tpu_torch.models.transformer",
+    "tfk8s_tpu_torch.models.gpt", "tfk8s_tpu_torch.models.bert",
+    "tfk8s_tpu_torch.models.t5", "tfk8s_tpu_torch.models.dlrm",
 ])
 def test_each_resnet_and_roofline_module_imports_on_its_own(module):
     proc = _run(_BLOCK + f"import {module}\n"

@@ -18,8 +18,8 @@ as ``test_torch_sequence_parallel.py``), each run once per module:
   one process and by the ``{"data": 2, "tensor": 2}`` gang, and one
   process's by that gang, each continuing the uninterrupted run.
 
-And the mesh rules: which layouts build a tensor mesh and which still
-raise naming ROADMAP item 1.9.
+And the mesh rules: which layouts build a tensor mesh, and the uneven
+row blocks.
 """
 
 import collections
@@ -417,5 +417,7 @@ def test_uneven_rows_split_without_padding():
     assert blocks == [(0, 7631), (7631, 15262), (15262, 22892), (22892, 30522)]
     with pytest.raises(ValueError, match="does not divide over tensor=4"):
         TensorShard(None, 0, 4).block(6, "num_heads")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 1\.9\b"):
-        tgpt.GPTLM(tgpt.tiny_config(num_experts=2), mesh=_mesh(tensor=2))
+    # an MoE layer on a tensor mesh splits each expert's hidden width
+    moe = tgpt.GPTLM(tgpt.tiny_config(num_experts=2), mesh=_mesh(tensor=2)).layers[1].moe
+    assert moe.wi.shape == (2, 32, 32) and moe.wo.shape == (2, 32, 32)
+    assert moe.tensor_splits == {"wi": (2, 0, 32, 64), "wo": (1, 0, 32, 64)}

@@ -42,11 +42,10 @@ from tfk8s_tpu_torch.models.transformer import (
     masked_token_loss,
     page_plan,
     select_attn_fn,
-    seq_group,
     seq_index,
-    tensor_shard,
+    token_group,
 )
-from tfk8s_tpu_torch.parallel.tensor_parallel import init_sharded, vocab_split
+from tfk8s_tpu_torch.parallel.tensor_parallel import TensorShard, init_sharded, vocab_split
 from tfk8s_tpu_torch.runtime.train import TrainTask, join_mesh, run_task
 
 MASK_ID = 0  # reserved mask token; chain tokens live in [1, vocab)
@@ -81,7 +80,7 @@ class BertWithHead(nn.Module):
             raise ValueError("decode and sow_kv are separate modes")
         self.cfg = cfg
         self.decode, self.sow_kv = decode, sow_kv
-        self.embed = Embedder(cfg, seq_index(mesh), tensor_shard(cfg, mesh))
+        self.embed = Embedder(cfg, seq_index(mesh), TensorShard.of(mesh))
         self.layers = make_layers(cfg, attn_fn=attn_fn, causal=causal, mesh=mesh)
         self.ln_final = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
 
@@ -186,12 +185,15 @@ def make_batch_fn(vocab: int, seq_len: int):
 
 
 def mlm_loss_and_metrics(
-    logits: torch.Tensor, batch: Dict[str, torch.Tensor], group=None, vocab=None
+    logits: torch.Tensor, batch: Dict[str, torch.Tensor], group=None, vocab=None,
+    batch_blocks: int = 1,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Masked-LM objective: cross-entropy and accuracy over the mlm-masked
-    positions only (over the whole sequence group's, given one; ``vocab``:
-    the logits are a vocab split's columns)."""
-    loss, acc = masked_token_loss(logits, batch["target"], batch["mlm_mask"], group, vocab)
+    positions only, of the global batch (over ``group``'s rows and tokens
+    too, ``transformer.masked_token_loss``; ``vocab``: the logits are a
+    vocab split's columns)."""
+    loss, acc = masked_token_loss(logits, batch["target"], batch["mlm_mask"], group, vocab,
+                                  batch_blocks)
     return loss, {"mlm_accuracy": acc}
 
 
@@ -205,7 +207,7 @@ def make_task(
 ) -> TrainTask:
     cfg = cfg or base_config()
     seq_len = min(seq_len, cfg.max_len)
-    group, vocab = seq_group(mesh), vocab_split(mesh, cfg.vocab_size)
+    (group, blocks), vocab = token_group(mesh), vocab_split(mesh, cfg.vocab_size)
 
     def init(generator: torch.Generator) -> BertWithHead:
         return init_sharded(lambda m: BertWithHead(cfg, attn_fn=attn_fn, mesh=m), init_params,
@@ -213,7 +215,7 @@ def make_task(
 
     def loss_fn(model, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         logits, aux = apply_with_aux(model, cfg, batch["input"])
-        loss, metrics = mlm_loss_and_metrics(logits, batch, group, vocab)
+        loss, metrics = mlm_loss_and_metrics(logits, batch, group, vocab, blocks)
         return add_moe_aux(cfg, loss, metrics, aux), metrics
 
     return TrainTask(

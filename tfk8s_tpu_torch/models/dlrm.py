@@ -39,6 +39,13 @@ from torch import nn
 
 from tfk8s_tpu_torch.models.transformer import _dense
 from tfk8s_tpu_torch.parallel.collectives import vocab_parallel_lookup
+from tfk8s_tpu_torch.parallel.mesh import (
+    AXIS_EXPERT,
+    AXIS_FSDP,
+    AXIS_SEQUENCE,
+    AXIS_TENSOR,
+    Mesh,
+)
 from tfk8s_tpu_torch.parallel.tensor_parallel import (
     Split,
     TensorShard,
@@ -233,7 +240,12 @@ def make_task(
 def task_for_mesh(mesh, **task_kw) -> TrainTask:
     """The task over ``mesh`` (a ``parallel.mesh.Mesh``, or the device of a
     one-process run): its tables and hidden widths split over the tensor
-    axis."""
+    axis, beside data only."""
+    if isinstance(mesh, Mesh) and mesh.size(AXIS_TENSOR) > 1 and \
+            mesh.size(AXIS_FSDP, AXIS_EXPERT, AXIS_SEQUENCE) > 1:
+        raise NotImplementedError(
+            f"dlrm on mesh {dict(mesh.cfg.axes)}: its tensor-split tables beside the "
+            "fsdp, expert or sequence axis are ROADMAP item 1.9")
     return make_task(mesh=mesh, **task_kw)
 
 

@@ -48,12 +48,13 @@ from tfk8s_tpu_torch.models.transformer import (
     TransformerConfig,
     add_moe_aux,
     apply_with_aux,
+    cache_heads,
     clean_cache,
     dot_product_attention,
     init_params,
     masked_token_loss,
     select_attn_fn,
-    seq_group,
+    token_group,
     token_loss,
 )
 from tfk8s_tpu_torch.parallel.tensor_parallel import init_sharded, vocab_split
@@ -140,7 +141,7 @@ def make_task(
 ) -> TrainTask:
     cfg = cfg or base_config()
     seq_len = min(seq_len, cfg.max_len)
-    group, vocab = seq_group(mesh), vocab_split(mesh, cfg.vocab_size)
+    (group, blocks), vocab = token_group(mesh), vocab_split(mesh, cfg.vocab_size)
 
     def init(generator: torch.Generator):
         return init_sharded(lambda m: GPTLM(cfg, attn_fn=attn_fn, mesh=m), init_params,
@@ -150,7 +151,8 @@ def make_task(
         logits, aux = apply_with_aux(model, cfg, batch["input"])
         if "target" in batch:
             # a sequence block: the next tokens come with it
-            loss, acc = masked_token_loss(logits, batch["target"], batch["weight"], group)
+            loss, acc = masked_token_loss(logits, batch["target"], batch["weight"], group,
+                                          vocab, blocks)
             metrics = {"next_token_accuracy": acc}
         else:
             loss, metrics = lm_loss_and_metrics(logits, batch["input"], vocab)
@@ -413,11 +415,13 @@ def mode_view(model: BertWithHead, decode: bool = False, sow_kv: bool = False) -
 
 
 def init_cache(cfg: TransformerConfig, batch_size: int,
-               device: Union[str, torch.device, None] = None) -> DecodeCache:
+               device: Union[str, torch.device, None] = None,
+               heads: Optional[int] = None) -> DecodeCache:
     """A clean decode cache of ``cfg.decode_cache_len or cfg.max_len``
     positions (reference ``gpt.py:142``): right-size it to the request,
-    since a decode step's cache traffic scales with the buffer."""
-    return clean_cache(cfg, batch_size, device)
+    since a decode step's cache traffic scales with the buffer. ``heads``:
+    a layer's (a tensor rank's block; default all)."""
+    return clean_cache(cfg, batch_size, device, heads)
 
 
 @torch.no_grad()
@@ -430,14 +434,15 @@ def prefill_cache(cfg: TransformerConfig, model: BertWithHead,
     a decode cache seeded with them sits at position ``plen``. Returns
     ``(prompt logits [b, plen, vocab], cache)``. The K/V are the
     projections a token-at-a-time prefill writes, whichever attention
-    ran."""
+    ran. A tensor-split model's attention, logits and cache are its
+    rank's heads and vocab columns."""
     b, plen = prompt.shape
     cache_len = cfg.decode_cache_len or cfg.max_len
     if plen > cache_len:
         raise ValueError(f"prompt_len {plen} exceeds cache_len {cache_len}")
     attn_fn = select_attn_fn(cfg, plen, prompt.device) or dot_product_attention
     logits, sown = mode_view(model, sow_kv=True)(prompt, attn_fn=attn_fn)
-    cache = init_cache(cfg, b, prompt.device)
+    cache = init_cache(cfg, b, prompt.device, cache_heads(model))
     for k_buf, v_buf, (k, v) in zip(cache.keys, cache.values, sown):
         k_buf[:, :plen] = k
         v_buf[:, :plen] = v
@@ -467,6 +472,7 @@ def generate(
     batched_prefill: bool = True,
     eos_id: Optional[int] = None,
     pad_id: int = 0,
+    batch_rows: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """KV-cache decoding, greedy or sampled (reference ``gpt.py:518``);
     returns the ``[b, num_tokens]`` continuation in the prompt's dtype.
@@ -485,6 +491,14 @@ def generate(
     position is ``pad_id``, and the loop stops once every row has finished;
     the reference's on-device while-loop exit is a host read of
     ``done.all()`` once a step here.
+
+    A model over a tensor mesh (every rank of its tensor group calls this
+    with the same prompt) holds its rank's heads and vocab columns: the
+    greedy pick is the vocab-parallel argmax, a sampled draw filters the
+    logits gathered whole, so the tokens are one process's. A rank of a
+    data axis that decodes its block of a global batch gives
+    ``batch_rows = (first row, global rows)``: its draws take those rows
+    of the global batch's noise, so its tokens are the global batch's.
 
     The cache holds ``prompt_len + num_tokens`` positions unless
     ``cfg.decode_cache_len`` pins a size that fits."""
@@ -511,17 +525,19 @@ def generate(
         """The next token from float32 logits, the key folded by the
         absolute position, so both prefill paths draw the same stream."""
         if sampled:
-            filtered = filter_logits(step_logits / temperature, top_k=top_k, top_p=top_p)
-            drawn = jax_random.categorical_shared(jax_random.fold_in(key, fold), filtered)
+            filtered = filter_logits(model.embed.whole(step_logits) / temperature, top_k=top_k,
+                                     top_p=top_p)
+            drawn = jax_random.categorical_shared(jax_random.fold_in(key, fold), filtered,
+                                                  batch_rows)
             return drawn.to(prompt.dtype)
-        return torch.argmax(step_logits, dim=-1).to(prompt.dtype)
+        return model.embed.argmax(step_logits).to(prompt.dtype)
 
     def step(cache: DecodeCache, tok: torch.Tensor) -> Tuple[torch.Tensor, DecodeCache]:
         logits, cache = decoder(tok[:, None], cache=cache, pos_offset=cache.index)
         return logits[:, 0].float(), cache
 
     if not batched_prefill:
-        cache = init_cache(cfg, b, prompt.device)
+        cache = init_cache(cfg, b, prompt.device, cache_heads(model))
         tok, outs = prompt[:, 0], []
         for i in range(total):
             logits, cache = step(cache, tok)
@@ -587,7 +603,8 @@ def beam_generate(
     continuations per batch row and re-gathers the cache by parent beam.
     Fixed-length sequences. Returns the best continuation ``[b,
     num_tokens]``, or with ``return_all`` ``(sequences [b, k, num_tokens],
-    scores [b, k])`` best first. ``num_beams=1`` is greedy decoding."""
+    scores [b, k])`` best first. ``num_beams=1`` is greedy decoding. A
+    tensor-split model scores over its logits gathered whole."""
     b, prompt_len = prompt.shape
     k, vocab = num_beams, cfg.vocab_size
     total = prompt_len + num_tokens
@@ -601,7 +618,7 @@ def beam_generate(
         cfg = dataclasses.replace(cfg, decode_cache_len=total)
     decoder = mode_view(model, decode=True)
     prompt_logits, cache = prefill_cache(cfg, model, prompt)
-    logp0 = torch.log_softmax(prompt_logits[:, -1].float(), dim=-1)  # [b, V]
+    logp0 = torch.log_softmax(model.embed.whole(prompt_logits[:, -1].float()), dim=-1)
     scores, tok0 = _top_k(logp0, k)  # [b, k] each: beams from one source
     dev = prompt.device
     cache = cache.select_rows(torch.arange(b, device=dev).repeat_interleave(k))
@@ -610,7 +627,7 @@ def beam_generate(
     row_base = torch.arange(b, device=dev)[:, None] * k
     for i in range(num_tokens - 1):
         logits, cache = decoder(seqs[:, i][:, None], cache=cache, pos_offset=cache.index)
-        logp = torch.log_softmax(logits[:, 0].float(), dim=-1)  # [b*k, V]
+        logp = torch.log_softmax(model.embed.whole(logits[:, 0].float()), dim=-1)  # [b*k, V]
         cand = (scores.reshape(b * k)[:, None] + logp).reshape(b, k * vocab)
         scores, flat = _top_k(cand, k)
         parent = (row_base + flat // vocab).reshape(-1)

@@ -43,7 +43,6 @@ from tfk8s_tpu_torch.models.transformer import (
     call_layer,
     init_params,
 )
-from tfk8s_tpu_torch.parallel.collectives import scale_grad
 from tfk8s_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_PIPELINE, BATCH_AXES, Mesh
 from tfk8s_tpu_torch.parallel.pipeline import pipeline_apply, split_microbatches
 from tfk8s_tpu_torch.runtime.train import TrainTask, join_mesh, run_task
@@ -148,8 +147,8 @@ def make_task(
         return init_model(PipelinedBert(cfg, mesh, num_micro), generator)
 
     def loss_fn(model, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        loss, metrics = bert.mlm_loss_and_metrics(model(batch["input"]), batch, group)
-        return scale_grad(loss, data), metrics
+        return bert.mlm_loss_and_metrics(model(batch["input"]), batch, group,
+                                         batch_blocks=data)
 
     return TrainTask(
         name="bert-mlm-pipelined",

@@ -50,19 +50,19 @@ from tfk8s_tpu_torch.models.transformer import (
     _ln,
     add_moe_aux,
     apply_with_aux,
+    cache_heads,
     call_layer,
     clean_cache,
     dot_product_attention,
     init_params,
     masked_token_loss,
     select_attn_fn,
-    seq_group,
     seq_index,
-    tensor_shard,
+    token_group,
 )
 from tfk8s_tpu_torch.ops import jax_random
 from tfk8s_tpu_torch.parallel.moe import ExpertShard
-from tfk8s_tpu_torch.parallel.tensor_parallel import init_sharded, vocab_split
+from tfk8s_tpu_torch.parallel.tensor_parallel import TensorShard, init_sharded, vocab_split
 from tfk8s_tpu_torch.runtime.train import TrainTask, join_mesh, run_task
 
 PAD_ID = 0
@@ -80,7 +80,7 @@ class T5(nn.Module):
     def __init__(self, cfg: TransformerConfig, attn_fn: Optional[Callable] = None, mesh=None):
         super().__init__()
         self.cfg = cfg
-        tp = tensor_shard(cfg, mesh)
+        tp = TensorShard.of(mesh)
         self.embed = Embedder(cfg, seq_index(mesh), tp)
         experts = ExpertShard.of(mesh)
         for i in range(cfg.num_layers):
@@ -173,12 +173,14 @@ def make_batch_fn(vocab: int, seq_len: int):
     return make_batch
 
 
-def loss_and_metrics(logits: torch.Tensor, tgt_out: torch.Tensor, group=None, vocab=None
-                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def loss_and_metrics(logits: torch.Tensor, tgt_out: torch.Tensor, group=None, vocab=None,
+                     batch_blocks: int = 1) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Cross-entropy and accuracy over the target positions that are not
-    ``PAD_ID`` (over the whole sequence group's, given one; ``vocab``: the
-    logits are a vocab split's columns)."""
-    loss, acc = masked_token_loss(logits, tgt_out, tgt_out != PAD_ID, group, vocab)
+    ``PAD_ID``, of the global batch (over ``group``'s rows and tokens too,
+    ``transformer.masked_token_loss``; ``vocab``: the logits are a vocab
+    split's columns)."""
+    loss, acc = masked_token_loss(logits, tgt_out, tgt_out != PAD_ID, group, vocab,
+                                  batch_blocks)
     return loss, {"token_accuracy": acc}
 
 
@@ -192,7 +194,7 @@ def make_task(
 ) -> TrainTask:
     cfg = cfg or base_config()
     seq_len = min(seq_len, cfg.max_len)
-    group, vocab = seq_group(mesh), vocab_split(mesh, cfg.vocab_size)
+    (group, blocks), vocab = token_group(mesh), vocab_split(mesh, cfg.vocab_size)
 
     def init(generator: torch.Generator) -> T5:
         return init_sharded(lambda m: T5(cfg, attn_fn=attn_fn, mesh=m), init_params,
@@ -200,7 +202,7 @@ def make_task(
 
     def loss_fn(model, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         logits, aux = apply_with_aux(model, cfg, batch["src"], batch["tgt_in"])
-        loss, metrics = loss_and_metrics(logits, batch["tgt_out"], group, vocab)
+        loss, metrics = loss_and_metrics(logits, batch["tgt_out"], group, vocab, blocks)
         return add_moe_aux(cfg, loss, metrics, aux), metrics
 
     return TrainTask(
@@ -228,10 +230,10 @@ def task_for_mesh(mesh, cfg: Optional[TransformerConfig] = None, **task_kw) -> T
 
 
 def init_decode_cache(cfg: TransformerConfig, batch_size: int,
-                      device: Any = None) -> DecodeCache:
+                      device: Any = None, heads: Optional[int] = None) -> DecodeCache:
     """A clean decoder self-attention cache of ``cfg.decode_cache_len or
-    cfg.max_len`` positions."""
-    return clean_cache(cfg, batch_size, device)
+    cfg.max_len`` positions (``heads``: a layer's, default all)."""
+    return clean_cache(cfg, batch_size, device, heads)
 
 
 def _validate_decode_cfg(cfg: TransformerConfig, num_tokens: int, verb: str) -> TransformerConfig:
@@ -280,11 +282,13 @@ def generate(
     vocab]``, as the reference draws it, so the same key gives the
     reference's tokens. ``rng`` is an int seed or a key's two uint32
     words. ``eos_id``: after a row emits EOS its later positions are
-    ``pad_id`` (no early exit, as the reference's scan)."""
+    ``pad_id`` (no early exit, as the reference's scan). A model over a
+    tensor mesh decodes at its rank's heads; the greedy pick is the
+    vocab-parallel argmax, a draw filters the logits gathered whole."""
     b = src.shape[0]
     cfg = _validate_decode_cfg(cfg, num_tokens, "generate")
     enc, enc_mask = model.encode(src)
-    cache = init_decode_cache(cfg, b, src.device)
+    cache = init_decode_cache(cfg, b, src.device, cache_heads(model))
     greedy = rng is None or temperature == 0.0
     key = None if greedy else gpt._key(rng, src.device)
     tok = torch.full((b,), BOS_ID, dtype=src.dtype, device=src.device)
@@ -294,10 +298,10 @@ def generate(
     for i in range(num_tokens):
         logits, cache = _step(model, tok, enc, enc_mask, cache, i)
         if greedy:
-            nxt = torch.argmax(logits, dim=-1)
+            nxt = model.embed.argmax(logits)
         else:
-            filtered = gpt.filter_logits(logits / max(temperature, 1e-6), top_k=top_k,
-                                         top_p=top_p)
+            filtered = gpt.filter_logits(model.embed.whole(logits) / max(temperature, 1e-6),
+                                         top_k=top_k, top_p=top_p)
             nxt = jax_random.categorical_shared(jax_random.fold_in(key, i), filtered)
         nxt = nxt.to(src.dtype)
         if eos_id is not None:
@@ -340,8 +344,9 @@ def beam_generate(
     dev = src.device
     enc, enc_mask = model.encode(src)
     bos = torch.full((b,), BOS_ID, dtype=src.dtype, device=dev)
-    logits0, cache = _step(model, bos, enc, enc_mask, init_decode_cache(cfg, b, dev), 0)
-    scores, tok0 = gpt._top_k(torch.log_softmax(logits0, dim=-1), k)  # [b, k] each
+    logits0, cache = _step(model, bos, enc, enc_mask,
+                           init_decode_cache(cfg, b, dev, cache_heads(model)), 0)
+    scores, tok0 = gpt._top_k(torch.log_softmax(model.embed.whole(logits0), dim=-1), k)
     tile = torch.arange(b, device=dev).repeat_interleave(k)
     cache = cache.select_rows(tile)
     enc_t, mask_t = enc.index_select(0, tile), enc_mask.index_select(0, tile)
@@ -350,7 +355,7 @@ def beam_generate(
     row_base = torch.arange(b, device=dev)[:, None] * k
     for i in range(num_tokens - 1):
         logits, cache = _step(model, seqs[:, i], enc_t, mask_t, cache, i + 1)
-        logp = torch.log_softmax(logits, dim=-1)  # [b*k, V]
+        logp = torch.log_softmax(model.embed.whole(logits), dim=-1)  # [b*k, V]
         cand = (scores.reshape(b * k)[:, None] + logp).reshape(b, k * vocab)
         scores, flat = gpt._top_k(cand, k)
         parent = (row_base + flat // vocab).reshape(-1)

@@ -51,10 +51,12 @@ width (``wi`` column, ``wo`` row) and of the token table's rows (a
 vocab-parallel lookup; the tied head gives this rank's float32 logit
 columns), the reference's ``heads``/``mlp``/``vocab`` rules; layer norms,
 positions and row-split biases are whole on every rank. The attention
-function sees ``[b, l, h/t, d]``. :func:`masked_token_loss` then takes the
-cross-entropy and argmax over the vocab split (``vocab``). Decode and
-paged serving of a tensor-split model, and the MoE FFN's split
-(``expert_mlp``), are ROADMAP item 1.9 and raise.
+function sees ``[b, l, h/t, d]``, and so does a decode cache
+(:func:`clean_cache` at :func:`cache_heads`); an MoE layer splits each
+expert's hidden width (``expert_mlp``, ``parallel/moe.py``).
+:func:`masked_token_loss` then takes the cross-entropy and argmax over
+the vocab split (``vocab``). Paged serving of a tensor-split model
+raises: the reference serves a replica on one device.
 """
 
 from __future__ import annotations
@@ -71,18 +73,27 @@ from torch.utils.checkpoint import checkpoint
 from tfk8s_tpu_torch.ops.flash_attention import HEAD_DIMS, auto_flash_attn_fn, flash_attention
 from tfk8s_tpu_torch.parallel.collectives import (
     all_reduce_sum,
+    scale_grad,
     sum_over,
     vocab_parallel_argmax,
     vocab_parallel_cross_entropy,
     vocab_parallel_lookup,
 )
-from tfk8s_tpu_torch.parallel.mesh import AXIS_SEQUENCE, Mesh
+from tfk8s_tpu_torch.parallel.mesh import (
+    AXIS_DATA,
+    AXIS_FSDP,
+    AXIS_SEQUENCE,
+    AXIS_TENSOR,
+    BATCH_AXES,
+    Mesh,
+)
 from tfk8s_tpu_torch.parallel.moe import ExpertShard, SwitchMoeBlock
 from tfk8s_tpu_torch.parallel.tensor_parallel import (
     Split,
     TensorShard,
     column_splits,
     enter,
+    gather_tensor,
     group_of,
     row_dense,
 )
@@ -244,13 +255,15 @@ class DecodeCache:
 
 
 def clean_cache(cfg: TransformerConfig, batch_size: int,
-                device: Union[str, torch.device, None] = None) -> DecodeCache:
+                device: Union[str, torch.device, None] = None,
+                heads: Optional[int] = None) -> DecodeCache:
     """A clean decode cache (zero buffers of ``cfg.decode_cache_len or
     cfg.max_len`` positions, index 0): the port's counterpart of the
     reference's ``clean_cache``, which zeroes the cache shapes a module's
-    init reports."""
+    init reports. ``heads``: the heads a layer holds (default all; a
+    tensor rank's block, :func:`cache_heads`)."""
     cache_len = cfg.decode_cache_len or cfg.max_len
-    shape = (batch_size, cache_len, cfg.num_heads, cfg.head_dim)
+    shape = (batch_size, cache_len, heads or cfg.num_heads, cfg.head_dim)
 
     def zeros() -> List[torch.Tensor]:
         return [torch.zeros(shape, dtype=cfg.dtype, device=device) for _ in range(cfg.num_layers)]
@@ -319,9 +332,12 @@ class MultiHeadAttention(nn.Module):
                 kv_sink: Optional[list] = None,
                 attn_fn: Optional[Callable] = None) -> torch.Tensor:
         cfg = self.cfg
-        if self.tp is not None and (cache is not None or pool is not None):
+        if self.tp is not None and pool is not None:
             raise NotImplementedError(
-                "decode and paged serving of a tensor-split model is ROADMAP item 1.9")
+                "paged serving of a tensor-split model is not ported: the reference "
+                "serves each replica on one device (its server builds no mesh), so a "
+                "paged decoder over a tensor mesh would be a feature the JAX package "
+                "lacks")
         x = enter(x, self.tp)
         kv = x if kv is None else enter(kv, self.tp)
         b, lq, lk = x.shape[0], x.shape[1], kv.shape[1]
@@ -400,7 +416,7 @@ class EncoderLayer(nn.Module):
         self.ln_mlp = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
         if use_moe:
             self.moe = SwitchMoeBlock(cfg, cfg.num_experts, cfg.moe_capacity_factor,
-                                      cfg.moe_top_k, experts)
+                                      cfg.moe_top_k, experts, tp)
         else:
             self.mlp = MlpBlock(cfg, tp)
 
@@ -505,6 +521,24 @@ class Embedder(nn.Module):
         # rank's vocab columns on a tensor mesh)
         return F.linear(enter(x.float(), self.tp), self.tok.weight)
 
+    def argmax(self, logits: torch.Tensor) -> torch.Tensor:
+        """The greedy pick over :meth:`logits`' vocabulary (the
+        vocab-parallel argmax over a split's columns: ties to the lowest
+        index, as ``jnp.argmax``)."""
+        if self.tp is None:
+            return torch.argmax(logits, dim=-1)
+        return vocab_parallel_argmax(logits, self.vocab_lo, self.tp.group)
+
+    def whole(self, logits: torch.Tensor) -> torch.Tensor:
+        """:meth:`logits` over the whole vocabulary: a split's columns
+        gathered over the tensor group (no gradient), for a pick that
+        needs every logit (a sampled draw, a beam's scores)."""
+        if self.tp is None:
+            return logits
+        split = Split(logits.dim() - 1, self.vocab_lo,
+                      self.vocab_lo + self.tok.weight.shape[0], self.cfg.vocab_size)
+        return gather_tensor(logits, split, self.tp.group, self.tp.size)
+
 
 def token_loss(logits: torch.Tensor, target: torch.Tensor,
                vocab: Optional[Tuple[int, object]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -523,21 +557,26 @@ def token_loss(logits: torch.Tensor, target: torch.Tensor,
 
 
 def masked_token_loss(logits: torch.Tensor, target: torch.Tensor, weight: torch.Tensor,
-                      group=None, vocab: Optional[Tuple[int, object]] = None
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+                      group=None, vocab: Optional[Tuple[int, object]] = None,
+                      batch_blocks: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(loss, accuracy)`` over the positions ``weight`` selects: float32
     cross-entropy and argmax accuracy summed over them and divided by
     ``max(sum(weight), 1)``, as the reference's MLM and seq2seq losses take
-    them (a batch with no selected position gives 0). On a sequence-sharded
-    mesh (``group``: the sequence group) the sums run over every rank's
-    tokens, so each rank holds the global mean; its gradient is this
-    rank's tokens' part. ``vocab`` (``tensor_parallel.vocab_split``): the
-    logits are a vocab split's columns."""
+    them over the global batch (a batch with no selected position gives
+    0). ``group`` (:func:`token_group`: the batch and sequence axes) holds
+    the other ranks' rows and tokens: the sums run over every rank's, so
+    each rank holds the global mean, and its gradient is its own tokens'
+    part, scaled by ``batch_blocks`` (the batch axes' size) so that the
+    average of the gradients over the batch axes, which every parallel
+    mode takes, is the global mean's. ``vocab``
+    (``tensor_parallel.vocab_split``): the logits are a vocab split's
+    columns."""
     per_tok, hit = token_loss(logits, target, vocab)
     w = weight.float()
     denom = all_reduce_sum(w.sum(), group).clamp_min(1.0)
     hits = all_reduce_sum((hit * w).sum(), group)
-    return sum_over((per_tok * w).sum(), group) / denom, hits / denom
+    loss = sum_over((per_tok * w).sum(), group) / denom
+    return scale_grad(loss, batch_blocks), hits / denom
 
 
 def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -578,21 +617,26 @@ def seq_group(mesh):
     return mesh.group(AXIS_SEQUENCE) if isinstance(mesh, Mesh) else None
 
 
-def tensor_shard(cfg: TransformerConfig, mesh) -> Optional[TensorShard]:
-    """The mesh's tensor place for the stack (None off a tensor mesh); the
-    MoE FFN's split over it (``expert_mlp``) is not ported."""
-    tp = TensorShard.of(mesh)
-    if tp is not None and cfg.num_experts > 0:
-        raise NotImplementedError(
-            "MoE layers on a tensor mesh (the expert_mlp split) are ROADMAP item 1.9")
-    return tp
+def token_group(mesh) -> Tuple[object, int]:
+    """``(group, batch blocks)`` of :func:`masked_token_loss` over
+    ``mesh``: the group of the batch and sequence axes (None for one
+    process) and the number of blocks the batch is split into."""
+    if not isinstance(mesh, Mesh):
+        return None, 1
+    return mesh.group(AXIS_DATA, AXIS_FSDP, AXIS_SEQUENCE), mesh.size(*BATCH_AXES)
+
+
+def cache_heads(model: nn.Module) -> int:
+    """The heads a layer of ``model`` holds: all of them, or a tensor
+    rank's block (the decode cache's width)."""
+    return next(m.heads for m in model.modules() if isinstance(m, MultiHeadAttention))
 
 
 def make_layers(cfg: TransformerConfig, attn_fn: Optional[Callable] = None,
                 causal: bool = False, mesh=None) -> nn.ModuleList:
     """The encoder stack's layers, MoE where ``cfg.layer_uses_moe`` says,
     holding the mesh's expert share and tensor blocks."""
-    experts, tp = ExpertShard.of(mesh), tensor_shard(cfg, mesh)
+    experts, tp = ExpertShard.of(mesh), TensorShard.of(mesh)
     return nn.ModuleList(
         EncoderLayer(cfg, attn_fn=attn_fn, causal=causal, use_moe=cfg.layer_uses_moe(i),
                      experts=experts, tp=tp)
@@ -639,7 +683,7 @@ class Encoder(nn.Module):
     def __init__(self, cfg: TransformerConfig, attn_fn: Optional[Callable] = None, mesh=None):
         super().__init__()
         self.cfg = cfg
-        self.embed = Embedder(cfg, seq_index(mesh), tensor_shard(cfg, mesh))
+        self.embed = Embedder(cfg, seq_index(mesh), TensorShard.of(mesh))
         self.layers = make_layers(cfg, attn_fn=attn_fn, mesh=mesh)
         self.ln_final = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
 
@@ -660,14 +704,14 @@ def select_attn_fn(cfg: TransformerConfig, seq_len: int, mesh):
       axis, and in a one-process run (a ring of one, Ulysses with nothing
       to exchange); a multi-rank mesh without the axis raises the
       reference's ``ValueError``.
-    - On a sequence-sharded mesh, ``auto`` is Ulysses while the head count
-      divides by the sequence degree and ring beyond it; a ``full`` or
-      ``flash`` pin raises ``ValueError``.
+    - On a sequence-sharded mesh, ``auto`` is Ulysses while a rank's head
+      count (``h / tensor``) divides by the sequence degree and ring
+      beyond it; a ``full`` or ``flash`` pin raises ``ValueError``.
     - Otherwise ``flash`` -> the CUDA kernels (their plain versions on the
       CPU), ``full`` -> plain attention, ``auto`` -> flash on the card
       from FLASH_SEQ_THRESHOLD up.
 
-    Ulysses' local attention (full sequence, ``h/n`` heads) is the flash
+    Ulysses' local attention (full sequence, ``h/(t n)`` heads) is the flash
     kernels on the card at every length, for the head widths they are
     built for (``tests/test_ulysses.py``'s composition), and the
     reference's plain attention else."""
@@ -688,7 +732,7 @@ def select_attn_fn(cfg: TransformerConfig, seq_len: int, mesh):
                 "sequence-sharded mesh; sequence parallelism needs 'auto', "
                 "'ring', or 'ulysses'"
             )
-        if cfg.num_heads % sp == 0:
+        if (cfg.num_heads // mesh.size(AXIS_TENSOR)) % sp == 0:
             return make_ulysses_attn_fn(mesh, inner=inner)
         return make_ring_attn_fn(mesh)
     return auto_flash_attn_fn(cfg.attention_impl, seq_len, device)

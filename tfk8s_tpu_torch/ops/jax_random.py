@@ -31,7 +31,7 @@ serves a batch of rows, each with its own key.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -171,9 +171,16 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(noise + logits.float(), dim=-1)
 
 
-def categorical_shared(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+def categorical_shared(key: torch.Tensor, logits: torch.Tensor,
+                       rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """``jax.random.categorical(key, logits, axis=-1)`` with ONE key ``[2]``
     for float32 ``logits [*batch, n]``: jax draws the Gumbel noise over the
-    logits' whole shape from that key."""
-    noise = gumbel(key, logits.shape)
+    logits' whole shape from that key. ``rows = (first, total)``: the
+    logits are rows ``[first, first + b)`` of a ``[total, n]`` batch (a
+    data-parallel block), drawn with those rows of the whole batch's noise."""
+    if rows is None:
+        noise = gumbel(key, logits.shape)
+    else:
+        first, total = rows
+        noise = gumbel(key, (total, *logits.shape[1:]))[first:first + logits.shape[0]]
     return torch.argmax(noise + logits.float(), dim=-1)

@@ -70,10 +70,11 @@ def _staged(kind: str, t: torch.Tensor, group) -> bool:
 
 
 def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
-    """The sum over ``group`` of ``t`` (a new tensor; ``t`` if no group)."""
+    """The sum over ``group`` of ``t`` (a new contiguous tensor, as NCCL
+    requires; ``t`` if no group)."""
     if group is None:
         return t
-    out = t.clone()
+    out = t.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, group=group)
     return out
 
@@ -82,7 +83,7 @@ def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
     """The elementwise max over ``group`` of ``t`` (no gradient)."""
     if group is None:
         return t
-    out = t.detach().clone()
+    out = t.detach().clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out
 

@@ -8,11 +8,11 @@ counterpart of the reference's ``jax.sharding.Mesh``.
 
 The port runs one process per device, so the devices a job has are the
 ranks of its process group, laid out in the reference's canonical order
-(later axes vary fastest over the ranks). Every axis is ported: pipeline
-alone or beside data (the reference's one composition,
-``pipeline_apply(data_axis=...)``); tensor, and fsdp, beside the model
-axes they are not yet combined with, and pipeline beside any axis but
-data, are ROADMAP item 1.9 and raise ``NotImplementedError``.
+(later axes vary fastest over the ranks). Every axis is ported, and
+every combination of them but one: pipeline runs alone or beside data
+(the reference's one composition, ``pipeline_apply(data_axis=...)``);
+pipeline beside fsdp, expert, sequence or tensor is ROADMAP item 1.9 and
+raises ``NotImplementedError``.
 
 Multislice (``TFK8S_NUM_SLICES`` > 1): ``MeshConfig.slice_axis_split``
 keeps the reference's rule that only pipeline, data and fsdp may cross a
@@ -121,21 +121,18 @@ class MeshConfig:
 
     def require_ported(self) -> None:
         """Raise for an axis, or a pair of axes, the port does not shard
-        over yet."""
+        over yet: pipeline beside a model axis or fsdp."""
         other = {n: s for n, s in self.axes if n not in PORTED_AXES}
         if other:
             raise NotImplementedError(
                 f"mesh axes {other}: axes outside {list(CANONICAL_ORDER)} are not ported"
             )
-        for axis, beside in ((AXIS_PIPELINE, (AXIS_FSDP, AXIS_EXPERT, AXIS_SEQUENCE,
-                                              AXIS_TENSOR)),
-                             (AXIS_TENSOR, (AXIS_FSDP, AXIS_EXPERT, AXIS_SEQUENCE)),
-                             (AXIS_FSDP, (AXIS_EXPERT, AXIS_SEQUENCE))):
-            if self.axis_size(axis) > 1 and any(self.axis_size(b) > 1 for b in beside):
-                raise NotImplementedError(
-                    f"mesh {dict(self.axes)}: {axis} together with the "
-                    f"{' or '.join(beside)} axis is ROADMAP item 1.9"
-                )
+        beside = (AXIS_FSDP, AXIS_EXPERT, AXIS_SEQUENCE, AXIS_TENSOR)
+        if self.axis_size(AXIS_PIPELINE) > 1 and any(self.axis_size(b) > 1 for b in beside):
+            raise NotImplementedError(
+                f"mesh {dict(self.axes)}: {AXIS_PIPELINE} together with the "
+                f"{' or '.join(beside)} axis is ROADMAP item 1.9"
+            )
 
     def slice_axis_split(self, num_slices: int) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
         """The reference's ``(dcn_axes, ici_axes)`` of a ``num_slices``-slice
@@ -213,17 +210,15 @@ class MeshConfig:
             )
 
 
-# the axis sets a process group is made for: each model axis on its own
-# (the MoE combine, the ring and Ulysses exchanges, the tensor splits'
-# sums and gathers, the pipeline's stage-to-stage sends and broadcasts),
-# the batch axes (the MoE load-balance statistics and the pipelined
-# loss are global-batch means; a tensor or pipeline mesh's gradients are
-# averaged over them), and the ranks that share an expert shard (its
-# gradients are reduced over them)
-_GROUP_AXES: Tuple[Tuple[str, ...], ...] = (
-    (AXIS_PIPELINE,), (AXIS_EXPERT,), (AXIS_SEQUENCE,), (AXIS_TENSOR,), BATCH_AXES,
-    (AXIS_DATA, AXIS_FSDP, AXIS_SEQUENCE),
-)
+def group_axes(cfg: MeshConfig) -> List[Tuple[str, ...]]:
+    """Every set of the mesh's axes, in the mesh's order, fewest axes
+    first: a process group is made for each (each model axis on its own
+    for its sums, gathers and sends; the batch axes for the global-batch
+    means; the batch and sequence axes together for the gradients and the
+    masked token means; any other set a layer reduces over)."""
+    names = cfg.names
+    return [tuple(names[i] for i in range(len(names)) if m >> i & 1)
+            for m in sorted(range(1, 1 << len(names)), key=lambda m: (bin(m).count("1"), m))]
 
 
 def slice_major_ranks(slice_ids: Sequence[str], num_slices: int) -> List[int]:
@@ -271,11 +266,11 @@ def slice_major_ranks(slice_ids: Sequence[str], num_slices: int) -> List[int]:
 @dataclasses.dataclass(eq=False)
 class Mesh:
     """The job's mesh as one rank sees it: the config, this rank's device
-    and coordinates, and a process group for each axis set of
-    ``_GROUP_AXES`` whose ranks number more than one. ``device_mesh`` is
-    the ``("data", "fsdp")`` ``DeviceMesh`` FSDP2 shards over (None unless
-    the mesh has only those axes and more than one rank). ``order`` is the
-    ranks in device order (empty: the ranks' own order)."""
+    and coordinates, and a process group for every set of its axes
+    (:func:`group_axes`). ``device_mesh`` is the ``("data", "fsdp")``
+    ``DeviceMesh`` FSDP2 shards over (None unless the mesh has only those
+    axes and more than one rank). ``order`` is the ranks in device order
+    (empty: the ranks' own order)."""
 
     cfg: MeshConfig
     device: torch.device
@@ -296,11 +291,13 @@ class Mesh:
         return self.coords.get(axis, 0)
 
     def group(self, *axes: str):
-        """The process group over ``axes`` (this rank's block); None when
-        they hold one rank."""
+        """The process group over ``axes`` (this rank's block; an axis the
+        mesh lacks, or of size 1, is left out); None when they hold one
+        rank."""
         if self.size(*axes) == 1:
             return None
-        return self.groups[tuple(axes)]
+        return self.groups[tuple(n for n in self.cfg.names
+                                 if n in axes and self.cfg.axis_size(n) > 1)]
 
     def rank_at(self, axis: str, index: int) -> int:
         """The global rank at this rank's coordinates but ``index`` on
@@ -349,20 +346,20 @@ def build_mesh(cfg: Optional[MeshConfig], device: torch.device, num_slices: int 
     mesh = Mesh(cfg, torch.device(device), me, cfg.coords(position), order=order)
     if world == 1:
         return mesh
-    for axes in _GROUP_AXES:
-        # the expert-shard group only matters when there are shards
-        if mesh.size(*axes) == 1 or (AXIS_SEQUENCE in axes and len(axes) > 1
-                                     and mesh.size(AXIS_EXPERT) == 1):
-            continue
+    # every rank makes every group, in the same order (new_group is
+    # collective over the world)
+    for axes in group_axes(cfg):
         for block in cfg.ranks_along(axes):
             ranks = sorted(order[p] for p in block) if order else block
             g = dist.new_group(ranks)
             if me in ranks:
                 mesh.groups[axes] = g
-    if AXIS_PIPELINE in cfg.names and dist.get_backend() == "nccl":
-        # NCCL's batched point-to-point sends want every rank of a group in
-        # the group's first call: the stages' first sends pair two ranks
-        dist.all_reduce(torch.zeros(1, device=device), group=mesh.groups[(AXIS_PIPELINE,)])
+    if dist.get_backend() == "nccl":
+        # a communicator joins its ranks at its first call; NCCL's batched
+        # point-to-point sends (the pipeline stages' first sends pair two
+        # ranks) want it joined already
+        for axes in group_axes(cfg):
+            dist.all_reduce(torch.zeros(1, device=device), group=mesh.groups[axes])
     if set(cfg.names) <= set(BATCH_AXES):
         from torch.distributed.device_mesh import DeviceMesh
 

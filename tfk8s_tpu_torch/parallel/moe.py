@@ -21,7 +21,13 @@ fsdp) ranks, importance and load are means over the GLOBAL batch, as
 GSPMD computes them: summed over the batch group before their product.
 On a sequence-sharded mesh the block gathers the sequence and runs whole
 on every sequence rank, so capacities and queues count over the whole
-sequence as in the reference. The routing is computed alike on every
+sequence as in the reference. On a tensor mesh each expert's hidden
+width is split as the reference's ``expert_mlp`` rule splits it: ``wi``
+``[e_local, m, h/t]`` a column block and ``wo`` ``[e_local, h/t, m]`` a
+row block, whose products are summed over the tensor group on the
+float32 wire before the combine (``tensor_parallel.sum_blocks``, as a
+row split's); the router, the dispatch and the combine stay whole on
+every tensor rank. The routing is computed alike on every
 rank; the tokens and router probabilities enter the per-rank part through
 :func:`collectives.copy_over`, so everything before the block gets the
 whole gradient on every rank, and each rank's ``wi``/``wo`` get their
@@ -50,6 +56,7 @@ from tfk8s_tpu_torch.parallel.collectives import (
     sum_replicated,
 )
 from tfk8s_tpu_torch.parallel.mesh import AXIS_EXPERT, AXIS_SEQUENCE, BATCH_AXES, Mesh
+from tfk8s_tpu_torch.parallel.tensor_parallel import Split, TensorShard, enter, sum_blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,10 +126,12 @@ class SwitchMoeBlock(nn.Module):
     ``x [g, s, m]`` -> ``(y [g, s, m] in cfg.dtype, aux)``. Callers add
     ``moe_aux_weight * aux`` to the objective. With an :class:`ExpertShard`
     the block holds its rank's experts only (``wi``/``wo`` of ``E / n``
-    rows, :attr:`expert_range` of the whole)."""
+    rows, :attr:`expert_range` of the whole, listed in ``expert_splits``);
+    with ``tp`` its block of each expert's hidden width (``tensor_splits``)."""
 
     def __init__(self, cfg, num_experts: int = 8, capacity_factor: float = 1.25,
-                 top_k: int = 1, experts: Optional[ExpertShard] = None):
+                 top_k: int = 1, experts: Optional[ExpertShard] = None,
+                 tp: Optional[TensorShard] = None):
         super().__init__()
         if top_k not in (1, 2):
             raise ValueError(f"top_k must be 1 or 2, got {top_k}")
@@ -130,14 +139,20 @@ class SwitchMoeBlock(nn.Module):
         if num_experts % n:
             raise ValueError(f"num_experts={num_experts} does not divide over expert={n}")
         self.cfg, self.num_experts = cfg, num_experts
-        self.capacity_factor, self.top_k, self.experts = capacity_factor, top_k, experts
+        self.capacity_factor, self.top_k, self.experts, self.tp = (capacity_factor, top_k,
+                                                                   experts, tp)
         local = num_experts // n
         lo = (experts.index if experts is not None else 0) * local
         self.expert_range = (lo, lo + local)
         m, h = cfg.embed_dim, cfg.mlp_dim
+        h_lo, h_hi = (0, h) if tp is None else tp.block(h, "mlp_dim")
         self.router = nn.Parameter(torch.empty(m, num_experts))
-        self.wi = nn.Parameter(torch.empty(local, m, h))
-        self.wo = nn.Parameter(torch.empty(local, h, m))
+        self.wi = nn.Parameter(torch.empty(local, m, h_hi - h_lo))
+        self.wo = nn.Parameter(torch.empty(local, h_hi - h_lo, m))
+        if n > 1:
+            self.expert_splits = {w: Split(0, lo, lo + local, num_experts) for w in ("wi", "wo")}
+        if tp is not None:
+            self.tensor_splits = {"wi": Split(2, h_lo, h_hi, h), "wo": Split(1, h_lo, h_hi, h)}
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -145,7 +160,9 @@ class SwitchMoeBlock(nn.Module):
         this rank's (so every layout starts from the same parameters):
         normal(0.02) router; ``variance_scaling(1, fan_in,
         truncated_normal)`` for ``wi`` [e, m, h] and ``wo`` [e, h, m] (fan
-        in = e x the contracted dim)."""
+        in = e x the contracted dim). A block of a tensor mesh is cut from
+        the whole block's draws (``tensor_parallel.init_sharded``), not
+        drawn here."""
         e, lo, hi = self.num_experts, *self.expert_range
         self.router.copy_(torch.empty_like(self.router).normal_(0.0, 0.02, generator=generator))
         for w in (self.wi, self.wo):
@@ -181,12 +198,14 @@ class SwitchMoeBlock(nn.Module):
         probs = torch.softmax(logits, dim=-1)
         dispatch = compute_dispatch(copy_over(probs, group), k, c)[:, :, lo:hi]
 
-        # dispatch -> this rank's experts -> combine, summed over the group
+        # dispatch -> this rank's experts (its block of their hidden width
+        # on a tensor mesh, the blocks' products summed) -> combine, summed
+        # over the expert group
         route = (dispatch > 0).float()
-        xe = torch.einsum("gsec,gsm->gecm", route, copy_over(x, group).float())
+        xe = torch.einsum("gsec,gsm->gecm", route, copy_over(enter(x, self.tp), group).float())
         hmid = F.gelu(torch.einsum("gecm,emh->gech", xe.to(dt), self.wi.to(dt)),
                       approximate="tanh")
-        ye = torch.einsum("gech,ehm->gecm", hmid, self.wo.to(dt))
+        ye = sum_blocks(torch.einsum("gech,ehm->gecm", hmid, self.wo.to(dt)), self.tp)
         y = sum_over(torch.einsum("gsec,gecm->gsm", dispatch, ye.float()), group)
 
         # switch load-balance loss over first choices, global-batch means:

@@ -20,13 +20,18 @@ process's:
   every rank then runs alike;
 - a vocab-parallel table: rows split unevenly where the vocabulary does
   not divide (the first ``V % t`` ranks hold one row more), so no padded
-  row exists to reach a loss, an argmax or a checkpoint.
+  row exists to reach a loss, an argmax or a checkpoint;
+- the MoE FFN's hidden width (the reference's ``expert_mlp``): each
+  expert's ``wi`` a column block, its ``wo`` a row block whose products
+  are summed over the group (:func:`sum_blocks`), beside the expert
+  axis's split of the experts (``parallel/moe.py``).
 
 The sums and gathers of 16-bit activations travel as float32, so a sum
 rounds once and gloo is never handed a 16-bit tensor.
 
 Parameters are initialised whole from the one-process generator and
-sliced (:func:`init_sharded`), so a gang starts where one process does;
+sliced (:func:`init_sharded`; an expert shard's rows too, where the mesh
+also has an expert axis), so a gang starts where one process does;
 checkpoints gather the blocks back into whole tensors
 (``parallel/data_parallel.py``), so every layout restores every other.
 """
@@ -112,6 +117,19 @@ def enter(x: torch.Tensor, tp: Optional[TensorShard]) -> torch.Tensor:
     return copy_over(_wire(x), tp.group).to(x.dtype)
 
 
+def sum_blocks(part: torch.Tensor, tp: Optional[TensorShard],
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The sum over the group of every rank's product ``part`` of a row
+    split, on the float32 wire, then ``bias`` (replicated, added once),
+    cast back to ``part``'s dtype as the one-process product rounds."""
+    if tp is None:
+        return part if bias is None else part + bias
+    total = sum_over(_wire(part), tp.group)
+    if bias is not None:
+        total = total + bias.to(total.dtype)
+    return total.to(part.dtype)
+
+
 def row_dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
               tp: Optional[TensorShard]) -> torch.Tensor:
     """A row-split projection in ``dtype``: ``x``'s columns times this
@@ -120,11 +138,7 @@ def row_dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
     bias = None if layer.bias is None else layer.bias.to(dtype)
     if tp is None:
         return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
-    part = F.linear(x.to(dtype), layer.weight.to(dtype))
-    total = sum_over(_wire(part), tp.group)
-    if bias is not None:
-        total = total + bias.to(total.dtype)
-    return total.to(dtype)
+    return sum_blocks(F.linear(x.to(dtype), layer.weight.to(dtype)), tp, bias)
 
 
 def gather_columns(y: torch.Tensor, tp: Optional[TensorShard]) -> torch.Tensor:
@@ -142,13 +156,20 @@ def column_splits(lo: int, hi: int, full: int, bias: bool = True) -> Dict[str, S
     return out
 
 
-def tensor_splits(model: nn.Module) -> Dict[str, Split]:
-    """Every tensor-split parameter of ``model`` by its name."""
+def named_splits(model: nn.Module, kind: str = "tensor_splits") -> Dict[str, Split]:
+    """Every split parameter of ``model`` by its name: the blocks its
+    modules list under ``kind`` (``tensor_splits``, or ``expert_splits``
+    for the expert axis's rows)."""
     out: Dict[str, Split] = {}
     for prefix, module in model.named_modules():
-        for name, split in getattr(module, "tensor_splits", {}).items():
+        for name, split in getattr(module, kind, {}).items():
             out[f"{prefix}.{name}" if prefix else name] = split
     return out
+
+
+def tensor_splits(model: nn.Module) -> Dict[str, Split]:
+    """Every tensor-split parameter of ``model`` by its name."""
+    return named_splits(model, "tensor_splits")
 
 
 def shard_tensor(t: torch.Tensor, split: Split) -> torch.Tensor:
@@ -157,9 +178,13 @@ def shard_tensor(t: torch.Tensor, split: Split) -> torch.Tensor:
 
 
 def shard_state_dict(full: Dict[str, torch.Tensor],
-                     splits: Dict[str, Split]) -> Dict[str, torch.Tensor]:
-    """A whole state dict cut to this rank's blocks."""
-    return {k: shard_tensor(v, splits[k]) if k in splits else v for k, v in full.items()}
+                     *splits: Dict[str, Split]) -> Dict[str, torch.Tensor]:
+    """A whole state dict cut to this rank's blocks of every map of
+    ``splits`` (an expert shard's rows, then its tensor block)."""
+    out = dict(full)
+    for split in splits:
+        out = {k: shard_tensor(v, split[k]) if k in split else v for k, v in out.items()}
+    return out
 
 
 def gather_tensor(t: torch.Tensor, split: Split, group, size: int) -> torch.Tensor:
@@ -185,10 +210,13 @@ def init_sharded(build: Callable[[object], nn.Module],
     """``init(build(mesh), generator)``, the model over ``mesh``. On a
     tensor mesh the whole model is built and initialised as one process
     builds it (``build(None)``, the same draws) and each rank keeps its
-    blocks, so every layout starts from the same parameters."""
+    expert rows and tensor blocks, so every layout starts from the same
+    parameters."""
     if TensorShard.of(mesh) is None:
         return init(build(mesh), generator)
     whole = init(build(None), generator)
     model = build(mesh)
-    model.load_state_dict(shard_state_dict(whole.state_dict(), tensor_splits(model)))
+    model.load_state_dict(shard_state_dict(whole.state_dict(),
+                                           named_splits(model, "expert_splits"),
+                                           tensor_splits(model)))
     return model

@@ -372,8 +372,7 @@ class Trainer:
             for k, v in aux_i.items():
                 aux[k] = aux.get(k, 0.0) + v.detach().float() / accum
         self.parallel.reduce_gradients(model)
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        grad_norm = self.parallel.grad_norm(grads, model)
+        grad_norm = self.parallel.grad_norm(model)
         lr = self.schedule(state.step)  # optax reads the pre-update count
         for group in opt.param_groups:
             group["lr"] = lr
