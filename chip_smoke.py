@@ -245,8 +245,8 @@ must pass:
    2}`` (``BASELINE.json`` configs[3]), GPT-2-small on ``{"tensor": 4}`` (3
    heads a rank), the combined-axes gangs (a)-(c) of phase 15, and the
    pipelined BERT-MLM on the reference's ``{"pipeline": 2, "data": 2}``
-   and on ``{"pipeline": 4}`` (3 layers a stage); with fewer cards, a line
-   says what was skipped and why;
+   and on ``{"pipeline": 4}`` (3 layers a stage), and gangs (a) and (d)
+   of phase 18; with fewer cards, a line says what was skipped and why;
 17. pipeline: ``tfk8s_tpu_torch.models.pipelined.train(env)``, the
    ``pipelined:train`` entrypoint (GPipe over the ``pipeline`` axis), at
    BERT-base width (12 layers, 768 wide, 12 heads, vocab 30,522, bf16)
@@ -264,9 +264,29 @@ must pass:
    exceed; each rank's step time beside the one process's, the collectives
    gloo staged through host memory and peak memory. The stages run plain
    attention, as the reference's do: no kernel of the port may launch on
-   any rank, flash or GroupNorm.
+   any rank, flash or GroupNorm;
+18. pipeline_axes: the pipeline axis beside the other axes at full
+   width, four-rank gloo gangs sharing the card in one launch, each
+   through its entry point for two steps with ``TFK8S_MESH`` set, its
+   first update's whole gradient (``DataParallel.whole_grads``: blocks,
+   shards and stages gathered on rank 0) and loss against one process's
+   run of the same entry point (PARALLEL_LOSS_ATOL, FAMILY_GRAD_REL_L2):
+   (a) ``pipelined:train`` at BERT-base width with the reference's
+   defaults (seq 128, batch 64, 4 microbatches) on ``{"pipeline": 2,
+   "tensor": 2}`` (each stage's layers split), and the same with every
+   row split left unsummed, which must exceed the bounds; (b) the same on
+   ``{"pipeline": 2, "fsdp": 2}``; (c) on ``{"pipeline": 2, "sequence":
+   2}``, and the same with every sequence rank taking the whole
+   sequence's loss as a replica (the reduction then counts the gradient
+   twice), which must exceed them; (d) GPT-2-small (seq 1024, batch 8)
+   on ``{"pipeline": 2, "tensor": 2}``, flash at 6 heads on every rank,
+   each tensor-core kernel launched layers x steps times; (e)
+   GPT-2-small + 8 experts on ``{"pipeline": 2, "expert": 2}``; (f)
+   ``dlrm:train`` at its defaults on ``{"fsdp": 2, "tensor": 2}``, each
+   table's gradient on its own too. The pipelined and DLRM ranks launch
+   no kernel. With four cards phase 16 runs (a) and (d) over NCCL too.
 
-The launch counts are zeroed just before each path (phases 6-17) and
+The launch counts are zeroed just before each path (phases 6-18) and
 read just after it; the line's launches add up the paths'. Then it prints the card line, the ``kernels`` JSON
 line and, last, the ``ok`` line. It exits non-zero, printing no result,
 when a phase fails, when no card is visible, or when the port's package is
@@ -2576,10 +2596,15 @@ def planted(torch, fault):
     rank's part; ``record_shifted``, the last stage records microbatch
     t - s - 1 for t - s; ``expert_wo_unsummed``, each expert's ``wo`` block
     left unsummed over tensor; ``ulysses_heads_reversed``, Ulysses'
-    exchange back puts the sequence ranks' head blocks in reverse order."""
+    exchange back puts the sequence ranks' head blocks in reverse order;
+    ``sequence_counted``, the pipelined family's every sequence rank taking
+    the whole sequence's loss as a replica of its batch block (its masked
+    mean over the batch axes alone), so the reduction's sum over the
+    sequence group counts the gradient once a rank."""
     if fault is None:
         yield
         return
+    from tfk8s_tpu_torch.models import pipelined
     from tfk8s_tpu_torch.parallel import (collectives, moe, pipeline, ring_attention,
                                           tensor_parallel, ulysses)
 
@@ -2599,6 +2624,8 @@ def planted(torch, fault):
                            lambda self, outputs, mu, y: outputs.__setitem__(mu - 1, y)),
         "expert_wo_unsummed": (moe, "sum_blocks", lambda part, tp, bias=None: part),
         "ulysses_heads_reversed": (ulysses, "all_to_all", reversed_back),
+        "sequence_counted": (pipelined, "sequence_share",
+                             lambda mesh: (mesh.group("data", "fsdp"), 0, 1)),
     }[fault]
     saved = getattr(owner, attr)
     setattr(owner, attr, fn)
@@ -3528,9 +3555,10 @@ def phase_axes(torch, fa, root):
 def phase_nccl(torch, gpt, fa, gn, root):
     """The gangs of phase 13 over NCCL, a card a rank, where the machine
     has two cards or more, and the pipelined gangs of PIPELINE_NCCL_GANGS
-    that fit its cards; with four the tensor gangs of TENSOR_NCCL_GANGS and
-    the combined-axes gangs of AXES_NCCL_GANGS; else one line says why
-    they were skipped (NCCL will not put two ranks on one card)."""
+    that fit its cards; with four the tensor gangs of TENSOR_NCCL_GANGS,
+    the combined-axes gangs of AXES_NCCL_GANGS and the pipeline-axes gangs
+    of PIPELINE_AXES_NCCL_GANGS; else one line says why they were skipped
+    (NCCL will not put two ranks on one card)."""
     cards = torch.cuda.device_count()
     if cards < 2:
         log(f"nccl: gangs skipped: {cards} card visible; NCCL will not put two ranks on "
@@ -3547,6 +3575,8 @@ def phase_nccl(torch, gpt, fa, gn, root):
     _tensor_gangs(torch, fa, root, "nccl",
                   [(n, f, m, e, s, None) for n, f, m, e, s in TENSOR_NCCL_GANGS])
     _axes_gangs(torch, fa, root, "nccl", [g for g in AXES_GANGS if g[0] in AXES_NCCL_GANGS])
+    _pipeline_axes_gangs(torch, fa, gn, root, "nccl", [
+        g for g in PIPELINE_AXES_GANGS if g[0] in PIPELINE_AXES_NCCL_GANGS])
 
 
 # phase pipeline: the pipelined BERT-MLM (GPipe) at BERT-base width with the
@@ -3670,6 +3700,129 @@ def phase_pipeline(torch, fa, gn, root):
     return {**summary["flash_launches"], **summary["group_norm_launches"]}
 
 
+# phase pipeline_axes: the pipeline axis beside the other axes at full
+# width, each gang through its entry point with TFK8S_MESH set, four gloo
+# ranks sharing the card, all in one launch; its first update's whole
+# gradient and loss against one process's run of the same entry point:
+# (name, family, mesh, entry-point env, planted fault)
+PIPELINE_AXES_GANGS = [
+    ("pipelined_pipeline_tensor", "pipelined", {"pipeline": 2, "tensor": 2}, {}, None),
+    ("pipelined_pipeline_tensor_row_unsummed", "pipelined", {"pipeline": 2, "tensor": 2}, {},
+     "row_unsummed"),
+    ("pipelined_pipeline_fsdp", "pipelined", {"pipeline": 2, "fsdp": 2}, {}, None),
+    ("pipelined_pipeline_sequence", "pipelined", {"pipeline": 2, "sequence": 2}, {}, None),
+    ("pipelined_pipeline_sequence_counted", "pipelined", {"pipeline": 2, "sequence": 2}, {},
+     "sequence_counted"),
+    ("gpt_pipeline_tensor", "gpt", {"pipeline": 2, "tensor": 2}, AXES_GPT, None),
+    ("gpt_moe_pipeline_expert", "gpt", {"pipeline": 2, "expert": 2}, AXES_MOE, None),
+    ("dlrm_fsdp_tensor", "dlrm", {"fsdp": 2, "tensor": 2}, {}, None),
+]
+# over NCCL on four cards, a card a rank: gangs (a) and (d)
+PIPELINE_AXES_NCCL_GANGS = ("pipelined_pipeline_tensor", "gpt_pipeline_tensor")
+
+
+def _pipeline_axes_env(family, extra, steps):
+    """A gang's (or its one process's) entry-point env: the pipelined
+    family's PIPELINE_ENV, GPT's AXES env with flash attention, DLRM's
+    defaults (cut on the CPU rehearsal)."""
+    if family == "pipelined":
+        return _pipeline_env(steps)
+    if family == "gpt":
+        return _axes_env(dict(extra, TFK8S_ATTENTION_IMPL="flash"), steps)
+    env = dict({"TFK8S_DEVICE": "cpu", "TFK8S_VOCAB_SIZES": "1001,64,37",
+                "TFK8S_BATCH_SIZE": "64", "TFK8S_EMBED_DIM": "16"} if DEVICE == "cpu" else {},
+               TFK8S_TRAIN_STEPS=str(steps), TFK8S_LOG_EVERY="1",
+               TFK8S_SEED=str(TENSOR["seed"]), TFK8S_INPUT_MODE="per_host",
+               TFK8S_INPUT_SHARDS="2")
+    return dict(env, **extra)
+
+
+def _pipeline_axes_gangs(torch, fa, gn, root, backend, gangs):
+    """Each gang ``(name, family, mesh, env, fault)`` through its entry
+    point (AXES["gang_steps"] steps; a planted fault's one), all of one
+    launch, its first update against one process's (PARALLEL_LOSS_ATOL,
+    FAMILY_GRAD_REL_L2; a planted fault beyond them; DLRM's tables each
+    within the bound too); GPT's ranks launch each tensor-core flash
+    kernel layers x steps times at h / tensor heads, the pipelined and
+    DLRM ranks no kernel at all. Returns the launches of the one-process
+    runs and of every rank."""
+    import importlib
+
+    work = os.path.join(root, "build", "chip_smoke_pipeline_axes")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    refs, total, runs = {}, dict.fromkeys(fa.KERNELS, 0), []
+    none = dict.fromkeys(fa.KERNELS, 0)
+    for name, family, mesh, extra, fault in gangs:
+        module = importlib.import_module(f"tfk8s_tpu_torch.models.{family}")
+        steps = AXES["fault_steps" if fault else "gang_steps"]
+        # flash sites a step (one a layer in GPT; none on the other paths)
+        sites, heads = 0, None
+        if family == "gpt":
+            cfg = (module.tiny_config if "TFK8S_MODEL_PRESET" in _axes_env({}, 1)
+                   else module.base_config)()
+            sites, heads = cfg.num_layers, [cfg.num_heads // mesh.get("tensor", 1)]
+        launches = {**none, **dict.fromkeys(fa.TENSOR_CORE_KERNELS, sites * steps)}
+        key = (family, extra.get("TFK8S_NUM_EXPERTS"))
+        if key not in refs:
+            torch.cuda.empty_cache()
+            gn.reset_launches()
+            env = _pipeline_axes_env(family, extra, AXES["gang_steps"])
+            losses, grads, one_ms, got = entry_steps(torch, fa, module, env)
+            want = {**none, **dict.fromkeys(fa.TENSOR_CORE_KERNELS, sites * AXES["gang_steps"])}
+            if got != want or any(gn.LAUNCHES.values()):
+                raise AssertionError(f"{key} one process: launches {got} "
+                                     f"{dict(gn.LAUNCHES)}, want {want}")
+            for k, v in got.items():
+                total[k] += v
+            refs[key] = (losses[0], grads, one_ms)
+            torch.cuda.empty_cache()
+        env = dict(_pipeline_axes_env(family, extra, steps), TFK8S_MESH=json.dumps(mesh),
+                   FAMILY=family, WHOLE_GRADS="1", **({"FAULT": fault} if fault else {}))
+        runs.append(dict(name=name, env=env, out=os.path.join(work, name), want=refs[key][1],
+                         key=key, mesh=mesh, fault=fault, launches=launches, heads=heads))
+    t0 = time.perf_counter()
+    n = math.prod(runs[0]["mesh"].values())
+    results = _run_par_gangs(n, runs, backend)
+    log(f"pipeline_axes: {len(runs)} gangs of {n} ranks in one launch ({backend}), "
+        f"{time.perf_counter() - t0:.1f} s")
+    for run in runs:
+        name = run["name"]
+        records, grads = results.pop(name)
+        loss, want, one_ms = refs[run["key"]]
+        errs = _gang_check(f"{name} ({backend})", records, grads, loss, want, run["launches"],
+                           fault=bool(run["fault"]), heads=run["heads"])
+        if run["key"][0] == "dlrm":  # the tables lead the parameter order
+            vocab = run["env"].get("TFK8S_VOCAB_SIZES")
+            tables = len(vocab.split(",")) if vocab else 8
+            errs["worst_table_rel_l2"] = max(_grads_rel_l2({0: grads[t]}, {0: want[t]})
+                                             for t in range(tables))
+            if not errs["worst_table_rel_l2"] <= FAMILY_GRAD_REL_L2:
+                raise AssertionError(f"{name}: a table's gradient beyond "
+                                     f"{FAMILY_GRAD_REL_L2}: {errs}")
+        for r in records:
+            if any(r["gn_launches"].values()):
+                raise AssertionError(f"{name}: rank {r['rank']} GroupNorm launches "
+                                     f"{r['gn_launches']}")
+            for k, v in r["launches"].items():
+                total[k] += v
+        del grads
+        log(f"pipeline_axes gang {name} {json.dumps(run['mesh'])} ({backend}): {json.dumps({**errs, 'one_process_loss': loss, 'one_process_step_ms': one_ms, 'ranks': records})}")
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_pipeline_axes(torch, fa, gn, root):
+    """The pipeline axis beside fsdp, expert, sequence and tensor
+    (docstring phase 18): the gangs of PIPELINE_AXES_GANGS over gloo (four
+    ranks sharing the card) with their planted faults. Returns the
+    launches of its one-process runs and gangs."""
+    log("pipeline_axes: the gangs' steps are four gloo ranks sharing one card; they measure "
+        "gloo's host round trips, not scaling")
+    return _pipeline_axes_gangs(torch, fa, gn, root, "gloo", PIPELINE_AXES_GANGS)
+
+
 def main() -> int:
     import torch
 
@@ -3718,6 +3871,7 @@ def main() -> int:
         ("axes", lambda: phase_axes(torch, fa, root)),
         ("nccl", lambda: phase_nccl(torch, gpt, fa, gn, root)),
         ("pipeline", lambda: phase_pipeline(torch, fa, gn, root)),
+        ("pipeline_axes", lambda: phase_pipeline_axes(torch, fa, gn, root)),
     ]
     if only:
         phases = [p for p in phases if p[0] in ("card", "build", *only)]
@@ -3741,7 +3895,8 @@ def main() -> int:
         elif name == "kernels":
             line = value
         elif name in ("train", "resnet_train", "roofline", "generate", "distributed",
-                      "families", "parallel", "tensor", "axes", "pipeline"):
+                      "families", "parallel", "tensor", "axes", "pipeline",
+                      "pipeline_axes"):
             for kernel, count in value.items():  # each path's launches add up
                 launches[kernel] = launches.get(kernel, 0) + count
     for d in (ckpt_dir, rn_ckpt_dir):

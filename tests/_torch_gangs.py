@@ -1,11 +1,13 @@
 """Shared helpers of the port's combined-axes tests
 (``test_torch_masked_mean.py``, ``test_torch_axes_tensor.py``,
-``test_torch_axes_fsdp.py``, ``test_torch_generate_tensor.py``).
+``test_torch_axes_fsdp.py``, ``test_torch_generate_tensor.py``,
+``test_torch_pipeline_axes.py``, ``test_torch_dlrm_axes.py``).
 
 A gang is ``n`` real processes over gloo on the CPU (the launcher's env
 contract; ``test_torch_sequence_parallel._gang`` starts them), each
 running :data:`WORKER`: it joins the job and builds the
-mesh once, then runs a list of jobs in order. A ``train`` job is one
+mesh once, then runs a list of jobs in order (a job with a ``mesh`` of
+its own builds that layout of the same ranks first). A ``train`` job is one
 family's ``run_task`` over the mesh (tiny float32 config, per_host input
 of :data:`SHARDS` shards, so one process sees the same global batch) and
 prints a ``LOSS`` line a step; the other jobs (``attention``,
@@ -55,6 +57,22 @@ RUNS = {
                      metric="next_token_accuracy"),
     "bert_ring": dict(family="bert", cfg={"attention_impl": "ring", "vocab_size": 63},
                       task=_SEQ, metric="mlm_accuracy"),
+    # the pipelined BERT: 4 layers, 2 a stage on two stages, 4 microbatches;
+    # the reference's tensor split needs a vocabulary that divides
+    "pipelined": dict(family="pipelined", cfg={"num_layers": 4}, task=_SEQ,
+                      metric="mlm_accuracy"),
+    "pipelined63": dict(family="pipelined", cfg={"vocab_size": 63, "num_layers": 4},
+                        task=_SEQ, metric="mlm_accuracy"),
+    "pipelined_b4": dict(family="pipelined", cfg={"num_layers": 4},
+                         task=dict(seq_len=16, batch_size=4, num_micro=4),
+                         metric="mlm_accuracy"),
+    # DLRM in float32 and in its own bfloat16, at its entry point's lr
+    "dlrm": dict(family="dlrm", dtype="float32", metric="click_accuracy",
+                 task=dict(vocab_sizes=(101, 64, 37), embed_dim=16, batch_size=32),
+                 env={"TFK8S_LEARNING_RATE": "1e-3"}),
+    "dlrm_bf16": dict(family="dlrm", dtype="bfloat16", metric="click_accuracy",
+                      task=dict(vocab_sizes=(101, 64, 37), embed_dim=16, batch_size=32),
+                      env={"TFK8S_LEARNING_RATE": "1e-3"}),
 }
 
 WORKER = textwrap.dedent(
@@ -62,11 +80,14 @@ WORKER = textwrap.dedent(
     import json, os, sys
     sys.path[:0] = [%(repo)r, os.path.join(%(repo)r, "tests")]
     import _torch_gangs as tg
+    from tfk8s_tpu_torch.parallel.mesh import MeshConfig, build_mesh
     from tfk8s_tpu_torch.runtime import train as ttrain
 
     env = dict(os.environ)
-    ctx, dev, mesh = ttrain.join_mesh(env)
+    ctx, dev, job_mesh = ttrain.join_mesh(env)
     for run in json.loads(env["RUNS"]):
+        # a run's own layout of the same ranks, else the job's
+        mesh = build_mesh(MeshConfig.from_dict(run["mesh"]), dev) if "mesh" in run else job_mesh
         kind = run.get("kind", "train")
         if kind != "train":
             getattr(tg, kind)(run, ctx, mesh)
@@ -101,6 +122,13 @@ def task_of(run, mesh):
     family = importlib.import_module("tfk8s_tpu_torch.models." + run["family"])
     if run["family"] == "mlp":  # a few steps: no convergence target
         return dataclasses.replace(family.make_task(mesh=mesh, **run["task"]), targets={})
+    if run["family"] == "dlrm":
+        return family.task_for_mesh(mesh, **run["task"])
+    if run["family"] == "pipelined":
+        from tfk8s_tpu_torch.models import bert
+
+        cfg = bert.tiny_config(dtype=torch.float32, **run.get("cfg", {}))
+        return family.make_task(mesh, cfg=cfg, **run["task"])
     cfg = family.tiny_config(dtype=torch.float32, **run.get("cfg", {}))
     task = family.task_for_mesh(mesh, cfg=cfg, **run["task"])
     if run.get("pad"):
@@ -110,23 +138,71 @@ def task_of(run, mesh):
 
 @contextlib.contextmanager
 def patched(run):
-    """``run["old_formula"]``: the masked token losses as they were taken
-    before the global masked mean, each batch block's own mean averaged
-    over the blocks (the sums over the sequence group only)."""
-    if not run.get("old_formula"):
+    """The run's patches, undone after it: ``run["dtype"]``, DLRM's compute
+    dtype; ``run["old_formula"]``, the masked token losses as they were
+    taken before the global masked mean, each batch block's own mean
+    averaged over the blocks (the sums over the sequence group only);
+    ``run["fault"] == "sequence_counted"``, the pipelined family's every
+    sequence rank taking the loss over the whole sequence as a replica of
+    the batch block (its masked mean over the batch axes alone), so the
+    reduction's sum over the sequence group counts each token ``s``
+    times."""
+    from tfk8s_tpu_torch.models import bert, dlrm, gpt, pipelined, t5, transformer
+
+    saved = []
+
+    def patch(mod, name, value):
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, value)
+
+    if run.get("dtype"):
+        patch(dlrm, "DTYPE", getattr(torch, run["dtype"]))
+    if run.get("old_formula"):
+        for m in (bert, gpt, t5):
+            patch(m, "token_group", lambda mesh: (transformer.seq_group(mesh), 1))
+    if run.get("fault") == "sequence_counted":
+        patch(pipelined, "sequence_share", lambda mesh: (mesh.group("data", "fsdp"), 0, 1))
+    with first_grads(run.get("grads")):
+        try:
+            yield
+        finally:
+            for mod, name, value in reversed(saved):
+                setattr(mod, name, value)
+
+
+@contextlib.contextmanager
+def first_grads(prefix):
+    """Save the first update's whole gradient of the runs inside (every
+    parameter by name, gathered whole over the mesh by
+    ``DataParallel.whole_grads``, after the step's reductions) to
+    ``<prefix>-<rank>.pt``, read from an optimizer step pre-hook; nothing
+    when ``prefix`` is None."""
+    if prefix is None:
         yield
         return
-    from tfk8s_tpu_torch.models import bert, gpt, t5, transformer
+    import torch.distributed as dist
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
 
-    mods = (bert, gpt, t5)
-    saved = [m.token_group for m in mods]
-    for m in mods:
-        m.token_group = lambda mesh: (transformer.seq_group(mesh), 1)
+    held, init_state = [], ttrain.Trainer.init_state
+
+    def holding(self):
+        state = init_state(self)
+        held.append((self.parallel, state.model))
+        return state
+
+    def hook(opt, args, kwargs):
+        if held:
+            parallel, model = held.pop()
+            rank = dist.get_rank() if dist.is_initialized() else 0
+            torch.save(parallel.whole_grads(model), f"{prefix}-{rank}.pt")
+
+    ttrain.Trainer.init_state = holding
+    handle = register_optimizer_step_pre_hook(hook)
     try:
         yield
     finally:
-        for m, f in zip(mods, saved):
-            m.token_group = f
+        handle.remove()
+        ttrain.Trainer.init_state = init_state
 
 
 def one_process(name, steps=STEPS, ckpt="", resume=False, **run_kw):

@@ -384,12 +384,10 @@ def test_combined_layouts_pass_the_launcher_check(mesh):
 
 
 @pytest.mark.parametrize("env,item", [
-    # sequence, expert and tensor run beside each other and fsdp
-    # (tests/test_torch_axes_*.py); pipeline beside any of them still raises
-    ({"TFK8S_MESH": '{"expert": 2, "pipeline": 2}', "TFK8S_NUM_PROCESSES": "4"}, "1.9"),
-    # pipeline runs alone and beside data (tests/test_torch_pipeline.py);
-    # beside tensor it still raises
-    ({"TFK8S_MESH": '{"pipeline": 2, "tensor": 2}', "TFK8S_NUM_PROCESSES": "4"}, "1.9"),
+    # pipeline runs beside every axis in a gang (tests/test_torch_pipeline*.py);
+    # one process for these four-device layouts raises item 1.5
+    ({"TFK8S_MESH": '{"expert": 2, "pipeline": 2}', "TFK8S_NUM_PROCESSES": "4"}, "1.5"),
+    ({"TFK8S_MESH": '{"pipeline": 2, "tensor": 2}', "TFK8S_NUM_PROCESSES": "4"}, "1.5"),
     # multislice runs (tests/test_torch_multislice.py); a multislice mesh
     # of more devices than processes still raises
     ({"TFK8S_NUM_SLICES": "2", "TFK8S_MESH": '{"data": 4}', "TFK8S_NUM_PROCESSES": "2"},
@@ -400,5 +398,7 @@ def test_combined_layouts_pass_the_launcher_check(mesh):
     ({"TFK8S_PROFILE_DIR": "p"}, "1.11"),
 ])
 def test_unported_layouts_raise_naming_their_item(env, item):
+    if "TFK8S_MESH" in env:  # every layout passes the mesh rules
+        MeshConfig.from_env(env).require_ported()
     with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\b"):
         _one_process(1, **env)

@@ -523,22 +523,46 @@ def test_make_task_refuses_what_the_reference_refuses(cfg_kw, task_kw, axes, mat
 
 
 @pytest.mark.parametrize("axes", [{"pipeline": 2}, {"pipeline": 2, "data": 2},
-                                  {"pipeline": 4, "data": 2}])
+                                  {"pipeline": 4, "data": 2}, {"pipeline": 2, "tensor": 2},
+                                  {"pipeline": 2, "fsdp": 2, "sequence": 2},
+                                  {"pipeline": 2, "data": 2, "expert": 2}])
 def test_pipeline_layouts_build_a_mesh(axes):
     cfg = MeshConfig.from_dict(axes)
     cfg.require_ported()
     assert cfg.names[0] == "pipeline"
-    # the stages vary slowest: a data rank's pipeline peers are data-size apart
-    mesh = _mesh(**axes)
-    data = axes.get("data", 1)
-    assert [mesh.rank_at("pipeline", s) for s in range(axes["pipeline"])] == [
-        s * data for s in range(axes["pipeline"])]
+    # the stages vary slowest: rank 0's pipeline peers are a stage's ranks apart
+    stages, per_stage = axes["pipeline"], cfg.size() // axes["pipeline"]
+    assert [_mesh(**axes).rank_at("pipeline", s) for s in range(stages)] == [
+        s * per_stage for s in range(stages)]
+    for r in range(cfg.size()):
+        mesh = _mesh(r, **axes)
+        # each peer shares every other coordinate, and its pipeline group is them
+        peers = [mesh.rank_at("pipeline", s) for s in range(stages)]
+        assert [cfg.coords(p) for p in peers] == [{**mesh.coords, "pipeline": s}
+                                                  for s in range(stages)]
+        assert sorted(peers) in cfg.ranks_along(("pipeline",))
+    # the gradient group (data x fsdp x sequence) lies within a stage
+    for block in cfg.ranks_along(("data", "fsdp", "sequence")):
+        assert len({cfg.coords(p)["pipeline"] for p in block}) == 1
 
 
 @pytest.mark.parametrize("beside", ["fsdp", "expert", "sequence", "tensor"])
 def test_pipeline_beside_a_model_axis_raises(beside):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 1\.9\b"):
-        MeshConfig.from_dict({"pipeline": 2, beside: 2}).require_ported()
+    """Named for the refusal it held before the pipeline ran beside the
+    model axes: each layout now passes the mesh rules, and every rank's
+    pipelined task builds its stage on it (the gangs:
+    ``tests/test_torch_pipeline_axes.py``)."""
+    axes = {"pipeline": 2, beside: 2}
+    MeshConfig.from_dict(axes).require_ported()
+    cfg = tbert.tiny_config(num_layers=4)
+    for r in range(4):
+        mesh = _mesh(r, **axes)
+        model = tpipelined.make_task(mesh, cfg=cfg, batch_size=8).init(torch.Generator())
+        first = 2 * mesh.index("pipeline")
+        assert set(model.layers) == {str(first), str(first + 1)}
+        heads = cfg.num_heads // mesh.size("tensor")
+        assert model.layers[str(first)].attn.q.weight.shape == (heads * cfg.head_dim,
+                                                                cfg.embed_dim)
 
 
 def test_bridge_maps_stages_to_global_layers():

@@ -40,6 +40,7 @@ from tfk8s_tpu.parallel.sharding import unbox
 from tfk8s_tpu_torch import bridge
 from tfk8s_tpu_torch.models import resnet as tres
 from tfk8s_tpu_torch.ops import group_norm as tgn
+from tfk8s_tpu_torch.parallel.mesh import MeshConfig
 from tfk8s_tpu_torch.runtime import train as ttrain
 
 PAD_ATOL = 1e-5
@@ -240,11 +241,17 @@ def test_train_entrypoint_checkpoints_and_counts_no_card_launch(tmp_path):
 
 @pytest.mark.parametrize("extra", [
     {"TFK8S_INPUT_FILES": "shards/*.rio", "TFK8S_INPUT_FORMAT": "image"},
-    # multislice runs (tests/test_torch_multislice.py); pipeline beside
-    # expert still raises
+    # multislice runs (tests/test_torch_multislice.py), and pipeline beside
+    # expert in a gang (tests/test_torch_pipeline_axes.py); one process for
+    # its four devices raises item 1.5
     {"TFK8S_NUM_PROCESSES": "4", "TFK8S_MESH": '{"pipeline": 2, "expert": 2}'},
 ])
 def test_unported_input_raises(extra):
+    if "TFK8S_MESH" in extra:  # the layout passes the mesh rules
+        MeshConfig.from_env(extra).require_ported()
+        with pytest.raises(NotImplementedError, match=r"ROADMAP item 1\.5\b"):
+            tres.train(_env(**extra))
+        return
     with pytest.raises(NotImplementedError):
         tres.train(_env(**extra))
 

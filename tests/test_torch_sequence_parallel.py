@@ -296,13 +296,13 @@ def test_impl_selection_policy_matches_the_reference():
 
 
 def test_tensor_and_pipeline_axes_still_raise():
-    """The tensor axis runs alone, beside data
-    (``tests/test_torch_tensor_parallel.py``) and beside fsdp, expert or
-    sequence (``tests/test_torch_axes_tensor.py``); the pipeline axis runs
-    alone and beside data (``tests/test_torch_pipeline.py``), and beside
-    sequence still raises."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 1\.9\b"):
-        MeshConfig.from_dict({"pipeline": 2, "sequence": 2}).require_ported()
+    """Named for the refusals it held before: the tensor axis runs alone,
+    beside data (``tests/test_torch_tensor_parallel.py``) and beside fsdp,
+    expert or sequence (``tests/test_torch_axes_tensor.py``); the pipeline
+    axis alone, beside data (``tests/test_torch_pipeline.py``) and beside
+    sequence (``tests/test_torch_pipeline_axes.py``)."""
+    MeshConfig.from_dict({"pipeline": 2, "sequence": 2}).require_ported()
+    assert _mesh(pipeline=2, sequence=2).size("pipeline", "sequence") == 4
     for axes in ({"tensor": 2}, {"data": 2, "tensor": 2}, {"fsdp": 2, "tensor": 2},
                  {"expert": 2, "tensor": 2}, {"sequence": 2, "tensor": 2}):
         MeshConfig.from_dict(axes).require_ported()

@@ -25,6 +25,7 @@ from tfk8s_tpu.runtime import train as jtrain
 from tfk8s_tpu_torch import bridge
 from tfk8s_tpu_torch.models import gpt as tgpt
 from tfk8s_tpu_torch.ops import flash_attention as tfa
+from tfk8s_tpu_torch.parallel.mesh import MeshConfig
 from tfk8s_tpu_torch.runtime import train as ttrain
 from tfk8s_tpu_torch.runtime.checkpoint import Checkpointer
 
@@ -172,8 +173,9 @@ def test_drain_commits_a_checkpoint_and_raises_pod_drained(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    # multislice runs (tests/test_torch_multislice.py); pipeline beside
-    # tensor still raises
+    # multislice runs (tests/test_torch_multislice.py), and pipeline beside
+    # tensor in a gang (tests/test_torch_pipeline_axes.py); one process for
+    # its four devices raises item 1.5
     {"TFK8S_NUM_PROCESSES": "4", "TFK8S_MESH": '{"pipeline": 2, "tensor": 2}'},
     {"TFK8S_MESH": '{"data": 2}'},
     {"TFK8S_INPUT_FILES": "part-*.rio", "TFK8S_INPUT_FORMAT": "image"},
@@ -182,6 +184,8 @@ def test_drain_commits_a_checkpoint_and_raises_pod_drained(tmp_path):
     {"TFK8S_NUM_PROCESSES": "2", "TFK8S_MESH": '{"data": 2, "tensor": 2}'},
 ])
 def test_unported_features_raise(extra):
+    if "TFK8S_MESH" in extra:  # every layout passes the mesh rules
+        MeshConfig.from_env(extra).require_ported()
     with pytest.raises(NotImplementedError):
         tgpt.train(_env(**extra))
 

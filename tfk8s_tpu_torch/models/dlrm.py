@@ -9,7 +9,13 @@ Numerics kept from the reference so the same bridged parameters give the
 same numbers: float32 parameters and bfloat16 compute (``DTYPE``, which
 the reference fixes: every dense layer casts its input, kernel and bias,
 each looked-up row is cast, the interaction is a bfloat16 product), and
-a float32 logit.
+a float32 logit. A dense layer's bfloat16 operands are multiplied and
+summed in float32 and the sum rounded once (:func:`_dot`), as a TPU's
+dot accumulates: a cuBLAS bfloat16 GEMM may round a split-K's partial
+sums in bfloat16 for some shapes only, and so gave a gang whose ranks
+hold half the rows (fsdp) other numbers than one process (each table's
+gradient 0.10 relative L2 from one process's on an H100, against 5.5e-3
+with float32 sums).
 
 The tables are the reference's parameter servers translated onto the
 mesh: their rows split over the ``tensor`` axis (``("vocab", "embed")``),
@@ -37,15 +43,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tfk8s_tpu_torch.models.transformer import _dense
-from tfk8s_tpu_torch.parallel.collectives import vocab_parallel_lookup
-from tfk8s_tpu_torch.parallel.mesh import (
-    AXIS_EXPERT,
-    AXIS_FSDP,
-    AXIS_SEQUENCE,
-    AXIS_TENSOR,
-    Mesh,
-)
+from tfk8s_tpu_torch.parallel.collectives import scale_grad, vocab_parallel_lookup
+from tfk8s_tpu_torch.parallel.mesh import AXIS_SEQUENCE, Mesh
 from tfk8s_tpu_torch.parallel.tensor_parallel import (
     Split,
     TensorShard,
@@ -55,7 +54,7 @@ from tfk8s_tpu_torch.parallel.tensor_parallel import (
     group_of,
     init_sharded,
 )
-from tfk8s_tpu_torch.runtime.train import TrainTask, join_mesh, run_task
+from tfk8s_tpu_torch.runtime.train import TrainTask, join_mesh, keep_sequence, run_task
 
 # the compute dtype the reference fixes (``dlrm.py:43``, ``:95``, ``:97``,
 # ``:106``); parameters are float32
@@ -64,6 +63,14 @@ DEFAULT_VOCAB_SIZES = (100_000,) * 8
 # flax's truncated-normal variance scaling divides by the standard
 # deviation of a unit normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
+
+
+def _dot(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer`` at DTYPE: input, kernel and bias cast to DTYPE, the
+    products summed in float32 with the bias, the sum rounded to DTYPE
+    once."""
+    w, b = (t.to(DTYPE).float() for t in (layer.weight, layer.bias))
+    return F.linear(x.to(DTYPE).float(), w, b).to(DTYPE)
 
 
 class Mlp(nn.Module):
@@ -93,9 +100,9 @@ class Mlp(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i, (width, layer) in enumerate(zip(self.widths, self.layers())):
             if self._split(width):
-                x = gather_columns(_dense(layer, enter(x, self.tp), DTYPE), self.tp)
+                x = gather_columns(_dot(layer, enter(x, self.tp)), self.tp)
             else:
-                x = _dense(layer, x, DTYPE)
+                x = _dot(layer, x)
             if i < len(self.widths) - 1:
                 x = F.relu(x)
         return x
@@ -224,8 +231,14 @@ def make_task(
     def init(generator: torch.Generator) -> DLRM:
         return init_sharded(build, init_params, generator, mesh)
 
+    # a sequence rank holds its rows whole (DLRM has no sequence): its
+    # gradient is the whole one, so it carries 1 / n of it into the
+    # reduction's sum over the sequence group
+    share = 1 / mesh.size(AXIS_SEQUENCE) if isinstance(mesh, Mesh) else 1
+
     def loss_fn(model, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        return loss_and_metrics(model(batch["dense"], batch["sparse"]), batch["click"])
+        loss, metrics = loss_and_metrics(model(batch["dense"], batch["sparse"]), batch["click"])
+        return scale_grad(loss, share), metrics
 
     return TrainTask(
         name="dlrm",
@@ -234,18 +247,16 @@ def make_task(
         make_batch=make_batch_fn(vocab_sizes, dense_features),
         batch_size=batch_size,
         targets=targets or {},
+        split_sequence=keep_sequence,
     )
 
 
 def task_for_mesh(mesh, **task_kw) -> TrainTask:
     """The task over ``mesh`` (a ``parallel.mesh.Mesh``, or the device of a
     one-process run): its tables and hidden widths split over the tensor
-    axis, beside data only."""
-    if isinstance(mesh, Mesh) and mesh.size(AXIS_TENSOR) > 1 and \
-            mesh.size(AXIS_FSDP, AXIS_EXPERT, AXIS_SEQUENCE) > 1:
-        raise NotImplementedError(
-            f"dlrm on mesh {dict(mesh.cfg.axes)}: its tensor-split tables beside the "
-            "fsdp, expert or sequence axis are ROADMAP item 1.9")
+    axis, each block's rows over fsdp (``data_parallel.FsdpShards``), and
+    replicated over expert, sequence and pipeline, as the reference's
+    specs leave it."""
     return make_task(mesh=mesh, **task_kw)
 
 
@@ -254,9 +265,9 @@ def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, flo
     reference's env contract (``TFK8S_BATCH_SIZE`` 4096, 100 steps at lr
     1e-3 unless set; ``TFK8S_VOCAB_SIZES`` comma-separated, default eight
     tables of 100,000 rows; ``TFK8S_EMBED_DIM`` 64), on the card unless
-    ``TFK8S_DEVICE=cpu``, over the mesh's data and tensor axes (the
-    tensor axis is the embedding-shard axis). Returns the logged metrics
-    history."""
+    ``TFK8S_DEVICE=cpu``, over any mesh (the tensor axis is the
+    embedding-shard axis, :func:`task_for_mesh`). Returns the logged
+    metrics history."""
     env = dict(env)
     env.setdefault("TFK8S_TRAIN_STEPS", "100")
     env.setdefault("TFK8S_LEARNING_RATE", "1e-3")

@@ -17,10 +17,34 @@ process is one stage holding every layer.
 A ``data`` axis composes with it, the reference's ``pipeline_apply(
 data_axis=...)``: each data rank pipelines the microbatches of its own
 rows. The loss is the reference's masked mean over the global batch (the
-masked positions summed over the data group); its gradient is scaled by
-the data size, so the data group's gradient average is the global one.
-The stages run plain attention, as the reference's do: ``make_task``
-takes ``attention_impl`` auto or full only, and no MoE.
+masked positions summed over the batch and sequence groups,
+``transformer.token_group``); its gradient is scaled by the batch axes'
+size, so the gradient average every layout takes is the global one. The
+stages run plain attention, as the reference's do: ``make_task`` takes
+``attention_impl`` auto or full only, and no MoE.
+
+Beside the other axes the stages keep the reference's layout (its
+pipeline region is a manual ``shard_map`` over pipeline and data, its
+stage parameters built with ``partition_params=False``): a microbatch is
+split over ``data`` alone, every stage sees whole sequences, and the
+numbers are one process's:
+
+- ``tensor``: the stages' layers hold their column and row blocks
+  (``EncoderLayer(tp=...)``) and run their tensor sums inside each tick,
+  every tensor rank of a stage alike; the embedding is the vocab-parallel
+  table and tied head, and the loss the vocab-parallel cross-entropy;
+- ``fsdp``: a rank holds its rows of the batch, as in every family, and
+  pipelines its data block's rows (the fsdp group's ids gathered), so a
+  microbatch is the reference's; it then keeps its own rows for the
+  final norm, the head and the loss; the parameters are
+  ``data_parallel.FsdpShards``';
+- ``sequence``: every sequence rank takes its rows' whole sequences (the
+  task's ``split_sequence`` keeps them whole) through the stages; the
+  head and the loss take its block of the positions only
+  (:func:`sequence_share`), so its gradient is its tokens' part, and the
+  reduction's sum over the sequence group counts every token once;
+- ``expert``: the family has no MoE layer, so an expert rank holds the
+  rows and parameters of its expert peers: a replica.
 
 ``train`` is the ``pipelined:train`` TPUJob entrypoint
 (``tfk8s_tpu_torch.models.pipelined:train``) with the reference's env
@@ -42,22 +66,35 @@ from tfk8s_tpu_torch.models.transformer import (
     _ln,
     call_layer,
     init_params,
+    token_group,
 )
-from tfk8s_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_PIPELINE, BATCH_AXES, Mesh
+from tfk8s_tpu_torch.parallel.collectives import all_gather, group_rank
+from tfk8s_tpu_torch.parallel.mesh import (
+    AXIS_DATA,
+    AXIS_FSDP,
+    AXIS_PIPELINE,
+    AXIS_SEQUENCE,
+    BATCH_AXES,
+    Mesh,
+)
 from tfk8s_tpu_torch.parallel.pipeline import pipeline_apply, split_microbatches
-from tfk8s_tpu_torch.runtime.train import TrainTask, join_mesh, run_task
+from tfk8s_tpu_torch.parallel.tensor_parallel import TensorShard, init_sharded, vocab_split
+from tfk8s_tpu_torch.runtime.train import TrainTask, join_mesh, keep_sequence, run_task
 
 
 class PipelineStage(nn.ModuleDict):
     """One pipeline stage: a run of encoder layers under their global
     indices (a uniform activation shape in and out, the inter-stage
-    contract); each is recomputed in the backward under ``cfg.remat``."""
+    contract), holding ``tp``'s blocks on a tensor mesh; each is
+    recomputed in the backward under ``cfg.remat``."""
 
     pipeline_stage = True
 
-    def __init__(self, cfg: TransformerConfig, layers_per_stage: int, stage: int = 0):
+    def __init__(self, cfg: TransformerConfig, layers_per_stage: int, stage: int = 0,
+                 tp: Optional[TensorShard] = None):
         first = stage * layers_per_stage
-        super().__init__({str(first + j): EncoderLayer(cfg) for j in range(layers_per_stage)})
+        super().__init__({str(first + j): EncoderLayer(cfg, tp=tp)
+                          for j in range(layers_per_stage)})
         self.cfg = cfg
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -66,26 +103,54 @@ class PipelineStage(nn.ModuleDict):
         return x
 
 
+def sequence_share(mesh) -> Tuple[object, int, int]:
+    """``(group, block, blocks)``: the group the loss's masked mean sums
+    over (the batch and sequence axes) and this rank's block of the
+    ``blocks`` equal blocks of the positions, the ones it takes the head
+    and the loss over."""
+    if not isinstance(mesh, Mesh):
+        return None, 0, 1
+    return token_group(mesh)[0], mesh.index(AXIS_SEQUENCE), mesh.size(AXIS_SEQUENCE)
+
+
+def _positions(t: torch.Tensor, block: int, blocks: int) -> torch.Tensor:
+    """Block ``block`` of ``blocks`` of ``t``'s axis 1 (the positions)."""
+    if t.shape[1] % blocks:
+        raise ValueError(f"length {t.shape[1]} does not divide over sequence={blocks}")
+    n = t.shape[1] // blocks
+    return t[:, block * n:(block + 1) * n]
+
+
 class PipelinedBert(nn.Module):
     """The embedding, this rank's stage and the final norm; the forward
     gives the tied head's float32 logits of its rows, the stage run in
     pipeline over ``mesh`` (a ``parallel.mesh.Mesh`` or, for one process,
-    its device) with ``num_micro`` microbatches."""
+    its device) with ``num_micro`` microbatches; with ``tp`` the stage's
+    layers and the embedding hold that rank's tensor blocks."""
 
-    def __init__(self, cfg: TransformerConfig, mesh, num_micro: int):
+    def __init__(self, cfg: TransformerConfig, mesh, num_micro: int,
+                 tp: Optional[TensorShard] = None):
         super().__init__()
         self.cfg, self.mesh, self.num_micro = cfg, mesh, num_micro
-        stages = mesh.size(AXIS_PIPELINE) if isinstance(mesh, Mesh) else 1
-        stage = mesh.index(AXIS_PIPELINE) if isinstance(mesh, Mesh) else 0
-        self.embed = Embedder(cfg)
-        self.layers = PipelineStage(cfg, cfg.num_layers // stages, stage)
+        is_mesh = isinstance(mesh, Mesh)
+        stages = mesh.size(AXIS_PIPELINE) if is_mesh else 1
+        stage = mesh.index(AXIS_PIPELINE) if is_mesh else 0
+        # the ranks whose rows make up this rank's data block
+        self.rows_group = mesh.group(AXIS_FSDP) if is_mesh else None
+        self.embed = Embedder(cfg, 0, tp)
+        self.layers = PipelineStage(cfg, cfg.num_layers // stages, stage, tp)
         self.ln_final = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        x = self.embed(ids)
+        """``ids``: this rank's rows, whole sequences. The logits are its
+        rows' at its block of the positions (its vocab columns on a tensor
+        mesh)."""
+        x = self.embed(all_gather(ids, 0, self.rows_group))
         y = pipeline_apply(self.layers, split_microbatches(x, self.num_micro), self.mesh)
-        y = _ln(self.ln_final, y.reshape(x.shape), self.cfg.dtype)
-        return self.embed.logits(y)
+        first = group_rank(self.rows_group) * ids.shape[0]
+        _, block, blocks = sequence_share(self.mesh)
+        y = _positions(y.reshape(x.shape)[first:first + ids.shape[0]], block, blocks)
+        return self.embed.logits(_ln(self.ln_final, y, self.cfg.dtype))
 
 
 def init_model(model: PipelinedBert, generator: torch.Generator) -> PipelinedBert:
@@ -110,11 +175,11 @@ def make_task(
     targets: Optional[Dict[str, float]] = None,
 ) -> TrainTask:
     """The pipelined MLM task over ``mesh`` (a ``parallel.mesh.Mesh`` whose
-    ``pipeline`` axis holds the stages and whose ``data`` axis, if any,
-    splits the rows; or a device: one stage), with the reference's checks,
-    each an ``AssertionError``: no MoE, attention auto or full, layers
-    dividing into stages, the batch into microbatches and a microbatch's
-    rows over data."""
+    ``pipeline`` axis holds the stages, or a device: one stage), with the
+    reference's checks, each an ``AssertionError``: no MoE, attention auto
+    or full, layers dividing into stages, the batch into microbatches and
+    a microbatch's rows over data. The other axes take the reference's
+    layout (the module docstring)."""
     cfg = cfg or bert.tiny_config()
     if cfg.num_experts != 0:
         raise AssertionError(
@@ -141,14 +206,18 @@ def make_task(
             f"{num_micro} microbatches) must divide over the data axis "
             f"({data} shards)")
     seq_len = min(seq_len, cfg.max_len)
-    group = mesh.group(*BATCH_AXES) if is_mesh else None
+    vocab = vocab_split(mesh, cfg.vocab_size)
+    blocks = mesh.size(*BATCH_AXES) if is_mesh else 1
 
     def init(generator: torch.Generator) -> PipelinedBert:
-        return init_model(PipelinedBert(cfg, mesh, num_micro), generator)
+        # on a tensor mesh: the stage whole (``build(None)``), then its blocks
+        return init_sharded(lambda m: PipelinedBert(cfg, mesh, num_micro, TensorShard.of(m)),
+                            init_model, generator, mesh)
 
     def loss_fn(model, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        return bert.mlm_loss_and_metrics(model(batch["input"]), batch, group,
-                                         batch_blocks=data)
+        group, block, n = sequence_share(mesh)
+        own = {k: _positions(batch[k], block, n) for k in ("target", "mlm_mask")}
+        return bert.mlm_loss_and_metrics(model(batch["input"]), own, group, vocab, blocks)
 
     return TrainTask(
         name="bert-mlm-pipelined",
@@ -157,13 +226,14 @@ def make_task(
         make_batch=bert.make_batch_fn(cfg.vocab_size, seq_len),
         batch_size=batch_size,
         targets=targets or {},
+        split_sequence=keep_sequence,
     )
 
 
 def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, float]]:
     """TPUJob entrypoint: ``tfk8s_tpu_torch.models.pipelined:train``, with
     the reference's env contract: ``TFK8S_MESH`` with a ``pipeline`` axis
-    (and ``data``; none: one stage), 100 steps at lr 1e-3 unless set,
+    (beside any other; none: one stage), 100 steps at lr 1e-3 unless set,
     BERT-base with ``TFK8S_NUM_LAYERS`` layers (default 12),
     ``TFK8S_SEQ_LEN`` 128, ``TFK8S_BATCH_SIZE`` 64 and ``TFK8S_NUM_MICRO``
     microbatches (default ``max(2 * stages, 4)``); and the port's

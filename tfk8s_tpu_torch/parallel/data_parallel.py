@@ -2,8 +2,8 @@
 ``parallel/sharding.py`` rules: ``batch`` over data+fsdp, parameters
 sharded over fsdp, MoE experts over ``expert``, the sequence over
 ``sequence``, and heads, MLP widths (the MoE's ``expert_mlp`` too) and
-vocabularies over ``tensor``, in any combination but pipeline beside the
-others (``parallel/mesh.py``).
+vocabularies over ``tensor``, and the pipelined family's stages over
+``pipeline``, in any combination (``parallel/mesh.py``).
 
 - ``data`` alone: ``DistributedDataParallel``; under gradient
   accumulation every microbatch but the last runs in ``no_sync``.
@@ -19,6 +19,9 @@ others (``parallel/mesh.py``).
   block, expert shard or stage, and its own block's gradient) or
   computed alike on every rank (layer norms, routers, a row split's
   bias, the pipelined family's head), so nothing is reduced over them.
+  The rule holds stage by stage: a stage's ranks over data, fsdp and
+  sequence lie within the stage, and the group reduces their gradients
+  of the stage's parameters.
   With an fsdp axis beside the model axes each parameter the rank holds
   (its tensor block, its expert share) is split on dim 0 over the fsdp
   group by :class:`FsdpShards`, the port's own: the optimizer and its
@@ -318,7 +321,8 @@ class DataParallel:
     def whole_grads(self, model: nn.Module) -> Dict[str, torch.Tensor]:
         """Every parameter's whole gradient by name, on every rank (zeros
         for a parameter without one): the fsdp shards, expert shards and
-        tensor blocks gathered. Collective: every rank calls it."""
+        tensor blocks gathered, then every stage's over the pipeline group,
+        in the whole model's order. Collective: every rank calls it."""
         out = {}
         for name, p in _inner(model).named_parameters():
             g = p.grad if p.grad is not None else torch.zeros_like(p)
@@ -329,7 +333,20 @@ class DataParallel:
                 if group is not None and name in splits:
                     g = gather_tensor(g, splits[name], group, self.layout.size(axis))
             out[name] = g.detach()
-        return out
+        group = self.layout.group(AXIS_PIPELINE)
+        if group is None or not self.stage_params:
+            return out
+        # the stages in order, where this rank's stage stands among the rest
+        parts: List[Optional[tuple]] = [None] * dist.get_world_size(group)
+        mine = {n: g.cpu() for n, g in out.items() if n in self.stage_params}
+        dist.all_gather_object(parts, (self.layout.index(AXIS_PIPELINE), mine), group=group)
+        names = list(out)
+        first = next(i for i, n in enumerate(names) if n in self.stage_params)
+        whole = {n: out[n] for n in names[:first]}
+        for _, stage in sorted(parts, key=lambda part: part[0]):
+            whole.update({n: g.to(self.device) for n, g in stage.items()})
+        whole.update({n: out[n] for n in names[first + len(mine):]})
+        return whole
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
@@ -445,7 +462,7 @@ def load_full_state_dicts(model: nn.Module, optimizer: torch.optim.Optimizer,
 
     saved = {"model": dict(saved["model"]), "optimizer": saved["optimizer"]}
     if parallel is not None and parallel.stage_params:
-        saved = _own_stage(saved, set(model.state_dict()))
+        saved = _own_stage(saved, set(_inner(model).state_dict()))
     if parallel is not None and parallel.mode == "mesh":
         saved["optimizer"] = {
             **saved["optimizer"],

@@ -8,11 +8,12 @@ counterpart of the reference's ``jax.sharding.Mesh``.
 
 The port runs one process per device, so the devices a job has are the
 ranks of its process group, laid out in the reference's canonical order
-(later axes vary fastest over the ranks). Every axis is ported, and
-every combination of them but one: pipeline runs alone or beside data
-(the reference's one composition, ``pipeline_apply(data_axis=...)``);
-pipeline beside fsdp, expert, sequence or tensor is ROADMAP item 1.9 and
-raises ``NotImplementedError``.
+(later axes vary fastest over the ranks). Every axis is ported, in
+every combination the reference accepts; an axis outside
+``CANONICAL_ORDER`` raises ``NotImplementedError``. A pipeline group
+holds the ranks that share every other coordinate (``rank_at`` gives a
+stage's peers), so beside fsdp, expert, sequence or tensor each of a
+stage's groups over those axes lies within the stage.
 
 Multislice (``TFK8S_NUM_SLICES`` > 1): ``MeshConfig.slice_axis_split``
 keeps the reference's rule that only pipeline, data and fsdp may cross a
@@ -52,7 +53,6 @@ CANONICAL_ORDER: Tuple[str, ...] = (
     AXIS_SEQUENCE,
     AXIS_TENSOR,
 )
-PORTED_AXES = (AXIS_PIPELINE, AXIS_DATA, AXIS_FSDP, AXIS_EXPERT, AXIS_SEQUENCE, AXIS_TENSOR)
 # the axes a batch is split over (the reference's ``batch`` logical axis)
 BATCH_AXES = (AXIS_DATA, AXIS_FSDP)
 
@@ -120,18 +120,12 @@ class MeshConfig:
         return 1
 
     def require_ported(self) -> None:
-        """Raise for an axis, or a pair of axes, the port does not shard
-        over yet: pipeline beside a model axis or fsdp."""
-        other = {n: s for n, s in self.axes if n not in PORTED_AXES}
+        """Raise for an axis the port does not shard over: one outside
+        ``CANONICAL_ORDER``."""
+        other = {n: s for n, s in self.axes if n not in CANONICAL_ORDER}
         if other:
             raise NotImplementedError(
                 f"mesh axes {other}: axes outside {list(CANONICAL_ORDER)} are not ported"
-            )
-        beside = (AXIS_FSDP, AXIS_EXPERT, AXIS_SEQUENCE, AXIS_TENSOR)
-        if self.axis_size(AXIS_PIPELINE) > 1 and any(self.axis_size(b) > 1 for b in beside):
-            raise NotImplementedError(
-                f"mesh {dict(self.axes)}: {AXIS_PIPELINE} together with the "
-                f"{' or '.join(beside)} axis is ROADMAP item 1.9"
             )
 
     def slice_axis_split(self, num_slices: int) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:

@@ -26,7 +26,12 @@ maps a microbatch to one of the same shape and dtype) and runs
   reference's ``jnp.where(stage == 0, first_in, incoming)``).
 
 Both ends of every send post it in the same tick, so the schedule cannot
-deadlock. On the card under gloo the sends go through host memory in the
+deadlock. Beside the other axes a pipeline group holds the ranks that
+share every other coordinate (``Mesh.rank_at``): the ranks of a stage's
+tensor group hold the same stage index and run the same ticks, so the
+stage's own sums inside a tick (its row splits', forward and back) pair
+up on all of them, and no tick runs the stage on one tensor rank and
+skips it on another. On the card under gloo the sends go through host memory in the
 activations' own dtype (``collectives._staged``); NCCL sends on the card.
 
 The reference's ``stack_stage_params`` stacks every stage's parameters

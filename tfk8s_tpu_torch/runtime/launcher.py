@@ -10,9 +10,10 @@ such request it raises rather than quietly running on the CPU.
 than one process AND ``TFK8S_DISTRIBUTED=1`` does it call
 ``torch.distributed.init_process_group`` (NCCL on a card, gloo on the
 CPU), so replicas run as threads of one process never bind ports.
-More than one device per process (ROADMAP item 1.5) and the axis pairs
-not combined yet (item 1.9, ``MeshConfig.require_ported``) raise
-``NotImplementedError``; every axis runs (``parallel/mesh.build_mesh``),
+More than one device per process (ROADMAP item 1.5) and a mesh axis
+outside the reference's six (``MeshConfig.require_ported``) raise
+``NotImplementedError``; every axis runs, in every combination
+(``parallel/mesh.build_mesh``),
 and a multislice job's ``num_slices`` and ``slice_id`` go to
 ``build_mesh``, which holds the layout to the reference's slice rule and
 places the ranks slice-major.
@@ -92,7 +93,7 @@ class ProcessContext:
     def require_single_device(self, processes: int = 1) -> None:
         """Raise for the layouts the port does not run yet: more than one
         device per process (a mesh larger than the ``processes`` that share
-        it) and the mesh layouts of item 1.9."""
+        it) and a mesh axis the port does not know."""
         if self.mesh is None:
             return
         self.mesh.require_ported()

@@ -103,6 +103,14 @@ class TrainTask:
                                       Dict[str, np.ndarray]]] = None
 
 
+def keep_sequence(batch: Dict[str, np.ndarray], index: int, n: int
+                  ) -> Dict[str, np.ndarray]:
+    """A ``split_sequence`` that leaves every sequence rank its rows whole,
+    for a model that runs them whole (the pipelined family's stages,
+    DLRM's rows with no sequence)."""
+    return batch
+
+
 def split_sequence_axis1(batch: Dict[str, np.ndarray], index: int, n: int
                          ) -> Dict[str, np.ndarray]:
     """Block ``index`` of ``n`` of every array's axis 1 (the sequence)."""
