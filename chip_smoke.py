@@ -285,8 +285,36 @@ must pass:
    ``dlrm:train`` at its defaults on ``{"fsdp": 2, "tensor": 2}``, each
    table's gradient on its own too. The pipelined and DLRM ranks launch
    no kernel. With four cards phase 16 runs (a) and (d) over NCCL too.
+19. disagg (run right after serve): the serving data plane across
+   replicas, each a ``server.serve`` of SERVE_ENV (GPT-2-small, bfloat16,
+   16-token pages) under its own pod name. (a) A prefill replica
+   (``TFK8S_SERVE_PHASE=prefill``) and a decode replica (``decode``, its
+   prefix cache off, so every handoff lands all its pages): each of the
+   serve phase's 24 requests through ``submit_prefill``,
+   ``LocalKVTransport`` and ``submit_handoff`` must give the decode
+   replica's own colocated stream exactly (the prefill's token its first),
+   and the same buffers with layer 0's K rows zeroed must change at least
+   one stream; per request the wire bytes, the serialize-and-read ms, the
+   wait to import, and the time to the first decode token (the same
+   buffer handed over again for one decode step, one at a time) beside
+   the colocated TTFT.
+   (b) A host-tier replica at DISAGG["host_pages"] pages (one max_len
+   request and the trash page) with 1 GiB of host KV: a 512-token prompt
+   served, its pages demoted by other prompts, served again by a host
+   restore to the same tokens; with its host entry corrupted it must
+   count ``restore_failed`` and still give them by a plain prefill. (c)
+   The prefill replica, peer fetch on, pulls that prefix from (b)'s
+   replica (``kv_peer``): ``outcome="ok"``, the same tokens. (d) On the
+   decode replica, 8 concurrent requests with one prompt poisoned: that
+   row fails ``RowFault``, the other 7 equal a clean run's streams, its
+   pages stay quarantined through another batch until verified; then
+   ``server.chaos_crash_replica`` fails an in-flight request typed
+   ``ReplicaUnavailable``, the replica reports not ready and its
+   ``serve()`` ends with the crash's own message (not an error of the
+   loop that the crash set off). No kernel of the port may launch, and
+   the phase must end within DISAGG["limit_s"] seconds.
 
-The launch counts are zeroed just before each path (phases 6-18) and
+The launch counts are zeroed just before each path (phases 6-19) and
 read just after it; the line's launches add up the paths'. Then it prints the card line, the ``kernels`` JSON
 line and, last, the ``ok`` line. It exits non-zero, printing no result,
 when a phase fails, when no card is visible, or when the port's package is
@@ -402,6 +430,12 @@ SERVE_ENV = {
 SERVE = dict(requests=24, gen=64, prompt_min=16, prompt_max=512, shared_prefix=256,
              f32_requests=4, profile_steps=10, timeout_s=600)
 SERVE_SAMPLING = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
+# the disagg run: SERVE's requests across a prefill and a decode replica,
+# then a host-tier replica of 65 pages (64 of 16 tokens hold one
+# 1,024-token request, and the trash page) and the poisoned batch
+DISAGG = dict(fault_requests=8, host_prompt=512, host_gen=16, host_churn=3, host_pages=65,
+              host_bytes=1 << 30, contain_requests=8, contain_gen=32, poisoned=3, seed=7,
+              limit_s=60.0)
 # the same 24 greedy requests through the decode loop and through the
 # slot-per-batch executor (TFK8S_SERVE_DECODE_LOOP=0): prompts of three
 # bucket lengths, 8 of each, 64 generated
@@ -1472,16 +1506,12 @@ def _serve_requests(n, vocab, seed=0):
 
 
 def _submit_all(replica, payloads):
-    """Submit concurrently; (result, submit time, done time) per request."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    def one(p):
-        t0 = time.perf_counter()
-        res = replica.submit(p, timeout=SERVE["timeout_s"])
-        return res, t0, time.perf_counter()
-
-    with ThreadPoolExecutor(len(payloads)) as ex:
-        return [f.result() for f in [ex.submit(one, p) for p in payloads]]
+    """Submit concurrently; (result, submit time, done time) per request.
+    Raises when a request fails."""
+    runs = _run_each([lambda p=p: replica.submit(p, timeout=SERVE["timeout_s"])
+                      for p in payloads])
+    _results(runs, "submit")
+    return runs
 
 
 def _decode_step_times(torch, decoder, sampled):
@@ -1634,24 +1664,41 @@ def _latency_summary(results):
 def _run_serve(server, env):
     """Start ``server.serve(env, stop)`` on a thread; (replica, stop,
     thread, errors) once the replica is registered."""
+    return _run_serves(server, [env])[0]
+
+
+def _run_serves(server, envs):
+    """Start one ``server.serve(env, stop)`` thread for each env at once
+    (their loads overlap); (replica, stop, thread, errors) for each, once
+    all are registered."""
     import threading
 
-    key = f"default/{env['TFK8S_POD_NAME']}"
-    stop, errors = threading.Event(), []
+    started = []
+    for env in envs:
+        stop, errors = threading.Event(), []
 
-    def entry():
-        try:
-            server.serve(env, stop)
-        except BaseException as e:  # noqa: BLE001 — re-raised by _stop_serve
-            errors.append(e)
+        def entry(env=env, stop=stop, errors=errors):
+            try:
+                server.serve(env, stop)
+            except BaseException as e:  # noqa: BLE001 — re-raised by _stop_serve
+                errors.append(e)
 
-    thread = threading.Thread(target=entry, name="serve-entry", daemon=True)
-    thread.start()
-    while server.lookup_replica(key) is None:
-        if errors or not thread.is_alive():
-            raise RuntimeError(f"serve did not come up: {errors}")
-        time.sleep(0.05)
-    return server.lookup_replica(key), stop, thread, errors
+        thread = threading.Thread(target=entry, name="serve-entry", daemon=True)
+        thread.start()
+        started.append((f"default/{env['TFK8S_POD_NAME']}", stop, thread, errors))
+    out = []
+    try:
+        for key, stop, thread, errors in started:
+            while server.lookup_replica(key) is None:
+                if errors or not thread.is_alive():
+                    raise RuntimeError(f"serve did not come up: {errors}")
+                time.sleep(0.05)
+            out.append((server.lookup_replica(key), stop, thread, errors))
+    except BaseException:
+        for _key, stop, _thread, _errors in started:
+            stop.set()
+        raise
+    return out
 
 
 def _stop_serve(stop, thread, errors):
@@ -1753,6 +1800,316 @@ def _serve_f32_check(torch, gpt, server, payloads):
     del decoder, loop
     torch.cuda.empty_cache()
     return {"tokens_checked": checked, "near_ties": ties, "worst_tie_gap": worst_gap}
+
+
+def _run_each(calls):
+    """Run the thunks at once; (the result, or the exception raised,
+    start time, end time) of each, in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(call):
+        t0 = time.perf_counter()
+        try:
+            res = call()
+        except Exception as e:  # noqa: BLE001 — the caller types it
+            res = e
+        return res, t0, time.perf_counter()
+
+    with ThreadPoolExecutor(len(calls)) as ex:
+        return [f.result() for f in [ex.submit(one, c) for c in calls]]
+
+
+def _results(runs, what):
+    """The results of ``_run_each``; raises on the first exception."""
+    for i, (res, _, _) in enumerate(runs):
+        if isinstance(res, Exception):
+            raise AssertionError(f"{what}: request {i} raised {res!r}") from res
+    return [res for res, _, _ in runs]
+
+
+def _wait_until(pred, timeout=30.0):
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.001)
+    return True
+
+
+def phase_disagg(torch, kernel_modules):
+    """Disaggregated serving, the host and peer KV tiers and fault
+    containment across GPT-2-small replicas of ``server.serve`` (phase 19
+    of the docstring). Every check that fails is listed, after the one
+    ``disagg:`` line of numbers."""
+    from tfk8s_tpu_torch.runtime import server
+    from tfk8s_tpu_torch.utils.logging import Metrics
+
+    t_phase = time.perf_counter()
+    metrics = Metrics()
+    server.set_metrics(metrics)
+    for mod in kernel_modules:
+        mod.reset_launches()
+    env = dict(SERVE_ENV, TFK8S_DEVICE=DEVICE)
+    envs = [
+        dict(env, TFK8S_POD_NAME="chip-smoke-prefill", TFK8S_SERVE_PHASE="prefill",
+             TFK8S_KV_PEER_FETCH="1"),
+        dict(env, TFK8S_POD_NAME="chip-smoke-decode", TFK8S_SERVE_PHASE="decode",
+             TFK8S_SERVE_PREFIX_CACHE="0"),
+        dict(env, TFK8S_POD_NAME="chip-smoke-host",
+             TFK8S_SERVE_MAX_PAGES=str(DISAGG["host_pages"]),
+             TFK8S_KV_HOST_BYTES=str(DISAGG["host_bytes"])),
+    ]
+    t_load = time.perf_counter()
+    replicas = _run_serves(server, envs)
+    out = {"load_s": time.perf_counter() - t_load}
+    (pre, *_), (dec, _, dec_thread, dec_errors), (host, *_) = replicas
+    failures = []
+    try:
+        out["handoff"] = _disagg_handoff(torch, metrics, pre, dec, failures)
+        out["host"], a, want_a = _disagg_host(metrics, host, failures)
+        out["peer"] = _disagg_peer(server, metrics, pre, a, want_a, failures)
+        out["containment"] = _disagg_contain(server, dec, dec_thread, dec_errors, failures)
+    finally:
+        for _, stop, _, _ in replicas:
+            stop.set()
+        for _, _, thread, _ in replicas:
+            thread.join(timeout=120)
+        server.unregister_replica(f"default/{envs[1]['TFK8S_POD_NAME']}")  # the corpse's entry
+    for (_, _, thread, errors), env_ in ((replicas[0], envs[0]), (replicas[2], envs[2])):
+        if errors or thread.is_alive():
+            failures.append(f"{env_['TFK8S_POD_NAME']} did not exit cleanly: {errors}")
+    out["kernel_launches"] = {k: v for mod in kernel_modules for k, v in mod.LAUNCHES.items()}
+    if any(out["kernel_launches"].values()):
+        failures.append(f"the disaggregated path launched port kernels: {out['kernel_launches']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    if out["phase_s"] > DISAGG["limit_s"]:
+        failures.append(f"the phase took {out['phase_s']:.1f} s, over {DISAGG['limit_s']} s")
+    log(f"disagg: {json.dumps(out)}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def _disagg_handoff(torch, metrics, pre, dec, failures):
+    """(a): SERVE's requests, colocated on the decode replica, then
+    prefilled on the prefill replica, moved over the wire and decoded
+    from the buffer."""
+    import dataclasses
+
+    import numpy as np
+
+    from tfk8s_tpu_torch.runtime.handoff import LocalKVTransport
+
+    transport, tmo = LocalKVTransport(), SERVE["timeout_s"]
+    payloads = _serve_requests(SERVE["requests"], dec.model.vocab_size)
+
+    def handoffs(bufs):
+        return _results(_run_each([
+            lambda b=b, p=p: dec.submit_handoff(b, timeout=tmo, sampling=p.get("sampling"))
+            for b, p in zip(bufs, payloads)]), "submit_handoff")
+
+    def counter(name, replica):
+        return metrics.get_counter(name, replica.labels) or 0.0
+
+    colocated = _results(_run_each([lambda p=p: dec.submit(p, timeout=tmo) for p in payloads]),
+                         "colocated submit")
+    want = [r["tokens"] for r in colocated]
+    exports0 = counter("tfk8s_disagg_exports_total", pre)
+    imports0 = counter("tfk8s_disagg_imports_total", dec)
+    prefilled = _results(_run_each([lambda p=p: pre.submit_prefill(p, timeout=tmo)
+                                    for p in payloads]), "submit_prefill")
+    moved, rows = [], []
+    for res in prefilled:
+        t0 = time.perf_counter()
+        buf, nbytes = transport.transfer(res["handoff"])
+        rows.append({"wire_bytes": nbytes, "transfer_ms": (time.perf_counter() - t0) * 1e3})
+        moved.append(buf)
+    handed = handoffs(moved)
+    exports = counter("tfk8s_disagg_exports_total", pre) - exports0
+    imports = counter("tfk8s_disagg_imports_total", dec) - imports0
+    # the time to the first decode token: each buffer again as a handoff
+    # of one decode step, one at a time
+    probe_off = []
+    for i, (buf, p, res, row) in enumerate(zip(moved, payloads, prefilled, rows)):
+        t0 = time.perf_counter()
+        got = dec.submit_handoff(dataclasses.replace(buf, gen_budget=2), timeout=tmo,
+                                 sampling=p.get("sampling"))["tokens"]
+        probe_ms = (time.perf_counter() - t0) * 1e3
+        if got != want[i][:2]:
+            probe_off.append(i)
+        row.update(colocated_ttft_ms=colocated[i]["ttft_s"] * 1e3,
+                   prefill_ttft_ms=res["ttft_s"] * 1e3,
+                   import_wait_ms=handed[i]["ttft_s"] * 1e3, one_step_handoff_ms=probe_ms,
+                   first_decode_ms=res["ttft_s"] * 1e3 + row["transfer_ms"] + probe_ms)
+    # planted: layer 0's K rows zeroed in the moved buffers
+    n = DISAGG["fault_requests"]
+    planted = handoffs([dataclasses.replace(b, kv=[torch.zeros_like(b.kv[0]), *b.kv[1:]])
+                        for b in moved[:n]])
+    first_off = [i for i, (r, w) in enumerate(zip(prefilled, want)) if r["tokens"] != w[:1]]
+    differ = [i for i, (r, w) in enumerate(zip(handed, want)) if r["tokens"] != w]
+    planted_differ = sum(r["tokens"] != w for r, w in zip(planted, want))
+    for bad, what in ((first_off, "prefill token != want[0]"), (differ, "handoff != colocated"),
+                      (probe_off, "one-step handoff != want[:2]")):
+        if bad:
+            failures.append(f"(a) requests {bad}: {what}")
+    if (exports, imports) != (len(payloads), len(payloads)):
+        failures.append(f"(a) exports {exports}, imports {imports}, want {len(payloads)} each")
+    if planted_differ < 1:
+        failures.append("(a) zeroed layer-0 K rows changed no stream: the check cannot fail")
+    keys = ("colocated_ttft_ms", "prefill_ttft_ms", "transfer_ms", "import_wait_ms",
+            "one_step_handoff_ms", "first_decode_ms", "wire_bytes")
+    return {
+        "requests": len(payloads), "gen_tokens": SERVE["gen"],
+        "exact": len(payloads) - len(differ), "first_token_exact": len(payloads) - len(first_off),
+        "exports": exports, "imports": imports,
+        "planted_layer0_k_zeroed": {"requests": n, "differ": planted_differ},
+        "median": {k: float(np.median([row[k] for row in rows])) for k in keys},
+        "per_request": rows,
+    }
+
+
+def _disagg_host(metrics, host, failures):
+    """(b): a prompt's pages demoted to host memory by other prompts and
+    restored, then its host entry corrupted. Returns (the numbers, the
+    prompt, its tokens)."""
+    import numpy as np
+
+    from tfk8s_tpu_torch.runtime.paging import prefix_digest_chain
+
+    rng = np.random.default_rng(DISAGG["seed"])
+    vocab, ps, tmo = host.model.vocab_size, host.model.page_size, SERVE["timeout_s"]
+
+    def prompt():
+        return {"tokens": rng.integers(1, vocab, DISAGG["host_prompt"]).astype(np.int32),
+                "gen_tokens": DISAGG["host_gen"]}
+
+    def ops(op):
+        return metrics.get_counter("tfk8s_serving_kv_host_ops_total",
+                                   {**host.labels, "op": op}) or 0.0
+
+    def churn():
+        for _ in range(DISAGG["host_churn"]):
+            host.submit(prompt(), timeout=tmo)
+        return len(host.allocator.cached_chain(chain))
+
+    a = prompt()
+    chain = prefix_digest_chain(a["tokens"], ps, (len(a["tokens"]) - 1) // ps)
+    cold = host.submit(a, timeout=tmo)
+    want = cold["tokens"]
+    resident = churn()
+    parked = sum(host._kv_host.has(d) for d in chain)
+    warm = host.submit(a, timeout=tmo)
+    demotes, restores, failed = ops("demote"), ops("restore"), ops("restore_failed")
+    restore_ms = list(host._kv_restore_ms)
+    # planted: demoted again, its host entries' bytes flipped under their
+    # demotion-time checksums
+    resident_again = churn()
+    tampered = 0
+    for d in chain:
+        entry = host._kv_host._entries.get(d)
+        if entry is not None:
+            wire, akey, checksum = entry
+            host._kv_host._entries[d] = (wire[:-3] + b"\xff\xff\xff", akey, checksum)
+            tampered += 1
+    again = host.submit(a, timeout=tmo)
+    failed_after = ops("restore_failed")
+    if resident or resident_again:
+        failures.append(f"(b) the prompt kept {resident}/{resident_again} pages on the device")
+    if not parked or demotes < 1 or restores < 1 or failed:
+        failures.append(f"(b) host entries {parked}, demote {demotes}, restore {restores}, "
+                        f"restore_failed {failed}")
+    if warm["tokens"] != want:
+        failures.append("(b) the restored prompt's tokens differ")
+    if not tampered or failed_after != failed + 1 or again["tokens"] != want:
+        failures.append(f"(b) corrupt entry: {tampered} tampered, restore_failed "
+                        f"{failed_after}, tokens equal {again['tokens'] == want}")
+    return {
+        "prompt": len(a["tokens"]), "gen_tokens": DISAGG["host_gen"], "pages": DISAGG["host_pages"],
+        "chain_pages": len(chain), "demote": demotes, "restore": restores,
+        "restore_failed_after_corruption": failed_after, "restore_ms": restore_ms,
+        "ttft_ms": {"cold": cold["ttft_s"] * 1e3, "restored": warm["ttft_s"] * 1e3,
+                    "corrupt_fallback": again["ttft_s"] * 1e3},
+        "host": host._kv_host.stats(),
+    }, a, want
+
+
+def _disagg_peer(server, metrics, pre, a, want, failures):
+    """(c): the prefill replica pulls (b)'s prompt from the host-tier
+    replica by ``kv_peer``."""
+    from tfk8s_tpu_torch.runtime import kvtier
+
+    peer = "default/chip-smoke-host"
+    labels = {**pre.labels, "outcome": "ok"}
+    t0 = time.perf_counter()
+    buf = kvtier.fetch_prefix(server.lookup_replica, peer, a["tokens"])
+    fetch_ms = (time.perf_counter() - t0) * 1e3
+    ok0 = metrics.get_counter("tfk8s_serving_kv_peer_fetches_total", labels) or 0.0
+    hits0 = pre.allocator.prefix_hits
+    got = pre.submit(a, timeout=SERVE["timeout_s"], kv_peer=peer)
+    ok = (metrics.get_counter("tfk8s_serving_kv_peer_fetches_total", labels) or 0.0) - ok0
+    if ok != 1 or pre.allocator.prefix_hits != hits0 + 1 or got["tokens"] != want:
+        failures.append(f"(c) peer fetches ok {ok}, hits {pre.allocator.prefix_hits - hits0}, "
+                        f"tokens equal {got['tokens'] == want}")
+    return {"fetch_ms": fetch_ms, "pages": buf.n_pages, "wire_bytes": len(buf.to_bytes()),
+            "ok": ok, "ttft_ms": got["ttft_s"] * 1e3}
+
+
+def _disagg_contain(server, dec, thread, errors, failures):
+    """(d): one poisoned row among DISAGG["contain_requests"], then the
+    decode replica crashed under an in-flight request."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    n, v, tmo = DISAGG["contain_requests"], DISAGG["poisoned"], SERVE["timeout_s"]
+    kill = "chaos: chip smoke kill"
+    payloads = [dict(p, gen_tokens=DISAGG["contain_gen"])
+                for p in _serve_requests(n, dec.model.vocab_size)]
+
+    def batch():
+        return _run_each([lambda p=p: dec.submit(p, timeout=tmo) for p in payloads])
+
+    clean = [r["tokens"] for r in _results(batch(), "clean batch")]
+    alloc = dec.allocator
+    held0 = alloc.quarantined_pages
+    dec.chaos_poison_row(payloads[v]["tokens"])
+    poisoned = [r for r, _, _ in batch()]
+    errs = {i: r for i, r in enumerate(poisoned) if isinstance(r, Exception)}
+    exact = sum(not isinstance(r, Exception) and r["tokens"] == clean[i]
+                for i, r in enumerate(poisoned) if i != v)
+    held = alloc.quarantined_pages - held0
+    frozen = set(alloc._quarantined)
+    again = [r["tokens"] for r in _results(batch(), "batch after the fault")]
+    kept = set(alloc._quarantined) == frozen and not frozen & set(alloc._free)
+    verified = alloc.verify_quarantined()
+    if set(errs) != {v} or not isinstance(errs[v], server.RowFault):
+        failures.append(f"(d) errors {errs!r}, want RowFault on request {v} alone")
+    if exact != n - 1 or again != clean:
+        failures.append(f"(d) {exact} of {n - 1} siblings exact; the next batch equal "
+                        f"{again == clean}")
+    if held < 1 or not kept or verified < held:
+        failures.append(f"(d) quarantined {held}, kept through a batch {kept}, verified {verified}")
+    # the crash: an in-flight request, the replica's serve() thread
+    with ThreadPoolExecutor(1) as ex:
+        inflight = ex.submit(dec.submit, dict(payloads[0], gen_tokens=SERVE["gen"]), tmo)
+        live = _wait_until(lambda: dec.live_slots >= 1)
+        crashed = server.chaos_crash_replica(f"default/{dec.labels['pod']}", message=kill)
+        lost = inflight.exception(timeout=60)
+    thread.join(timeout=30)
+    ready = dec.report_progress()["serving_ready"]
+    try:
+        dec.submit(payloads[0], timeout=5)
+        refused = None
+    except Exception as e:  # noqa: BLE001
+        refused = e
+    ended = errors[0] if errors and not thread.is_alive() else None
+    if not (live and crashed and isinstance(lost, server.ReplicaUnavailable) and kill in str(lost)
+            and isinstance(refused, server.ReplicaUnavailable) and ready == 0.0
+            and isinstance(ended, server.ServeError) and f"replica fault: {kill}" in str(ended)):
+        failures.append(f"(d) crash: live {live}, crashed {crashed}, in-flight {lost!r}, "
+                        f"after {refused!r}, ready {ready}, serve ended {ended!r}")
+    return {"requests": n, "gen_tokens": DISAGG["contain_gen"], "poisoned": v,
+            "row_fault": type(errs.get(v)).__name__, "siblings_exact": exact,
+            "quarantined_pages": held, "verified_pages": verified,
+            "crash": {"in_flight": type(lost).__name__, "after": type(refused).__name__,
+                      "serving_ready": ready, "serve_ended": str(ended)}}
 
 
 
@@ -3864,6 +4221,7 @@ def main() -> int:
         ("roofline", lambda: phase_roofline(torch, bc)),
         ("generate", lambda: phase_generate(torch, gpt, fa)),
         ("serve", lambda: phase_serve(torch, gpt, (fa, gn, bc))),
+        ("disagg", lambda: phase_disagg(torch, (fa, gn, bc))),
         ("distributed", lambda: phase_distributed(torch, gpt, fa, root)),
         ("families", lambda: phase_families(torch, fa)),
         ("parallel", lambda: phase_parallel(torch, gpt, fa, root)),

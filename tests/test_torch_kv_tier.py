@@ -18,56 +18,18 @@ request:
   of ``kvtier.fetch_prefix``) and costs a fallback prefill.
 """
 
-import functools
 import hashlib
 
-import jax
-import jax.numpy as jnp
-import numpy as np
 import pytest
-import torch
 
-from tfk8s_tpu.models import gpt as jgpt
-from tfk8s_tpu.parallel.sharding import unbox
-from tfk8s_tpu.runtime import server as jserver
-from tfk8s_tpu.utils.logging import Metrics as JMetrics
-from tfk8s_tpu_torch import bridge
-from tfk8s_tpu_torch.models import gpt as tgpt
+from _torch_serving import PAGE, jax_exec, port_exec, tokens
 from tfk8s_tpu_torch.runtime import kvtier as tkvtier
-from tfk8s_tpu_torch.runtime import server as tserver
 from tfk8s_tpu_torch.runtime.handoff import HandoffError, KVHandoffBuffer
 from tfk8s_tpu_torch.runtime.paging import prefix_digest_chain
-from tfk8s_tpu_torch.utils.logging import Metrics as TMetrics
-
-PAGE, VERSION = 8, "seed:0"
-GEOMETRY = dict(slots=4, page_size=PAGE, gen_tokens=8, size="tiny", prefill_chunk=16)
-
-
-def tokens(n, seed=0, hi=64):
-    return np.random.default_rng(seed).integers(1, hi, size=n).astype(np.int32)
-
-
-@functools.lru_cache(maxsize=None)
-def _params():
-    jcfg = jgpt.tiny_config(dtype=jnp.float32)
-    params = unbox(jgpt.make_task(cfg=jcfg, seq_len=8, batch_size=1).init(jax.random.key(0)))
-    return jcfg, jax.tree_util.tree_map(np.asarray, params)
 
 
 def _port_exec(max_pages=64, **kw):
-    jcfg, params = _params()
-    tcfg = tgpt.tiny_config(dtype=torch.float32)
-    dec = tserver.PagedGptDecoder(VERSION, cfg=tcfg, device="cpu", max_pages=max_pages,
-                                  params=bridge.params_to_state_dict(params, tcfg), **GEOMETRY)
-    dec.load()
-    return tserver.DecodeLoopExecutor(dec, queue_limit=32, metrics=TMetrics(), **kw).start()
-
-
-def _jax_exec(**kw):
-    jcfg, params = _params()
-    dec = jserver.PagedGptDecoder(VERSION, cfg=jcfg, params=params, max_pages=64, **GEOMETRY)
-    dec.load()
-    return jserver.DecodeLoopExecutor(dec, queue_limit=32, metrics=JMetrics(), **kw).start()
+    return port_exec(geometry={"max_pages": max_pages}, **kw)
 
 
 def _churn(ex, n, seed0, plen=PAGE * 3):
@@ -80,7 +42,7 @@ def _churn(ex, n, seed0, plen=PAGE * 3):
 def tight():
     """A port executor with a tight device pool and a roomy host tier, and
     the reference's executor for the uninterrupted tokens."""
-    ex, ref = _port_exec(max_pages=16, kv_host_bytes=8 << 20), _jax_exec()
+    ex, ref = _port_exec(max_pages=16, kv_host_bytes=8 << 20), jax_exec()
     yield ex, ref
     ex.drain(10)
     ref.drain(10)
@@ -155,7 +117,7 @@ def peers():
     registry = {}
     registry["P"] = _port_exec(kv_host_bytes=8 << 20, kv_peer_fetch=True,
                                kv_peer_resolve=registry.get)
-    registry["J"] = _jax_exec(kv_host_bytes=8 << 20, kv_peer_fetch=True,
+    registry["J"] = jax_exec(kv_host_bytes=8 << 20, kv_peer_fetch=True,
                               kv_peer_resolve=registry.get)
     yield registry
     for ex in registry.values():

@@ -1624,12 +1624,25 @@ class DecodeLoopExecutor:
                 return
             self._update_occupancy_gauges()
 
+    def _attached(self, slot: _Slot) -> bool:
+        """Whether ``slot`` still holds its row. A chaos hook on another
+        thread (``chaos_wire_reset``, ``chaos_crash``) fails every row at
+        once through :meth:`_fail_all`, releasing their leases while this
+        loop may be mid-prefill or mid-step on them; the loop then drops
+        those rows instead of drawing pages for a released lease.
+        Caller holds the lock."""
+        return self._slots[slot.idx] is slot
+
     def _pages_for(self, slot: _Slot, upto_tokens: int) -> None:
         """Grow the slot's page table to cover ``upto_tokens`` positions
-        (drawn from the lease's admission-time reservation)."""
+        (drawn from the lease's admission-time reservation); a row failed
+        from another thread meanwhile draws nothing."""
         ps = self.model.page_size
-        while len(slot.lease.pages) * ps < upto_tokens:
-            self.allocator.extend(slot.lease)
+        with self._cond:
+            if not self._attached(slot):
+                return
+            while len(slot.lease.pages) * ps < upto_tokens:
+                self.allocator.extend(slot.lease)
 
     def _prefill_samp(self, pending, rows: int):
         """Per-row sampling knobs for one prefill round — None when every
@@ -1691,7 +1704,9 @@ class DecodeLoopExecutor:
         admitted = [s for s in admitted if s.req.handoff is None]
         for slot in imports:
             try:
-                self._import_handoff(slot)
+                with self._cond:
+                    if self._attached(slot):
+                        self._import_handoff(slot)
             except HandoffError as e:
                 self._retire_failed(
                     slot, RowFault(f"handoff import failed: {e}")
@@ -1712,6 +1727,10 @@ class DecodeLoopExecutor:
             [slot, slot.lease.cached_pages * ps] for slot in admitted
         ]
         while pending:
+            with self._cond:
+                pending = [e for e in pending if self._attached(e[0])]
+            if not pending:
+                break
             # a SINGLE pending request (the steady-state trickle: one
             # retirement frees one slot) rides a [1, C] dispatch — a
             # full [slots, C] round would burn slots× the compute for
@@ -1750,44 +1769,45 @@ class DecodeLoopExecutor:
                 self._spec.prefill_batch(batch)
             now = time.perf_counter()
             for slot, r, pick_idx in finishing:
-                req = slot.req
-                first_tok = int(picks[r, pick_idx])
-                self.allocator.register_prefix(req.tokens, slot.lease)
-                self._kv_note_chain(req.tokens)
-                slot.position = len(req.tokens)
-                slot.last_token = first_tok
-                if self._spec is not None:
-                    slot.spec_chunk = [first_tok]
-                req.out.append(first_tok)
-                req.first_token_t = now
-                self.tokens_total += 1
-                self.metrics.inc(
-                    "tfk8s_serving_tokens_total", 1.0, self.labels
-                )
-                if req.prefill_only:
-                    # export BEFORE retire frees the lease's pages: the
-                    # decode pool gets the warm K/V plus the pick
-                    page_ids, digests = self.allocator.export_pages(
-                        slot.lease, req.tokens
-                    )
-                    req.exported = KVHandoffBuffer(
-                        version=self.model.version, page_size=ps,
-                        tokens=[int(t) for t in req.tokens],
-                        last_token=first_tok,
-                        gen_budget=req.decode_budget,
-                        digests=digests,
-                        kv=self.model.export_kv(page_ids),
-                    )
-                    self.metrics.inc(
-                        "tfk8s_disagg_exports_total", 1.0, self.labels
-                    )
-                if len(req.out) >= req.gen_budget or (
-                    self.model.eos_id is not None
-                    and first_tok == self.model.eos_id
-                ):
-                    self._retire(slot)
+                with self._cond:
+                    if self._attached(slot):
+                        self._finish_prefill(slot, int(picks[r, pick_idx]), now)
             pending = [e for e in pending if e[1] < len(e[0].req.tokens)]
         self._state_dirty = True  # admitted rows changed under the state
+
+    def _finish_prefill(self, slot: _Slot, first_tok: int, now: float) -> None:
+        """A row's prompt is prefilled: publish its prefix, seed it at the
+        prompt's end with its first output token, export its warm K/V when
+        it is a prefill-pool request, and retire it when that token ends
+        it. Caller holds the lock."""
+        req = slot.req
+        self.allocator.register_prefix(req.tokens, slot.lease)
+        self._kv_note_chain(req.tokens)
+        slot.position = len(req.tokens)
+        slot.last_token = first_tok
+        if self._spec is not None:
+            slot.spec_chunk = [first_tok]
+        req.out.append(first_tok)
+        req.first_token_t = now
+        self.tokens_total += 1
+        self.metrics.inc("tfk8s_serving_tokens_total", 1.0, self.labels)
+        if req.prefill_only:
+            # export BEFORE retire frees the lease's pages: the decode
+            # pool gets the warm K/V plus the pick
+            page_ids, digests = self.allocator.export_pages(slot.lease, req.tokens)
+            req.exported = KVHandoffBuffer(
+                version=self.model.version, page_size=self.model.page_size,
+                tokens=[int(t) for t in req.tokens],
+                last_token=first_tok,
+                gen_budget=req.decode_budget,
+                digests=digests,
+                kv=self.model.export_kv(page_ids),
+            )
+            self.metrics.inc("tfk8s_disagg_exports_total", 1.0, self.labels)
+        if len(req.out) >= req.gen_budget or (
+            self.model.eos_id is not None and first_tok == self.model.eos_id
+        ):
+            self._retire(slot)
 
     def _import_handoff(self, slot: _Slot) -> None:
         """Admit a prefilled-elsewhere row: copy the buffer's K/V into
@@ -2068,8 +2088,10 @@ class DecodeLoopExecutor:
         now = time.perf_counter()
         req = slot.req
         with self._cond:
+            if not self._attached(slot):
+                return  # failed from another thread meanwhile
             self.allocator.release(slot.lease)
-            self._slots[self._slots.index(slot)] = None
+            self._slots[slot.idx] = None
             self._live -= 1
             self.served_total += 1
             self._state_dirty = True  # the freed row must stop stepping
@@ -2200,8 +2222,10 @@ class DecodeLoopExecutor:
         now = time.perf_counter()
         req = slot.req
         with self._cond:
+            if not self._attached(slot):
+                return  # failed from another thread meanwhile
             held = self.allocator.quarantine(slot.lease)
-            self._slots[self._slots.index(slot)] = None
+            self._slots[slot.idx] = None
             self._live -= 1
             self._state_dirty = True  # the faulted row must stop stepping
         self.metrics.inc(
@@ -2276,7 +2300,8 @@ class DecodeLoopExecutor:
         if not isinstance(e, ReplicaUnavailable):
             wrapped.__cause__ = e
         with self._cond:
-            self._fault = e
+            if self._fault is None:  # the cause; later errors follow from it
+                self._fault = e
             self._cond.notify_all()
         log.error("decode loop fatal fault, replica exiting non-Ready: %s", e)
         self._fail_all(wrapped)
@@ -2862,6 +2887,20 @@ def lookup_replica(key: str) -> Optional[Any]:
 def replica_keys() -> List[str]:
     with _registry_lock:
         return sorted(_REPLICAS)
+
+
+def chaos_crash_replica(key: str, message: str = "chaos: replica host died") -> bool:
+    """Chaos entry (the reference's ``chaos_crash_replica``): crash the
+    replica registered under ``key`` WITHOUT unregistering it, here or in
+    the node agent's table. The corpse stays where callers find it until
+    the gateway's health machinery ejects it, as a crashed host looks from
+    the serving plane; its ``serve()`` then exits with the fault. Returns
+    False when ``key`` is not registered."""
+    server = lookup_replica(key)
+    if server is None:
+        return False
+    server.chaos_crash(message)
+    return True
 
 
 # How often the serving entrypoint refreshes its progress report (the
