@@ -312,9 +312,34 @@ must pass:
    ``ReplicaUnavailable``, the replica reports not ready and its
    ``serve()`` ends with the crash's own message (not an error of the
    loop that the crash set off). No kernel of the port may launch, and
-   the phase must end within DISAGG["limit_s"] seconds.
+   the phase must end within DISAGG["limit_s"] seconds;
+20. profile: ``gpt:train`` at phase 6's configuration (GPT-2-small, seq
+   1024, batch 8, bf16, flash, 10 steps logged every step) with
+   ``TFK8S_PROFILE_DIR``: one Chrome trace, whose ``ProfilerStep#4`` to
+   ``#8`` spans (3 steps skipped, 5 traced) each launch every tensor-core
+   flash kernel 12 times (a kernel belongs to the span that launched it).
+   It prints each span's length, the union of its device activities
+   (busy), the idle share, the window's host step time from the
+   history's clock, and the step's device time by group (flash, GEMMs,
+   optimizer, copies, the rest) and by its ten leading operations, each
+   with its launches: the dense step's split. Then 8 steps logged every 4,
+   once with ``TFK8S_SCAN_STEPS=4`` and once a step a dispatch: the two
+   histories must be identical; their steps 5-8 give the unprofiled step
+   time on the host's clock, and with the trace's busy time its idle share;
+21. text: the port's corpus CLI (``python -m tfk8s_tpu_torch.data.corpus``)
+   trains a byte-level BPE tokenizer of vocabulary 512 on ``README.md``,
+   ``SURVEY.md`` and ``PAPER.md`` of the checkout and writes two shards
+   of 1024-token rows; ``gpt:train`` at GPT-2-small width (TRAIN_ENV,
+   ``TFK8S_VOCAB_SIZE`` the tokenizer's) trains 6 steps from the shards
+   into ``gs://chip-smoke-text/gpt2-small/run`` under a
+   ``TFK8S_GCS_FAKE_ROOT`` in ``build/``, is restarted
+   (``TFK8S_GANG_RESTARTS=1``) and resumes to step 12: the loss falls, the
+   checkpoint sits at ``<root>/<bucket>/<key>``, each tensor-core flash
+   kernel launches 12 times a step, and a greedy continuation of the
+   checkpoint's model (one flash forward a layer in its prefill) decodes
+   to a non-empty string.
 
-The launch counts are zeroed just before each path (phases 6-19) and
+The launch counts are zeroed just before each path (phases 6-21) and
 read just after it; the line's launches add up the paths'. Then it prints the card line, the ``kernels`` JSON
 line and, last, the ``ok`` line. It exits non-zero, printing no result,
 when a phase fails, when no card is visible, or when the port's package is
@@ -4180,6 +4205,264 @@ def phase_pipeline_axes(torch, fa, gn, root):
     return _pipeline_axes_gangs(torch, fa, gn, root, "gloo", PIPELINE_AXES_GANGS)
 
 
+# the profile phase: TRAIN_ENV's run with a trace of steps 4-8 (the
+# reference's window: 3 skipped, 5 traced), then 8 steps logged every 4
+# scanned 4 a dispatch against per-step dispatch
+PROFILE = dict(skip=3, traced=5, scan=4, scan_steps=8, scan_log_every=4, top=10)
+# the flash kernels' names in a trace
+TRACE_KERNELS = {"flash_fwd_wgmma": "tfk8s_fwd_wgmma_kernel",
+                 "flash_bwd_dsum": "tfk8s_dsum_kernel",
+                 "flash_bwd_dq_wgmma": "tfk8s_dq_wgmma_kernel",
+                 "flash_bwd_dkv_wgmma": "tfk8s_dkv_wgmma_kernel"}
+# the text phase: a BPE tokenizer trained on these files of the checkout,
+# rows of TRAIN_ENV's length, GPT-2-small from the shards with the
+# tokenizer's vocabulary, checkpointed to a gs:// location under a fake
+# root in build/, resumed once, then a greedy continuation decoded
+TEXT = dict(files=("README.md", "SURVEY.md", "PAPER.md"), vocab=512, shards=2, first_steps=6,
+            steps=12, gen=16, bucket="chip-smoke-text", key="gpt2-small/run",
+            prompt="The controller")
+
+
+def _trace_split(path):
+    """Each ``ProfilerStep`` span of a Chrome trace: its length, the
+    device activities it launched (a kernel whose launch the trace lacks
+    counts by its own start), their union (device busy), the idle share,
+    and the launches and ms of each device operation by name."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e for e in events if e.get("cat") == "user_annotation"
+                    and str(e.get("name", "")).startswith("ProfilerStep#")), key=lambda e: e["ts"])
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    steps = []
+    for span in spans:
+        lo, hi = span["ts"], span["ts"] + span["dur"]
+        mine = [e for e in device
+                if lo <= launched.get(e.get("args", {}).get("correlation"), e["ts"]) < hi]
+        busy, cur = 0.0, None
+        for start, end in sorted((e["ts"], e["ts"] + e["dur"]) for e in mine):
+            if cur is None or start > cur[1]:
+                busy += 0.0 if cur is None else cur[1] - cur[0]
+                cur = [start, end]
+            else:
+                cur[1] = max(cur[1], end)
+        busy += 0.0 if cur is None else cur[1] - cur[0]
+        ops = {}
+        for e in mine:
+            n, ms = ops.get(e["name"], (0, 0.0))
+            ops[e["name"]] = (n + 1, ms + e["dur"] * 1e-3)
+        steps.append({
+            "name": span["name"], "span_ms": span["dur"] * 1e-3, "busy_ms": busy * 1e-3,
+            "kernel_ms": sum(e["dur"] for e in mine) * 1e-3,
+            "idle": 1.0 - busy / span["dur"], "ops": ops,
+            "by_launch": sum(e.get("args", {}).get("correlation") in launched for e in mine),
+            "activities": len(mine),
+        })
+    return steps
+
+
+def _op_group(name):
+    """The part of the dense step a device operation belongs to: the
+    flash kernels, the float32 GEMMs (the tied head, TF32 off), the other
+    GEMMs (bf16; cuBLAS names them ``nvjet`` or ``gemm``), the optimizer,
+    copies, or the rest."""
+    low = name.lower()
+    if any(k in name for k in TRACE_KERNELS.values()):
+        return "flash"
+    if "sgemm" in low or "gemm_f32f32" in low:
+        return "gemm_f32"
+    if "gemm" in low or "nvjet" in low or "xmma" in low or "cublas" in low:
+        return "gemm_bf16"
+    if "adam" in low or "multi_tensor_apply" in low:
+        return "optimizer"
+    if "memcpy" in low or "memset" in low:
+        return "copies"
+    return "other"
+
+
+def phase_profile(torch, gpt, fa, root):
+    """``gpt:train`` at TRAIN_ENV with ``TFK8S_PROFILE_DIR``: the trace's
+    five step spans each hold 12 launches of every tensor-core flash kernel;
+    the dense step split by the trace. Then 8 steps scanned 4 a dispatch
+    against per-step dispatch: equal histories. Returns the launches."""
+    layers = gpt.base_config().num_layers
+    prof_dir = os.path.join(root, "build", "chip_smoke_profile")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    launches = dict.fromkeys(fa.KERNELS, 0)
+
+    def run(env):
+        fa.reset_launches()
+        history = gpt.train(env)
+        torch.cuda.synchronize()
+        for k, v in fa.LAUNCHES.items():
+            launches[k] += v
+        return history, dict(fa.LAUNCHES)
+
+    history, got = run(dict(TRAIN_ENV, TFK8S_PROFILE_DIR=prof_dir))
+    want = {**dict.fromkeys(fa.SIMT_KERNELS, 0),
+            **dict.fromkeys(fa.TENSOR_CORE_KERNELS, layers * TRAIN_STEPS)}
+    if got != want:
+        raise AssertionError(f"profiled run: flash launches {got}, want {want}")
+    paths = glob.glob(os.path.join(prof_dir, "*.json"))
+    if len(paths) != 1:
+        raise AssertionError(f"want one trace under {prof_dir}, found {paths}")
+    steps = _trace_split(paths[0])
+    names = [s["name"] for s in steps]
+    first = PROFILE["skip"] + 1
+    window = [f"ProfilerStep#{i}" for i in range(first, first + PROFILE["traced"])]
+    if names != window:
+        raise AssertionError(f"trace spans {names}, want {window}")
+    for s in steps:
+        counts = {k: sum(n for op, (n, _ms) in s["ops"].items() if kname in op)
+                  for k, kname in TRACE_KERNELS.items()}
+        if counts != dict.fromkeys(TRACE_KERNELS, layers):
+            raise AssertionError(f"{s['name']}: flash kernels {counts}, want {layers} each")
+    # the host's step time over the window, from the history's clock
+    at = {h["step"]: h["step"] / h["steps_per_s"] for h in history}
+    host_ms = (at[first + PROFILE["traced"] - 1] - at[first - 1]) / PROFILE["traced"] * 1e3
+    busy_ms = sum(s["busy_ms"] for s in steps) / len(steps)
+    ops = {}
+    for s in steps:
+        for op, (n, ms) in s["ops"].items():
+            m = ops.setdefault(op, [0, 0.0])
+            m[0] += n / len(steps)
+            m[1] += ms / len(steps)
+    groups = {}
+    for op, (n, ms) in ops.items():
+        g = groups.setdefault(_op_group(op), [0, 0.0])
+        g[0] += n
+        g[1] += ms
+    top = sorted(ops.items(), key=lambda kv: -kv[1][1])[:PROFILE["top"]]
+    log("profile: " + json.dumps({
+        "trace": os.path.relpath(paths[0], root),
+        "steps": [{k: s[k] for k in ("name", "span_ms", "busy_ms", "kernel_ms", "idle",
+                                     "activities", "by_launch")} for s in steps],
+        "span_ms_mean": sum(s["span_ms"] for s in steps) / len(steps),
+        "busy_ms_mean": busy_ms, "idle_mean": sum(s["idle"] for s in steps) / len(steps),
+        "host_step_ms": host_ms,
+        "groups_ms_a_step": {g: {"launches": n, "ms": ms} for g, (n, ms) in groups.items()},
+        "top": [{"op": op[:100], "launches": n, "ms": ms} for op, (n, ms) in top],
+    }))
+
+    def scan_run(scan):
+        env = dict(TRAIN_ENV, TFK8S_TRAIN_STEPS=str(PROFILE["scan_steps"]),
+                   TFK8S_LOG_EVERY=str(PROFILE["scan_log_every"]))
+        if scan > 1:
+            env["TFK8S_SCAN_STEPS"] = str(scan)
+        t0 = time.perf_counter()
+        history, got = run(env)
+        want = {**dict.fromkeys(fa.SIMT_KERNELS, 0),
+                **dict.fromkeys(fa.TENSOR_CORE_KERNELS, layers * PROFILE["scan_steps"])}
+        if got != want:
+            raise AssertionError(f"scan {scan}: flash launches {got}, want {want}")
+        return history, time.perf_counter() - t0
+
+    (per_step, per_step_s), (scanned, scanned_s) = scan_run(1), scan_run(PROFILE["scan"])
+    keys = ("step", "loss", "grad_norm", "next_token_accuracy")
+    a = [tuple(h[k] for k in keys) for h in per_step]
+    b = [tuple(h[k] for k in keys) for h in scanned]
+
+    def step_ms(history):  # steps 5-8, unprofiled, one host fetch at the end
+        t = [h["step"] / h["steps_per_s"] for h in history]
+        return (t[1] - t[0]) / (history[1]["step"] - history[0]["step"]) * 1e3
+
+    log("profile: scan " + json.dumps({
+        "per_step": a, "scanned": b, "identical": a == b,
+        "per_step_wall_s": per_step_s, "scanned_wall_s": scanned_s,
+        "per_step_ms": step_ms(per_step), "scanned_ms": step_ms(scanned),
+        "idle_unprofiled": 1.0 - busy_ms / step_ms(per_step)}))
+    if [h[0] for h in a] != [4, 8] or a != b:
+        raise AssertionError(f"scanned history {b} differs from per-step {a}")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    return launches
+
+
+def phase_text(torch, gpt, fa, root):
+    """The text flow (docstring phase 21): the port's corpus CLI trains the
+    tokenizer and writes the shards; ``gpt:train`` at GPT-2-small width
+    trains from them with the tokenizer's vocabulary into a gs:// location
+    under a fake root, resumes once, and a greedy continuation decodes.
+    Returns the launches."""
+    from tfk8s_tpu_torch.data.tokenizer import BPETokenizer
+    from tfk8s_tpu_torch.runtime.checkpoint import Checkpointer
+
+    work = os.path.join(root, "build", "chip_smoke_text")
+    shutil.rmtree(work, ignore_errors=True)
+    shards, tok_dir = os.path.join(work, "shards"), os.path.join(work, "tok")
+    seq = int(TRAIN_ENV["TFK8S_SEQ_LEN"])
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "tfk8s_tpu_torch.data.corpus", "--input",
+         *(os.path.join(root, f) for f in TEXT["files"]), "--out-dir", shards,
+         "--seq-len", str(seq), "--vocab-size", str(TEXT["vocab"]),
+         "--num-shards", str(TEXT["shards"]), "--tokenizer-dir", tok_dir],
+        cwd=root, capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"corpus CLI failed:\n{out.stderr[-4000:]}")
+    log(f"text: {out.stdout.strip()} in {cli_s:.2f} s")
+    tok = BPETokenizer.load(tok_dir)
+    layers = gpt.base_config().num_layers
+    fake_root = os.path.join(work, "gcs")
+    uri = f"gs://{TEXT['bucket']}/{TEXT['key']}"
+    env = dict(TRAIN_ENV, TFK8S_VOCAB_SIZE=str(tok.vocab_size),
+               TFK8S_INPUT_FILES=os.path.join(shards, "part-*.rio"),
+               TFK8S_CHECKPOINT_DIR=uri, TFK8S_TRAIN_STEPS=str(TEXT["first_steps"]))
+    before = os.environ.get("TFK8S_GCS_FAKE_ROOT")
+    os.environ["TFK8S_GCS_FAKE_ROOT"] = fake_root
+    try:
+        fa.reset_launches()
+        first = gpt.train(env)
+        resumed = gpt.train(dict(env, TFK8S_TRAIN_STEPS=str(TEXT["steps"]),
+                                 TFK8S_GANG_RESTARTS="1"))
+        torch.cuda.synchronize()
+        train_launches = dict(fa.LAUNCHES)
+        ckpt_dir = os.path.join(fake_root, TEXT["bucket"], *TEXT["key"].split("/"))
+        if Checkpointer(uri).directory != ckpt_dir:
+            raise AssertionError(f"{uri} resolved to {Checkpointer(uri).directory}")
+        latest = Checkpointer(ckpt_dir).latest_step()
+        cfg = gpt.base_config(vocab_size=tok.vocab_size,
+                              attention_impl=TRAIN_ENV["TFK8S_ATTENTION_IMPL"])
+        model = gpt.GPTLM(cfg)
+        model.load_state_dict(Checkpointer(ckpt_dir).restore(map_location="cpu")["model"])
+    finally:
+        if before is None:
+            os.environ.pop("TFK8S_GCS_FAKE_ROOT", None)
+        else:
+            os.environ["TFK8S_GCS_FAKE_ROOT"] = before
+    model = model.to(DEVICE).eval()
+    prompt = torch.tensor([tok.encode(TEXT["prompt"])], device=DEVICE)
+    with torch.no_grad():
+        out_ids = gpt.greedy_generate(cfg, model, prompt, TEXT["gen"])
+    torch.cuda.synchronize()
+    text = tok.decode(out_ids[0].tolist())
+    launches = dict(fa.LAUNCHES)
+    losses = [h["loss"] for h in first + resumed]
+    log("text: " + json.dumps({
+        "vocab": tok.vocab_size, "cli_s": cli_s, "first_steps": [h["step"] for h in first],
+        "resumed_steps": [h["step"] for h in resumed], "losses": losses,
+        "checkpoint": os.path.relpath(ckpt_dir, root), "latest_step": latest,
+        "continuation": text, "launches": launches}))
+    if [h["step"] for h in resumed] != list(range(TEXT["first_steps"] + 1, TEXT["steps"] + 1)):
+        raise AssertionError("the resumed run did not start after the first run's checkpoint")
+    if latest != TEXT["steps"]:
+        raise AssertionError(f"latest committed step {latest} under {ckpt_dir}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    want = {**dict.fromkeys(fa.SIMT_KERNELS, 0),
+            **dict.fromkeys(fa.TENSOR_CORE_KERNELS, layers * TEXT["steps"])}
+    if train_launches != want:
+        raise AssertionError(f"flash launches {train_launches}, want {want}")
+    if launches["flash_fwd_wgmma"] != want["flash_fwd_wgmma"] + layers:
+        raise AssertionError(f"the continuation's prefill: {launches}")  # one flash forward a layer
+    if not text:
+        raise AssertionError("the greedy continuation decoded to an empty string")
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4230,6 +4513,8 @@ def main() -> int:
         ("nccl", lambda: phase_nccl(torch, gpt, fa, gn, root)),
         ("pipeline", lambda: phase_pipeline(torch, fa, gn, root)),
         ("pipeline_axes", lambda: phase_pipeline_axes(torch, fa, gn, root)),
+        ("profile", lambda: phase_profile(torch, gpt, fa, root)),
+        ("text", lambda: phase_text(torch, gpt, fa, root)),
     ]
     if only:
         phases = [p for p in phases if p[0] in ("card", "build", *only)]
@@ -4254,7 +4539,7 @@ def main() -> int:
             line = value
         elif name in ("train", "resnet_train", "roofline", "generate", "distributed",
                       "families", "parallel", "tensor", "axes", "pipeline",
-                      "pipeline_axes"):
+                      "pipeline_axes", "profile", "text"):
             for kernel, count in value.items():  # each path's launches add up
                 launches[kernel] = launches.get(kernel, 0) + count
     for d in (ckpt_dir, rn_ckpt_dir):

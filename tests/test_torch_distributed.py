@@ -394,8 +394,6 @@ def test_combined_layouts_pass_the_launcher_check(mesh):
      "1.5"),
     ({"TFK8S_MESH": '{"data": 4}', "TFK8S_NUM_PROCESSES": "2"}, "1.5"),
     ({"TFK8S_INPUT_FILES": "x-*.rio", "TFK8S_INPUT_FORMAT": "image"}, "1.5"),
-    ({"TFK8S_SCAN_STEPS": "2"}, "1.11"),
-    ({"TFK8S_PROFILE_DIR": "p"}, "1.11"),
 ])
 def test_unported_layouts_raise_naming_their_item(env, item):
     if "TFK8S_MESH" in env:  # every layout passes the mesh rules

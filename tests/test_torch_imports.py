@@ -77,6 +77,8 @@ def test_every_port_module_imports_without_jax_or_the_reference():
     "tfk8s_tpu_torch.parallel.ulysses", "tfk8s_tpu_torch.models.transformer",
     "tfk8s_tpu_torch.models.gpt", "tfk8s_tpu_torch.models.bert",
     "tfk8s_tpu_torch.models.t5", "tfk8s_tpu_torch.models.dlrm",
+    # the text tools
+    "tfk8s_tpu_torch.data.tokenizer", "tfk8s_tpu_torch.data.corpus",
 ])
 def test_each_resnet_and_roofline_module_imports_on_its_own(module):
     proc = _run(_BLOCK + f"import {module}\n"

@@ -179,8 +179,6 @@ def test_drain_commits_a_checkpoint_and_raises_pod_drained(tmp_path):
     {"TFK8S_NUM_PROCESSES": "4", "TFK8S_MESH": '{"pipeline": 2, "tensor": 2}'},
     {"TFK8S_MESH": '{"data": 2}'},
     {"TFK8S_INPUT_FILES": "part-*.rio", "TFK8S_INPUT_FORMAT": "image"},
-    {"TFK8S_SCAN_STEPS": "4"},
-    {"TFK8S_PROFILE_DIR": "profile"},
     {"TFK8S_NUM_PROCESSES": "2", "TFK8S_MESH": '{"data": 2, "tensor": 2}'},
 ])
 def test_unported_features_raise(extra):
@@ -283,6 +281,13 @@ def test_tpujob_runs_the_port_entrypoint_through_the_reference_control_plane():
         ctrl.controller.shutdown()
 
 
-def test_checkpoint_uris_are_refused():
-    with pytest.raises(NotImplementedError, match="local directories"):
-        Checkpointer("gs://bucket/run")
+def test_checkpoint_uris_are_refused(monkeypatch):
+    """``gs://`` without a fake root and every scheme but ``gs`` and
+    ``file`` raise, naming the scheme (tests/test_torch_checkpoint_uri.py
+    holds the ones that map)."""
+    monkeypatch.delenv("TFK8S_GCS_FAKE_ROOT", raising=False)
+    for uri, scheme in (("gs://bucket/run", "gs"), ("s3://bucket/run", "s3")):
+        with pytest.raises(NotImplementedError,
+                           match=rf"local directories and has no object-store client "
+                                 rf"for {scheme}://"):
+            Checkpointer(uri)

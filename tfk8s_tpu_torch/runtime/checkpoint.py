@@ -20,7 +20,14 @@ written, so a checkpoint saved by N processes restores in M (elastic
 resume). ``save_async`` copies replicated state to host memory at once
 (training may go on changing the parameters) and writes it on a
 background thread; the marker follows in ``wait_until_finished``/
-``maybe_commit``. Paths are local; a URI (``gs://...``) raises.
+``maybe_commit``.
+
+Locations are local directories. A plain path becomes absolute.
+``gs://bucket/path`` maps to ``<TFK8S_GCS_FAKE_ROOT>/bucket/path``, the
+local fake of the object store the JAX package keeps for hermetic runs,
+so a job's gs://-shaped checkpoint annotation resumes as there;
+``file:///abs/path`` is ``/abs/path``. Any other URI, and ``gs://``
+without a fake root, raises: the port has no object-store client.
 """
 
 from __future__ import annotations
@@ -46,14 +53,24 @@ _SHARDED_FILE = ".metadata"  # what torch.distributed.checkpoint writes last
 
 
 def resolve_directory(directory: str) -> str:
-    """Plain paths -> absolute; a URI raises (the port writes local
-    directories only)."""
-    if _URI_RE.match(directory):
-        raise NotImplementedError(
-            f"checkpoint URI {directory!r}: the port writes local directories "
-            "(remote object stores are not ported)"
-        )
-    return os.path.abspath(directory)
+    """The local directory a checkpoint location names (module
+    docstring). ``TFK8S_GCS_FAKE_ROOT`` is read from ``os.environ`` at
+    call time, as the JAX package reads it."""
+    if not _URI_RE.match(directory):
+        return os.path.abspath(directory)
+    scheme = directory.split("://", 1)[0]
+    if scheme == "gs":
+        fake_root = os.environ.get("TFK8S_GCS_FAKE_ROOT", "")
+        if fake_root:
+            return os.path.join(os.path.abspath(fake_root), directory[len("gs://"):])
+    elif scheme == "file":
+        return os.path.abspath(directory[len("file://"):])
+    raise NotImplementedError(
+        f"checkpoint URI {directory!r}: the port writes local directories and has no "
+        f"object-store client for {scheme}://"
+        + (" (set TFK8S_GCS_FAKE_ROOT to map gs:// onto a local directory)"
+           if scheme == "gs" else "")
+    )
 
 
 def _to_host(obj: Any) -> Any:

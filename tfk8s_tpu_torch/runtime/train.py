@@ -37,18 +37,27 @@ What is kept from the reference:
   ``TFK8S_TRACEPARENT`` with ``trainer.run``, ``trainer.startup`` and
   ``trainer.first_step`` spans;
 - ``run_eval``, the Evaluator replica: it scores every new checkpoint on
-  held-out batches until the final step's.
+  held-out batches until the final step's;
+- the chunked loop (``TFK8S_SCAN_STEPS``): k host batches stacked into
+  one device copy, then k steps with no host fetch between them; a chunk
+  never crosses a log or checkpoint boundary, and stop and drain are
+  honoured between chunks. The trajectory is per-step dispatch's;
+- the profile window (``TFK8S_PROFILE_DIR``): a ``torch.profiler`` trace
+  of ``profile_steps`` steps after ``profile_skip``, each step one
+  ``ProfilerStep#<step>`` span, written as a Chrome trace a rank under
+  that directory. Profiling forces one step a dispatch.
 
 Not ported yet, raising ``NotImplementedError`` when asked for: image
-record input (``TFK8S_INPUT_FORMAT=image``, ROADMAP item 1.5), the scanned
-multi-step dispatch (``TFK8S_SCAN_STEPS``) and profiling (item 1.11).
+record input (``TFK8S_INPUT_FORMAT=image``, ROADMAP item 1.5).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import glob as globlib
 import math
+import os
 import queue
 import threading
 import time
@@ -152,6 +161,14 @@ class TrainConfig:
     lr_schedule: str = "constant"
     decay_steps: Optional[int] = None
     min_lr_ratio: float = 0.0
+    # a torch.profiler trace of profile_steps steps after profile_skip,
+    # written under profile_dir (empty: no trace)
+    profile_dir: str = ""
+    profile_skip: int = 3
+    profile_steps: int = 5
+    # >1: this many steps a dispatch on one stacked device batch, clamped
+    # to the next log and checkpoint boundary; forced to 1 while profiling
+    scan_steps: int = 1
 
     def make_schedule(self) -> Callable[[int], float]:
         """The step -> lr schedule with optax's formulas (constant,
@@ -496,6 +513,45 @@ class Trainer:
             return parts[0]
         return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
+    # -- the profile window ---------------------------------------------------
+
+    def _prepare_profile(self) -> torch.profiler.profile:
+        """A ``torch.profiler`` trace of the host, and of the card when the
+        device is one, with its collection brought up but not recording.
+        In a process that traced before, CUPTI comes up again lazily and
+        can lose the first kernels after a start, so ``fit`` prepares the
+        trace a step ahead of its window (``torch.profiler``'s warmup)."""
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.prepare_trace()
+        return profiler
+
+    def _start_profile(self, profiler: torch.profiler.profile) -> None:
+        """Start recording, with nothing of earlier steps queued."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.start_trace()
+
+    def _stop_profile(self, profiler: torch.profiler.profile,
+                      metrics: Optional[Dict[str, torch.Tensor]], first: int, last: int) -> None:
+        """Drain the queued work, stop the trace and write it as this
+        rank's Chrome trace of steps ``first + 1 .. last`` under
+        ``profile_dir``."""
+        if metrics is not None:
+            float(metrics["loss"])  # one host fetch: the step's work is done
+        if self.device.type == "cuda":
+            # the loss precedes the optimizer's kernels on the stream
+            torch.cuda.synchronize(self.device)
+        profiler.stop_trace()
+        os.makedirs(self.config.profile_dir, exist_ok=True)
+        path = os.path.join(
+            self.config.profile_dir,
+            f"{self.task.name}-rank{self.parallel.rank}-steps{first + 1}-{last}.pt.trace.json")
+        profiler.export_chrome_trace(path)
+        log.info("%s: profile trace written to %s", self.task.name, path)
+
     # -- the loop -------------------------------------------------------------
 
     def fit(
@@ -548,6 +604,38 @@ class Trainer:
             _BatchPrefetcher(_make_host_batch, start_step, cfg.steps, cfg.prefetch)
             if cfg.prefetch > 1 else None
         )
+
+        def _chunk(step: int, k: int) -> Tuple[Dict[str, torch.Tensor], float]:
+            """Steps ``step + 1 .. step + k`` on their host batches, taken
+            in order and copied to the device as one stack, with nothing
+            fetched to the host between the steps; (the last step's
+            metrics, the host wait for the batches)."""
+            t_in = time.perf_counter()
+            hosts = [prefetcher.get() if prefetcher is not None else _make_host_batch(step + i)
+                     for i in range(k)]
+            input_wait = time.perf_counter() - t_in
+            if k == 1:
+                batches = [self.to_device(hosts[0])]
+            else:
+                stacked = self.to_device({key: np.stack([h[key] for h in hosts])
+                                          for key in hosts[0]})
+                batches = [{key: v[i] for key, v in stacked.items()} for i in range(k)]
+            for batch in batches:
+                metrics = self.train_step(state, batch)
+            return metrics, input_wait
+
+        # scan steps a dispatch, never across a log or checkpoint boundary;
+        # profiling keeps one step a dispatch, so the trace holds a span a step
+        scan = max(cfg.scan_steps, 1)
+        if cfg.profile_dir and scan > 1:
+            log.info("%s: profiling active — forcing scan_steps=1", self.task.name)
+            scan = 1
+        prof_start = start_step + cfg.profile_skip if cfg.profile_dir else -1
+        prof_stop = prof_start + cfg.profile_steps
+        warm_at = max(prof_start - 1, start_step) if cfg.profile_dir else -1
+        profiler: Optional[torch.profiler.profile] = None
+        recording = False
+        metrics: Optional[Dict[str, torch.Tensor]] = None
         t0 = time.perf_counter()
         last_report = (start_step, t0)
         last_bytes = 0
@@ -563,72 +651,90 @@ class Trainer:
                     self.drained_at = step
                     log.info("%s: reclaim notice at step %d; draining", self.task.name, step)
                     break
-                it_t0 = time.perf_counter()
-                host = prefetcher.get() if prefetcher is not None else _make_host_batch(step)
-                input_wait = time.perf_counter() - it_t0
-                if first_step_s is None:
-                    # the first step builds the kernels and warms the
-                    # libraries: span it and report it apart, after it
-                    # has finished (the reference's one-time start cost,
-                    # so also under the key the controller mirrors)
-                    with get_tracer().start_span(
-                        "trainer.first_step", attributes={"task": self.task.name}
-                    ):
-                        metrics = self.train_step(state, self.to_device(host))
-                        float(metrics["loss"])
-                    first_step_s = time.perf_counter() - it_t0
-                    progress.report(first_step_seconds=first_step_s,
-                                    compile_seconds=first_step_s)
-                else:
-                    metrics = self.train_step(state, self.to_device(host))
-                step = state.step
-                it_dt = time.perf_counter() - it_t0
-                input_wait_total += input_wait
-                if input_wait > _INPUT_STARVED_FRACTION * max(it_dt, 1e-9):
-                    starved_steps += 1
-                if ckpt and cfg.checkpoint_every and step % cfg.checkpoint_every == 0:
-                    ckpt.save(step, state.state_dict(), sharded=par.sharded)
-                elif ckpt:
-                    ckpt.maybe_commit()
-                if step % cfg.log_every == 0 or step == cfg.steps:
-                    # one host transfer (and one all-reduce) for the whole
-                    # metrics dict; grad_norm is global already
-                    keys = sorted(metrics)
-                    vals = par.reduce_metrics(
-                        torch.stack([metrics[k].float() for k in keys]),
-                        keep=torch.tensor([k == "grad_norm" for k in keys], device=self.device),
-                    ).tolist()
-                    m = dict(zip(keys, vals))
-                    m["step"] = step
-                    now = time.perf_counter()
-                    m["steps_per_s"] = (step - start_step) / (now - t0)
-                    history.append(m)
-                    w_steps = step - last_report[0]
-                    w_dt = max(now - last_report[1], 1e-9)
-                    last_report = (step, now)
-                    rate = w_steps / w_dt
-                    report_kw = dict(
-                        step=step,
-                        steps_per_sec=rate,
-                        examples_per_sec=rate * self.task.batch_size,
-                        step_seconds=w_dt / w_steps,
-                        input_wait_seconds=input_wait_total,
-                        input_starved_steps=float(starved_steps),
-                    )
-                    if files_iter is not None:
-                        b_now = files_iter.dataset.bytes_read
-                        report_kw["input_mb_per_sec"] = (b_now - last_bytes) / w_dt / 1e6
-                        last_bytes = b_now
-                    progress.report(**report_kw)
-                    log.info(
-                        "%s step %d: %s", self.task.name, step,
-                        {k: round(v, 4) for k, v in m.items()},
-                    )
+                if step == warm_at:
+                    profiler = self._prepare_profile()
+                if step == prof_start:
+                    self._start_profile(profiler)
+                    recording = True
+                k = min(scan, cfg.steps - step, cfg.log_every - step % cfg.log_every)
+                if ckpt and cfg.checkpoint_every:
+                    k = min(k, cfg.checkpoint_every - step % cfg.checkpoint_every)
+                span = (torch.profiler.record_function(f"ProfilerStep#{step + 1}")
+                        if recording else contextlib.nullcontext())
+                with span:
+                    it_t0 = time.perf_counter()
+                    if first_step_s is None:
+                        # the first dispatch builds the kernels and warms
+                        # the libraries: span it and report it apart, after
+                        # it has finished (the reference's one-time start
+                        # cost, so also under the key the controller mirrors)
+                        with get_tracer().start_span(
+                            "trainer.first_step", attributes={"task": self.task.name}
+                        ):
+                            metrics, input_wait = _chunk(step, k)
+                            float(metrics["loss"])
+                        first_step_s = time.perf_counter() - it_t0
+                        progress.report(first_step_seconds=first_step_s,
+                                        compile_seconds=first_step_s)
+                    else:
+                        metrics, input_wait = _chunk(step, k)
+                    step = state.step
+                    it_dt = time.perf_counter() - it_t0
+                    input_wait_total += input_wait
+                    if input_wait > _INPUT_STARVED_FRACTION * max(it_dt, 1e-9):
+                        starved_steps += k
+                    if ckpt and cfg.checkpoint_every and step % cfg.checkpoint_every == 0:
+                        ckpt.save(step, state.state_dict(), sharded=par.sharded)
+                    elif ckpt:
+                        ckpt.maybe_commit()
+                    if step % cfg.log_every == 0 or step == cfg.steps:
+                        # one host transfer (and one all-reduce) for the
+                        # whole metrics dict; grad_norm is global already
+                        keys = sorted(metrics)
+                        vals = par.reduce_metrics(
+                            torch.stack([metrics[k].float() for k in keys]),
+                            keep=torch.tensor([k == "grad_norm" for k in keys],
+                                              device=self.device),
+                        ).tolist()
+                        m = dict(zip(keys, vals))
+                        m["step"] = step
+                        now = time.perf_counter()
+                        m["steps_per_s"] = (step - start_step) / (now - t0)
+                        history.append(m)
+                        w_steps = step - last_report[0]
+                        w_dt = max(now - last_report[1], 1e-9)
+                        last_report = (step, now)
+                        rate = w_steps / w_dt
+                        report_kw = dict(
+                            step=step,
+                            steps_per_sec=rate,
+                            examples_per_sec=rate * self.task.batch_size,
+                            step_seconds=w_dt / w_steps,
+                            input_wait_seconds=input_wait_total,
+                            input_starved_steps=float(starved_steps),
+                        )
+                        if files_iter is not None:
+                            b_now = files_iter.dataset.bytes_read
+                            report_kw["input_mb_per_sec"] = (b_now - last_bytes) / w_dt / 1e6
+                            last_bytes = b_now
+                        progress.report(**report_kw)
+                        log.info(
+                            "%s step %d: %s", self.task.name, step,
+                            {k: round(v, 4) for k, v in m.items()},
+                        )
+                if recording and step >= prof_stop:
+                    self._stop_profile(profiler, metrics, prof_start, step)
+                    profiler, recording = None, False
         finally:
             if prefetcher is not None:
                 prefetcher.close()
             if files_iter is not None:
                 files_iter.close()
+            if recording:  # the run ended inside the window
+                self._stop_profile(profiler, metrics, prof_start, state.step)
+            elif profiler is not None:  # it ended before the window: no trace
+                profiler.start_trace()
+                profiler.stop_trace()
         if ckpt and ckpt.enabled:
             if self.drained_at is not None:
                 t_drain = time.perf_counter()
@@ -654,13 +760,6 @@ def _unported_env(env: Dict[str, str]) -> None:
             f"TFK8S_INPUT_FORMAT={env['TFK8S_INPUT_FORMAT']!r}: image record "
             "input is ROADMAP item 1.5"
         )
-    if int(env.get("TFK8S_SCAN_STEPS", "1")) > 1:
-        raise NotImplementedError(
-            "TFK8S_SCAN_STEPS: multi-step dispatch (a CUDA graph on the card) is "
-            "ROADMAP item 1.11"
-        )
-    if env.get("TFK8S_PROFILE_DIR"):
-        raise NotImplementedError("TFK8S_PROFILE_DIR: profiling is ROADMAP item 1.11")
 
 
 def config_from_env(env: Dict[str, str], ctx: ProcessContext) -> TrainConfig:
@@ -681,6 +780,8 @@ def config_from_env(env: Dict[str, str], ctx: ProcessContext) -> TrainConfig:
         lr_schedule=env.get("TFK8S_LR_SCHEDULE", "constant"),
         decay_steps=int(env["TFK8S_DECAY_STEPS"]) if env.get("TFK8S_DECAY_STEPS") else None,
         min_lr_ratio=float(env.get("TFK8S_MIN_LR_RATIO", "0.0")),
+        profile_dir=env.get("TFK8S_PROFILE_DIR", ""),
+        scan_steps=int(env.get("TFK8S_SCAN_STEPS", "1")),
     )
 
 
