@@ -324,8 +324,9 @@ must pass:
    optimizer, copies, the rest) and by its ten leading operations, each
    with its launches: the dense step's split. Then 8 steps logged every 4,
    once with ``TFK8S_SCAN_STEPS=4`` and once a step a dispatch: the two
-   histories must be identical; their steps 5-8 give the unprofiled step
-   time on the host's clock, and with the trace's busy time its idle share;
+   histories must be identical; their steps 5-8 give each run's
+   unprofiled step time on the host's clock (runs other than the traced
+   one, so no idle share is derived from them);
 21. text: the port's corpus CLI (``python -m tfk8s_tpu_torch.data.corpus``)
    trains a byte-level BPE tokenizer of vocabulary 512 on ``README.md``,
    ``SURVEY.md`` and ``PAPER.md`` of the checkout and writes two shards
@@ -336,8 +337,10 @@ must pass:
    (``TFK8S_GANG_RESTARTS=1``) and resumes to step 12: the loss falls, the
    checkpoint sits at ``<root>/<bucket>/<key>``, each tensor-core flash
    kernel launches 12 times a step, and a greedy continuation of the
-   checkpoint's model (one flash forward a layer in its prefill) decodes
-   to a non-empty string.
+   checkpoint's model in float32 (one flash forward a layer in its
+   prefill) decodes to a non-empty string whose every token is the
+   checkpoint's full-forward argmax (or within GENERATE_F32_TIE_ATOL of
+   it).
 
 The launch counts are zeroed just before each path (phases 6-21) and
 read just after it; the line's launches add up the paths'. Then it prints the card line, the ``kernels`` JSON
@@ -4371,8 +4374,7 @@ def phase_profile(torch, gpt, fa, root):
     log("profile: scan " + json.dumps({
         "per_step": a, "scanned": b, "identical": a == b,
         "per_step_wall_s": per_step_s, "scanned_wall_s": scanned_s,
-        "per_step_ms": step_ms(per_step), "scanned_ms": step_ms(scanned),
-        "idle_unprofiled": 1.0 - busy_ms / step_ms(per_step)}))
+        "per_step_ms": step_ms(per_step), "scanned_ms": step_ms(scanned)}))
     if [h[0] for h in a] != [4, 8] or a != b:
         raise AssertionError(f"scanned history {b} differs from per-step {a}")
     shutil.rmtree(prof_dir, ignore_errors=True)
@@ -4385,6 +4387,8 @@ def phase_text(torch, gpt, fa, root):
     trains from them with the tokenizer's vocabulary into a gs:// location
     under a fake root, resumes once, and a greedy continuation decodes.
     Returns the launches."""
+    import numpy as np
+
     from tfk8s_tpu_torch.data.tokenizer import BPETokenizer
     from tfk8s_tpu_torch.runtime.checkpoint import Checkpointer
 
@@ -4423,7 +4427,9 @@ def phase_text(torch, gpt, fa, root):
         if Checkpointer(uri).directory != ckpt_dir:
             raise AssertionError(f"{uri} resolved to {Checkpointer(uri).directory}")
         latest = Checkpointer(ckpt_dir).latest_step()
-        cfg = gpt.base_config(vocab_size=tok.vocab_size,
+        # float32 (TF32 off), so that the continuation can be held to the
+        # checkpoint's own full-forward argmax
+        cfg = gpt.base_config(vocab_size=tok.vocab_size, dtype=torch.float32,
                               attention_impl=TRAIN_ENV["TFK8S_ATTENTION_IMPL"])
         model = gpt.GPTLM(cfg)
         model.load_state_dict(Checkpointer(ckpt_dir).restore(map_location="cpu")["model"])
@@ -4433,18 +4439,22 @@ def phase_text(torch, gpt, fa, root):
         else:
             os.environ["TFK8S_GCS_FAKE_ROOT"] = before
     model = model.to(DEVICE).eval()
-    prompt = torch.tensor([tok.encode(TEXT["prompt"])], device=DEVICE)
+    prompt_ids = tok.encode(TEXT["prompt"])
     with torch.no_grad():
-        out_ids = gpt.greedy_generate(cfg, model, prompt, TEXT["gen"])
+        out_ids = gpt.greedy_generate(cfg, model, torch.tensor([prompt_ids], device=DEVICE),
+                                      TEXT["gen"])
     torch.cuda.synchronize()
-    text = tok.decode(out_ids[0].tolist())
     launches = dict(fa.LAUNCHES)
+    tokens = out_ids[0].tolist()
+    text = tok.decode(tokens)
+    checked, ties = _greedy_check(torch, model, [np.asarray(prompt_ids, np.int64)], [tokens])
     losses = [h["loss"] for h in first + resumed]
     log("text: " + json.dumps({
         "vocab": tok.vocab_size, "cli_s": cli_s, "first_steps": [h["step"] for h in first],
         "resumed_steps": [h["step"] for h in resumed], "losses": losses,
         "checkpoint": os.path.relpath(ckpt_dir, root), "latest_step": latest,
-        "continuation": text, "launches": launches}))
+        "continuation": text, "continuation_ids": tokens, "tokens_checked": checked,
+        "near_ties": ties, "launches": launches}))
     if [h["step"] for h in resumed] != list(range(TEXT["first_steps"] + 1, TEXT["steps"] + 1)):
         raise AssertionError("the resumed run did not start after the first run's checkpoint")
     if latest != TEXT["steps"]:
@@ -4455,8 +4465,10 @@ def phase_text(torch, gpt, fa, root):
             **dict.fromkeys(fa.TENSOR_CORE_KERNELS, layers * TEXT["steps"])}
     if train_launches != want:
         raise AssertionError(f"flash launches {train_launches}, want {want}")
-    if launches["flash_fwd_wgmma"] != want["flash_fwd_wgmma"] + layers:
+    if launches != dict(want, flash_fwd_simt=layers):
         raise AssertionError(f"the continuation's prefill: {launches}")  # one flash forward a layer
+    if checked != TEXT["gen"]:
+        raise AssertionError(f"{checked} of {TEXT['gen']} continuation tokens checked")
     if not text:
         raise AssertionError("the greedy continuation decoded to an empty string")
     shutil.rmtree(work, ignore_errors=True)

@@ -1,7 +1,7 @@
 """The port's ``TFK8S_SCAN_STEPS`` and ``TFK8S_PROFILE_DIR`` against the
 JAX package's ``scan_steps`` and ``profile_dir``.
 
-Scanning dispatches k steps on one stacked device batch; the trajectory
+Scanning dispatches k steps with no host fetch between them; the trajectory
 must be per-step dispatch's: scan 1, 4 and 5 give equal histories (the
 reference's ``tests/test_train_runtime.py`` check), and the reference
 ``Trainer`` with ``scan_steps=4`` on the same bridged MLP and batches
@@ -11,7 +11,8 @@ chunks. A ``{"data": 2}`` gang scanning two steps a dispatch follows one
 process to rtol 1e-5 (``tests/test_distributed.py``'s bound) and writes
 a trace a rank. The profile window writes a Chrome trace of
 ``profile_steps`` ``ProfilerStep#<step>`` spans, also when the run ends
-inside it, and forces one step a dispatch.
+inside it or a step raises there (the step's own error propagates), and
+forces one step a dispatch.
 """
 
 import functools
@@ -180,6 +181,36 @@ def test_a_run_ending_before_the_window_writes_no_trace(tmp_path):
     _mlp_fit(steps=8, learning_rate=1e-2, log_every=4, profile_dir=str(tmp_path / "b"))
     (path,) = glob.glob(str(tmp_path / "b" / "*"))
     assert _step_spans(path) == [f"ProfilerStep#{s}" for s in range(4, 9)]
+
+
+@pytest.mark.parametrize("export_fails", [False, True], ids=["written", "export-fails"])
+def test_a_step_raising_inside_the_window_keeps_its_own_error(export_fails, tmp_path,
+                                                                monkeypatch):
+    """Step 6 raises inside the window (steps 4-8): the trace of steps 4-5
+    is written with no fetch of the failed run's metrics, and the step's
+    own error propagates even when writing the trace fails too."""
+    trainer = ttrain.Trainer(tmlp.make_task(), ttrain.TrainConfig(
+        steps=10, learning_rate=1e-2, log_every=5, profile_dir=str(tmp_path)), CPU)
+    real_step = trainer.train_step
+
+    def failing_step(state, batch):
+        if state.step == 5:
+            raise RuntimeError("step 6 failed")
+        return real_step(state, batch)
+
+    monkeypatch.setattr(trainer, "train_step", failing_step)
+    if export_fails:
+        def no_export(self, path):
+            raise RuntimeError("export failed")
+        monkeypatch.setattr(torch.profiler.profile, "export_chrome_trace", no_export)
+    with pytest.raises(RuntimeError, match="step 6 failed"):
+        trainer.fit()
+    if export_fails:
+        assert not os.listdir(tmp_path)
+    else:
+        (path,) = glob.glob(str(tmp_path / "*"))
+        assert path.endswith("mnist-mlp-rank0-steps4-5.pt.trace.json")
+        assert _step_spans(path)[:2] == ["ProfilerStep#4", "ProfilerStep#5"]
 
 
 def test_env_contract_reads_both_knobs_with_the_reference_defaults():

@@ -38,8 +38,9 @@ What is kept from the reference:
   ``trainer.first_step`` spans;
 - ``run_eval``, the Evaluator replica: it scores every new checkpoint on
   held-out batches until the final step's;
-- the chunked loop (``TFK8S_SCAN_STEPS``): k host batches stacked into
-  one device copy, then k steps with no host fetch between them; a chunk
+- the chunked loop (``TFK8S_SCAN_STEPS``): k host batches taken in
+  order, each copied to the device and stepped, with no host fetch
+  between the k steps; a chunk
   never crosses a log or checkpoint boundary, and stop and drain are
   honoured between chunks. The trajectory is per-step dispatch's;
 - the profile window (``TFK8S_PROFILE_DIR``): a ``torch.profiler`` trace
@@ -166,8 +167,9 @@ class TrainConfig:
     profile_dir: str = ""
     profile_skip: int = 3
     profile_steps: int = 5
-    # >1: this many steps a dispatch on one stacked device batch, clamped
-    # to the next log and checkpoint boundary; forced to 1 while profiling
+    # >1: this many steps a dispatch with no host fetch between them,
+    # clamped to the next log and checkpoint boundary; forced to 1 while
+    # profiling
     scan_steps: int = 1
 
     def make_schedule(self) -> Callable[[int], float]:
@@ -538,12 +540,13 @@ class Trainer:
                       metrics: Optional[Dict[str, torch.Tensor]], first: int, last: int) -> None:
         """Drain the queued work, stop the trace and write it as this
         rank's Chrome trace of steps ``first + 1 .. last`` under
-        ``profile_dir``."""
+        ``profile_dir``. With no ``metrics`` (a step raised) nothing is
+        drained: after a device fault a fetch would raise again."""
         if metrics is not None:
             float(metrics["loss"])  # one host fetch: the step's work is done
-        if self.device.type == "cuda":
-            # the loss precedes the optimizer's kernels on the stream
-            torch.cuda.synchronize(self.device)
+            if self.device.type == "cuda":
+                # the loss precedes the optimizer's kernels on the stream
+                torch.cuda.synchronize(self.device)
         profiler.stop_trace()
         os.makedirs(self.config.profile_dir, exist_ok=True)
         path = os.path.join(
@@ -607,21 +610,14 @@ class Trainer:
 
         def _chunk(step: int, k: int) -> Tuple[Dict[str, torch.Tensor], float]:
             """Steps ``step + 1 .. step + k`` on their host batches, taken
-            in order and copied to the device as one stack, with nothing
-            fetched to the host between the steps; (the last step's
-            metrics, the host wait for the batches)."""
+            in order, with nothing fetched to the host between the steps;
+            (the last step's metrics, the host wait for the batches)."""
             t_in = time.perf_counter()
             hosts = [prefetcher.get() if prefetcher is not None else _make_host_batch(step + i)
                      for i in range(k)]
             input_wait = time.perf_counter() - t_in
-            if k == 1:
-                batches = [self.to_device(hosts[0])]
-            else:
-                stacked = self.to_device({key: np.stack([h[key] for h in hosts])
-                                          for key in hosts[0]})
-                batches = [{key: v[i] for key, v in stacked.items()} for i in range(k)]
-            for batch in batches:
-                metrics = self.train_step(state, batch)
+            for host in hosts:
+                metrics = self.train_step(state, self.to_device(host))
             return metrics, input_wait
 
         # scan steps a dispatch, never across a log or checkpoint boundary;
@@ -641,6 +637,7 @@ class Trainer:
         last_bytes = 0
         first_step_s: Optional[float] = None
         input_wait_total, starved_steps = 0.0, 0
+        finished = False
         try:
             step = start_step
             while step < cfg.steps:
@@ -725,13 +722,21 @@ class Trainer:
                 if recording and step >= prof_stop:
                     self._stop_profile(profiler, metrics, prof_start, step)
                     profiler, recording = None, False
+            finished = True
         finally:
             if prefetcher is not None:
                 prefetcher.close()
             if files_iter is not None:
                 files_iter.close()
-            if recording:  # the run ended inside the window
+            if recording and finished:  # the run ended inside the window
                 self._stop_profile(profiler, metrics, prof_start, state.step)
+            elif recording:
+                # a step raised: write what was traced, and let the step's
+                # own exception be the one that propagates
+                try:
+                    self._stop_profile(profiler, None, prof_start, state.step)
+                except Exception:
+                    log.exception("%s: profile trace not written", self.task.name)
             elif profiler is not None:  # it ended before the window: no trace
                 profiler.start_trace()
                 profiler.stop_trace()
