@@ -127,7 +127,10 @@ must pass:
    processes join a gloo process group (``TFK8S_DISTRIBUTED=1``; NCCL will
    not put two ranks on one card) and train ``data=2`` with per-host
    input, global batch 8, 4 steps, a checkpoint at step 4, each bounded by
-   a timeout: their shard hashes equal a one-process run's in this
+   a timeout, at GANG_LAYERS layers as every one-card gloo gang of phases
+   11-18 (and the one-process runs they are held to): the published
+   widths, head counts, sequence lengths and batches, the depth cut; their
+   shard hashes equal a one-process run's in this
    process, their losses are identical and within DIST_LOSS_ATOL of the
    one-process run's, their final parameter checksums are equal exactly.
    One process then resumes the gang's checkpoint with
@@ -178,8 +181,9 @@ must pass:
    memories; the flash kernels at Ulysses' local call ([8, 512, 6, 64],
    non-causal and causal, bf16 and f32) against their plain versions. (c)
    which collectives gloo takes CUDA tensors for (each in a fresh pair of
-   processes); then two-rank gloo gangs sharing the card, each running its
-   family's ``train(env)`` for two steps with ``TFK8S_MESH`` set, its
+   processes); then two-rank gloo gangs sharing the card in one launch,
+   each running its family's ``train(env)`` for two steps (a planted
+   fault's one) with ``TFK8S_MESH`` set, its
    first update's gradient (read by an optimizer pre-hook) and loss
    against one process's run of the same entry point with flash attention
    (loss within PARALLEL_LOSS_ATOL, every gradient within
@@ -195,8 +199,9 @@ must pass:
    (6 of 12 heads: GPT-2-small's causal [8, 1024, 6, 64], BERT-base's
    [32, 512, 6, 64], T5-base's key-masked [16, 512, 6, 64], ViT-B/16's
    ragged [64, 196, 6, 64]) against their plain versions and SDPA, with
-   device times. Then two-rank gloo gangs sharing the card on ``{"tensor": 2}``,
-   each running its family's ``train(env)`` for two steps at full width
+   device times. Then two-rank gloo gangs sharing the card on ``{"tensor": 2}``
+   in one launch, each running its family's ``train(env)`` for two steps (a
+   planted fault's one) at full width
    (GPT-2-small seq 1024 batch 8, BERT-base seq 512 batch 8, T5-base seq
    512 batch 8, ViT-B/16 224/16 batch 16; bf16, flash), its first
    update's gradient and loss against one process's run of the same entry
@@ -206,7 +211,8 @@ must pass:
    bounds. Then ``dlrm:train`` at its defaults (eight tables of 100,000 x
    64, batch 4,096, bf16 compute) for 20 steps in one process, whose loss
    must fall and which launches no flash kernel, and its ``{"tensor": 2}``
-   gang's first update against it (the whole gradient's relative L2, and
+   gang (a run of the same launch)'s first update against it (the whole
+   gradient's relative L2, and
    each table's own: the tables hold too little of the norm to show in
    the whole). Each gang prints its ranks' step time
    beside one process's: two gloo ranks on one card measure gloo, not
@@ -246,7 +252,8 @@ must pass:
    heads a rank), the combined-axes gangs (a)-(c) of phase 15, and the
    pipelined BERT-MLM on the reference's ``{"pipeline": 2, "data": 2}``
    and on ``{"pipeline": 4}`` (3 layers a stage), and gangs (a) and (d)
-   of phase 18; with fewer cards, a line says what was skipped and why;
+   of phase 18, all at full depth; with fewer cards, a line says what was
+   skipped and why;
 17. pipeline: ``tfk8s_tpu_torch.models.pipelined.train(env)``, the
    ``pipelined:train`` entrypoint (GPipe over the ``pipeline`` axis), at
    BERT-base width (12 layers, 768 wide, 12 heads, vocab 30,522, bf16)
@@ -257,11 +264,13 @@ must pass:
    profiler trace (busy time, idle share, leading kernels); then two gloo
    ranks sharing the card on
    ``{"pipeline": 2}`` over two slices (``TFK8S_NUM_SLICES=2``: the stage
-   send crosses the slice boundary), two steps, their first update's loss
-   and whole gradient (the stages' layers put together) against the one
-   process's (PARALLEL_LOSS_ATOL, FAMILY_GRAD_REL_L2), which a planted
-   fault (the last stage records microbatch t - s - 1 for t - s) must
-   exceed; each rank's step time beside the one process's, the collectives
+   send crosses the slice boundary), two steps at GANG_LAYERS layers (a
+   layer a stage), their first update's loss and whole gradient (the
+   stages' layers put together) against one process's at that depth
+   (PARALLEL_LOSS_ATOL, FAMILY_GRAD_REL_L2), which a planted fault (the
+   last stage records microbatch t - s - 1 for t - s; one step, in the
+   same launch) must exceed; each rank's step time beside the one
+   process's, the collectives
    gloo staged through host memory and peak memory. The stages run plain
    attention, as the reference's do: no kernel of the port may launch on
    any rank, flash or GroupNorm;
@@ -272,7 +281,9 @@ must pass:
    shards and stages gathered on rank 0) and loss against one process's
    run of the same entry point (PARALLEL_LOSS_ATOL, FAMILY_GRAD_REL_L2):
    (a) ``pipelined:train`` at BERT-base width with the reference's
-   defaults (seq 128, batch 64, 4 microbatches) on ``{"pipeline": 2,
+   defaults (seq 128, batch 64, 4 microbatches; GANG_LAYERS layers, as
+   every gang here, the one-process runs shared with phases 15 and 17)
+   on ``{"pipeline": 2,
    "tensor": 2}`` (each stage's layers split), and the same with every
    row split left unsummed, which must exceed the bounds; (b) the same on
    ``{"pipeline": 2, "fsdp": 2}``; (c) on ``{"pipeline": 2, "sequence":
@@ -340,9 +351,27 @@ must pass:
    checkpoint's model in float32 (one flash forward a layer in its
    prefill) decodes to a non-empty string whose every token is the
    checkpoint's full-forward argmax (or within GENERATE_F32_TIE_ATOL of
-   it).
+   it);
+22. images: image-record input (``TFK8S_INPUT_FORMAT=image``). It prints
+   the host's decoders (PIL, the port's libjpeg core or the compiler's
+   last line, the backend ``resolve_backend`` picks), then writes two
+   shards of 512 image records through the port's ``write_image_shards``
+   from eight 64x64 class JPEGs kept in this script, each stamped with
+   its frame header's geometry. With a decoder, ``resnet:train`` at
+   ResNet-50 width (configs[1]: batch 256, 224 px, 1000 classes) trains 4
+   steps and ``vit:train`` at ViT-B/16 (batch 64) 2 steps from the shards:
+   finite losses, 53 launches of each one-read GroupNorm kernel a step
+   and 12 of each tensor-core flash kernel a step, the decoded images a
+   second, input wait and starved steps. Without one (the card host has
+   neither PIL nor libjpeg), ``resnet:train`` from the shards must raise
+   ``ImageDecodeError`` naming Pillow before its first step (no GroupNorm
+   launch), the same shards without ``TFK8S_INPUT_FORMAT`` must fail on
+   their schema, and the refusal must come within IMAGES["refuse_limit_s"]
+   seconds of the phase's start. Either way one fallback warning, naming
+   the native core, is logged where the core did not build, none where
+   it did.
 
-The launch counts are zeroed just before each path (phases 6-21) and
+The launch counts are zeroed just before each path (phases 6-22) and
 read just after it; the line's launches add up the paths'. Then it prints the card line, the ``kernels`` JSON
 line and, last, the ``ok`` line. It exits non-zero, printing no result,
 when a phase fails, when no card is visible, or when the port's package is
@@ -354,8 +383,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import glob
 import json
+import logging
 import math
 import os
 import re
@@ -2153,7 +2184,8 @@ def _batch_hash(batch):
 
 
 GANG_WORKER = r"""
-import hashlib, json, os, sys
+import hashlib, json, os, sys, time
+T0 = time.perf_counter()
 sys.path.insert(0, os.environ["CHIP_SMOKE_ROOT"])
 import numpy as np
 import torch
@@ -2169,14 +2201,16 @@ env = dict(os.environ)
 initialize_distributed(ProcessContext.from_env(env), env, backend="gloo")
 ctx, dev = ttrain.join_job(env)
 preset = gpt.tiny_config if env.get("TFK8S_MODEL_PRESET") == "tiny" else gpt.base_config
-cfg = preset(attention_impl="flash")
+cfg = preset(attention_impl="flash", num_layers=int(env["GANG_LAYERS"]))
 task = gpt.task_for_mesh(dev, cfg=cfg, seq_len=int(env["TFK8S_SEQ_LEN"]),
                          batch_size=int(env["TFK8S_BATCH_SIZE"]))
 trainer = ttrain.Trainer(task, ttrain.config_from_env(env, ctx), dev, DataParallel(ctx.mesh, dev))
 fa.reset_launches()
+t_fit = time.perf_counter()
 state, hist = trainer.fit()
 if dev.type == "cuda":
     torch.cuda.synchronize()
+fit_s = time.perf_counter() - t_fit
 lo, hi, n = trainer.input_shard_range
 hashes = {f"{step} {s}": None for step in range(state.step) for s in range(lo, hi)}
 for key in hashes:
@@ -2192,7 +2226,8 @@ print("RANK " + json.dumps({
     "rank": trainer.parallel.rank, "mode": trainer.parallel.mode, "shards": [lo, hi, n],
     "losses": [h["loss"] for h in hist], "steps_per_s": hist[-1]["steps_per_s"],
     "step_s": [h["step"] / h["steps_per_s"] for h in hist],
-    "checksum": repr(checksum), "hashes": hashes, "launches": dict(fa.LAUNCHES)}), flush=True)
+    "checksum": repr(checksum), "hashes": hashes, "launches": dict(fa.LAUNCHES),
+    "started_s": t_fit - T0, "fit_s": fit_s, "run_s": time.perf_counter() - T0}), flush=True)
 """
 
 
@@ -2261,6 +2296,8 @@ def phase_distributed(torch, gpt, fa, root):
     tiny = TRAIN_ENV.get("TFK8S_MODEL_PRESET") == "tiny"
     cfg = (gpt.tiny_config if tiny else gpt.base_config)(attention_impl="flash")
     layers, seq, batch = cfg.num_layers, int(TRAIN_ENV["TFK8S_SEQ_LEN"]), 8
+    # the gang, the one-process run it is held to and the resume: GANG_LAYERS
+    gang_cfg = dataclasses.replace(cfg, num_layers=GANG_LAYERS)
     total = dict.fromkeys(fa.KERNELS, 0)
 
     def add(launches):
@@ -2334,6 +2371,7 @@ def phase_distributed(torch, gpt, fa, root):
     torch.cuda.empty_cache()
     gang_ckpt = os.path.join(work, "ckpt_gang")
     gang_env = dict(TRAIN_ENV, TFK8S_BATCH_SIZE=str(batch), TFK8S_MESH='{"data": 2}',
+                    GANG_LAYERS=str(GANG_LAYERS),
                     TFK8S_INPUT_MODE="per_host", TFK8S_INPUT_SHARDS="2",
                     TFK8S_TRAIN_STEPS=str(d["gang_steps"]),
                     TFK8S_CHECKPOINT_EVERY=str(d["gang_steps"]),
@@ -2345,7 +2383,7 @@ def phase_distributed(torch, gpt, fa, root):
     single_cfg = ttrain.TrainConfig(
         steps=d["resume_steps"], learning_rate=float(TRAIN_ENV["TFK8S_LEARNING_RATE"]),
         log_every=1, input_mode="per_host", input_shards=2)
-    trainer = ttrain.Trainer(gpt.task_for_mesh(dev, cfg=cfg, seq_len=seq, batch_size=batch),
+    trainer = ttrain.Trainer(gpt.task_for_mesh(dev, cfg=gang_cfg, seq_len=seq, batch_size=batch),
                              single_cfg, dev, DataParallel(None, dev))
     fa.reset_launches()
     _, single = trainer.fit()
@@ -2361,7 +2399,8 @@ def phase_distributed(torch, gpt, fa, root):
     if DEVICE == "cpu":
         resume_env["TFK8S_DEVICE"] = "cpu"
     fa.reset_launches()
-    resumed = gpt.train(resume_env)
+    with gang_depth(GANG_LAYERS):
+        resumed = gpt.train(resume_env)
     torch.cuda.synchronize()
     add(fa.LAUNCHES)
     resumed_losses = [h["loss"] for h in resumed]
@@ -2372,7 +2411,7 @@ def phase_distributed(torch, gpt, fa, root):
     single_step_ms = (s_last - s_first) / (single[-1]["step"] - single[0]["step"]) * 1e3
     g_times = ranks[0]["step_s"]
     gang_step_ms = (g_times[-1] - g_times[0]) / (len(g_times) - 1) * 1e3
-    log(f"distributed gang: {json.dumps({'card': card, 'ranks': 2, 'backend': 'gloo', 'mode': ranks[0]['mode'], 'shards': [r['shards'] for r in ranks], 'gang_wall_s': gang_s, 'gang_step_ms': gang_step_ms, 'one_process_step_ms': single_step_ms, 'gang_losses': ranks[0]['losses'], 'one_process_losses': single_losses, 'gang_max_err': gang_err, 'checksums': [r['checksum'] for r in ranks], 'resumed_losses': resumed_losses, 'resume_max_err': resume_err, 'rank_launches': [r['launches'] for r in ranks]})}")
+    log(f"distributed gang: {json.dumps({'card': card, 'ranks': 2, 'backend': 'gloo', 'mode': ranks[0]['mode'], 'shards': [r['shards'] for r in ranks], 'gang_wall_s': gang_s, 'gang_step_ms': gang_step_ms, 'one_process_step_ms': single_step_ms, 'gang_losses': ranks[0]['losses'], 'one_process_losses': single_losses, 'gang_max_err': gang_err, 'checksums': [r['checksum'] for r in ranks], 'resumed_losses': resumed_losses, 'resume_max_err': resume_err, 'rank_launches': [r['launches'] for r in ranks], 'rank_timing_s': [{k: r[k] for k in ('started_s', 'fit_s', 'run_s')} for r in ranks]})}")
     if [r["shards"] for r in ranks] != [[0, 1, 2], [1, 2, 2]]:
         raise AssertionError(f"gang shards {[r['shards'] for r in ranks]}")
     if gang_hashes != single_hashes:
@@ -2383,7 +2422,7 @@ def phase_distributed(torch, gpt, fa, root):
         raise AssertionError("the gang's ranks end with different parameters")
     if not gang_err <= DIST_LOSS_ATOL:
         raise AssertionError(f"gang losses {gang_err:.3e} from one process's")
-    want_gang = layers * d["gang_steps"]
+    want_gang = GANG_LAYERS * d["gang_steps"]
     for r in ranks:
         if any(r["launches"][k] != want_gang for k in fa.TENSOR_CORE_KERNELS):
             raise AssertionError(f"rank {r['rank']} flash launches {r['launches']}")
@@ -2868,8 +2907,71 @@ def _gloo_probe():
     return out
 
 
+# the one-card gloo gangs (phases 11, 13-15, 17, 18) and the one-process
+# runs each is held to train GANG_LAYERS layers of every transformer family:
+# the published widths, head counts, sequence lengths and batches, the
+# depth cut (a gang's step is mostly its gradients' trips through gloo and
+# the host, which scale with the parameters). The entry-point env carries
+# it as GANG_LAYERS; the nccl phase's gangs keep the full depth
+GANG_LAYERS = 2
+TRANSFORMER_FAMILIES = ("gpt", "bert", "t5", "vit")
+
+
+@contextlib.contextmanager
+def gang_depth(layers):
+    """Inside this block every transformer family's presets (base and
+    tiny) build ``layers`` layers unless the caller names a depth (None:
+    the presets as they are)."""
+    import functools
+    import importlib
+
+    if layers is None:
+        yield
+        return
+    saved = []
+    for family in TRANSFORMER_FAMILIES:
+        module = importlib.import_module(f"tfk8s_tpu_torch.models.{family}")
+        for attr in ("base_config", "tiny_config"):
+            preset = getattr(module, attr)
+            saved.append((module, attr, preset))
+            setattr(module, attr, functools.partial(preset, num_layers=int(layers)))
+    try:
+        yield
+    finally:
+        for module, attr, preset in saved:
+            setattr(module, attr, preset)
+
+
+def family_layers(module, env):
+    """The layers ``module``'s preset builds under ``env`` (its
+    ``TFK8S_MODEL_PRESET`` and ``GANG_LAYERS``)."""
+    with gang_depth(env.get("GANG_LAYERS")):
+        tiny = env.get("TFK8S_MODEL_PRESET") == "tiny"
+        return (module.tiny_config if tiny else module.base_config)().num_layers
+
+
+# one-process references by (family, env): a phase whose gang is held to
+# the same run as an earlier phase's takes that run's result
+_ONE_PROCESS = {}
+
+
+def one_process(torch, fa, module, env):
+    """:func:`entry_steps` of ``module.train(env)``, run once per (family,
+    env) in this process: ``(losses, grads, step_ms, launches, fresh)``,
+    ``fresh`` False where an earlier phase ran it (its launches are that
+    run's and count there)."""
+    key = (module.__name__, json.dumps(env, sort_keys=True))
+    fresh = key not in _ONE_PROCESS
+    if fresh:
+        torch.cuda.empty_cache()
+        _ONE_PROCESS[key] = entry_steps(torch, fa, module, env)
+        torch.cuda.empty_cache()
+    return (*_ONE_PROCESS[key], fresh)
+
+
 def entry_steps(torch, fa, module, env, grads_of=None):
-    """``<family>:train(env)`` as a user calls it, watched from an
+    """``<family>:train(env)`` as a user calls it (at ``env``'s
+    GANG_LAYERS depth, :func:`gang_depth`), watched from an
     optimizer step pre-hook: the first step's whole update gradient (on
     the host, in the optimizer's parameter order, after the entry point's
     reductions; ``grads_of()`` gives it where the rank holds shards), the
@@ -2894,7 +2996,8 @@ def entry_steps(torch, fa, module, env, grads_of=None):
     handle = register_optimizer_step_pre_hook(hook)
     fa.reset_launches()
     try:
-        history = module.train(env)
+        with gang_depth(env.get("GANG_LAYERS")):
+            history = module.train(env)
     finally:
         handle.remove()
     launches = dict(fa.LAUNCHES)
@@ -2903,7 +3006,8 @@ def entry_steps(torch, fa, module, env, grads_of=None):
 
 
 PAR_WORKER = r"""
-import importlib, json, os, sys
+import importlib, json, os, sys, time
+T0 = time.perf_counter()
 sys.path.insert(0, os.environ["CHIP_SMOKE_ROOT"])
 import torch
 
@@ -2939,37 +3043,41 @@ def grads_of():
 
 
 ttrain.Trainer.init_state = holding
-for run in json.loads(base["RUNS"]):
-    env = dict(base, **run["env"])
-    heads.clear()
-    held.clear()
-    collectives.HOST_STAGED.clear()
-    gn.reset_launches()
-    if torch.cuda.is_available():
-        torch.cuda.reset_peak_memory_stats()
-    module = importlib.import_module("tfk8s_tpu_torch.models." + env["FAMILY"])
-    whole = bool(env.get("WHOLE_GRADS"))
-    with planted(torch, env.get("FAULT")):
-        losses, grads, step_ms, launches = entry_steps(torch, fa, module, env,
-                                                       grads_of if whole else None)
-        # the MoE block over this rank's mesh on a fixed input; every rank
-        # holds the whole output
-        block = moe_block_out(torch, held[-1][0].layout, env) if env.get("MOE_BLOCK") else None
-    # whole gradients are the same on every rank: the first one's is kept
-    keep = not whole or ctx.process_id == 0
-    torch.save(grads if keep else None, "%s-%d.pt" % (run["out"], ctx.process_id))
-    if block is not None and ctx.process_id == 0:
-        torch.save(block, run["out"] + "-moe.pt")
-    print("RANK " + json.dumps({
-        "name": run["name"], "rank": ctx.process_id, "losses": losses, "step_ms": step_ms,
-        "launches": launches, "gn_launches": dict(gn.LAUNCHES), "heads": sorted(heads),
-        "host_staged": sorted(collectives.HOST_STAGED),
-        "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if torch.cuda.is_available()
-        else None}), flush=True)
-    del grads, block
-    held.clear()
-    if torch.cuda.is_available():
-        torch.cuda.empty_cache()
+# a batch of runs a line on stdin, until it closes
+for batch in map(json.loads, sys.stdin):
+    for run in batch:
+        t_run = time.perf_counter()
+        env = dict(base, **run["env"])
+        heads.clear()
+        held.clear()
+        collectives.HOST_STAGED.clear()
+        gn.reset_launches()
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
+        module = importlib.import_module("tfk8s_tpu_torch.models." + env["FAMILY"])
+        whole = bool(env.get("WHOLE_GRADS"))
+        with planted(torch, env.get("FAULT")):
+            losses, grads, step_ms, launches = entry_steps(torch, fa, module, env,
+                                                           grads_of if whole else None)
+            # the MoE block over this rank's mesh on a fixed input; every rank
+            # holds the whole output
+            block = moe_block_out(torch, held[-1][0].layout, env) if env.get("MOE_BLOCK") else None
+        # whole gradients are the same on every rank: the first one's is kept
+        keep = not whole or ctx.process_id == 0
+        torch.save(grads if keep else None, "%s-%d.pt" % (run["out"], ctx.process_id))
+        if block is not None and ctx.process_id == 0:
+            torch.save(block, run["out"] + "-moe.pt")
+        print("RANK " + json.dumps({
+            "name": run["name"], "rank": ctx.process_id, "losses": losses, "step_ms": step_ms,
+            "launches": launches, "gn_launches": dict(gn.LAUNCHES), "heads": sorted(heads),
+            "host_staged": sorted(collectives.HOST_STAGED),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if torch.cuda.is_available()
+            else None, "started_s": t_run - T0, "run_s": time.perf_counter() - t_run}), flush=True)
+        del grads, block
+        held.clear()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    print("BATCH_DONE", flush=True)
 """
 
 
@@ -3020,12 +3128,105 @@ def planted(torch, fault):
         setattr(owner, attr, saved)
 
 
+class GangPool:
+    """``n`` PAR_WORKER processes joined on a free port over ``backend``
+    (gloo ranks share the one card; NCCL ranks take a card each). A batch
+    of runs is one line on every process's stdin, answered by a RANK line a
+    run and a BATCH_DONE line from each process; the processes end when
+    their stdin closes. A gang kept for several batches pays its processes'
+    start-up and first-run costs once. A process that exits before, or a
+    batch past PARALLEL["timeout_s"], kills the processes and fails the
+    batch."""
+
+    def __init__(self, n, backend):
+        import queue
+        import socket
+        import threading
+
+        sock = socket.socket()
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.n, self.backend, self.procs, self.queues = n, backend, [], []
+        for rank in range(n):
+            penv = dict(os.environ, CHIP_SMOKE_ROOT=root, TFK8S_DISTRIBUTED="1",
+                        TFK8S_NUM_PROCESSES=str(n), TFK8S_PROCESS_ID=str(rank),
+                        TFK8S_COORDINATOR_ADDRESS=f"127.0.0.1:{port}", GANG_BACKEND=backend)
+            if DEVICE == "cpu":
+                penv["TFK8S_DEVICE"] = "cpu"
+            p = subprocess.Popen([sys.executable, "-c", PAR_WORKER], env=penv, cwd=root,
+                                 stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+            q = queue.Queue()
+
+            def drain(p=p, q=q):
+                for line in p.stdout:
+                    q.put(line)
+                q.put(None)
+
+            threading.Thread(target=drain, daemon=True).start()
+            self.procs.append(p)
+            self.queues.append(q)
+
+    def batch(self, runs):
+        """The processes' output of the batch ``runs`` (its JSON line), a
+        text a process."""
+        import queue
+
+        for p in self.procs:
+            p.stdin.write(runs + "\n")
+            p.stdin.flush()
+        deadline = time.perf_counter() + PARALLEL["timeout_s"]
+        texts = []
+        for rank, q in enumerate(self.queues):
+            lines = []
+            while True:
+                try:
+                    line = q.get(timeout=max(deadline - time.perf_counter(), 0.1))
+                except queue.Empty:
+                    self.close()
+                    raise AssertionError(f"gang of {self.n} ran past "
+                                         f"{PARALLEL['timeout_s']} s")
+                if line is None:
+                    self.close()
+                    raise AssertionError(f"gang rank {rank} exited "
+                                         f"{self.procs[rank].wait()}:\n"
+                                         f"{''.join(lines)[-3000:]}")
+                if line.startswith("BATCH_DONE"):
+                    break
+                lines.append(line)
+            texts.append("".join(lines))
+        return texts
+
+    def close(self):
+        """End the processes: on the end of their stdin, or by force."""
+        for p in self.procs:
+            if not p.stdin.closed:
+                p.stdin.close()
+        for p in self.procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+
+# the gloo gangs kept across phases, by their size
+_GANGS = {}
+
+
+def close_gangs():
+    while _GANGS:
+        _GANGS.popitem()[1].close()
+
+
 def _run_par_gangs(n_procs, runs, backend="gloo"):
-    """One launch of ``n_procs`` PAR_WORKER processes on a free port (gloo
-    ranks share the one card; NCCL ranks take a card each) that drive the
-    ``runs`` in order, each ``{"name", "env", "out", "want"}`` (and
-    ``whole``, ``assemble``): an entry point's env over the process's own
-    (its ``FAMILY``, ``TFK8S_MESH``, ``FAULT`` ...). Returns ``{name:
+    """``n_procs`` PAR_WORKER processes (:class:`GangPool`: over gloo the
+    gang of that size kept across phases, over NCCL a launch of its own)
+    drive the ``runs`` in order, each ``{"name", "env", "out", "want"}``
+    (and ``whole``, ``assemble``): an entry point's env over the process's
+    own (its ``FAMILY``, ``TFK8S_MESH``, ``FAULT`` ...). Returns ``{name:
     (records, grads)}``: the run's RANK records in rank order, and the
     whole gradient of its first step put together from the ranks' files: a
     parameter shaped unlike ``want``'s (an expert shard, a tensor block) is
@@ -3033,46 +3234,41 @@ def _run_par_gangs(n_procs, runs, backend="gloo"):
     rank order along the dimension they split; ``assemble(parts)`` puts
     together ranks holding different parameters (pipeline stages); with
     ``WHOLE_GRADS`` only rank 0's file holds the gathered gradient."""
-    import socket
-
     import torch
 
-    sock = socket.socket()
-    sock.bind(("127.0.0.1", 0))
-    port = sock.getsockname()[1]
-    sock.close()
-    root = os.path.dirname(os.path.abspath(__file__))
     label = ", ".join(r["name"] for r in runs)
     spec = json.dumps([{k: r[k] for k in ("name", "env", "out")} for r in runs])
-    procs = []
-    for rank in range(n_procs):
-        penv = dict(os.environ, CHIP_SMOKE_ROOT=root, TFK8S_DISTRIBUTED="1",
-                    TFK8S_NUM_PROCESSES=str(n_procs), TFK8S_PROCESS_ID=str(rank),
-                    TFK8S_COORDINATOR_ADDRESS=f"127.0.0.1:{port}", GANG_BACKEND=backend,
-                    RUNS=spec)
-        if DEVICE == "cpu":
-            penv["TFK8S_DEVICE"] = "cpu"
-        procs.append(subprocess.Popen([sys.executable, "-c", PAR_WORKER], env=penv, cwd=root,
-                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                      text=True))
-    outs = []
+    t0 = time.perf_counter()
+    if backend == "gloo":
+        gang = _GANGS.get(n_procs) or _GANGS.setdefault(n_procs, GangPool(n_procs, backend))
+    else:
+        gang = GangPool(n_procs, backend)
     try:
-        for p in procs:
-            outs.append(p.communicate(timeout=PARALLEL["timeout_s"])[0])
-    except subprocess.TimeoutExpired:
-        raise AssertionError(f"{label}: gang of {n_procs} ran past {PARALLEL['timeout_s']} s")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        outs = gang.batch(spec)
+        if backend != "gloo":
+            gang.close()
+            if any(p.returncode for p in gang.procs):
+                raise AssertionError(f"exit codes {[p.returncode for p in gang.procs]}")
+    except Exception as e:  # noqa: BLE001 — the gang is ended, the batch fails
+        gang.close()
+        _GANGS.pop(n_procs, None)
+        raise AssertionError(f"{label}: {e}") from None
     records = {r["name"]: [] for r in runs}
-    for rank, (p, text) in enumerate(zip(procs, outs)):
+    for rank, text in enumerate(outs):
         lines = [json.loads(ln[5:]) for ln in text.splitlines() if ln.startswith("RANK ")]
-        if p.returncode != 0 or len(lines) != len(runs):
-            raise AssertionError(f"{label}: rank {rank} exited {p.returncode}:\n{text[-3000:]}")
+        if len(lines) != len(runs):
+            raise AssertionError(f"{label}: rank {rank} printed {len(lines)} results:\n"
+                                 f"{text[-3000:]}")
         for rec in lines:
             records[rec["name"]].append(rec)
+    # where a batch's time goes: the processes' age at its first run (their
+    # start-up, for a new gang), each run's slowest rank, then the
+    # gradients' assembly here
+    first = records[runs[0]["name"]]
+    timing = {"processes_s": time.perf_counter() - t0,
+              "started_s": max(r["started_s"] for r in first),
+              "runs_s": {name: max(r["run_s"] for r in recs) for name, recs in records.items()}}
+    t0 = time.perf_counter()
     result = {}
     for run in runs:
         name, out, want = run["name"], run["out"], run["want"]
@@ -3094,13 +3290,9 @@ def _run_par_gangs(n_procs, runs, backend="gloo"):
             dim = next(d for d in range(w.dim()) if ps[0].shape[d] != w.shape[d])
             grads.append(torch.cat([ps[r] for r in whole], dim=dim))
         result[name] = (sorted(records[name], key=lambda r: r["rank"]), grads)
+    timing["assembly_s"] = time.perf_counter() - t0
+    log(f"gang of {n_procs} ({backend}): {json.dumps(timing)}")
     return result
-
-
-def _run_par_gang(name, n_procs, env, out, want, backend="gloo", whole=None, assemble=None):
-    """One gang of one run (:func:`_run_par_gangs`): ``(records, grads)``."""
-    run = dict(name=name, env=env, out=out, want=want, whole=whole, assemble=assemble)
-    return _run_par_gangs(n_procs, [run], backend)[name]
 
 
 def _gang_check(name, records, grads, loss, want, launches, fault=False, heads=None,
@@ -3371,7 +3563,8 @@ def phase_parallel(torch, gpt, fa, root):
             torch.cuda.empty_cache()
     # (c)-(d) the gangs over gloo, two ranks sharing the card
     log(f"parallel gloo probe (CUDA tensors): {json.dumps(_gloo_probe())}")
-    _parallel_gangs(torch, gpt, fa, root, "gloo")
+    for k, v in _parallel_gangs(torch, gpt, fa, root, "gloo").items():
+        total[k] += v
     return total
 
 
@@ -3391,12 +3584,13 @@ PARALLEL_GANGS = [
 
 def _parallel_gangs(torch, gpt, fa, root, backend):
     """Each gang of PARALLEL_GANGS (the planted fault under gloo only)
-    through its family's ``train(env)``, PARALLEL["gang_steps"] steps, its
-    first step against one process's run of the same entry point on the
-    same global batch (per_host input, one shard) with flash attention.
-    Every rank must launch each tensor-core flash kernel layers x steps
-    times where its attention is flash (inside Ulysses too) and never
-    where it is the ring."""
+    through its family's ``train(env)``, PARALLEL["gang_steps"] steps (a
+    planted fault's one), its first step against one process's run of the
+    same entry point on the same global batch (per_host input, one shard)
+    with flash attention; over gloo at GANG_LAYERS layers. Every rank must
+    launch each tensor-core flash kernel layers x steps times where its
+    attention is flash (inside Ulysses too) and never where it is the
+    ring. Returns the launches of the one-process runs."""
     from tfk8s_tpu_torch.models import bert
 
     work = os.path.join(root, "build", "chip_smoke_parallel")
@@ -3405,10 +3599,12 @@ def _parallel_gangs(torch, gpt, fa, root, backend):
     tiny = PARALLEL_ENV.get("TFK8S_MODEL_PRESET") == "tiny"
     p, steps = PARALLEL, PARALLEL["gang_steps"]
     modules = {"bert": bert, "gpt": gpt}
+    total = dict.fromkeys(fa.KERNELS, 0)
 
-    def base_env(fam):
+    def base_env(fam, steps):
         return dict({"TFK8S_MODEL_PRESET": "tiny"} if tiny else {},
                     **({"TFK8S_DEVICE": "cpu"} if DEVICE == "cpu" else {}),
+                    **({"GANG_LAYERS": str(GANG_LAYERS)} if backend == "gloo" else {}),
                     TFK8S_SEQ_LEN=str(p[f"{fam}_seq"]), TFK8S_BATCH_SIZE=str(p[f"{fam}_batch"]),
                     TFK8S_TRAIN_STEPS=str(steps), TFK8S_LOG_EVERY="1",
                     TFK8S_LEARNING_RATE="1e-4", TFK8S_SEED=str(p["seed"]),
@@ -3420,24 +3616,26 @@ def _parallel_gangs(torch, gpt, fa, root, backend):
             continue
         fam = "bert" if ref == "bert" else "gpt"
         module = modules[fam]
-        layers = (module.tiny_config if tiny else module.base_config)().num_layers
+        layers = family_layers(module, base_env(fam, steps))
         if ref not in refs:
-            env = dict(base_env(fam), TFK8S_ATTENTION_IMPL="flash")
+            env = dict(base_env(fam, steps), TFK8S_ATTENTION_IMPL="flash")
             if ref == "gpt_moe":
                 env["TFK8S_NUM_EXPERTS"] = extra["TFK8S_NUM_EXPERTS"]
-            torch.cuda.empty_cache()
-            losses, grads, one_ms, launches = entry_steps(torch, fa, module, env)
+            losses, grads, one_ms, launches, fresh = one_process(torch, fa, module, env)
             flash = {**dict.fromkeys(fa.SIMT_KERNELS, 0),
                      **dict.fromkeys(fa.TENSOR_CORE_KERNELS, layers * steps)}
             if launches != flash:
                 raise AssertionError(f"{ref} one process: flash launches {launches}, "
                                      f"want {flash}")
+            for k, v in launches.items():
+                total[k] += v if fresh else 0
             refs[ref] = (losses[0], grads, one_ms)
-            torch.cuda.empty_cache()
         ring = extra["TFK8S_ATTENTION_IMPL"] == "ring"
+        run_steps = 1 if fault else steps
         want_launches = {**dict.fromkeys(fa.SIMT_KERNELS, 0),
-                         **dict.fromkeys(fa.TENSOR_CORE_KERNELS, 0 if ring else layers * steps)}
-        env = dict(base_env(fam), TFK8S_MESH=mesh, FAMILY=fam, **extra)
+                         **dict.fromkeys(fa.TENSOR_CORE_KERNELS,
+                                         0 if ring else layers * run_steps)}
+        env = dict(base_env(fam, run_steps), TFK8S_MESH=mesh, FAMILY=fam, **extra)
         runs.append(dict(name=name, env=env, out=os.path.join(work, name), want=refs[ref][1],
                          ref=ref, launches=want_launches, fault=fault))
     # the gangs run in one launch of two ranks, in turn
@@ -3456,6 +3654,7 @@ def _parallel_gangs(torch, gpt, fa, root, backend):
     shutil.rmtree(work, ignore_errors=True)
     del refs
     torch.cuda.empty_cache()
+    return total
 
 
 # phase tensor: the tensor axis at full width. Each family's gang runs its
@@ -3495,24 +3694,28 @@ TENSOR_KERNEL_CASES = [
 ]
 
 
-def _tensor_env(extra):
+def _tensor_env(extra, backend="gloo", steps=None):
     tiny = PARALLEL_ENV.get("TFK8S_MODEL_PRESET") == "tiny"
     return dict({"TFK8S_MODEL_PRESET": "tiny"} if tiny else {},
                 **({"TFK8S_DEVICE": "cpu"} if DEVICE == "cpu" else {}),
-                **extra, TFK8S_TRAIN_STEPS=str(TENSOR["gang_steps"]), TFK8S_LOG_EVERY="1",
+                **({"GANG_LAYERS": str(GANG_LAYERS)} if backend == "gloo" else {}),
+                **extra, TFK8S_TRAIN_STEPS=str(steps or TENSOR["gang_steps"]),
+                TFK8S_LOG_EVERY="1",
                 TFK8S_LEARNING_RATE="1e-4", TFK8S_SEED=str(TENSOR["seed"]),
                 TFK8S_INPUT_MODE="per_host", TFK8S_INPUT_SHARDS="2",
                 TFK8S_ATTENTION_IMPL="flash")
 
 
-def _tensor_gangs(torch, fa, root, backend, gangs):
+def _tensor_gangs(torch, fa, root, backend, gangs, also=()):
     """Each gang ``(name, family, mesh, env, sites, fault)`` through its
-    family's ``train(env)`` with ``TFK8S_MESH`` set, its first step against
+    family's ``train(env)`` with ``TFK8S_MESH`` set (over gloo at
+    GANG_LAYERS layers; a planted fault one step), its first step against
     one process's (loss within PARALLEL_LOSS_ATOL, every gradient within
     FAMILY_GRAD_REL_L2, a planted fault beyond them); every rank launches
     each tensor-core flash kernel sites x layers x steps times (T5's three
-    sites a layer), every forward at h / tensor heads. Returns the launches
-    of the one-process runs."""
+    sites a layer), every forward at h / tensor heads. ``also``: runs of
+    other families in the same launches, each with its own ``check(records,
+    grads)``. Returns the launches of the one-process runs."""
     import importlib
 
     work = os.path.join(root, "build", "chip_smoke_tensor")
@@ -3522,26 +3725,32 @@ def _tensor_gangs(torch, fa, root, backend, gangs):
     total = dict.fromkeys(fa.KERNELS, 0)
     for name, family, mesh, extra, sites, fault in gangs:
         module = importlib.import_module(f"tfk8s_tpu_torch.models.{family}")
-        env = _tensor_env(extra)
+        env = _tensor_env(extra, backend)
         cfg = (module.tiny_config if "TFK8S_MODEL_PRESET" in env else module.base_config)()
-        launches = {**dict.fromkeys(fa.SIMT_KERNELS, 0),
-                    **dict.fromkeys(fa.TENSOR_CORE_KERNELS, sites * cfg.num_layers * steps)}
+        layers = family_layers(module, env)
+        run_steps = 1 if fault else steps
+
+        def flash(n_steps):
+            return {**dict.fromkeys(fa.SIMT_KERNELS, 0),
+                    **dict.fromkeys(fa.TENSOR_CORE_KERNELS, sites * layers * n_steps)}
+
         if family not in refs:
-            torch.cuda.empty_cache()
-            losses, grads, one_ms, got = entry_steps(torch, fa, module, env)
-            if got != launches:
+            losses, grads, one_ms, got, fresh = one_process(torch, fa, module, env)
+            if got != flash(steps):
                 raise AssertionError(f"{family} one process: flash launches {got}, "
-                                     f"want {launches}")
+                                     f"want {flash(steps)}")
             for k, v in got.items():
-                total[k] += v
+                total[k] += v if fresh else 0
             refs[family] = (losses[0], grads, one_ms)
-            torch.cuda.empty_cache()
         t = mesh["tensor"]
         runs.append(dict(name=name, out=os.path.join(work, name), want=refs[family][1],
                          whole=range(t), n=math.prod(mesh.values()), family=family,
-                         mesh=mesh, fault=fault, launches=launches, heads=cfg.num_heads // t,
-                         env=dict(env, TFK8S_MESH=json.dumps(mesh), FAMILY=family,
+                         mesh=mesh, fault=fault, launches=flash(run_steps),
+                         heads=cfg.num_heads // t,
+                         env=dict(_tensor_env(extra, backend, run_steps),
+                                  TFK8S_MESH=json.dumps(mesh), FAMILY=family,
                                   **({"FAULT": fault} if fault else {}))))
+    runs += [dict(run, out=os.path.join(work, run["name"])) for run in also]
     # the gangs of one size run in one launch, in turn
     for n in sorted({r["n"] for r in runs}):
         batch = [r for r in runs if r["n"] == n]
@@ -3552,6 +3761,9 @@ def _tensor_gangs(torch, fa, root, backend, gangs):
         for run in batch:
             name = run["name"]
             records, grads = results.pop(name)
+            if "check" in run:
+                run["check"](records, grads)
+                continue
             loss, want, one_ms = refs[run["family"]]
             errs = _gang_check(f"{name} ({backend})", records, grads, loss, want,
                                run["launches"], fault=bool(run["fault"]), heads=[run["heads"]])
@@ -3561,12 +3773,13 @@ def _tensor_gangs(torch, fa, root, backend, gangs):
     return total
 
 
-def _dlrm(torch, fa, root):
+def _dlrm(torch, fa):
     """``dlrm:train`` at its defaults (eight tables of 100,000 x 64, batch
     4,096, bf16 compute): TENSOR["dlrm_steps"] steps in one process, whose
-    loss must fall, then a TENSOR_MESH gang's first update against the one
-    process's, and the step on batches staged on the card with its
-    profiler split. No flash kernel runs on this path."""
+    loss must fall, and the step on batches staged on the card with its
+    profiler split. No flash kernel runs on this path. Returns its
+    TENSOR_MESH gang, a run of the tensor phase's launch whose first update
+    is held to the one process's (the whole gradient and each table's)."""
     from tfk8s_tpu_torch.models import dlrm
 
     none = dict.fromkeys(fa.KERNELS, 0)
@@ -3588,23 +3801,22 @@ def _dlrm(torch, fa, root):
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"dlrm: the loss did not fall: {losses}")
     log(f"tensor dlrm staged step: {json.dumps(_staged_step(torch, dlrm.make_task(), 5))}")
-    work = os.path.join(root, "build", "chip_smoke_dlrm")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
-    t0 = time.perf_counter()
     gang_env = dict(env, TFK8S_TRAIN_STEPS=str(TENSOR["gang_steps"]),
                     TFK8S_MESH=json.dumps(TENSOR_MESH), FAMILY="dlrm")
-    records, grads = _run_par_gang("dlrm_tensor", 2, gang_env, os.path.join(work, "dlrm"), want)
-    errs = _gang_check("dlrm_tensor (gloo)", records, grads, losses[0], want, none)
-    # the tables lead the optimizer's parameter order; each on its own
-    vocab = env.get("TFK8S_VOCAB_SIZES")
-    tables = range(len(vocab.split(",")) if vocab else len(dlrm.DEFAULT_VOCAB_SIZES))
-    errs["worst_table_rel_l2"] = max(_grads_rel_l2({0: grads[t]}, {0: want[t]}) for t in tables)
-    if not errs["worst_table_rel_l2"] <= FAMILY_GRAD_REL_L2:
-        raise AssertionError(f"dlrm_tensor: a table's gradient beyond {FAMILY_GRAD_REL_L2}: "
-                             f"{errs}")
-    log(f"tensor gang dlrm_tensor {json.dumps(TENSOR_MESH)} (gloo): {json.dumps({**errs, 'one_process_step_ms': one_ms, 'wall_s': time.perf_counter() - t0, 'ranks': records})}")
-    shutil.rmtree(work, ignore_errors=True)
+
+    def check(records, grads):
+        errs = _gang_check("dlrm_tensor (gloo)", records, grads, losses[0], want, none)
+        # the tables lead the optimizer's parameter order; each on its own
+        vocab = env.get("TFK8S_VOCAB_SIZES")
+        tables = range(len(vocab.split(",")) if vocab else len(dlrm.DEFAULT_VOCAB_SIZES))
+        errs["worst_table_rel_l2"] = max(_grads_rel_l2({0: grads[t]}, {0: want[t]})
+                                         for t in tables)
+        if not errs["worst_table_rel_l2"] <= FAMILY_GRAD_REL_L2:
+            raise AssertionError(f"dlrm_tensor: a table's gradient beyond "
+                                 f"{FAMILY_GRAD_REL_L2}: {errs}")
+        log(f"tensor gang dlrm_tensor {json.dumps(TENSOR_MESH)} (gloo): {json.dumps({**errs, 'one_process_step_ms': one_ms, 'ranks': records})}")
+
+    return dict(name="dlrm_tensor", env=gang_env, want=want, n=2, check=check)
 
 
 def phase_tensor(torch, fa, root):
@@ -3619,10 +3831,10 @@ def phase_tensor(torch, fa, root):
         torch.cuda.empty_cache()
     log("tensor: the gangs' steps are two gloo ranks sharing one card; they measure gloo's "
         "host round trips, not scaling")
-    total = _tensor_gangs(torch, fa, root, "gloo",
-                          [(n, f, TENSOR_MESH, e, s, x) for n, f, e, s, x in TENSOR_GANGS])
-    _dlrm(torch, fa, root)
-    return total
+    dlrm_gang = _dlrm(torch, fa)
+    return _tensor_gangs(torch, fa, root, "gloo",
+                         [(n, f, TENSOR_MESH, e, s, x) for n, f, e, s, x in TENSOR_GANGS],
+                         also=[dlrm_gang])
 
 
 # phase axes: the combined model axes at full width. Each gang runs its
@@ -3714,10 +3926,11 @@ def moe_block_out(torch, mesh, env):
     return y.float().cpu()
 
 
-def _axes_env(extra, steps):
+def _axes_env(extra, steps, backend="gloo"):
     tiny = PARALLEL_ENV.get("TFK8S_MODEL_PRESET") == "tiny"
     return dict({"TFK8S_MODEL_PRESET": "tiny"} if tiny else {},
                 **({"TFK8S_DEVICE": "cpu"} if DEVICE == "cpu" else {}),
+                **({"GANG_LAYERS": str(GANG_LAYERS)} if backend == "gloo" else {}),
                 **extra, TFK8S_TRAIN_STEPS=str(steps), TFK8S_LOG_EVERY="1",
                 TFK8S_LEARNING_RATE="1e-4", TFK8S_SEED=str(AXES["seed"]),
                 TFK8S_INPUT_MODE="per_host", TFK8S_INPUT_SHARDS="2")
@@ -3726,7 +3939,8 @@ def _axes_env(extra, steps):
 def _axes_gangs(torch, fa, root, backend, gangs):
     """Each gang ``(name, family, mesh, env, fault)`` through its
     family's ``train(env)`` (Ulysses by the policy where the mesh has a
-    sequence axis, the flash kernels inside; flash elsewhere), its first
+    sequence axis, the flash kernels inside; flash elsewhere; over gloo at
+    GANG_LAYERS layers), its first
     step against one process's with flash (PARALLEL_LOSS_ATOL,
     FAMILY_GRAD_REL_L2; a planted fault beyond them), every rank launching
     each tensor-core kernel layers x steps times, every forward at the
@@ -3744,32 +3958,32 @@ def _axes_gangs(torch, fa, root, backend, gangs):
         module = importlib.import_module(f"tfk8s_tpu_torch.models.{family}")
         steps = AXES["fault_steps" if fault else "gang_steps"]
         cfg = (module.tiny_config if tiny else module.base_config)()
+        layers = family_layers(module, _axes_env(extra, steps, backend))
         key = (family, extra.get("TFK8S_NUM_EXPERTS"))
         if key not in refs:
-            env = _axes_env(dict(extra, TFK8S_ATTENTION_IMPL="flash"), AXES["gang_steps"])
-            torch.cuda.empty_cache()
-            losses, grads, one_ms, got = entry_steps(torch, fa, module, env)
+            env = _axes_env(dict(extra, TFK8S_ATTENTION_IMPL="flash"), AXES["gang_steps"],
+                            backend)
+            losses, grads, one_ms, got, fresh = one_process(torch, fa, module, env)
             want = {**dict.fromkeys(fa.SIMT_KERNELS, 0),
-                    **dict.fromkeys(fa.TENSOR_CORE_KERNELS, cfg.num_layers * AXES["gang_steps"])}
+                    **dict.fromkeys(fa.TENSOR_CORE_KERNELS, layers * AXES["gang_steps"])}
             if got != want:
                 raise AssertionError(f"{key} one process: flash launches {got}, want {want}")
             for k, v in got.items():
-                total[k] += v
+                total[k] += v if fresh else 0
             refs[key] = (losses[0], grads, one_ms)
-            torch.cuda.empty_cache()
         impl = "auto" if "sequence" in mesh else "flash"
         # an expert x tensor gang also runs one MoE block on a fixed input:
         # the unsummed wo blocks halve its output, which the first update
         # barely feels (the block's output is small beside the residual)
         block = "expert" in mesh and "tensor" in mesh
-        env = dict(_axes_env(dict(extra, TFK8S_ATTENTION_IMPL=impl), steps),
+        env = dict(_axes_env(dict(extra, TFK8S_ATTENTION_IMPL=impl), steps, backend),
                    TFK8S_MESH=json.dumps(mesh), FAMILY=family, WHOLE_GRADS="1",
                    **({"FAULT": fault} if fault else {}), **({"MOE_BLOCK": "1"} if block else {}))
         runs.append(dict(name=name, env=env, out=os.path.join(work, name),
                          want=refs[key][1], n=math.prod(mesh.values())))
         checks[name] = (mesh, key, fault, block, env, {
             **dict.fromkeys(fa.SIMT_KERNELS, 0),
-            **dict.fromkeys(fa.TENSOR_CORE_KERNELS, cfg.num_layers * steps)},
+            **dict.fromkeys(fa.TENSOR_CORE_KERNELS, layers * steps)},
             cfg.num_heads // mesh.get("tensor", 1) // mesh.get("sequence", 1))
     one_block = None
     for n in sorted({r["n"] for r in runs}):
@@ -3797,8 +4011,9 @@ def _axes_gangs(torch, fa, root, backend, gangs):
 
 
 def _axes_gen_model(torch, env):
-    """``(rank, model, prompts)``: GPT-2-small in ``env["GEN_DTYPE"]`` with
-    flash attention, its initial parameters those of one process at
+    """``(rank, model, prompts)``: GPT-2-small (at ``env``'s GANG_LAYERS
+    depth) in ``env["GEN_DTYPE"]`` with flash attention, its initial
+    parameters those of one process at
     AXES["gen_seed"], over ``env``'s mesh (a process group's
     ``TFK8S_MESH``, else one process), and the AXES prompts on the card."""
     import numpy as np
@@ -3809,7 +4024,8 @@ def _axes_gen_model(torch, env):
     from tfk8s_tpu_torch.runtime import train as ttrain
 
     preset = gpt.tiny_config if env.get("TFK8S_MODEL_PRESET") == "tiny" else gpt.base_config
-    cfg = preset(dtype=getattr(torch, env["GEN_DTYPE"]), attention_impl="flash")
+    cfg = preset(dtype=getattr(torch, env["GEN_DTYPE"]), attention_impl="flash",
+                 **({"num_layers": int(env["GANG_LAYERS"])} if env.get("GANG_LAYERS") else {}))
     _ctx, device, mesh = ttrain.join_mesh(dict(env, TFK8S_DEVICE=env.get("TFK8S_DEVICE",
                                                                           DEVICE)))
     model = init_sharded(lambda m: gpt.GPTLM(cfg, mesh=m), init_params,
@@ -3839,7 +4055,8 @@ def _axes_gen_run(torch, fa, model, prompts):
 
 def _axes_generate(torch, fa, root):
     """GPT-2-small ``greedy_generate`` (8 prompts of 512, 32 tokens, flash
-    prefill) on a ``{"tensor": 2}`` gang of two gloo ranks sharing the
+    prefill; GANG_LAYERS layers) on a ``{"tensor": 2}`` gang of two gloo
+    ranks sharing the
     card against one process, in float32 then bfloat16 (one launch of the
     gang): in float32 the tokens equal except at a near tie
     (``_greedy_check``: the serving phases' rule, against the one
@@ -3850,7 +4067,7 @@ def _axes_generate(torch, fa, root):
 
     total = dict.fromkeys(fa.KERNELS, 0)
     tiny = PARALLEL_ENV.get("TFK8S_MODEL_PRESET") == "tiny"
-    base = {"TFK8S_MODEL_PRESET": "tiny"} if tiny else {}
+    base = dict({"TFK8S_MODEL_PRESET": "tiny"} if tiny else {}, GANG_LAYERS=str(GANG_LAYERS))
     ones = {}
     for dtype in AXES_GEN_DTYPES:
         _rank, model, prompts = _axes_gen_model(torch, dict(base, GEN_DTYPE=dtype))
@@ -3984,16 +4201,20 @@ PIPELINE_NCCL_GANGS = [
 ]
 
 
-def _pipeline_env(steps):
+def _pipeline_env(steps, backend="nccl"):
+    """The pipelined entry point's env: PIPELINE_ENV's 12 layers, or over
+    gloo GANG_LAYERS (a layer a stage on ``{"pipeline": 2}``)."""
     tiny = PARALLEL_ENV.get("TFK8S_MODEL_PRESET") == "tiny"
-    return dict(PIPELINE_ENV, **({"TFK8S_MODEL_PRESET": "tiny", "TFK8S_NUM_LAYERS": "4"}
-                                 if tiny else {}),
-                **({"TFK8S_DEVICE": "cpu"} if DEVICE == "cpu" else {}),
-                TFK8S_TRAIN_STEPS=str(steps), TFK8S_SEED=str(PIPELINE["seed"]))
+    return {**PIPELINE_ENV,
+            **({"TFK8S_MODEL_PRESET": "tiny", "TFK8S_NUM_LAYERS": "4"} if tiny else {}),
+            **({"TFK8S_NUM_LAYERS": str(GANG_LAYERS)} if backend == "gloo" else {}),
+            **({"TFK8S_DEVICE": "cpu"} if DEVICE == "cpu" else {}),
+            "TFK8S_TRAIN_STEPS": str(steps), "TFK8S_SEED": str(PIPELINE["seed"])}
 
 
-def _pipeline_reference(torch, fa, gn, steps=None):
-    """One process's ``pipelined:train`` (one stage holding every layer):
+def _pipeline_reference(torch, fa, gn, steps=None, backend="nccl"):
+    """One process's ``pipelined:train`` (one stage holding every layer;
+    ``backend`` picks the depth, :func:`_pipeline_env`):
     ``(first loss, first update's gradient, step ms)`` and its summary,
     with no kernel launched (counts zeroed just before it)."""
     from tfk8s_tpu_torch.models import pipelined
@@ -4003,7 +4224,8 @@ def _pipeline_reference(torch, fa, gn, steps=None):
     torch.cuda.reset_peak_memory_stats()
     gn.reset_launches()
     t0 = time.perf_counter()
-    losses, want, one_ms, launches = entry_steps(torch, fa, pipelined, _pipeline_env(steps))
+    losses, want, one_ms, launches, _fresh = one_process(torch, fa, pipelined,
+                                                        _pipeline_env(steps, backend))
     summary = {"steps": len(losses), "losses": losses, "step_ms": one_ms,
                "wall_s": time.perf_counter() - t0,
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -4016,7 +4238,7 @@ def _pipeline_reference(torch, fa, gn, steps=None):
 
 
 def _pipeline_stages(mesh):
-    """``assemble`` for ``_run_par_gang``: the whole gradient in the one
+    """``assemble`` for ``_run_par_gangs``: the whole gradient in the one
     process's parameter order from the ranks' (each ``[embedding...,
     its stage's layers..., final norm...]``): the embedding and the final
     norm from rank 0, each stage's layers from its first data rank."""
@@ -4031,31 +4253,46 @@ def _pipeline_stages(mesh):
 
 def _pipeline_gangs(torch, fa, gn, root, backend, gangs, reference):
     """Each gang ``(name, mesh, extra env, fault)`` through
-    ``pipelined:train`` for PIPELINE["gang_steps"] steps, its first update
-    against one process's ``reference`` (loss within PARALLEL_LOSS_ATOL,
-    the whole gradient within FAMILY_GRAD_REL_L2, a planted fault beyond
-    them; ``reference``: its first loss, gradient and step ms); no rank
-    may launch a flash or GroupNorm kernel."""
+    ``pipelined:train`` for PIPELINE["gang_steps"] steps (a planted fault's
+    one; over gloo at GANG_LAYERS layers, the gangs of one size in one
+    launch), its first update against one process's ``reference`` (loss
+    within PARALLEL_LOSS_ATOL, the whole gradient within
+    FAMILY_GRAD_REL_L2, a planted fault beyond them; ``reference``: its
+    first loss, gradient and step ms at the same depth); no rank may launch
+    a flash or GroupNorm kernel."""
     work = os.path.join(root, "build", "chip_smoke_pipeline")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     loss, want, one_ms = reference
     none = dict.fromkeys(fa.KERNELS, 0)
+    runs = []
     for name, mesh, extra, fault in gangs:
-        t0 = time.perf_counter()
-        env = dict(_pipeline_env(PIPELINE["gang_steps"]), TFK8S_MESH=json.dumps(mesh),
+        steps = 1 if fault and backend == "gloo" else PIPELINE["gang_steps"]
+        env = dict(_pipeline_env(steps, backend), TFK8S_MESH=json.dumps(mesh),
                    FAMILY="pipelined", **extra, **({"FAULT": fault} if fault else {}))
-        records, grads = _run_par_gang(name, math.prod(mesh.values()), env,
-                                       os.path.join(work, name), want, backend,
-                                       assemble=_pipeline_stages(mesh))
-        errs = _gang_check(f"{name} ({backend})", records, grads, loss, want, none,
-                           fault=bool(fault))
-        for r in records:
-            if any(r["gn_launches"].values()):
-                raise AssertionError(f"{name}: rank {r['rank']} GroupNorm launches "
-                                     f"{r['gn_launches']}")
-        del grads
-        log(f"pipeline gang {name} {json.dumps(mesh)} {json.dumps(extra)} ({backend}): {json.dumps({**errs, 'one_process_loss': loss, 'one_process_step_ms': one_ms, 'wall_s': time.perf_counter() - t0, 'ranks': records})}")
+        runs.append(dict(name=name, env=env, out=os.path.join(work, name), want=want,
+                         assemble=_pipeline_stages(mesh), mesh=mesh, extra=extra, fault=fault,
+                         n=math.prod(mesh.values())))
+    # over gloo the gangs of one size share a launch; over NCCL each has its own
+    launches = ([[r for r in runs if r["n"] == n] for n in sorted({r["n"] for r in runs})]
+                if backend == "gloo" else [[r] for r in runs])
+    for batch in launches:
+        t0 = time.perf_counter()
+        results = _run_par_gangs(batch[0]["n"], batch, backend)
+        wall = time.perf_counter() - t0
+        log(f"pipeline: {len(batch)} gangs of {batch[0]['n']} ranks in one launch ({backend}), "
+            f"{wall:.1f} s")
+        for run in batch:
+            name, mesh = run["name"], run["mesh"]
+            records, grads = results.pop(name)
+            errs = _gang_check(f"{name} ({backend})", records, grads, loss, want, none,
+                               fault=bool(run["fault"]))
+            for r in records:
+                if any(r["gn_launches"].values()):
+                    raise AssertionError(f"{name}: rank {r['rank']} GroupNorm launches "
+                                         f"{r['gn_launches']}")
+            del grads
+            log(f"pipeline gang {name} {json.dumps(mesh)} {json.dumps(run['extra'])} ({backend}): {json.dumps({**errs, 'one_process_loss': loss, 'one_process_step_ms': one_ms, 'launch_wall_s': wall, 'ranks': records})}")
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
 
@@ -4067,7 +4304,7 @@ def phase_pipeline(torch, fa, gn, root):
     runs on this path: returns its launches, all zero."""
     from tfk8s_tpu_torch.models import bert, pipelined
 
-    reference, summary = _pipeline_reference(torch, fa, gn, PIPELINE["one_steps"])
+    summary = _pipeline_reference(torch, fa, gn, PIPELINE["one_steps"])[1]
     log(f"pipeline one process (one stage, no kernel runs on this path): {json.dumps(summary)}")
     # the same step on batches staged on the card, and BERT's unpipelined
     # stack on the same batch: what the schedule costs in one process
@@ -4081,7 +4318,10 @@ def phase_pipeline(torch, fa, gn, root):
         log(f"pipeline staged step, {name}: {json.dumps(_staged_step(torch, task, 5))}")
     log("pipeline: the gangs' steps are two gloo ranks sharing one card; they measure gloo's "
         "host round trips, not scaling")
-    _pipeline_gangs(torch, fa, gn, root, "gloo", PIPELINE_GANGS, reference)
+    # the gangs' one process: GANG_LAYERS layers, no kernel either
+    gang_reference, gang_summary = _pipeline_reference(torch, fa, gn, backend="gloo")
+    log(f"pipeline gangs' one process ({GANG_LAYERS} layers): {json.dumps(gang_summary)}")
+    _pipeline_gangs(torch, fa, gn, root, "gloo", PIPELINE_GANGS, gang_reference)
     return {**summary["flash_launches"], **summary["group_norm_launches"]}
 
 
@@ -4106,14 +4346,15 @@ PIPELINE_AXES_GANGS = [
 PIPELINE_AXES_NCCL_GANGS = ("pipelined_pipeline_tensor", "gpt_pipeline_tensor")
 
 
-def _pipeline_axes_env(family, extra, steps):
+def _pipeline_axes_env(family, extra, steps, backend="gloo"):
     """A gang's (or its one process's) entry-point env: the pipelined
-    family's PIPELINE_ENV, GPT's AXES env with flash attention, DLRM's
-    defaults (cut on the CPU rehearsal)."""
+    family's PIPELINE_ENV, GPT's AXES env with flash attention (both over
+    gloo at GANG_LAYERS layers), DLRM's defaults (cut on the CPU
+    rehearsal)."""
     if family == "pipelined":
-        return _pipeline_env(steps)
+        return _pipeline_env(steps, backend)
     if family == "gpt":
-        return _axes_env(dict(extra, TFK8S_ATTENTION_IMPL="flash"), steps)
+        return _axes_env(dict(extra, TFK8S_ATTENTION_IMPL="flash"), steps, backend)
     env = dict({"TFK8S_DEVICE": "cpu", "TFK8S_VOCAB_SIZES": "1001,64,37",
                 "TFK8S_BATCH_SIZE": "64", "TFK8S_EMBED_DIM": "16"} if DEVICE == "cpu" else {},
                TFK8S_TRAIN_STEPS=str(steps), TFK8S_LOG_EVERY="1",
@@ -4146,23 +4387,23 @@ def _pipeline_axes_gangs(torch, fa, gn, root, backend, gangs):
         if family == "gpt":
             cfg = (module.tiny_config if "TFK8S_MODEL_PRESET" in _axes_env({}, 1)
                    else module.base_config)()
-            sites, heads = cfg.num_layers, [cfg.num_heads // mesh.get("tensor", 1)]
+            sites = family_layers(module, _pipeline_axes_env(family, extra, steps, backend))
+            heads = [cfg.num_heads // mesh.get("tensor", 1)]
         launches = {**none, **dict.fromkeys(fa.TENSOR_CORE_KERNELS, sites * steps)}
         key = (family, extra.get("TFK8S_NUM_EXPERTS"))
         if key not in refs:
-            torch.cuda.empty_cache()
             gn.reset_launches()
-            env = _pipeline_axes_env(family, extra, AXES["gang_steps"])
-            losses, grads, one_ms, got = entry_steps(torch, fa, module, env)
+            env = _pipeline_axes_env(family, extra, AXES["gang_steps"], backend)
+            losses, grads, one_ms, got, fresh = one_process(torch, fa, module, env)
             want = {**none, **dict.fromkeys(fa.TENSOR_CORE_KERNELS, sites * AXES["gang_steps"])}
             if got != want or any(gn.LAUNCHES.values()):
                 raise AssertionError(f"{key} one process: launches {got} "
                                      f"{dict(gn.LAUNCHES)}, want {want}")
             for k, v in got.items():
-                total[k] += v
+                total[k] += v if fresh else 0
             refs[key] = (losses[0], grads, one_ms)
-            torch.cuda.empty_cache()
-        env = dict(_pipeline_axes_env(family, extra, steps), TFK8S_MESH=json.dumps(mesh),
+        env = dict(_pipeline_axes_env(family, extra, steps, backend),
+                   TFK8S_MESH=json.dumps(mesh),
                    FAMILY=family, WHOLE_GRADS="1", **({"FAULT": fault} if fault else {}))
         runs.append(dict(name=name, env=env, out=os.path.join(work, name), want=refs[key][1],
                          key=key, mesh=mesh, fault=fault, launches=launches, heads=heads))
@@ -4475,6 +4716,342 @@ def phase_text(torch, gpt, fa, root):
     return launches
 
 
+# phase images: image-record input (TFK8S_INPUT_FORMAT=image). Eight 64x64
+# class images, JPEG at quality 75 (made with PIL once and kept here: the
+# card's host may have no PIL), repeated into IMAGES["shards"] shards of
+# IMAGES["records"] records each, every record stamped with its true
+# geometry (read from the JPEG's frame header here, by no decoder)
+IMAGE_CLASS_JPEGS = (
+    ("/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAgGBgcGBQgHBwcJCQgKDBQNDAsLDBkSEw8UHRofHh0aHBwgJC4nICIsIxwc"
+     "KDcpLDAxNDQ0Hyc5PTgyPC4zNDL/2wBDAQkJCQwLDBgNDRgyIRwhMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIy"
+     "MjIyMjIyMjIyMjIyMjIyMjIyMjL/wAARCABAAEADASIAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAAAAECAwQFBgcI"
+     "CQoL/8QAtRAAAgEDAwIEAwUFBAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkKFhcYGRol"
+     "JicoKSo0NTY3ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZmqKjpKWmp6ip"
+     "qrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl5ufo6erx8vP09fb3+Pn6/8QAHwEAAwEBAQEBAQEBAQAAAAAA"
+     "AAECAwQFBgcICQoL/8QAtREAAgECBAQDBAcFBAQAAQJ3AAECAxEEBSExBhJBUQdhcRMiMoEIFEKRobHBCSMzUvAVYnLR"
+     "ChYkNOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6goOEhYaHiImKkpOUlZaX"
+     "mJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk5ebn6Onq8vP09fb3+Pn6/9oADAMBAAIRAxEA"
+     "PwDEpjVJiopDitcJXgqmpxYerHnImqOkkkxSxfPX2VLHUvY2ufRqadIStXT+1QxWm/tWjb2/lY4rxMZXjPRHh19ZHQad"
+     "2rWrnbe58rHNWv7S/wBqvm62HnKV0crpSZyeKrTnGag+2+9IZfNrg9lXp+8zy6DnGV2U55MZq5p/z4pptPN7VfsrXysc"
+     "VSzGpH3Wz6GljI8nKzf0+0344qzdW/lZ4qCyuvKxzS3d55mea7KGJlOWol70rmXdXPlZ5ql/aX+1T7tfMzVD7P7V9BRl"
+     "RcdTsgoW1Oc+2+9athL5uKzv7P8AatfTrXZjit8dTw7pPk3PAqSpuNo7nQ2Fp5uOKtz2vk9qdpzbMVauj5ma/O8Rha3t"
+     "7x2PPhSxHtL9DCnuvJ71Ct55nerN1Z+ZnioI7LZ2r0qVKpCN2e9Snyw97ckVfMp/2b2qSOPZU2abxU46EyrO+hk/2f8A"
+     "7NWIbXZ2q7RXfQxM6k+WR8tl1aVSsoyHQtsq2h8yqNXbbtX0VLA0pQ5mj9QpYGk8Jz21LKWfmdqbLZbM8VpW3akuu9cW"
+     "LoQjDQ+QxcnCryowJY9lQZq5dd6pV8fiXaZgpNn/2Q=="),
+    ("/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAgGBgcGBQgHBwcJCQgKDBQNDAsLDBkSEw8UHRofHh0aHBwgJC4nICIsIxwc"
+     "KDcpLDAxNDQ0Hyc5PTgyPC4zNDL/2wBDAQkJCQwLDBgNDRgyIRwhMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIy"
+     "MjIyMjIyMjIyMjIyMjIyMjIyMjL/wAARCABAAEADASIAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAAAAECAwQFBgcI"
+     "CQoL/8QAtRAAAgEDAwIEAwUFBAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkKFhcYGRol"
+     "JicoKSo0NTY3ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZmqKjpKWmp6ip"
+     "qrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl5ufo6erx8vP09fb3+Pn6/8QAHwEAAwEBAQEBAQEBAQAAAAAA"
+     "AAECAwQFBgcICQoL/8QAtREAAgECBAQDBAcFBAQAAQJ3AAECAxEEBSExBhJBUQdhcRMiMoEIFEKRobHBCSMzUvAVYnLR"
+     "ChYkNOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6goOEhYaHiImKkpOUlZaX"
+     "mJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk5ebn6Onq8vP09fb3+Pn6/9oADAMBAAIRAxEA"
+     "PwDja1tO7Vheb71qWE+Mc17GKqxlTsjKeHmkdtp3atlK5ewu8Y5rYS896+Ix2HnOTsclL3Kl2a6Vz2ufxVppd+9YurS7"
+     "91ePSy+sqvNY+nw+NpKFmzz3XP4q5uur1aLfurB+ye1fW4aLjCzNvrVNlrzavWk+Mc1N/Zf+zU0Wn7e1dMJTk7E15UXH"
+     "Q0bS7xjmtSK896x47fb2qyo216FLBqWsj5jFwd7xNuK796rXku/NU1l20jy7q6p4OhGF+p4bqYiM/IzLyLfnis/7J7Vt"
+     "Ou6ovKrxqsLSsjtp42aWrOj/ALL/ANmopNP2/wANdR5NUrmPGa2w8oOZ0Qxc27M5t7fb2qrINua1bnjNZ0i7q+njCPsr"
+     "o9Gny1FqUZJdvehJd3epJLfd2pgi2dq8avUfNYuvgV7PmSLCLuqTyqqibZ3pftnvXK6bep8niYTjOyPUPJrOvY8ZrZrL"
+     "v+9eNg6kvaG8JO5y97xmqKruq/f96pRdq+6pO9A9rBSbmkSrb7u1VLuLZmtWGqOod68SprUPrnSi8Pc527m2Z5qj9s96"
+     "l1DvWVXVCCsfFYylH2h//9k="),
+    ("/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAgGBgcGBQgHBwcJCQgKDBQNDAsLDBkSEw8UHRofHh0aHBwgJC4nICIsIxwc"
+     "KDcpLDAxNDQ0Hyc5PTgyPC4zNDL/2wBDAQkJCQwLDBgNDRgyIRwhMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIy"
+     "MjIyMjIyMjIyMjIyMjIyMjIyMjL/wAARCABAAEADASIAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAAAAECAwQFBgcI"
+     "CQoL/8QAtRAAAgEDAwIEAwUFBAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkKFhcYGRol"
+     "JicoKSo0NTY3ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZmqKjpKWmp6ip"
+     "qrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl5ufo6erx8vP09fb3+Pn6/8QAHwEAAwEBAQEBAQEBAQAAAAAA"
+     "AAECAwQFBgcICQoL/8QAtREAAgECBAQDBAcFBAQAAQJ3AAECAxEEBSExBhJBUQdhcRMiMoEIFEKRobHBCSMzUvAVYnLR"
+     "ChYkNOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6goOEhYaHiImKkpOUlZaX"
+     "mJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk5ebn6Onq8vP09fb3+Pn6/9oADAMBAAIRAxEA"
+     "PwBlKKi30hlxXPQacz7rNHzYdpFgVo2fasQ3GO9Tw3+zHNe7OhKVHQ/G8XQn9budpZ9qh1DvWHDrWzHzU99T8/8Air5f"
+     "6lVWI5rHvUl+6sZmod6yq35IPP7ZqL+y/wDZr67Cvlp2Z51WhNyujM31FJLioPP96rTT+9fJYKp+9Vz9NxNZThYlkuMd"
+     "6qS3+zvVWa496pSPvr9Cwk6MqVmfIYjBqVTmRbl1rZ/FWxpOp+ft+auRktvM7Vs6Qnkbe1FbDUbcyM40JI9P0mDz9vGa"
+     "3f7L/wBmuP0jVvI2/Nit7/hIv9uvDq1FGVkdKp07anlXn+9Vp5+vNdD/AGN/s1VuNG6/LXxNGtaWh1/Wu5ys9x70tu+/"
+     "Falxo/X5abBp/l44r6LB4uaNIVaUnYkt7bfjirDJ5FTQDy8VDdvuzX0CxanTt1OqpQi4XRC2reR/Fim/8JF/t/rWTdx7"
+     "s1R8j2rzKtCrOV0eBWUlKyPoT+xv9mqlzo3X5a62qdz3r87w9RuZx1Kskjh7nR+vy1kXGn+Xniu3ue9c9qHevqaTtTuc"
+     "+FxE3WscncDy81nSPurT1DvWQa1wdebr8rPvaK5sPdleWPdUPke1WjTa/S8Bhac6SbPGr01zn//Z"),
+    ("/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAgGBgcGBQgHBwcJCQgKDBQNDAsLDBkSEw8UHRofHh0aHBwgJC4nICIsIxwc"
+     "KDcpLDAxNDQ0Hyc5PTgyPC4zNDL/2wBDAQkJCQwLDBgNDRgyIRwhMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIy"
+     "MjIyMjIyMjIyMjIyMjIyMjIyMjL/wAARCABAAEADASIAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAAAAECAwQFBgcI"
+     "CQoL/8QAtRAAAgEDAwIEAwUFBAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkKFhcYGRol"
+     "JicoKSo0NTY3ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZmqKjpKWmp6ip"
+     "qrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl5ufo6erx8vP09fb3+Pn6/8QAHwEAAwEBAQEBAQEBAQAAAAAA"
+     "AAECAwQFBgcICQoL/8QAtREAAgECBAQDBAcFBAQAAQJ3AAECAxEEBSExBhJBUQdhcRMiMoEIFEKRobHBCSMzUvAVYnLR"
+     "ChYkNOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6goOEhYaHiImKkpOUlZaX"
+     "mJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk5ebn6Onq8vP09fb3+Pn6/9oADAMBAAIRAxEA"
+     "PwD0iuU8Q/x1ufa/eud1qTzN1U8TBnu1naJ5Z4h/jrGse1dPrVp5m7isq2stmOKqlJSloeFOtFzsalh2rqdP7VzVsmzF"
+     "b1lNtxXo4mhKWH0NlSlJXR2endq1a5myvduOa0f7R/2q/M8fl9Z1m0jN0JlT7X71Qu5PMzWZ9u96Y17nvXsUqGJcj2cX"
+     "CXs9CC7tPMzxWebLZ2rQa6z3qFpd3evocFhqsWpTPj40qzxPkVCmypoZtvehl3ULD7V9XTrUHS5Jbn3GFoJUbyL8N7t7"
+     "1P8A2j/tVnLFTvKrzauBoVJXsZTlRi7Mx/t3vR9tz3rF873pRP713U8LhkzqqShJWNr7VnvU8M27HNYAuPer1rcdOa6c"
+     "XChCheO5w08NTdS5vwruxVpYfas61n6c1opNnvX53Vx1SOJtfQ9qpStQ90kWKneT7UJJmpN9fT4XGwdP3mfE4tV1U0PK"
+     "vO96Xz/eq9IaUa87noqrIsfaPertrcdOayDV217UsTiJunY7MLJuZ0lrP05rUimzWFadq1Ye1fF4p/vLn1UYJ0dTUikz"
+     "U2+qkPap65vrdSOiPCr4aDmf/9k="),
+    ("/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAgGBgcGBQgHBwcJCQgKDBQNDAsLDBkSEw8UHRofHh0aHBwgJC4nICIsIxwc"
+     "KDcpLDAxNDQ0Hyc5PTgyPC4zNDL/2wBDAQkJCQwLDBgNDRgyIRwhMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIy"
+     "MjIyMjIyMjIyMjIyMjIyMjIyMjL/wAARCABAAEADASIAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAAAAECAwQFBgcI"
+     "CQoL/8QAtRAAAgEDAwIEAwUFBAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkKFhcYGRol"
+     "JicoKSo0NTY3ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZmqKjpKWmp6ip"
+     "qrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl5ufo6erx8vP09fb3+Pn6/8QAHwEAAwEBAQEBAQEBAQAAAAAA"
+     "AAECAwQFBgcICQoL/8QAtREAAgECBAQDBAcFBAQAAQJ3AAECAxEEBSExBhJBUQdhcRMiMoEIFEKRobHBCSMzUvAVYnLR"
+     "ChYkNOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6goOEhYaHiImKkpOUlZaX"
+     "mJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk5ebn6Onq8vP09fb3+Pn6/9oADAMBAAIRAxEA"
+     "PwDkKmio8r2p6riuj2kT5yhh5xndlmKqt53qdWxUUy+ZmuihWipH0tCouTlOevO9UlroJrHzM8VCNM/2a9/6xD2Q6tGT"
+     "jcylp1aw03/Zpf7O9q8OtUTkeHVi1I2PKpjrirGaay7q+fTm9j6Ovg1CF0U2bFSwL5mKVoM9quWlvjHFaRjVj7x4NOvy"
+     "V7MlgsfMxxVk6Z/s1etI8YqzK22tfr7iuVs+uhVoSoW6mOdN/wBmj+zv9mrktzt71D9s96n6zfU+exGHcp3iY2akRd1O"
+     "8qrEEPTiuilR5ZXkfX4+EVRdgSDd2q7Bb4xxUkMPTirGNlejXnQ9jZbn5ni3JV/dJYI8VDdttzR9o2d6o3VzuzzXxOJh"
+     "Wda8dj0MJLEX12M+7udueao/bPenXZ3ZqjsraCqJan01CpR5ff3Om8qrMEXTim1Zgr7LFwUKd0ehjpP2TLcEPTio7obM"
+     "1cg7VVv+9fGPF1HiOTofBOKlitTCurjZnms9rnd3qa/71mrX09HDQnS5mfWxw0I4bmRK53VHsp606uKpSimfH4vFVIVL"
+     "I//Z"),
+    ("/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAgGBgcGBQgHBwcJCQgKDBQNDAsLDBkSEw8UHRofHh0aHBwgJC4nICIsIxwc"
+     "KDcpLDAxNDQ0Hyc5PTgyPC4zNDL/2wBDAQkJCQwLDBgNDRgyIRwhMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIy"
+     "MjIyMjIyMjIyMjIyMjIyMjIyMjL/wAARCABAAEADASIAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAAAAECAwQFBgcI"
+     "CQoL/8QAtRAAAgEDAwIEAwUFBAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkKFhcYGRol"
+     "JicoKSo0NTY3ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZmqKjpKWmp6ip"
+     "qrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl5ufo6erx8vP09fb3+Pn6/8QAHwEAAwEBAQEBAQEBAQAAAAAA"
+     "AAECAwQFBgcICQoL/8QAtREAAgECBAQDBAcFBAQAAQJ3AAECAxEEBSExBhJBUQdhcRMiMoEIFEKRobHBCSMzUvAVYnLR"
+     "ChYkNOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6goOEhYaHiImKkpOUlZaX"
+     "mJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk5ebn6Onq8vP09fb3+Pn6/9oADAMBAAIRAxEA"
+     "PwD02pUrI+3e9OGoY71jXi3A09hOOrN1K5bxH/HV8apj+KsbVbj7Ru5zXg+yl7UrnUdGeW+I/wCOsnTu1djqul/aN3y5"
+     "zVG10Xy8fLXr8rVIarRehc03tWvVe1s/LxxV7y68CvJKZsot7Fz7d70x9Qx3rL8yopHr6uc4tWPSxFWhyaGk+qY/iqWC"
+     "4+0Y5zXPyHNammNjFcnJHmufKYqtaWhvwaX9ox8uc0+TRPL/AIa0NMmxipr66xnmtK04ezsjho4r95ZnPSWfl9qh8ulv"
+     "tQxnmsz+0v8Aar5fEU5ud0fU4etTcNSh5lNZ80baljg39q+h9jWW58v9cqPRlZjmtGwbGKdHYb+1TC38jtim72t1Iqyc"
+     "onQWE2Mc1Bql1t3c1kDUfI71l6hq+/PzVzrD15S8jylGoql0V9U1DbnmsX+0v9qq2oXe/PNZXm12Qy+TWqPao1aijY9C"
+     "21o2UO7HFUa1tO7V9fisJTjTujijubNlYb8cVR1i38jdxjFdHp3asbxJ/HXyqiniOU6Ianm+saj5G7npXNyavv8A4qu+"
+     "JP465Na+xwuCpOndo6Y0Y7mpJd7+9RebVZafWrwtNGqgkf/Z"),
+    ("/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAgGBgcGBQgHBwcJCQgKDBQNDAsLDBkSEw8UHRofHh0aHBwgJC4nICIsIxwc"
+     "KDcpLDAxNDQ0Hyc5PTgyPC4zNDL/2wBDAQkJCQwLDBgNDRgyIRwhMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIy"
+     "MjIyMjIyMjIyMjIyMjIyMjIyMjL/wAARCABAAEADASIAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAAAAECAwQFBgcI"
+     "CQoL/8QAtRAAAgEDAwIEAwUFBAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkKFhcYGRol"
+     "JicoKSo0NTY3ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZmqKjpKWmp6ip"
+     "qrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl5ufo6erx8vP09fb3+Pn6/8QAHwEAAwEBAQEBAQEBAQAAAAAA"
+     "AAECAwQFBgcICQoL/8QAtREAAgECBAQDBAcFBAQAAQJ3AAECAxEEBSExBhJBUQdhcRMiMoEIFEKRobHBCSMzUvAVYnLR"
+     "ChYkNOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6goOEhYaHiImKkpOUlZaX"
+     "mJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk5ebn6Onq8vP09fb3+Pn6/9oADAMBAAIRAxEA"
+     "PwDia2dM/hq1/Yv+xV+z0zy8fLX3FXEQ5T2K+JhONkbOmfw10lvWDZx+XitJLjZ3rwcViIS0R8ziqMm+Y6C37Via5/FT"
+     "k1PZ/FWPquoeZu5rw1Tk6t0eUk3OxxWufxVzVdJqp8zdWJ5HtXv0INRPXpYOpKN0ez/2L/s1G+meX/DXUVnXhxmuCviZ"
+     "8pxYXE1J1LM594/LqjcXGzPNXbyXGayJv3ma8B4iftdT6ueHTw/MVbjU9mfmrOm1DzO9XJrDzO1VjpmP4a9vC16Ntdz5"
+     "KMeXFa7GbMfMzUHke1bH2HHaj7H7V7dOrT5dD9BwE8KqS5j2OsrUDjNS/bfes69uN+ea+dmm1Y/PsDH96jA1CXGarW/7"
+     "zFTXq781FbDZivJxFCaV0ffWX1U1bex8zHFPm0zb/DS2t3sxzVs3Xmd68mFetCrY+Fxlo1boxZrHHaoPsntW8Y/MpPsn"
+     "tX0mHxcuTUxWLxEdEVftvvUb3G/vVKnLXoximzbBr94Pdd9V2Hl1aWq1z3rWvQj7O59o2/qxA93s71dsrrzMc1h3Per+"
+     "l/w18jiKcVU0Ph8S71zsLKPzMVpfZPaqel/w1tU4zaR106UXE//Z"),
+    ("/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAgGBgcGBQgHBwcJCQgKDBQNDAsLDBkSEw8UHRofHh0aHBwgJC4nICIsIxwc"
+     "KDcpLDAxNDQ0Hyc5PTgyPC4zNDL/2wBDAQkJCQwLDBgNDRgyIRwhMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIy"
+     "MjIyMjIyMjIyMjIyMjIyMjIyMjL/wAARCABAAEADASIAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAAAAECAwQFBgcI"
+     "CQoL/8QAtRAAAgEDAwIEAwUFBAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkKFhcYGRol"
+     "JicoKSo0NTY3ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZmqKjpKWmp6ip"
+     "qrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl5ufo6erx8vP09fb3+Pn6/8QAHwEAAwEBAQEBAQEBAQAAAAAA"
+     "AAECAwQFBgcICQoL/8QAtREAAgECBAQDBAcFBAQAAQJ3AAECAxEEBSExBhJBUQdhcRMiMoEIFEKRobHBCSMzUvAVYnLR"
+     "ChYkNOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6goOEhYaHiImKkpOUlZaX"
+     "mJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk5ebn6Onq8vP09fb3+Pn6/9oADAMBAAIRAxEA"
+     "PwDi6tW/aq2KswV+hV8VT5DigrO7NS37VT1HvVuA9KqX/Oa+ar4mHOd0a0eWxyeo96n0j+Go79M5qfS1xtrnlXi0VRi+"
+     "fmO40n+Gt6ue0tsba2/Mrnlqz6bD4qnGFmcFip4qv/2f7UfZNnasauYtxsmfESrQkrRCE1WvOc1axsqCVd+a8OpipuVy"
+     "aWHrynfoc5eJnNS6euMVoy2O/tViz07GPlrSni3fU95U+Sld7mjp7YxWr5lQWlnjHFX/ALL7V6UMXTtqeFXx0oSsmT/2"
+     "f7VSubTZnij+2v8AaqvNqXm5+avnl7XqeHlqrOuubYzrldmajhXfUsx83NS2sWMVpKL5T9YwlHDxw3NLcmhst/atKDTs"
+     "Y4p1quMVqwjpXnVfaJ6HiZhiKVnGJHBZ4xxVn7L7VZhHSp9tcrxNVOx8TiaNWc7xPCf7a/2qvWupebj5q5CtjTf4a+0n"
+     "Qike/Rw8Iyujs7U+bitaCLGKx9M/hrfirinFXserXxE4ULItQritGEdKoxVfg7Vz1qUeW58U8XUnieVmhCvSrG2oYO1W"
+     "K8CtFKR9ng8LTnTTZ//Z"),
+)
+IMAGES = dict(shards=2, records=512, refuse_limit_s=30.0)
+# with a decoder: ResNet-50 (configs[1]: batch 256, 224 px, 1000 classes)
+# 4 steps, ViT-B/16 (batch 64) 2 steps, from the shards
+IMAGES_RESNET_ENV = dict(RESNET_ENV, TFK8S_TRAIN_STEPS="4", TFK8S_DECODE_WORKERS="8")
+IMAGES_VIT_ENV = {**FAMILY_ENV, **FAMILIES["vit"]["env"], "TFK8S_TRAIN_STEPS": "2",
+                  "TFK8S_DECODE_WORKERS": "8"}
+
+
+def _jpeg_geometry(raw):
+    """(height, width, components) from a baseline or progressive JPEG's
+    frame header (SOF0-SOF2), read without a decoder."""
+    i = 2
+    while i + 9 < len(raw):
+        if raw[i] != 0xFF:
+            raise ValueError(f"no JPEG marker at byte {i}")
+        marker, size = raw[i + 1], int.from_bytes(raw[i + 2:i + 4], "big")
+        if marker in (0xC0, 0xC1, 0xC2):
+            return (int.from_bytes(raw[i + 5:i + 7], "big"),
+                    int.from_bytes(raw[i + 7:i + 9], "big"), raw[i + 9])
+        i += 2 + size
+    raise ValueError("no JPEG frame header")
+
+
+class _Records(logging.Handler):
+    """Keeps the records of the loggers it is added to."""
+
+    def __init__(self):
+        super().__init__(logging.DEBUG)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def _image_decoders(held):
+    """What decodes images on this host: PIL, the port's native core (and
+    the compiler's last line when its build failed), and the backend
+    ``resolve_backend(None)`` picks. ``held`` keeps the decode loggers'
+    records."""
+    from tfk8s_tpu_torch.data.images import _native_decode, decode
+
+    core = _native_decode.load() is not None
+    why = None
+    if not core:
+        failed = [r.getMessage() for r in held.records if "build" in r.getMessage()]
+        lines = [ln for ln in (failed[-1] if failed else "").splitlines() if ln.strip()]
+        why = lines[-1] if lines else "no g++ (nothing was compiled)"
+    return {"pil": decode.have_decoder(), "native_core": core, "native_core_build": why,
+            "backend": decode.resolve_backend(None)}
+
+
+def _image_shards(work):
+    """IMAGES' shards through the port's ``write_image_shards``: record i is
+    class i % 8's JPEG with that label and its frame header's geometry."""
+    import base64
+
+    from tfk8s_tpu_torch.data.images import schema
+
+    raws = [base64.b64decode(b) for b in IMAGE_CLASS_JPEGS]
+    shapes = [_jpeg_geometry(r) for r in raws]
+    n = IMAGES["shards"] * IMAGES["records"]
+    recs = (schema.encode_image_example(raws[i % len(raws)], i % len(raws),
+                                        shape=shapes[i % len(raws)]) for i in range(n))
+    return schema.write_image_shards(recs, work, IMAGES["shards"]), shapes
+
+
+def _image_train(torch, module, env, kernels):
+    """``module.train(env)`` from the image shards: the summary of its
+    history, progress and decode metrics (the pool's batches and their
+    seconds), and the launches of ``kernels`` (a kernel module's
+    ``LAUNCHES``, zeroed just before)."""
+    from tfk8s_tpu_torch.data.images import pipeline
+    from tfk8s_tpu_torch.runtime import progress
+    from tfk8s_tpu_torch.utils.logging import Metrics
+
+    steps = int(env["TFK8S_TRAIN_STEPS"])
+    torch.cuda.empty_cache()
+    progress.clear()
+    reports, report = [], progress.report
+
+    def keep(**values):  # every window's report, not only the last
+        reports.append(values)
+        report(**values)
+
+    progress.report = keep
+    reg = Metrics()
+    pipeline.set_metrics(reg)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        history = module.train(env)
+    finally:
+        progress.report = report
+        pipeline.set_metrics(None)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    prog = progress.snapshot()
+    losses = [h["loss"] for h in history]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{module.__name__}: losses {losses}")
+    metrics = reg.snapshot()
+    decode = [h for k, h in metrics["histograms"].items()
+              if k.startswith("tfk8s_image_decode_seconds")]
+    decoded = sum(v for k, v in metrics["counters"].items()
+                  if k.startswith("tfk8s_images_decoded_total"))
+    decode_s = sum(h["sum"] for h in decode)
+    return {"wall_s": time.perf_counter() - t0, "losses": losses,
+            "decoded": metrics["counters"], "decode_batches": sum(h["count"] for h in decode),
+            "decode_s": decode_s, "pool_images_per_s": decoded / decode_s if decode_s else None,
+            "step_ms": [r["step_seconds"] * 1e3 for r in reports if "step_seconds" in r],
+            "decoded_images_per_sec": [r["decoded_images_per_sec"] for r in reports
+                                       if "decoded_images_per_sec" in r],
+            "input_mb_per_sec": [r["input_mb_per_sec"] for r in reports
+                                 if "input_mb_per_sec" in r],
+            "input_wait_seconds": prog.get("input_wait_seconds"),
+            "input_starved_steps": prog.get("input_starved_steps"),
+            "launches": launches}
+
+
+def phase_images(torch, fa, gn, root):
+    """Image-record input (docstring phase 22). Returns the launches of the
+    paths it drives: none where the host has no decoder."""
+    from tfk8s_tpu_torch.data.images import ImageDecodeError
+    from tfk8s_tpu_torch.models import resnet, vit
+
+    t0 = time.perf_counter()
+    held = _Records()
+    loggers = [logging.getLogger(n) for n in ("tfk8s.data.native", "tfk8s.data.images.native")]
+    for lg in loggers:
+        lg.addHandler(held)
+    work = os.path.join(root, "build", "chip_smoke_images")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        card = phase_card()
+        decoders = _image_decoders(held)
+        log(f"images host decoders: {json.dumps(decoders)}")
+        paths, shapes = _image_shards(work)
+        files = os.path.join(work, "images-*.rio")
+        log(f"images shards: {json.dumps({'paths': paths, 'records': IMAGES['records'], 'geometry': sorted(set(shapes)), 'bytes': sum(os.path.getsize(p) for p in paths)})}")
+        dev = {"TFK8S_DEVICE": "cpu"} if DEVICE == "cpu" else {}
+        image_env = dict(dev, TFK8S_INPUT_FILES=files, TFK8S_INPUT_FORMAT="image")
+        total = {**dict.fromkeys(fa.KERNELS, 0), **dict.fromkeys(gn.KERNELS, 0)}
+        if not (decoders["pil"] or decoders["native_core"]):
+            # no decoder: the typed refusal before the first step, and the
+            # same shards as array records refused by their schema
+            gn.reset_launches()
+            try:
+                resnet.train(dict(IMAGES_RESNET_ENV, **image_env))
+            except ImageDecodeError as exc:
+                refusal = str(exc)
+            else:
+                raise AssertionError("resnet:train trained from image shards with no decoder")
+            launches = dict(gn.LAUNCHES)
+            try:
+                resnet.train(dict(IMAGES_RESNET_ENV, **dev, TFK8S_INPUT_FILES=files))
+            except ValueError as exc:
+                as_array = str(exc)
+            else:
+                raise AssertionError("image shards trained as array records")
+            refuse_s = time.perf_counter() - t0
+            log(f"images refusal (no decoder on this host): {json.dumps({'card': card, 'refusal': refusal, 'group_norm_launches': launches, 'as_array_records': as_array, 'seconds': refuse_s})}")
+            if "Pillow" not in refusal:
+                raise AssertionError(f"the refusal does not name Pillow: {refusal}")
+            if any(launches.values()):
+                raise AssertionError(f"GroupNorm launched before the refusal: {launches}")
+            if not re.search("input_format|schema", as_array):
+                raise AssertionError(f"array-format refusal: {as_array}")
+            if refuse_s > IMAGES["refuse_limit_s"]:
+                raise AssertionError(f"the refusal took {refuse_s:.1f} s, past "
+                                     f"{IMAGES['refuse_limit_s']} s")
+        else:
+            rn = _image_train(torch, resnet, dict(IMAGES_RESNET_ENV, **image_env), gn)
+            steps = int(IMAGES_RESNET_ENV["TFK8S_TRAIN_STEPS"])
+            want = {**dict.fromkeys(gn.TWO_READ_KERNELS, 0),
+                    **dict.fromkeys(gn.ONE_READ_KERNELS, RESNET_GN_SITES * steps)}
+            log(f"images resnet train: {json.dumps({'card': card, **rn})}")
+            if rn["launches"] != want:
+                raise AssertionError(f"resnet: GroupNorm launches {rn['launches']}, want {want}")
+            vt = _image_train(torch, vit, dict(IMAGES_VIT_ENV, **image_env), fa)
+            steps = int(IMAGES_VIT_ENV["TFK8S_TRAIN_STEPS"])
+            want = {**dict.fromkeys(fa.SIMT_KERNELS, 0),
+                    **dict.fromkeys(fa.TENSOR_CORE_KERNELS, FAMILIES["vit"]["sites"] * steps)}
+            log(f"images vit train: {json.dumps({'card': card, **vt})}")
+            if vt["launches"] != want:
+                raise AssertionError(f"vit: flash launches {vt['launches']}, want {want}")
+            for launches in (rn["launches"], vt["launches"]):
+                for k, v in launches.items():
+                    total[k] += v
+        fallback = [r.getMessage() for r in held.records
+                    if "native core unavailable" in r.getMessage()]
+        log(f"images fallback warnings: {json.dumps(fallback)}")
+        if len(fallback) != (0 if decoders["native_core"] else 1):
+            raise AssertionError(f"{len(fallback)} fallback warnings: {fallback}")
+        return total
+    finally:
+        for lg in loggers:
+            lg.removeHandler(held)
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -4527,33 +5104,37 @@ def main() -> int:
         ("pipeline_axes", lambda: phase_pipeline_axes(torch, fa, gn, root)),
         ("profile", lambda: phase_profile(torch, gpt, fa, root)),
         ("text", lambda: phase_text(torch, gpt, fa, root)),
+        ("images", lambda: phase_images(torch, fa, gn, root)),
     ]
     if only:
         phases = [p for p in phases if p[0] in ("card", "build", *only)]
-    for name, run in phases:
-        log(f"== {name}")
-        t0 = time.perf_counter()
-        try:
-            value = run()
-            torch.cuda.synchronize()
-        except Exception:  # noqa: BLE001 — every phase reports, then the run fails
-            traceback.print_exc()
-            failed.append(name)
-            if name == "build":
-                break  # nothing after it can launch a kernel
-            continue
-        finally:
-            log(f"== {name}: {time.perf_counter() - t0:.1f} s")
-        if name == "card":
-            card_line = value
-            log(f"card: {card_line}")
-        elif name == "kernels":
-            line = value
-        elif name in ("train", "resnet_train", "roofline", "generate", "distributed",
-                      "families", "parallel", "tensor", "axes", "pipeline",
-                      "pipeline_axes", "profile", "text"):
-            for kernel, count in value.items():  # each path's launches add up
-                launches[kernel] = launches.get(kernel, 0) + count
+    try:
+        for name, run in phases:
+            log(f"== {name}")
+            t0 = time.perf_counter()
+            try:
+                value = run()
+                torch.cuda.synchronize()
+            except Exception:  # noqa: BLE001 — every phase reports, then the run fails
+                traceback.print_exc()
+                failed.append(name)
+                if name == "build":
+                    break  # nothing after it can launch a kernel
+                continue
+            finally:
+                log(f"== {name}: {time.perf_counter() - t0:.1f} s")
+            if name == "card":
+                card_line = value
+                log(f"card: {card_line}")
+            elif name == "kernels":
+                line = value
+            elif name in ("train", "resnet_train", "roofline", "generate", "distributed",
+                          "families", "parallel", "tensor", "axes", "pipeline",
+                          "pipeline_axes", "profile", "text", "images"):
+                for kernel, count in value.items():  # each path's launches add up
+                    launches[kernel] = launches.get(kernel, 0) + count
+    finally:
+        close_gangs()  # the gloo gangs kept across phases
     for d in (ckpt_dir, rn_ckpt_dir):
         shutil.rmtree(d, ignore_errors=True)
     if failed:

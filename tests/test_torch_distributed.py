@@ -393,7 +393,10 @@ def test_combined_layouts_pass_the_launcher_check(mesh):
     ({"TFK8S_NUM_SLICES": "2", "TFK8S_MESH": '{"data": 4}', "TFK8S_NUM_PROCESSES": "2"},
      "1.5"),
     ({"TFK8S_MESH": '{"data": 4}', "TFK8S_NUM_PROCESSES": "2"}, "1.5"),
-    ({"TFK8S_INPUT_FILES": "x-*.rio", "TFK8S_INPUT_FORMAT": "image"}, "1.5"),
+    # image input runs (tests/test_torch_image_job.py); a four-device
+    # layout in one process still raises, before any file is opened
+    ({"TFK8S_INPUT_FILES": "x-*.rio", "TFK8S_INPUT_FORMAT": "image",
+      "TFK8S_MESH": '{"data": 4}', "TFK8S_NUM_PROCESSES": "1"}, "1.5"),
 ])
 def test_unported_layouts_raise_naming_their_item(env, item):
     if "TFK8S_MESH" in env:  # every layout passes the mesh rules

@@ -240,19 +240,18 @@ def test_train_entrypoint_checkpoints_and_counts_no_card_launch(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    {"TFK8S_INPUT_FILES": "shards/*.rio", "TFK8S_INPUT_FORMAT": "image"},
+    # image input runs (tests/test_torch_image_job.py); its four-device
+    # layout in one process raises item 1.5 before any file is opened
+    {"TFK8S_INPUT_FILES": "shards/*.rio", "TFK8S_INPUT_FORMAT": "image",
+     "TFK8S_NUM_PROCESSES": "1", "TFK8S_MESH": '{"data": 4}'},
     # multislice runs (tests/test_torch_multislice.py), and pipeline beside
     # expert in a gang (tests/test_torch_pipeline_axes.py); one process for
     # its four devices raises item 1.5
     {"TFK8S_NUM_PROCESSES": "4", "TFK8S_MESH": '{"pipeline": 2, "expert": 2}'},
 ])
 def test_unported_input_raises(extra):
-    if "TFK8S_MESH" in extra:  # the layout passes the mesh rules
-        MeshConfig.from_env(extra).require_ported()
-        with pytest.raises(NotImplementedError, match=r"ROADMAP item 1\.5\b"):
-            tres.train(_env(**extra))
-        return
-    with pytest.raises(NotImplementedError):
+    MeshConfig.from_env(extra).require_ported()  # the layout passes the mesh rules
+    with pytest.raises(NotImplementedError, match=r"ROADMAP item 1\.5\b"):
         tres.train(_env(**extra))
 
 

@@ -178,7 +178,10 @@ def test_drain_commits_a_checkpoint_and_raises_pod_drained(tmp_path):
     # its four devices raises item 1.5
     {"TFK8S_NUM_PROCESSES": "4", "TFK8S_MESH": '{"pipeline": 2, "tensor": 2}'},
     {"TFK8S_MESH": '{"data": 2}'},
-    {"TFK8S_INPUT_FILES": "part-*.rio", "TFK8S_INPUT_FORMAT": "image"},
+    # image input runs (tests/test_torch_image_job.py); with a four-device
+    # layout in one process it raises item 1.5 before any file is opened
+    {"TFK8S_INPUT_FILES": "part-*.rio", "TFK8S_INPUT_FORMAT": "image",
+     "TFK8S_MESH": '{"data": 4}'},
     {"TFK8S_NUM_PROCESSES": "2", "TFK8S_MESH": '{"data": 2, "tensor": 2}'},
 ])
 def test_unported_features_raise(extra):

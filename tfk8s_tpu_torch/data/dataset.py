@@ -13,7 +13,9 @@ Epoch order is a seeded permutation over the host's records (seed folded
 with the epoch number, so every epoch reshuffles deterministically and a
 restarted host replays the identical stream). Decoding can run on a
 background thread into a bounded queue, overlapping file IO + CRC +
-decode with device compute.
+decode with device compute; a subclass may replace the decode stage
+(``_decode_records``), as ``images.ImageDataset`` does with its worker
+pool.
 """
 
 from __future__ import annotations
@@ -116,9 +118,9 @@ class RecordDataset:
         stop = self.batches_per_epoch() * self.batch_size
         for lo in range(start_batch * self.batch_size, stop, self.batch_size):
             take = order[lo : lo + self.batch_size]
-            yield self._load(take)
+            yield self._load(take, epoch)
 
-    def _load(self, take: np.ndarray) -> Dict[str, np.ndarray]:
+    def _load(self, take: np.ndarray, epoch: int) -> Dict[str, np.ndarray]:
         # group indices by shard, bulk-read each, then restore batch order
         by_shard: Dict[int, List[int]] = {}
         slots: List[Tuple[int, int]] = []  # (shard, position-in-group)
@@ -137,7 +139,13 @@ class RecordDataset:
         # pure-Python codec fallback) instead of inferring it from step
         # time
         self.bytes_read += sum(sum(len(r) for r in rs) for rs in raw.values())
-        examples = [example_codec.decode(raw[si][pos]) for si, pos in slots]
+        examples = self._decode_records(
+            [raw[si][pos] for si, pos in slots], [int(g) for g in take], epoch)
+        if isinstance(examples, dict):
+            # the decode stage assembled the batch itself (the image
+            # pipeline's workers write a preallocated [B, ...] batch in
+            # place; stacking again would copy the whole batch)
+            return examples
         keys = examples[0].keys()
         for ex in examples[1:]:
             if ex.keys() != keys:
@@ -151,8 +159,9 @@ class RecordDataset:
             shapes = {np.shape(v) for v in vals}
             if len(shapes) > 1:
                 hint = (
-                    " — these look like IMAGE records; image-format input "
-                    "(TFK8S_INPUT_FORMAT=image) is ROADMAP item 1.5"
+                    " — these look like IMAGE records (data/images); set "
+                    "input_format='image' (TFK8S_INPUT_FORMAT=image) so "
+                    "they decode instead of batching raw bytes"
                     if k.startswith("image/")
                     else ""
                 )
@@ -163,9 +172,22 @@ class RecordDataset:
             out[k] = np.stack(vals)
         return out
 
+    def _decode_records(self, records: List[bytes], record_ids: List[int], epoch: int
+                        ) -> List[Dict[str, np.ndarray]]:
+        """Record payloads -> example dicts, in batch order: the decode
+        stage, which a dataset whose decode is expensive overrides
+        (``images.ImageDataset`` runs it on a worker pool). ``record_ids``
+        (the dataset's record indices) and ``epoch`` identify each record
+        whatever its batch position, so a subclass can seed per-record
+        augmentation that a resume replays. A subclass may instead return
+        the assembled batch, a dict of stacked arrays, which ``_load``
+        passes on untouched."""
+        return [example_codec.decode(r) for r in records]
+
     def close(self) -> None:
-        """The dataset holds no decode resources: a no-op, so every
-        consumer can close unconditionally."""
+        """Release any decode resources (a subclass's worker pool). The base
+        dataset holds none: a no-op, so every consumer can close
+        unconditionally."""
 
     def iterator(self, prefetch: int = 2, start_batch: int = 0):
         """An endless batch iterator cycling epochs. ``prefetch > 0``

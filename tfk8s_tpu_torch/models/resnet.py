@@ -330,8 +330,12 @@ def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, flo
     ``TFK8S_IMAGE_SIZE``, ``TFK8S_NUM_CLASSES``, ``TFK8S_RESNET_WIDTH``,
     ``TFK8S_TARGET_ACCURACY``), on the card unless ``TFK8S_DEVICE=cpu``,
     with the runtime's input modes and multi-process data parallelism.
-    Image-format record input (``TFK8S_INPUT_FORMAT=image``) is ROADMAP
-    item 1.5 and raises. Returns the logged metrics history."""
+    Image shards train it with ``TFK8S_INPUT_FILES`` and
+    ``TFK8S_INPUT_FORMAT=image`` (packed by ``python -m
+    tfk8s_tpu_torch.data.images.pack``): JPEG/PNG records decoded and
+    augmented on a worker pool into the batch schema the synthetic
+    generator makes, at ``TFK8S_IMAGE_SIZE``. Returns the logged metrics
+    history."""
     env = dict(env)
     env.setdefault("TFK8S_TRAIN_STEPS", "100")
     env.setdefault("TFK8S_LEARNING_RATE", "1e-3")

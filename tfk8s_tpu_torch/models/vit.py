@@ -192,8 +192,12 @@ def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, flo
     32, ``TFK8S_PATCH_SIZE`` 4, ``TFK8S_BATCH_SIZE`` 64, 150 steps at lr
     1e-3 unless set; ``TFK8S_MODEL_PRESET=tiny``; ``TFK8S_ATTENTION_IMPL``;
     ``TFK8S_TARGET_ACCURACY``), on the card unless ``TFK8S_DEVICE=cpu``.
-    Image-format record input (``TFK8S_INPUT_FORMAT=image``) is ROADMAP
-    item 1.5 and raises. Returns the logged metrics history."""
+    Image shards train it with ``TFK8S_INPUT_FILES`` and
+    ``TFK8S_INPUT_FORMAT=image`` (packed by ``python -m
+    tfk8s_tpu_torch.data.images.pack``): JPEG/PNG records decoded and
+    augmented on a worker pool into the batch schema the synthetic
+    generator makes, at ``TFK8S_IMAGE_SIZE``. Returns the logged metrics
+    history."""
     env = dict(env)
     env.setdefault("TFK8S_TRAIN_STEPS", "150")
     env.setdefault("TFK8S_LEARNING_RATE", "1e-3")

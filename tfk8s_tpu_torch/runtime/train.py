@@ -12,11 +12,18 @@ What is kept from the reference:
   ``replicated``, the stream ``np.random.default_rng(seed + step)`` of
   whole batches; ``per_host``, a batch concatenated from ``input_shards``
   shard streams seeded by ``(seed, step, shard)``, each process building
-  only its own shards; ``files``, record shards (``TFK8S_INPUT_FILES``,
-  array format) read through ``data.dataset.RecordDataset``, each process
-  opening its round-robin share, fast-forwarded to the resume step, the
-  first batch held to the task's schema. Host batches are synthesized
-  ahead on a prefetch thread;
+  only its own shards; ``files``, record shards (``TFK8S_INPUT_FILES``)
+  read through ``data.dataset.RecordDataset``, each process opening its
+  round-robin share, fast-forwarded to the resume step, the first batch
+  held to the task's schema. Host batches are synthesized ahead on a
+  prefetch thread;
+- what the shards hold (``TFK8S_INPUT_FORMAT``): ``array``, example dicts
+  that decode to the task's batch; ``image``, compressed JPEG/PNG image
+  records decoded and augmented on a worker pool by
+  ``data.images.ImageDataset`` (``TFK8S_DECODE_WORKERS``,
+  ``TFK8S_AUG_MIN_SCALE``) into the vision families' ``{"image", "label"}``
+  batch at the size the task's own batch declares, and for the Evaluator
+  the deterministic eval view of ``TFK8S_EVAL_INPUT_FILES``;
 - multi-process parallelism over the mesh's ``data``, ``fsdp``,
   ``expert``, ``sequence`` and ``tensor`` axes
   (``parallel.data_parallel``): each rank trains on its contiguous rows
@@ -47,9 +54,6 @@ What is kept from the reference:
   of ``profile_steps`` steps after ``profile_skip``, each step one
   ``ProfilerStep#<step>`` span, written as a Chrome trace a rank under
   that directory. Profiling forces one step a dispatch.
-
-Not ported yet, raising ``NotImplementedError`` when asked for: image
-record input (``TFK8S_INPUT_FORMAT=image``, ROADMAP item 1.5).
 """
 
 from __future__ import annotations
@@ -157,6 +161,17 @@ class TrainConfig:
     input_shards: Optional[int] = None
     # comma-separated record-file paths/globs (TFK8S_INPUT_FILES)
     input_files: Optional[str] = None
+    # what the shards hold (TFK8S_INPUT_FORMAT): "array", example dicts
+    # decoding to the task's batch; "image", JPEG/PNG image records decoded
+    # and augmented on a worker pool into the vision families' batch, at
+    # the image size the task's own example batch declares
+    input_format: str = "array"
+    # the image-decode pool's width (TFK8S_DECODE_WORKERS; None: auto)
+    decode_workers: Optional[int] = None
+    # the random-resized crop's area floor (TFK8S_AUG_MIN_SCALE): 0.08 is
+    # ImageNet's augmentation; small or synthetic image sets train better
+    # around 0.3-0.6 (data/images/transforms.train_transform)
+    aug_min_scale: float = 0.08
     # "constant" | "cosine" | "linear" decay after warmup, over
     # decay_steps (None = the rest of the run) down to min_lr_ratio * lr
     lr_schedule: str = "constant"
@@ -290,7 +305,40 @@ class _CheckedFileStream:
     def close(self) -> None:
         self._it.close()
         if self.dataset is not None:
+            # joins an image dataset's decode pool; a no-op for records
             self.dataset.close()
+
+
+def _image_geometry(want_example: Dict[str, np.ndarray]) -> int:
+    """The decode size from a vision task's own example batch: its
+    ``image`` leaf must be square ``[*, S, S, 3]``, as the ResNet and ViT
+    batches are. A task without one is refused here, naming what it has."""
+    leaf = want_example.get("image")
+    if leaf is None:
+        raise ValueError(
+            'input_format="image" needs a task whose batch schema has an '
+            f'"image" leaf (the vision families); this task has {sorted(want_example)}'
+        )
+    shape = np.asarray(leaf).shape
+    if len(shape) != 4 or shape[1] != shape[2] or shape[3] != 3:
+        raise ValueError(
+            f"image input needs a square [B, S, S, 3] image leaf, task "
+            f"expects {list(shape)}"
+        )
+    return int(shape[1])
+
+
+def _open_image_dataset(paths: List[str], local_rows: int, want_example: Dict[str, np.ndarray],
+                        *, train: bool, seed: int = 0, workers: Optional[int] = None,
+                        min_scale: float = 0.08, host_index: int = 0, num_hosts: int = 1):
+    """The decode-and-augment pipeline (``data.images.ImageDataset``) over
+    ``paths``, batches of this process's rows at the geometry the task's
+    batch declares."""
+    from tfk8s_tpu_torch.data.images import ImageDataset
+
+    return ImageDataset(paths, batch_size=local_rows, image_size=_image_geometry(want_example),
+                        train=train, workers=workers, host_index=host_index,
+                        num_hosts=num_hosts, seed=seed, min_scale=min_scale)
 
 
 class _BatchPrefetcher:
@@ -327,6 +375,11 @@ class _BatchPrefetcher:
             self._exc = e
         finally:
             self._put(self._DONE)
+
+    def depth(self) -> int:
+        """Batches staged now: pinned at 0, the producer (not the device)
+        is the bottleneck."""
+        return self._q.qsize()
 
     def get(self) -> Any:
         item = self._q.get()
@@ -476,10 +529,18 @@ class Trainer:
             lo, hi, n = self._input_shard_plan(num_shards=par.batch_world)
             self.input_shard_range = (lo, hi, n)
         local_rows = par.local_rows(task.batch_size)
+        want = task.make_batch(np.random.default_rng(0), 1)
         # the ranks of one batch block (its expert and sequence ranks) read
         # the same records
-        ds = RecordDataset(paths, batch_size=local_rows, host_index=par.batch_rank,
-                           num_hosts=par.batch_world, seed=cfg.seed)
+        if cfg.input_format == "image":
+            ds = _open_image_dataset(paths, local_rows, want, train=True, seed=cfg.seed,
+                                     workers=cfg.decode_workers, min_scale=cfg.aug_min_scale,
+                                     host_index=par.batch_rank, num_hosts=par.batch_world)
+        elif cfg.input_format == "array":
+            ds = RecordDataset(paths, batch_size=local_rows, host_index=par.batch_rank,
+                               num_hosts=par.batch_world, seed=cfg.seed)
+        else:
+            raise ValueError(f"unknown input_format {cfg.input_format!r} (array | image)")
         if ds.shard_by == "records" and par.batch_world > 1:
             log.warning(
                 "%s: only %d record files for %d processes — falling back "
@@ -487,14 +548,15 @@ class Trainer:
                 ">= one file per host to restore per-host file IO)",
                 task.name, len(ds.files), par.batch_world,
             )
+        backend = getattr(ds, "backend", None)  # the image decode backend
         log.info(
-            "%s: array file input (%s-sharded) — process %d/%d reads %d files / "
+            "%s: %s file input (%s-sharded%s) — process %d/%d reads %d files / "
             "%d records, %d rows/step, resuming at batch %d",
-            task.name, ds.shard_by, par.batch_rank, par.batch_world, len(ds.files), len(ds),
-            local_rows, start_step,
+            task.name, cfg.input_format, ds.shard_by, f", {backend} decode" if backend else "",
+            par.batch_rank, par.batch_world, len(ds.files), len(ds), local_rows, start_step,
         )
-        want = task.make_batch(np.random.default_rng(0), 1)
-        # prefetch=0: fit's own prefetcher is the background thread
+        # prefetch=0: fit's own prefetcher is the background thread (an
+        # image dataset's decode pool still works within each batch)
         it = ds.iterator(prefetch=0, start_batch=start_step)
         return _CheckedFileStream(it, want, local_rows, dataset=ds)
 
@@ -635,6 +697,7 @@ class Trainer:
         t0 = time.perf_counter()
         last_report = (start_step, t0)
         last_bytes = 0
+        last_images = 0  # the decoded-image window's anchor (image input)
         first_step_s: Optional[float] = None
         input_wait_total, starved_steps = 0.0, 0
         finished = False
@@ -714,6 +777,15 @@ class Trainer:
                             b_now = files_iter.dataset.bytes_read
                             report_kw["input_mb_per_sec"] = (b_now - last_bytes) / w_dt / 1e6
                             last_bytes = b_now
+                            i_now = getattr(files_iter.dataset, "images_decoded", None)
+                            if i_now is not None:
+                                # the decode pool's delivered rate, beside
+                                # the input MB/s, and fit's prefetch queue
+                                # (between decode and device) as the
+                                # staged-batch gauge
+                                report_kw["decoded_images_per_sec"] = (i_now - last_images) / w_dt
+                                last_images = i_now
+                                _report_queue_depth(prefetcher)
                         progress.report(**report_kw)
                         log.info(
                             "%s step %d: %s", self.task.name, step,
@@ -758,13 +830,19 @@ class Trainer:
         return state, history
 
 
-def _unported_env(env: Dict[str, str]) -> None:
-    """Raise for env knobs of the reference that the port does not run."""
-    if env.get("TFK8S_INPUT_FORMAT", "array") not in ("", "array"):
-        raise NotImplementedError(
-            f"TFK8S_INPUT_FORMAT={env['TFK8S_INPUT_FORMAT']!r}: image record "
-            "input is ROADMAP item 1.5"
-        )
+def _report_queue_depth(prefetcher: Optional[_BatchPrefetcher]) -> None:
+    """The ``tfk8s_image_decode_queue_depth{mode="train"}`` gauge, where a
+    metrics registry is installed (``data.images.set_metrics``)."""
+    from tfk8s_tpu_torch.data.images.pipeline import get_metrics
+
+    m = get_metrics()
+    if m is not None and prefetcher is not None:
+        m.set_gauge("tfk8s_image_decode_queue_depth", float(prefetcher.depth()),
+                    labels={"mode": "train"})
+
+
+def _decode_workers(env: Dict[str, str]) -> Optional[int]:
+    return int(env["TFK8S_DECODE_WORKERS"]) if env.get("TFK8S_DECODE_WORKERS") else None
 
 
 def config_from_env(env: Dict[str, str], ctx: ProcessContext) -> TrainConfig:
@@ -781,6 +859,9 @@ def config_from_env(env: Dict[str, str], ctx: ProcessContext) -> TrainConfig:
         input_mode=env.get("TFK8S_INPUT_MODE") or None,
         input_shards=int(env["TFK8S_INPUT_SHARDS"]) if env.get("TFK8S_INPUT_SHARDS") else None,
         input_files=env.get("TFK8S_INPUT_FILES") or None,
+        input_format=env.get("TFK8S_INPUT_FORMAT", "array"),
+        decode_workers=_decode_workers(env),
+        aug_min_scale=float(env.get("TFK8S_AUG_MIN_SCALE", "0.08")),
         warmup_steps=int(env.get("TFK8S_WARMUP_STEPS", "0")),
         lr_schedule=env.get("TFK8S_LR_SCHEDULE", "constant"),
         decay_steps=int(env["TFK8S_DECAY_STEPS"]) if env.get("TFK8S_DECAY_STEPS") else None,
@@ -804,7 +885,6 @@ def join_job(env: Dict[str, str], device: Optional[torch.device] = None,
     """Env -> process context, the process group (when the job has one)
     and this rank's device: with several cards on the host, rank r takes
     card ``r % cards``."""
-    _unported_env(env)
     ctx = ProcessContext.from_env(env)
     device = select_device(env, device)
     if initialize_distributed(ctx, env, device=device) and device.type == "cuda":
@@ -902,16 +982,23 @@ def run_eval(
     np_rng = np.random.default_rng(10_000)  # held-out stream
     eval_files = env.get("TFK8S_EVAL_INPUT_FILES")
     if eval_files:
-        eval_ds = RecordDataset(_expand_input_files(eval_files),
-                                batch_size=task.batch_size, shuffle=False)
+        want = task.make_batch(np.random.default_rng(0), 1)
+        if env.get("TFK8S_INPUT_FORMAT", "array") == "image":
+            # the deterministic eval view (resize, center crop, unshuffled):
+            # every checkpoint is scored on the same pixels
+            eval_ds = _open_image_dataset(_expand_input_files(eval_files), task.batch_size,
+                                          want, train=False, workers=_decode_workers(env))
+        else:
+            eval_ds = RecordDataset(_expand_input_files(eval_files),
+                                    batch_size=task.batch_size, shuffle=False)
         avail = eval_ds.batches_per_epoch()
         if avail < eval_batches:
             log.info("%s-eval: eval set holds %d batches; clamping "
                      "TFK8S_EVAL_BATCHES from %d", task.name, avail, eval_batches)
             eval_batches = avail
-        want = task.make_batch(np.random.default_rng(0), 1)
         checked = _CheckedFileStream(eval_ds.batches(0), want, task.batch_size)
         eval_set = [next(checked) for _ in range(eval_batches)]
+        eval_ds.close()  # the decode pool is done once the set is held
     # the evaluator only reads checkpoints: it never commits or waits on
     # the gang's barrier
     ckpt = Checkpointer(ctx.checkpoint_dir)
