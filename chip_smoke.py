@@ -244,7 +244,13 @@ must pass:
    against the one process's full forward), in bfloat16 the share of
    equal tokens is printed; each rank's prefill launches the flash forward
    once a layer at 6 heads;
-16. nccl: with two cards or more the gangs of phase 13 (but the
+16. nccl: with two cards or more GPT-2-small as one pod of a card a rank
+   at full depth, started by ``gpt:train``'s first act over NCCL, on
+   ``{"data": 2}`` (DDP) and ``{"fsdp": 2}`` (FSDP2), and with four cards
+   on ``{"data": 2, "fsdp": 2}`` (HSDP) and ``{"fsdp": 4}``, each against
+   one process at the gang bounds (first loss atol 2e-2, the first
+   update's whole gradient within 5e-2 relative L2) with every rank's
+   flash launches 12 a step; the gangs of phase 13 (but the
    planted fault) run again over NCCL, a card a rank, against one
    process, and so does the pipelined BERT-MLM of phase 17 on
    ``{"pipeline": 2}``; with four cards T5-base on ``{"data": 2, "tensor":
@@ -370,8 +376,27 @@ must pass:
    seconds of the phase's start. Either way one fallback warning, naming
    the native core, is logged where the core did not build, none where
    it did.
+23. pod_ranks: a pod whose mesh spans more devices than the job has
+   processes, run as one rank process a device by the entry point's first
+   act (``runtime/pod_ranks``), with ``TFK8S_NUM_PROCESSES=1``. (a)
+   GPT-2-small (bf16, flash, GANG_LAYERS layers, seq 1024, batch 8) on
+   ``{"data": 2}``: two gloo ranks sharing the card, whose losses and
+   first update's whole gradient must equal bit for bit those of the same
+   job run by two processes started by hand (the kept gloo pair of
+   ``GangPool``), on the same per_host input; (b) T5-base on ``{"data": 2,
+   "tensor": 2}`` (four ranks, GANG_LAYERS layers, seq 512, batch 8)
+   against one process at the gang bounds (first loss atol 2e-2, the first
+   update's whole gradient within 5e-2 relative L2); each rank of (a) and
+   (b) launches every tensor-core flash kernel sites x layers x steps
+   times; (c) the pod of (a) with local rank 1 raising at its first step:
+   the entry point must raise naming that rank within
+   POD["fault_limit_s"] seconds, and no rank process may be alive after.
+   Each prints its wall time, spawn to first step, step time and every
+   rank's peak memory. The entry point is ``chip_smoke.pod_entry``, a
+   family's ``train`` at GANG_LAYERS depth with the families' first act
+   (the depth cut patches the presets, so it must happen in each rank).
 
-The launch counts are zeroed just before each path (phases 6-22) and
+The launch counts are zeroed just before each path (phases 6-23) and
 read just after it; the line's launches add up the paths'. Then it prints the card line, the ``kernels`` JSON
 line and, last, the ``ok`` line. It exits non-zero, printing no result,
 when a phase fails, when no card is visible, or when the port's package is
@@ -4155,8 +4180,9 @@ def phase_axes(torch, fa, root):
 
 
 def phase_nccl(torch, gpt, fa, gn, root):
-    """The gangs of phase 13 over NCCL, a card a rank, where the machine
-    has two cards or more, and the pipelined gangs of PIPELINE_NCCL_GANGS
+    """The pods of POD_NCCL_JOBS that fit the cards, started by the entry
+    point a card a rank, and the gangs of phase 13 over NCCL, a card a
+    rank, where the machine has two cards or more, and the pipelined gangs of PIPELINE_NCCL_GANGS
     that fit its cards; with four the tensor gangs of TENSOR_NCCL_GANGS,
     the combined-axes gangs of AXES_NCCL_GANGS and the pipeline-axes gangs
     of PIPELINE_AXES_NCCL_GANGS; else one line says why they were skipped
@@ -4167,6 +4193,7 @@ def phase_nccl(torch, gpt, fa, gn, root):
             "one card, so the gangs ran over gloo only (phases parallel, tensor, axes "
             "and pipeline)")
         return
+    _pod_nccl(torch, fa, root, cards)
     _parallel_gangs(torch, gpt, fa, root, "nccl")
     fits = [g for g in PIPELINE_NCCL_GANGS if math.prod(g[1].values()) <= cards]
     _pipeline_gangs(torch, fa, gn, root, "nccl", fits, _pipeline_reference(torch, fa, gn)[0])
@@ -5052,6 +5079,270 @@ def phase_images(torch, fa, gn, root):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# phase pod_ranks: a pod whose mesh spans more devices than the job has
+# processes runs one rank process a device, started by the entry point
+POD = dict(seed=31, gang_steps=3, fault_limit_s=60.0)
+POD_GPT = {"TFK8S_SEQ_LEN": "1024", "TFK8S_BATCH_SIZE": "8"}
+POD_T5 = {"TFK8S_SEQ_LEN": "512", "TFK8S_BATCH_SIZE": "8"}
+# over NCCL, a card a rank, at full depth: (name, mesh, cards it needs)
+POD_NCCL_JOBS = [
+    ("gpt_ddp", {"data": 2}, 2),
+    ("gpt_fsdp2", {"fsdp": 2}, 2),
+    ("gpt_hsdp", {"data": 2, "fsdp": 2}, 4),
+    ("gpt_fsdp4", {"fsdp": 4}, 4),
+]
+
+
+def pod_entry(env, stop=None):
+    """A family's ``train(env, stop)`` (``FAMILY``) at ``GANG_LAYERS``
+    depth, with the families' first act: where the pod runs several ranks
+    it starts them on this function (``pod_ranks.ranks``) and returns rank
+    0's history. The depth cut patches the presets, so it must happen in
+    each rank, hence this entry point beside the families'. In a rank:
+    ``POD_GRADS``, rank 0 saves the first update's whole gradient there;
+    ``POD_FAULT_RANK``, that local rank raises at its first step."""
+    import importlib
+
+    import torch
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    from tfk8s_tpu_torch.runtime import pod_ranks
+    from tfk8s_tpu_torch.runtime import train as ttrain
+
+    history = pod_ranks.ranks("chip_smoke:pod_entry", env, stop)
+    if history is not None:
+        return history
+    if env.get("POD_FAULT_RANK") == env.get("TFK8S_LOCAL_RANK"):
+        def planted(self, state, batch):
+            raise RuntimeError(f"planted failure at step {state.step + 1}")
+
+        ttrain.Trainer.train_step = planted
+    held, init_state = [], ttrain.Trainer.init_state
+
+    def holding(self):
+        state = init_state(self)
+        held.append((self.parallel, state.model))
+        return state
+
+    def hook(opt, args, kwargs):
+        if env.get("POD_GRADS") and len(held) == 1:
+            parallel, model = held.pop()
+            grads = [g.float().cpu() for g in parallel.whole_grads(model).values()]
+            if env["TFK8S_PROCESS_ID"] == "0":
+                torch.save(grads, env["POD_GRADS"])
+
+    ttrain.Trainer.init_state = holding
+    handle = register_optimizer_step_pre_hook(hook)
+    module = importlib.import_module("tfk8s_tpu_torch.models." + env["FAMILY"])
+    try:
+        with gang_depth(env.get("GANG_LAYERS")):
+            return module.train(env, stop)
+    finally:
+        handle.remove()
+        ttrain.Trainer.init_state = init_state
+
+
+def _pod_env(family, extra, mesh, steps, layers=GANG_LAYERS):
+    tiny = PARALLEL_ENV.get("TFK8S_MODEL_PRESET") == "tiny"
+    env = dict({"TFK8S_MODEL_PRESET": "tiny"} if tiny else {},
+               **({"TFK8S_DEVICE": "cpu"} if DEVICE == "cpu" else {}),
+               **({"GANG_LAYERS": str(layers)} if layers else {}),
+               **extra, FAMILY=family, TFK8S_TRAIN_STEPS=str(steps), TFK8S_LOG_EVERY="1",
+               TFK8S_LEARNING_RATE="1e-4", TFK8S_SEED=str(POD["seed"]),
+               TFK8S_ATTENTION_IMPL="flash")
+    if mesh is not None:
+        env["TFK8S_MESH"] = json.dumps(mesh)
+    return env
+
+
+def _pod_run(torch, env, grads=None):
+    """``pod_entry(env)`` as a pod's process runs it (the pod env, no
+    mesh-sized process count): (history, PodRun, rank 0's whole first
+    gradient or None, the wall seconds)."""
+    from tfk8s_tpu_torch.runtime import pod_ranks
+
+    full = dict(env, **({"POD_GRADS": grads} if grads else {}))
+    t0 = time.perf_counter()
+    history = pod_entry(full)
+    wall = time.perf_counter() - t0
+    run = pod_ranks.last_run()
+    got = torch.load(grads) if grads else None
+    if grads:
+        os.remove(grads)
+    return history, run, got, wall
+
+
+def _pod_summary(history, run, wall):
+    """What a spawned pod's run cost: wall time, spawn to rank 0's first
+    finished step, the step time (the history's clock from the first
+    logged step to the last), each rank's wall and peak memory."""
+    t_first = history[0]["step"] / history[0]["steps_per_s"]
+    t_last = history[-1]["step"] / history[-1]["steps_per_s"]
+    steps = history[-1]["step"] - history[0]["step"]
+    return {"wall_s": wall, "spawn_to_first_step_s": run.first_step_s,
+            "step_ms": (t_last - t_first) / steps * 1e3 if steps else None,
+            "ranks": [{"rank": run.first_rank + l, "wall_s": r["wall_s"],
+                       "peak_gib": (r["peak_memory_bytes"] or 0) / 2**30}
+                      for l, r in enumerate(run.records)]}
+
+
+def _pod_placement(run, backend):
+    """Every rank over ``backend``; over NCCL each on a card of its own."""
+    got = [(r["backend"], r["device"]) for r in run.records]
+    if {b for b, _ in got} != {backend}:
+        raise AssertionError(f"ranks' backends and devices {got}, want {backend}")
+    if backend == "nccl" and len({d for _, d in got}) != len(got):
+        raise AssertionError(f"NCCL ranks share a card: {got}")
+
+
+def _pod_launches(fa, run, want):
+    """Each rank's flash launches, which must be ``want``; their sum."""
+    total = dict.fromkeys(fa.KERNELS, 0)
+    for l, r in enumerate(run.records):
+        got = r["launches"].get("flash_attention", {})
+        if got != want:
+            raise AssertionError(f"rank {run.first_rank + l} flash launches {got}, want {want}")
+        for k, v in got.items():
+            total[k] += v
+    return total
+
+
+def _flash(fa, sites, layers, steps):
+    return {**dict.fromkeys(fa.SIMT_KERNELS, 0),
+            **dict.fromkeys(fa.TENSOR_CORE_KERNELS, sites * layers * steps)}
+
+
+def _pod_against_one(torch, fa, name, family, extra, mesh, steps, sites, card, work,
+                     backend, layers=GANG_LAYERS):
+    """A pod of ``family`` on ``mesh``, started by the entry point, against
+    one process of the same job: the first loss within PARALLEL_LOSS_ATOL
+    and the first update's whole gradient within FAMILY_GRAD_REL_L2; every
+    rank over ``backend`` (on NCCL, a card of its own) and its flash
+    launches sites x layers x steps. Returns the launches."""
+    import importlib
+
+    module = importlib.import_module(f"tfk8s_tpu_torch.models.{family}")
+    env = _pod_env(family, extra, None, steps, layers)
+    losses, want, one_ms, got, fresh = one_process(torch, fa, module, env)
+    n_layers = family_layers(module, env)
+    if got != _flash(fa, sites, n_layers, steps):
+        raise AssertionError(f"{name} one process: flash launches {got}")
+    torch.cuda.empty_cache()
+    history, run, grads, wall = _pod_run(torch, _pod_env(family, extra, mesh, steps, layers),
+                                         os.path.join(work, f"{name}.pt"))
+    errs = {"loss_err": abs(history[0]["loss"] - losses[0]),
+            "grad_rel_l2": _grads_rel_l2(dict(enumerate(grads)), dict(enumerate(want))),
+            "finite": all(math.isfinite(h["loss"]) for h in history)}
+    total = _pod_launches(fa, run, _flash(fa, sites, n_layers, steps))
+    _pod_placement(run, backend)
+    log(f"pod_ranks {name} {json.dumps(mesh)}: {json.dumps({'card': card, **errs, 'one_process_loss': losses[0], 'one_process_step_ms': one_ms, 'losses': [h['loss'] for h in history], **_pod_summary(history, run, wall)})}")
+    if not (errs["finite"] and errs["loss_err"] <= PARALLEL_LOSS_ATOL
+            and errs["grad_rel_l2"] <= FAMILY_GRAD_REL_L2):
+        raise AssertionError(f"{name}: {errs} (bounds: loss {PARALLEL_LOSS_ATOL}, relative L2 "
+                             f"{FAMILY_GRAD_REL_L2})")
+    if fresh:
+        for k, v in got.items():
+            total[k] += v
+    return total
+
+
+def phase_pod_ranks(torch, fa, root):
+    """One pod of GPT-2-small on ``{"data": 2}`` started by the entry point
+    (two gloo ranks sharing the card) against two processes started by
+    hand, bit for bit; a pod of T5-base on ``{"data": 2, "tensor": 2}``
+    against one process; a planted failing rank (docstring phase 23).
+    Returns the launches of the paths it drives."""
+    import importlib
+
+    from tfk8s_tpu_torch.runtime import pod_ranks
+
+    card = phase_card()
+    work = os.path.join(root, "build", "chip_smoke_pod")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    total = dict.fromkeys(fa.KERNELS, 0)
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    # (a) the spawned pair against the hand-started pair: the same ranks
+    # on the same input (per_host, a shard a rank, on both)
+    def backend(ranks):  # NCCL where each rank has a card of its own
+        return "gloo" if DEVICE == "cpu" or torch.cuda.device_count() < ranks else "nccl"
+
+    steps = POD["gang_steps"]
+    extra = dict(POD_GPT, TFK8S_INPUT_MODE="per_host", TFK8S_INPUT_SHARDS="2")
+    env = _pod_env("gpt", extra, {"data": 2}, steps)
+    torch.cuda.empty_cache()
+    history, run, grads, wall = _pod_run(torch, env, os.path.join(work, "gpt_data.pt"))
+    layers = family_layers(importlib.import_module("tfk8s_tpu_torch.models.gpt"), env)
+    add(_pod_launches(fa, run, _flash(fa, 1, layers, steps)))
+    _pod_placement(run, backend(2))
+    gang = _run_par_gangs(2, [dict(name="gpt_data_hand", out=os.path.join(work, "gpt_data_hand"),
+                                   want=grads, env=dict(env, WHOLE_GRADS="1"))])
+    records, hand_grads = gang["gpt_data_hand"]
+    same_losses = [h["loss"] for h in history] == records[0]["losses"] == records[1]["losses"]
+    same_grads = all(torch.equal(a, b) for a, b in zip(grads, hand_grads))
+    grads_diff = max(float((a - b).abs().max()) for a, b in zip(grads, hand_grads))
+    log(f"pod_ranks gpt_data {{\"data\": 2}}: {json.dumps({'card': card, 'backend': 'gloo', 'losses': [h['loss'] for h in history], 'hand_started_losses': records[0]['losses'], 'identical_losses': same_losses, 'identical_grads': same_grads, 'grads_max_abs_diff': grads_diff, 'hand_started_step_ms': records[0]['step_ms'], 'hand_started_peak_gib': [r['peak_gib'] for r in records], **_pod_summary(history, run, wall)})}")
+    if not (same_losses and same_grads):
+        raise AssertionError("the spawned pod's run differs from the hand-started ranks'")
+
+    # (b) T5-base on the reference's {"data": 2, "tensor": 2}, a pod of four
+    add(_pod_against_one(torch, fa, "t5_data_tensor", "t5", POD_T5, {"data": 2, "tensor": 2},
+                         steps, 3, card, work, backend(4)))
+
+    # (c) a rank that fails: the pod raises naming it, and no rank outlives it
+    env = _pod_env("gpt", POD_GPT, {"data": 2}, steps)
+    t0 = time.perf_counter()
+    try:
+        pod_entry(dict(env, POD_FAULT_RANK="1"))
+    except pod_ranks.RankFailed as e:
+        failed = e
+    else:
+        raise AssertionError("the pod with a failing rank returned")
+    fail_s = time.perf_counter() - t0
+    run = pod_ranks.last_run()
+    alive = [pid for pid in run.pids if _alive(pid)]
+    log(f"pod_ranks failing rank: {json.dumps({'card': card, 'error': str(failed)[:300], 'rank': failed.rank, 'raised_after_s': fail_s, 'alive': alive})}")
+    if (failed.rank, failed.local_rank) != (1, 1) or "planted failure at step 1" not in str(failed):
+        raise AssertionError(f"the failing pod raised {failed!r}")
+    if fail_s > POD["fault_limit_s"] or alive:
+        raise AssertionError(f"failing pod: raised after {fail_s:.1f} s, ranks alive {alive}")
+    shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
+def _alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def _pod_nccl(torch, fa, root, cards):
+    """POD_NCCL_JOBS that fit ``cards``: GPT-2-small at full depth, a pod
+    of a card a rank started by the entry point (NCCL), against one
+    process. Returns the launches."""
+    work = os.path.join(root, "build", "chip_smoke_pod_nccl")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    card = phase_card()
+    total = dict.fromkeys(fa.KERNELS, 0)
+    for name, mesh, need in POD_NCCL_JOBS:
+        if need > cards:
+            log(f"nccl: pod {name} {json.dumps(mesh)} skipped: {cards} cards, it needs {need}")
+            continue
+        got = _pod_against_one(torch, fa, name, "gpt", POD_GPT, mesh, POD["gang_steps"], 1,
+                               card, work, "nccl", layers=None)
+        for k, v in got.items():
+            total[k] += v
+    shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -5105,6 +5396,7 @@ def main() -> int:
         ("profile", lambda: phase_profile(torch, gpt, fa, root)),
         ("text", lambda: phase_text(torch, gpt, fa, root)),
         ("images", lambda: phase_images(torch, fa, gn, root)),
+        ("pod_ranks", lambda: phase_pod_ranks(torch, fa, root)),
     ]
     if only:
         phases = [p for p in phases if p[0] in ("card", "build", *only)]
@@ -5130,7 +5422,7 @@ def main() -> int:
                 line = value
             elif name in ("train", "resnet_train", "roofline", "generate", "distributed",
                           "families", "parallel", "tensor", "axes", "pipeline",
-                          "pipeline_axes", "profile", "text", "images"):
+                          "pipeline_axes", "profile", "text", "images", "pod_ranks"):
                 for kernel, count in value.items():  # each path's launches add up
                     launches[kernel] = launches.get(kernel, 0) + count
     finally:

@@ -19,8 +19,9 @@ per module and several tests read its output:
 - files input with two processes: the ranks read disjoint files.
 
 Also the launcher's gate (no process group without
-``TFK8S_DISTRIBUTED=1``), ``MeshConfig`` against the reference's, and the
-layouts still unported, which raise naming their ROADMAP item.
+``TFK8S_DISTRIBUTED=1``), ``MeshConfig`` against the reference's, and
+the pods of layouts with more devices than processes: their rank counts,
+global ranks and backends.
 """
 
 import dataclasses
@@ -45,6 +46,7 @@ from tfk8s_tpu_torch.models import gpt as tgpt
 from tfk8s_tpu_torch.models import mlp as tmlp
 from tfk8s_tpu_torch.models.bert import make_chain_tokens
 from tfk8s_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+from tfk8s_tpu_torch.runtime import launcher, pod_ranks
 from tfk8s_tpu_torch.runtime import train as ttrain
 from tfk8s_tpu_torch.runtime.launcher import ProcessContext, initialize_distributed
 
@@ -371,35 +373,59 @@ def test_mesh_device_count_error_matches_the_reference():
     assert build_mesh(MeshConfig.create(data=1), torch.device("cpu")).device_mesh is None
 
 
+def _assert_pods(env, ranks, monkeypatch):
+    """``env``'s pods each run ``ranks`` rank processes: pod ``p``'s are
+    global ranks ``p * ranks + l`` of ``n * ranks``, each a rank alone (a
+    gang member as started by hand); over gloo on the CPU and where they
+    share one card, over NCCL where each has a card of its own."""
+    ctx = ProcessContext.from_env(env)
+    assert ctx.pod_ranks() == ranks
+    n = ctx.num_processes
+    for p in range(n):
+        pod = dict(env, TFK8S_PROCESS_ID=str(p), TFK8S_DISTRIBUTED="1",
+                   TFK8S_COORDINATOR_ADDRESS="10.0.0.1:8476", TFK8S_SLICE_ID=f"s{p}")
+        envs = pod_ranks.rank_envs(pod, ranks)
+        assert [int(e["TFK8S_PROCESS_ID"]) for e in envs] == [p * ranks + l for l in range(ranks)]
+        for l, e in enumerate(envs):
+            rank = ProcessContext.from_env(e)
+            assert (rank.num_processes, rank.local_rank, rank.local_ranks) == (n * ranks, l, ranks)
+            assert rank.pod_ranks() == 1 and rank.slice_id == f"s{p}"
+            # one pod meets on loopback; several at the job's coordinator
+            assert rank.coordinator_address.startswith("127.0.0.1:" if n == 1 else "10.0.0.1:")
+    assert launcher.backend_for("cpu", ranks) == "gloo"
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert launcher.backend_for("cuda", ranks) == ("nccl" if ranks == 1 else "gloo")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: ranks)
+    assert launcher.backend_for("cuda", ranks) == "nccl"
+
+
 @pytest.mark.parametrize("mesh", [
     # tensor beside fsdp, expert or sequence runs
     # (tests/test_torch_axes_tensor.py)
     '{"fsdp": 2, "tensor": 2}', '{"expert": 2, "tensor": 2}', '{"sequence": 2, "tensor": 2}',
 ])
-def test_combined_layouts_pass_the_launcher_check(mesh):
-    ctx = ProcessContext.from_env({"TFK8S_MESH": mesh, "TFK8S_NUM_PROCESSES": "4"})
-    ctx.require_single_device(4)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 1\.5\b"):
-        ctx.require_single_device(2)
+def test_combined_layouts_pass_the_launcher_check(mesh, monkeypatch):
+    """Four processes run these four-device layouts a rank each; two
+    processes run two ranks a pod."""
+    _assert_pods({"TFK8S_MESH": mesh, "TFK8S_NUM_PROCESSES": "4"}, 1, monkeypatch)
+    _assert_pods({"TFK8S_MESH": mesh, "TFK8S_NUM_PROCESSES": "2"}, 2, monkeypatch)
 
 
-@pytest.mark.parametrize("env,item", [
-    # pipeline runs beside every axis in a gang (tests/test_torch_pipeline*.py);
-    # one process for these four-device layouts raises item 1.5
-    ({"TFK8S_MESH": '{"expert": 2, "pipeline": 2}', "TFK8S_NUM_PROCESSES": "4"}, "1.5"),
-    ({"TFK8S_MESH": '{"pipeline": 2, "tensor": 2}', "TFK8S_NUM_PROCESSES": "4"}, "1.5"),
+@pytest.mark.parametrize("env,ranks", [
+    # pipeline runs beside every axis in a gang (tests/test_torch_pipeline*.py)
+    ({"TFK8S_MESH": '{"expert": 2, "pipeline": 2}', "TFK8S_NUM_PROCESSES": "4"}, 1),
+    ({"TFK8S_MESH": '{"pipeline": 2, "tensor": 2}', "TFK8S_NUM_PROCESSES": "4"}, 1),
     # multislice runs (tests/test_torch_multislice.py); a multislice mesh
-    # of more devices than processes still raises
-    ({"TFK8S_NUM_SLICES": "2", "TFK8S_MESH": '{"data": 4}', "TFK8S_NUM_PROCESSES": "2"},
-     "1.5"),
-    ({"TFK8S_MESH": '{"data": 4}', "TFK8S_NUM_PROCESSES": "2"}, "1.5"),
+    # of more devices than processes runs a pod's ranks in its slice
+    ({"TFK8S_NUM_SLICES": "2", "TFK8S_MESH": '{"data": 4}', "TFK8S_NUM_PROCESSES": "2"}, 2),
+    ({"TFK8S_MESH": '{"data": 4}', "TFK8S_NUM_PROCESSES": "2"}, 2),
     # image input runs (tests/test_torch_image_job.py); a four-device
-    # layout in one process still raises, before any file is opened
+    # layout in one process runs four ranks
     ({"TFK8S_INPUT_FILES": "x-*.rio", "TFK8S_INPUT_FORMAT": "image",
-      "TFK8S_MESH": '{"data": 4}', "TFK8S_NUM_PROCESSES": "1"}, "1.5"),
+      "TFK8S_MESH": '{"data": 4}', "TFK8S_NUM_PROCESSES": "1"}, 4),
 ])
-def test_unported_layouts_raise_naming_their_item(env, item):
-    if "TFK8S_MESH" in env:  # every layout passes the mesh rules
-        MeshConfig.from_env(env).require_ported()
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP item {item}\b"):
-        _one_process(1, **env)
+def test_unported_layouts_raise_naming_their_item(env, ranks, monkeypatch):
+    """The layouts that raised ROADMAP item 1.5 (more devices than
+    processes) run a pod's ranks a device each."""
+    MeshConfig.from_env(env).require_ported()  # every layout passes the mesh rules
+    _assert_pods(env, ranks, monkeypatch)

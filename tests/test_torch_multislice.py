@@ -143,12 +143,13 @@ def test_multislice_placement_puts_the_boundary_on_the_slow_axis():
 
 def test_launcher_takes_multislice_from_env():
     """The launcher no longer refuses ``TFK8S_NUM_SLICES``: it reads the
-    slice count and id for ``build_mesh``; one process of a two-slice job
-    fails the reference's divisibility check."""
+    slice count and id for ``build_mesh`` (one process of this eight-device
+    layout runs eight ranks, each in its slice); one process of a two-slice
+    job without a mesh fails the reference's divisibility check."""
     ctx = ProcessContext.from_env({"TFK8S_MESH": '{"data": 2, "tensor": 4}',
                                    "TFK8S_NUM_SLICES": "2", "TFK8S_SLICE_ID": "s1"})
     assert (ctx.num_slices, ctx.slice_id) == (2, "s1")
-    ctx.require_single_device(8)
+    assert ctx.pod_ranks() == 8
     assert ctx.mesh.slice_axis_split(ctx.num_slices) == (("data",), ("tensor",))
     with pytest.raises(ValueError, match="not divisible into 2 slices"):
         ttrain.join_mesh({"TFK8S_DEVICE": "cpu", "TFK8S_NUM_SLICES": "2"})

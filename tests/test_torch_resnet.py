@@ -239,20 +239,30 @@ def test_train_entrypoint_checkpoints_and_counts_no_card_launch(tmp_path):
     assert tgn.LAUNCHES == dict.fromkeys(tgn.KERNELS, 0)  # the CPU runs the plain path
 
 
-@pytest.mark.parametrize("extra", [
+@pytest.mark.parametrize("extra,ranks", [
     # image input runs (tests/test_torch_image_job.py); its four-device
-    # layout in one process raises item 1.5 before any file is opened
-    {"TFK8S_INPUT_FILES": "shards/*.rio", "TFK8S_INPUT_FORMAT": "image",
-     "TFK8S_NUM_PROCESSES": "1", "TFK8S_MESH": '{"data": 4}'},
+    # layout in one process runs as the pod's four ranks, which the entry
+    # point starts on itself (tests/test_torch_pod_ranks.py runs them)
+    ({"TFK8S_INPUT_FILES": "shards/*.rio", "TFK8S_INPUT_FORMAT": "image",
+      "TFK8S_NUM_PROCESSES": "1", "TFK8S_MESH": '{"data": 4}'}, 4),
     # multislice runs (tests/test_torch_multislice.py), and pipeline beside
-    # expert in a gang (tests/test_torch_pipeline_axes.py); one process for
-    # its four devices raises item 1.5
-    {"TFK8S_NUM_PROCESSES": "4", "TFK8S_MESH": '{"pipeline": 2, "expert": 2}'},
+    # expert in a gang (tests/test_torch_pipeline_axes.py); one of four
+    # processes outside a process group holds one device of the four
+    ({"TFK8S_NUM_PROCESSES": "4", "TFK8S_MESH": '{"pipeline": 2, "expert": 2}'}, 1),
 ])
-def test_unported_input_raises(extra):
+def test_unported_input_raises(extra, ranks, monkeypatch):
+    from tfk8s_tpu_torch.runtime import pod_ranks
+
     MeshConfig.from_env(extra).require_ported()  # the layout passes the mesh rules
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 1\.5\b"):
-        tres.train(_env(**extra))
+    pods = []
+    monkeypatch.setattr(pod_ranks, "run", lambda *args: pods.append(args) or [])
+    if ranks > 1:
+        assert tres.train(_env(**extra)) == []
+        assert pods == [("tfk8s_tpu_torch.models.resnet:train", _env(**extra), None, ranks)]
+    else:
+        with pytest.raises(ValueError, match=r"needs 4 devices; 1 available"):
+            tres.train(_env(**extra))
+        assert pods == []
 
 
 def test_tpujob_runs_the_resnet_entrypoint_through_the_reference_control_plane():

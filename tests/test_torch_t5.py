@@ -284,11 +284,14 @@ def test_presets_keep_the_reference_shapes():
 @pytest.mark.parametrize("family", ["bert", "vit", "t5"])
 def test_family_entrypoints_need_the_card_unless_the_cpu_is_asked_for(family, monkeypatch):
     """No entry point falls back to the CPU: without a card it raises
-    unless ``TFK8S_DEVICE=cpu``; a layout of more devices than processes
-    raises naming item 1.5 (image input included, which runs on one
-    device: tests/test_torch_image_job.py); MoE and ring attention (item
-    1.9's first half) run."""
+    unless ``TFK8S_DEVICE=cpu``, a pod of several ranks before it starts
+    one; a layout of more devices than processes (image input included,
+    tests/test_torch_image_job.py) runs as the pod's ranks, which the entry
+    point starts on itself (tests/test_torch_pod_ranks.py runs them); MoE
+    and ring attention (item 1.9's first half) run."""
     import importlib
+
+    from tfk8s_tpu_torch.runtime import pod_ranks
 
     module = importlib.import_module(f"tfk8s_tpu_torch.models.{family}")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -296,9 +299,14 @@ def test_family_entrypoints_need_the_card_unless_the_cpu_is_asked_for(family, mo
            "TFK8S_BATCH_SIZE": "2"}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         module.train(env)
-    with pytest.raises(NotImplementedError, match="1.5"):
-        module.train(dict(env, TFK8S_DEVICE="cpu", TFK8S_INPUT_FILES="x-*.rio",
-                          TFK8S_INPUT_FORMAT="image", TFK8S_MESH='{"data": 4}'))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.train(dict(env, TFK8S_MESH='{"data": 4}'))
+    pods = []
+    monkeypatch.setattr(pod_ranks, "run", lambda *args: pods.append(args) or [{"step": 1}])
+    image = dict(env, TFK8S_DEVICE="cpu", TFK8S_INPUT_FILES="x-*.rio",
+                 TFK8S_INPUT_FORMAT="image", TFK8S_MESH='{"data": 4}')
+    assert module.train(image) == [{"step": 1}]
+    assert pods == [(f"tfk8s_tpu_torch.models.{family}:train", image, None, 4)]
     # MoE and the ring pin (once refusals naming item 1.9) run on the CPU
     for extra in ({"TFK8S_NUM_EXPERTS": "2"}, {"TFK8S_ATTENTION_IMPL": "ring"}):
         final = module.train(dict(env, TFK8S_DEVICE="cpu", **extra))[-1]

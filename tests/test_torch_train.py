@@ -172,22 +172,35 @@ def test_drain_commits_a_checkpoint_and_raises_pod_drained(tmp_path):
     assert Checkpointer(str(tmp_path)).latest_step() == 0
 
 
-@pytest.mark.parametrize("extra", [
+@pytest.mark.parametrize("extra,outcome", [
     # multislice runs (tests/test_torch_multislice.py), and pipeline beside
-    # tensor in a gang (tests/test_torch_pipeline_axes.py); one process for
-    # its four devices raises item 1.5
-    {"TFK8S_NUM_PROCESSES": "4", "TFK8S_MESH": '{"pipeline": 2, "tensor": 2}'},
-    {"TFK8S_MESH": '{"data": 2}'},
-    # image input runs (tests/test_torch_image_job.py); with a four-device
-    # layout in one process it raises item 1.5 before any file is opened
-    {"TFK8S_INPUT_FILES": "part-*.rio", "TFK8S_INPUT_FORMAT": "image",
-     "TFK8S_MESH": '{"data": 4}'},
-    {"TFK8S_NUM_PROCESSES": "2", "TFK8S_MESH": '{"data": 2, "tensor": 2}'},
+    # tensor in a gang (tests/test_torch_pipeline_axes.py); one of four
+    # processes outside a process group holds one device of the four
+    ({"TFK8S_NUM_PROCESSES": "4", "TFK8S_MESH": '{"pipeline": 2, "tensor": 2}'},
+     (ValueError, r"needs 4 devices; 1 available")),
+    # more devices than processes: the pod's ranks, started by the entry
+    # point on itself (tests/test_torch_pod_ranks.py runs them)
+    ({"TFK8S_MESH": '{"data": 2}'}, 2),
+    # image input runs (tests/test_torch_image_job.py), a pod of four too
+    ({"TFK8S_INPUT_FILES": "part-*.rio", "TFK8S_INPUT_FORMAT": "image",
+      "TFK8S_MESH": '{"data": 4}'}, 4),
+    # two pods of two ranks need a process group across the pods
+    ({"TFK8S_NUM_PROCESSES": "2", "TFK8S_MESH": '{"data": 2, "tensor": 2}'},
+     (RuntimeError, r"needs TFK8S_DISTRIBUTED=1")),
 ])
-def test_unported_features_raise(extra):
+def test_unported_features_raise(extra, outcome, monkeypatch):
+    from tfk8s_tpu_torch.runtime import pod_ranks
+
     if "TFK8S_MESH" in extra:  # every layout passes the mesh rules
         MeshConfig.from_env(extra).require_ported()
-    with pytest.raises(NotImplementedError):
+    if isinstance(outcome, int):
+        pods = []
+        monkeypatch.setattr(pod_ranks, "run", lambda *args: pods.append(args) or [])
+        assert tgpt.train(_env(**extra)) == []
+        assert pods == [("tfk8s_tpu_torch.models.gpt:train", _env(**extra), None, outcome)]
+        return
+    # raised before any rank process starts
+    with pytest.raises(outcome[0], match=outcome[1]):
         tgpt.train(_env(**extra))
 
 

@@ -46,6 +46,7 @@ from tfk8s_tpu_torch.models.transformer import (
     token_group,
 )
 from tfk8s_tpu_torch.parallel.tensor_parallel import TensorShard, init_sharded, vocab_split
+from tfk8s_tpu_torch.runtime import pod_ranks
 from tfk8s_tpu_torch.runtime.train import TrainTask, join_mesh, run_task
 
 MASK_ID = 0  # reserved mask token; chain tokens live in [1, vocab)
@@ -242,6 +243,7 @@ def task_for_mesh(
     return make_task(cfg=cfg, attn_fn=select_attn_fn(cfg, seq_len, mesh), mesh=mesh, **task_kw)
 
 
+@pod_ranks.entrypoint
 def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, float]]:
     """TPUJob entrypoint: ``tfk8s_tpu_torch.models.bert:train``, with the
     reference's env contract (``TFK8S_SEQ_LEN`` 128, ``TFK8S_BATCH_SIZE``

@@ -54,6 +54,7 @@ from tfk8s_tpu_torch.parallel.tensor_parallel import (
     group_of,
     init_sharded,
 )
+from tfk8s_tpu_torch.runtime import pod_ranks
 from tfk8s_tpu_torch.runtime.train import TrainTask, join_mesh, keep_sequence, run_task
 
 # the compute dtype the reference fixes (``dlrm.py:43``, ``:95``, ``:97``,
@@ -260,6 +261,7 @@ def task_for_mesh(mesh, **task_kw) -> TrainTask:
     return make_task(mesh=mesh, **task_kw)
 
 
+@pod_ranks.entrypoint
 def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, float]]:
     """TPUJob entrypoint: ``tfk8s_tpu_torch.models.dlrm:train``, with the
     reference's env contract (``TFK8S_BATCH_SIZE`` 4096, 100 steps at lr

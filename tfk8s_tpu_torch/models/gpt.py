@@ -58,6 +58,7 @@ from tfk8s_tpu_torch.models.transformer import (
     token_loss,
 )
 from tfk8s_tpu_torch.parallel.tensor_parallel import init_sharded, vocab_split
+from tfk8s_tpu_torch.runtime import pod_ranks
 from tfk8s_tpu_torch.runtime.train import TrainTask, join_mesh, run_task
 
 
@@ -752,6 +753,7 @@ def save_hf_gpt2(cfg: TransformerConfig, model: Union[BertWithHead, Dict[str, to
     return hf.eval()
 
 
+@pod_ranks.entrypoint
 def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, float]]:
     """TPUJob entrypoint: ``tfk8s_tpu_torch.models.gpt:train``.
     ``TFK8S_MODEL_PRESET=tiny`` selects the test-scale config;

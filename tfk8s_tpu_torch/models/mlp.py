@@ -40,6 +40,7 @@ from tfk8s_tpu_torch.parallel.tensor_parallel import (
     init_sharded,
     row_dense,
 )
+from tfk8s_tpu_torch.runtime import pod_ranks
 from tfk8s_tpu_torch.runtime.train import TrainTask, join_mesh, run_eval, run_task
 
 IMAGE_DIM = 784
@@ -138,6 +139,7 @@ def make_task(batch_size: int = 128, hidden: int = 256, mesh=None) -> TrainTask:
     )
 
 
+@pod_ranks.entrypoint
 def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, float]]:
     """TPUJob entrypoint: ``tfk8s_tpu_torch.models.mlp:train``, with the
     reference's defaults (300 steps at learning rate 3e-3), over the

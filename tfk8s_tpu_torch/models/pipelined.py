@@ -79,6 +79,7 @@ from tfk8s_tpu_torch.parallel.mesh import (
 )
 from tfk8s_tpu_torch.parallel.pipeline import pipeline_apply, split_microbatches
 from tfk8s_tpu_torch.parallel.tensor_parallel import TensorShard, init_sharded, vocab_split
+from tfk8s_tpu_torch.runtime import pod_ranks
 from tfk8s_tpu_torch.runtime.train import TrainTask, join_mesh, keep_sequence, run_task
 
 
@@ -230,6 +231,7 @@ def make_task(
     )
 
 
+@pod_ranks.entrypoint
 def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, float]]:
     """TPUJob entrypoint: ``tfk8s_tpu_torch.models.pipelined:train``, with
     the reference's env contract: ``TFK8S_MESH`` with a ``pipeline`` axis

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tfk8s_tpu_torch.ops.group_norm import fused_group_norm
+from tfk8s_tpu_torch.runtime import pod_ranks
 from tfk8s_tpu_torch.runtime.launcher import select_device
 from tfk8s_tpu_torch.runtime.train import TrainTask, run_task
 
@@ -324,6 +325,7 @@ def make_task(
     )
 
 
+@pod_ranks.entrypoint
 def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, float]]:
     """TPUJob entrypoint: ``tfk8s_tpu_torch.models.resnet:train``, with the
     reference's env contract (``TFK8S_RESNET_DEPTH``, ``TFK8S_BATCH_SIZE``,

@@ -63,6 +63,7 @@ from tfk8s_tpu_torch.models.transformer import (
 from tfk8s_tpu_torch.ops import jax_random
 from tfk8s_tpu_torch.parallel.moe import ExpertShard
 from tfk8s_tpu_torch.parallel.tensor_parallel import TensorShard, init_sharded, vocab_split
+from tfk8s_tpu_torch.runtime import pod_ranks
 from tfk8s_tpu_torch.runtime.train import TrainTask, join_mesh, run_task
 
 PAD_ID = 0
@@ -368,6 +369,7 @@ def beam_generate(
     return seqs[:, 0]
 
 
+@pod_ranks.entrypoint
 def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, float]]:
     """TPUJob entrypoint: ``tfk8s_tpu_torch.models.t5:train``, with the
     reference's env contract (``TFK8S_SEQ_LEN`` 128, ``TFK8S_BATCH_SIZE``

@@ -54,6 +54,7 @@ from tfk8s_tpu_torch.models.transformer import (
 )
 from tfk8s_tpu_torch.parallel.collectives import group_size, scale_grad, sum_replicated
 from tfk8s_tpu_torch.parallel.tensor_parallel import init_sharded
+from tfk8s_tpu_torch.runtime import pod_ranks
 from tfk8s_tpu_torch.runtime.train import TrainTask, join_mesh, run_task
 
 
@@ -186,6 +187,7 @@ def task_for_mesh(mesh, cfg: Optional[TransformerConfig] = None, **task_kw) -> T
     return make_task(cfg=cfg, attn_fn=select_attn_fn(cfg, seq_len, mesh), mesh=mesh, **task_kw)
 
 
+@pod_ranks.entrypoint
 def train(env: Dict[str, str], stop: Optional[Any] = None) -> List[Dict[str, float]]:
     """TPUJob entrypoint: ``tfk8s_tpu_torch.models.vit:train``, with the
     reference's env contract (``TFK8S_NUM_CLASSES`` 8, ``TFK8S_IMAGE_SIZE``

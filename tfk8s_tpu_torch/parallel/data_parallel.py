@@ -31,7 +31,10 @@ vocabularies over ``tensor``, and the pipelined family's stages over
   keeps the rank's rows. Not FSDP2 here: FSDP2 over a gloo group of CUDA
   tensors ends its processes with a segmentation fault on the card's
   torch (2.11), where ranks sharing one card must use gloo, while gloo's
-  all-gather and all-reduce of CUDA tensors work.
+  all-gather and all-reduce of CUDA tensors work. For the same reason an
+  fsdp or HSDP layout on the batch axes alone takes :class:`FsdpShards`
+  (mode "mesh") where its ranks share a card over gloo; FSDP2 where each
+  rank has a card of its own (NCCL) and on the CPU.
 
 The gradient norm follows the same rule: each rank's squares of its
 local gradients (an fsdp shard of a tensor block of an expert's share,
@@ -196,6 +199,10 @@ class DataParallel:
             self.mode = "mesh"
         elif fsdp == 1:
             self.mode = "ddp"
+        elif self.device.type == "cuda" and dist.get_backend() == "gloo":
+            # ranks sharing a card: FSDP2 over gloo ends them with a
+            # segmentation fault there, FsdpShards holds the same numbers
+            self.mode = "mesh"
         else:
             self.mode = "hsdp" if data > 1 else "fsdp"
 

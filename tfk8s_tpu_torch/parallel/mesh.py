@@ -304,6 +304,11 @@ class Mesh:
         """This rank's block of the global batch (data-major, then fsdp)."""
         return self.index(AXIS_DATA) * self.size(AXIS_FSDP) + self.index(AXIS_FSDP)
 
+    def batch_index_of(self, rank: int) -> int:
+        """Rank ``rank``'s block of the global batch."""
+        c = self.cfg.coords(self.order.index(rank) if self.order else rank)
+        return c.get(AXIS_DATA, 0) * self.size(AXIS_FSDP) + c.get(AXIS_FSDP, 0)
+
     @property
     def batch_size(self) -> int:
         """The number of blocks the batch is split into."""

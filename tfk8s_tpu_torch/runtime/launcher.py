@@ -2,21 +2,31 @@
 
 Decodes the same ``TFK8S_*`` pod env the JAX package's launcher reads,
 joins the job's process group and picks the torch device. The port runs
-one process per device, on the card unless the caller asks for the CPU
-(``TFK8S_DEVICE=cpu``, or a ``device=`` argument); with no card and no
+one rank process per device, on the card unless the caller asks for the
+CPU (``TFK8S_DEVICE=cpu``, or a ``device=`` argument); with no card and no
 such request it raises rather than quietly running on the CPU.
+
+A pod stands for one of the reference's processes, which drives every
+device of its host. Where ``TFK8S_MESH`` spans more devices than the job
+has processes, each pod runs :meth:`ProcessContext.pod_ranks` rank
+processes (``runtime/pod_ranks``): rank ``l`` of pod ``p`` is global rank
+``p * d + l`` of ``n * d``, the reference's process-major device order,
+and takes card ``l`` of its host. Such a rank carries its place in the
+pod as ``TFK8S_LOCAL_RANK`` and ``TFK8S_POD_RANKS``. A mesh larger than
+the processes that they do not divide raises ``ValueError``, naming both
+numbers.
 
 ``initialize_distributed`` is gated as the reference's is: only with more
 than one process AND ``TFK8S_DISTRIBUTED=1`` does it call
-``torch.distributed.init_process_group`` (NCCL on a card, gloo on the
-CPU), so replicas run as threads of one process never bind ports.
-More than one device per process (ROADMAP item 1.5) and a mesh axis
-outside the reference's six (``MeshConfig.require_ported``) raise
-``NotImplementedError``; every axis runs, in every combination
-(``parallel/mesh.build_mesh``),
-and a multislice job's ``num_slices`` and ``slice_id`` go to
-``build_mesh``, which holds the layout to the reference's slice rule and
-places the ranks slice-major.
+``torch.distributed.init_process_group``, so replicas run as threads of
+one process never bind ports. Its backend is NCCL where every rank of the
+host has a card of its own, gloo where ranks share a card or run on the
+CPU (:func:`backend_for`). A mesh axis outside the reference's six
+(``MeshConfig.require_ported``) raises ``NotImplementedError``; every axis
+runs, in every combination (``parallel/mesh.build_mesh``), and a
+multislice job's ``num_slices`` and ``slice_id`` go to ``build_mesh``,
+which holds the layout to the reference's slice rule and places the ranks
+slice-major.
 """
 
 from __future__ import annotations
@@ -34,6 +44,9 @@ from tfk8s_tpu_torch.utils.logging import get_logger
 log = get_logger("launcher")
 
 DEVICE_ENV = "TFK8S_DEVICE"
+# a pod's rank processes: this rank's index in its pod, and their number
+LOCAL_RANK_ENV = "TFK8S_LOCAL_RANK"
+POD_RANKS_ENV = "TFK8S_POD_RANKS"
 
 
 @dataclasses.dataclass
@@ -58,6 +71,11 @@ class ProcessContext:
     checkpoint_dir: str = ""
     # TFK8S_MESH as the controller rendered it (None: data over the ranks)
     mesh: Optional[MeshConfig] = None
+    # this rank's index among its pod's ranks (a process started alone on
+    # its host: its process id) and their number (TFK8S_LOCAL_RANK,
+    # TFK8S_POD_RANKS, set by the pod's spawner)
+    local_rank: int = 0
+    local_ranks: int = 1
 
     @classmethod
     def from_env(cls, env: Optional[Dict[str, str]] = None) -> "ProcessContext":
@@ -78,6 +96,8 @@ class ProcessContext:
             world_version=int(e.get("TFK8S_WORLD_VERSION", "0")),
             checkpoint_dir=e.get("TFK8S_CHECKPOINT_DIR", ""),
             mesh=MeshConfig.from_env(e) if e.get("TFK8S_MESH") else None,
+            local_rank=int(e.get(LOCAL_RANK_ENV) or e.get("TFK8S_PROCESS_ID", "0")),
+            local_ranks=int(e.get(POD_RANKS_ENV, "1")),
         )
 
     @property
@@ -90,19 +110,26 @@ class ProcessContext:
         the process must restore from the last committed checkpoint."""
         return self.gang_restarts > 0 or self.world_version > 0
 
-    def require_single_device(self, processes: int = 1) -> None:
-        """Raise for the layouts the port does not run yet: more than one
-        device per process (a mesh larger than the ``processes`` that share
-        it) and a mesh axis the port does not know."""
+    def pod_ranks(self) -> int:
+        """The rank processes this pod runs: one per device of its share
+        of the mesh, ``mesh.size() // num_processes`` (1 with no mesh: one
+        rank a process, where the reference's process would take every
+        local device; 1 where the mesh is no larger than the processes,
+        which count an Evaluator's too). Raises ``ValueError`` when the
+        processes do not divide a larger mesh, and for an axis the port
+        does not know."""
         if self.mesh is None:
-            return
+            return 1
         self.mesh.require_ported()
-        if self.mesh.size() > processes:
-            raise NotImplementedError(
-                f"TFK8S_MESH {dict(self.mesh.axes)} spans {self.mesh.size()} devices "
-                f"over {processes} process(es): more than one device per process is "
-                "ROADMAP item 1.5"
+        n = self.mesh.size()
+        if n <= self.num_processes:
+            return 1
+        if n % self.num_processes:
+            raise ValueError(
+                f"mesh {dict(self.mesh.axes)} needs {n} devices, which "
+                f"{self.num_processes} processes do not divide into a pod's ranks"
             )
+        return n // self.num_processes
 
 
 def initialize_distributed(
@@ -114,8 +141,8 @@ def initialize_distributed(
     """Join the job's process group; returns whether one is up. A no-op
     unless ``num_processes > 1`` and ``TFK8S_DISTRIBUTED=1`` (replicas
     run as threads of one process must not bind ports), and when a group
-    already exists. The backend is ``backend`` if given, else NCCL for a
-    card and gloo for the CPU (``device``, else ``select_device``)."""
+    already exists. The backend is ``backend`` if given, else
+    :func:`backend_for` the device (``device``, else ``select_device``)."""
     e = dict(os.environ) if env is None else env
     if ctx.num_processes <= 1 or e.get("TFK8S_DISTRIBUTED") != "1":
         return False
@@ -123,7 +150,7 @@ def initialize_distributed(
         return True
     if backend is None:
         dev = torch.device(device) if device is not None else select_device(e)
-        backend = "nccl" if dev.type == "cuda" else "gloo"
+        backend = backend_for(dev, ctx.local_ranks)
     log.info(
         "init_process_group(%s, coordinator=%s, world_size=%d, rank=%d)",
         backend, ctx.coordinator_address, ctx.num_processes, ctx.process_id,
@@ -137,13 +164,31 @@ def initialize_distributed(
     return True
 
 
-def select_device(
-    env: Optional[Dict[str, str]] = None,
-    device: Union[str, torch.device, None] = None,
-) -> torch.device:
-    """The device a run uses: ``device`` if given, else ``TFK8S_DEVICE``
-    from ``env``, else the first card. Raises when no card is there and
-    the caller did not ask for the CPU."""
+def backend_for(device: Union[str, torch.device], local_ranks: int = 1) -> str:
+    """NCCL where each of the host's ``local_ranks`` ranks has a card of
+    its own; gloo where they share one (NCCL will not put two ranks on one
+    card) and on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and local_ranks <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+def rank_device(ctx: ProcessContext, device: torch.device) -> torch.device:
+    """The card a rank takes on its host: ``local_rank % cards`` (a pod's
+    ranks take its own cards, whatever its process id); ``device``
+    unchanged on the CPU."""
+    if device.type != "cuda":
+        return device
+    return torch.device("cuda", ctx.local_rank % torch.cuda.device_count())
+
+
+def requested_device(env: Optional[Dict[str, str]] = None,
+                     device: Union[str, torch.device, None] = None) -> torch.device:
+    """The device a run asks for: ``device`` if given, else
+    ``TFK8S_DEVICE`` from ``env``, else the card (no index chosen, and no
+    CUDA context made). Raises when no card is there and the caller did
+    not ask for the CPU."""
     e = dict(os.environ) if env is None else env
     choice = device if device is not None else e.get(DEVICE_ENV) or "cuda"
     dev = torch.device(choice)
@@ -153,8 +198,18 @@ def select_device(
                 "no CUDA device: the port runs on the card; set "
                 f"{DEVICE_ENV}=cpu (or pass device='cpu') to run on the CPU"
             )
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
+    return dev
+
+
+def select_device(
+    env: Optional[Dict[str, str]] = None,
+    device: Union[str, torch.device, None] = None,
+) -> torch.device:
+    """The device a run uses: :func:`requested_device`, the first card
+    where it names no index."""
+    dev = requested_device(env, device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

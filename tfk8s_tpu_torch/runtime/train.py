@@ -11,12 +11,15 @@ What is kept from the reference:
 - the input modes (``TFK8S_INPUT_MODE``, auto by the reference's rule):
   ``replicated``, the stream ``np.random.default_rng(seed + step)`` of
   whole batches; ``per_host``, a batch concatenated from ``input_shards``
-  shard streams seeded by ``(seed, step, shard)``, each process building
-  only its own shards; ``files``, record shards (``TFK8S_INPUT_FILES``)
-  read through ``data.dataset.RecordDataset``, each process opening its
-  round-robin share, fast-forwarded to the resume step, the first batch
-  held to the task's schema. Host batches are synthesized ahead on a
-  prefetch thread;
+  shard streams seeded by ``(seed, step, shard)``, each rank building
+  only the shards its rows lie in; ``files``, record shards
+  (``TFK8S_INPUT_FILES``) read through ``data.dataset.RecordDataset``,
+  each pod opening its round-robin share, fast-forwarded to the resume
+  step, the first batch held to the task's schema. A pod
+  (``TFK8S_POD_RANKS`` ranks, ``runtime/pod_ranks``) is the reference's
+  process here: the auto mode, the default shard count and the file
+  split follow the pods, and each rank keeps its rows. Host batches are
+  synthesized ahead on a prefetch thread;
 - what the shards hold (``TFK8S_INPUT_FORMAT``): ``array``, example dicts
   that decode to the task's batch; ``image``, compressed JPEG/PNG image
   records decoded and augmented on a worker pool by
@@ -70,15 +73,17 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from tfk8s_tpu_torch.data.dataset import RecordDataset
 from tfk8s_tpu_torch.obs.trace import TRACEPARENT_ENV, get_tracer
 from tfk8s_tpu_torch.parallel.data_parallel import DataParallel, load_full_state_dicts, state_dicts
-from tfk8s_tpu_torch.parallel.mesh import Mesh, build_mesh, world_size
+from tfk8s_tpu_torch.parallel.mesh import Mesh, build_mesh
 from tfk8s_tpu_torch.runtime import node_agent, progress
 from tfk8s_tpu_torch.runtime.checkpoint import Checkpointer
-from tfk8s_tpu_torch.runtime.launcher import ProcessContext, initialize_distributed, select_device
+from tfk8s_tpu_torch.runtime.launcher import (ProcessContext, initialize_distributed, rank_device,
+                                             select_device)
 from tfk8s_tpu_torch.utils.logging import get_logger
 
 log = get_logger("train")
@@ -154,11 +159,16 @@ class TrainConfig:
     # >1 synthesizes host batches this many steps ahead on a thread
     prefetch: int = 2
     # "replicated" | "per_host" | "files"; None = auto: "files" when
-    # input_files is set, else "per_host" with more than one process
+    # input_files is set, else "per_host" with more than one pod
     input_mode: Optional[str] = None
-    # logical input shards in per_host mode (None = the process count);
-    # the batch content depends only on (seed, step, input_shards)
+    # logical input shards in per_host mode (None = the pods' blocks of
+    # rows: one a pod where the pods hold different rows, the reference's
+    # process count); the batch content depends only on (seed, step,
+    # input_shards)
     input_shards: Optional[int] = None
+    # the rank processes of each pod (TFK8S_POD_RANKS): a pod stands for
+    # one of the reference's processes, the host its input is divided by
+    pod_ranks: int = 1
     # comma-separated record-file paths/globs (TFK8S_INPUT_FILES)
     input_files: Optional[str] = None
     # what the shards hold (TFK8S_INPUT_FORMAT): "array", example dicts
@@ -412,6 +422,10 @@ class Trainer:
         # set by fit() in per_host and multi-process files input:
         # (shard_lo, shard_hi, num_shards) of this process
         self.input_shard_range: Optional[Tuple[int, int, int]] = None
+        # this rank's rows of the shards it builds (per_host) and of its
+        # pod's file batch (files)
+        self._shard_rows: Optional[slice] = None
+        self._file_rows: Optional[slice] = None
         accum = max(config.grad_accum_steps, 1)
         if task.batch_size % accum:
             raise ValueError(
@@ -462,14 +476,48 @@ class Trainer:
 
     # -- input ----------------------------------------------------------------
 
+    def pods(self) -> int:
+        """The job's pods: its processes in the reference's sense, each
+        running ``pod_ranks`` of the world's ranks."""
+        world, per = self.parallel.world, max(self.config.pod_ranks, 1)
+        if world % per:
+            raise ValueError(f"{world} ranks do not divide into pods of {per}")
+        return world // per
+
+    def _rows(self) -> Tuple[int, int, int, int]:
+        """``(lo, hi, pod_lo, pod_hi)``: the contiguous rows of the global
+        batch this rank holds (by its place on the data and fsdp axes) and
+        those its pod's ranks hold together, the rows the reference's
+        process reads off its devices' sharding."""
+        par, per = self.parallel, max(self.config.pod_ranks, 1)
+        local = par.local_rows(self.task.batch_size)
+        lo = par.batch_rank * local
+        first = par.rank - par.rank % per
+        blocks = sorted({par.layout.batch_index_of(r) for r in range(first, first + per)}
+                        if par.world > 1 else {0})
+        if blocks != list(range(blocks[0], blocks[-1] + 1)):
+            raise ValueError(
+                f"per-host input needs a contiguous local batch range; the pod of "
+                f"rank {par.rank} holds batch blocks {blocks}"
+            )
+        return lo, lo + local, blocks[0] * local, (blocks[-1] + 1) * local
+
+    def _pod_block(self) -> Tuple[int, int]:
+        """``(block, blocks)``: this pod's block of the global batch's rows
+        and the number of such blocks (pods that hold the same rows, over
+        a model axis, share one), as the reference's processes divide
+        the files and, by default, the per_host shards."""
+        _, _, pod_lo, pod_hi = self._rows()
+        return pod_lo // (pod_hi - pod_lo), self.task.batch_size // (pod_hi - pod_lo)
+
     def input_mode(self) -> str:
         """The reference's rule: ``files`` when input files are given,
-        else ``per_host`` with more than one process, else
-        ``replicated``."""
+        else ``per_host`` with more than one pod (the reference's
+        process), else ``replicated``."""
         cfg = self.config
         mode = cfg.input_mode or (
             "files" if cfg.input_files
-            else ("per_host" if self.parallel.world > 1 else "replicated")
+            else ("per_host" if self.pods() > 1 else "replicated")
         )
         if mode not in ("replicated", "per_host", "files"):
             raise ValueError(f"unknown input_mode {cfg.input_mode!r}")
@@ -484,12 +532,14 @@ class Trainer:
 
     def _input_shard_plan(self, num_shards: Optional[int] = None) -> Tuple[int, int, int]:
         """``(shard_lo, shard_hi, num_shards)``: the half-open range of
-        input shards this process builds. Rank r holds the contiguous rows
-        ``[r * local, (r + 1) * local)`` of the global batch (the range the
-        reference reads off its sharding); the shards must not straddle
-        ranks. ``num_shards=None`` uses the config (per_host mode)."""
+        input shards this rank builds, those that hold its contiguous rows
+        ``[lo, hi)`` of the global batch. As in the reference, the shards
+        must not straddle pods (its processes); within a pod a rank builds
+        the shards its rows lie in and keeps its rows (``_shard_rows``).
+        ``num_shards=None`` uses the config (per_host mode), whose default
+        is the pods' row blocks (:meth:`_pod_block`)."""
         cfg, task = self.config, self.task
-        num_shards = num_shards or cfg.input_shards or self.parallel.batch_world
+        num_shards = num_shards or cfg.input_shards or self._pod_block()[1]
         accum = max(cfg.grad_accum_steps, 1)
         if task.batch_size % num_shards:
             raise ValueError(
@@ -500,65 +550,72 @@ class Trainer:
                 f"per-shard batch {task.batch_size // num_shards} must be "
                 f"a multiple of grad_accum_steps={accum}"
             )
-        local = self.parallel.local_rows(task.batch_size)
-        lo, hi = self.parallel.batch_rank * local, (self.parallel.batch_rank + 1) * local
+        lo, hi, pod_lo, pod_hi = self._rows()
         rows_per_shard = task.batch_size // num_shards
-        if lo % rows_per_shard or hi % rows_per_shard:
+        if pod_lo % rows_per_shard or pod_hi % rows_per_shard:
             raise ValueError(
-                f"process-local rows [{lo},{hi}) are not aligned to "
+                f"process-local rows [{pod_lo},{pod_hi}) are not aligned to "
                 f"{rows_per_shard} rows/shard; pick input_shards such that "
                 "shards don't straddle processes"
             )
-        return lo // rows_per_shard, hi // rows_per_shard, num_shards
+        shard_lo, shard_hi = lo // rows_per_shard, -(-hi // rows_per_shard)
+        start = lo - shard_lo * rows_per_shard
+        self._shard_rows = slice(start, start + hi - lo)
+        return shard_lo, shard_hi, num_shards
 
     def _open_input_files(self, start_step: int) -> _CheckedFileStream:
-        """The record-shard stream (files mode): this process's round-robin
-        file share (or, with fewer files than processes, a record stripe,
-        warned loudly), batches of its local rows, the first held to the
-        task's schema, fast-forwarded to ``start_step`` (one batch a step)
-        so a resume continues the exact record stream."""
-        cfg, task, par = self.config, self.task, self.parallel
+        """The record-shard stream (files mode): this pod's round-robin
+        file share (or, with fewer files than pods, a record stripe,
+        warned loudly), batches of the pod's rows, of which this rank keeps
+        its own (``_file_rows``), the first held to the task's schema,
+        fast-forwarded to ``start_step`` (one batch a step) so a resume
+        continues the exact record stream."""
+        cfg, task = self.config, self.task
         paths = _expand_input_files(cfg.input_files or "")
+        # the files divide by the pods' row blocks, as the reference gives
+        # them to its processes; the pods (and ranks) of one block, its
+        # model axes' ranks, read the same records, and each rank of a
+        # pod keeps its rows of the pod's batch
+        lo, hi, pod_lo, pod_hi = self._rows()
+        pod_rows = pod_hi - pod_lo
+        host, hosts = self._pod_block()
         if cfg.input_shards is not None:
             log.warning(
                 "%s: input_shards=%d is ignored in input_mode='files' "
                 "(file input divides per process: %d); unset it or use "
-                "input_mode='per_host'", task.name, cfg.input_shards, par.batch_world,
+                "input_mode='per_host'", task.name, cfg.input_shards, hosts,
             )
-        if par.batch_world > 1:
-            lo, hi, n = self._input_shard_plan(num_shards=par.batch_world)
-            self.input_shard_range = (lo, hi, n)
-        local_rows = par.local_rows(task.batch_size)
+        if hosts > 1:
+            self.input_shard_range = self._input_shard_plan(num_shards=hosts)
+        self._file_rows = slice(lo - pod_lo, hi - pod_lo)
         want = task.make_batch(np.random.default_rng(0), 1)
-        # the ranks of one batch block (its expert and sequence ranks) read
-        # the same records
         if cfg.input_format == "image":
-            ds = _open_image_dataset(paths, local_rows, want, train=True, seed=cfg.seed,
+            ds = _open_image_dataset(paths, pod_rows, want, train=True, seed=cfg.seed,
                                      workers=cfg.decode_workers, min_scale=cfg.aug_min_scale,
-                                     host_index=par.batch_rank, num_hosts=par.batch_world)
+                                     host_index=host, num_hosts=hosts)
         elif cfg.input_format == "array":
-            ds = RecordDataset(paths, batch_size=local_rows, host_index=par.batch_rank,
-                               num_hosts=par.batch_world, seed=cfg.seed)
+            ds = RecordDataset(paths, batch_size=pod_rows, host_index=host,
+                               num_hosts=hosts, seed=cfg.seed)
         else:
             raise ValueError(f"unknown input_format {cfg.input_format!r} (array | image)")
-        if ds.shard_by == "records" and par.batch_world > 1:
+        if ds.shard_by == "records" and hosts > 1:
             log.warning(
                 "%s: only %d record files for %d processes — falling back "
                 "to RECORD striping (every process reads all files; write "
                 ">= one file per host to restore per-host file IO)",
-                task.name, len(ds.files), par.batch_world,
+                task.name, len(ds.files), hosts,
             )
         backend = getattr(ds, "backend", None)  # the image decode backend
         log.info(
             "%s: %s file input (%s-sharded%s) — process %d/%d reads %d files / "
-            "%d records, %d rows/step, resuming at batch %d",
+            "%d records, %d rows/step (this rank's [%d, %d)), resuming at batch %d",
             task.name, cfg.input_format, ds.shard_by, f", {backend} decode" if backend else "",
-            par.batch_rank, par.batch_world, len(ds.files), len(ds), local_rows, start_step,
+            host, hosts, len(ds.files), len(ds), pod_rows, lo - pod_lo, hi - pod_lo, start_step,
         )
         # prefetch=0: fit's own prefetcher is the background thread (an
         # image dataset's decode pool still works within each batch)
         it = ds.iterator(prefetch=0, start_batch=start_step)
-        return _CheckedFileStream(it, want, local_rows, dataset=ds)
+        return _CheckedFileStream(it, want, pod_rows, dataset=ds)
 
     def _make_shard_batch(self, step: int, shard_lo: int, shard_hi: int,
                           num_shards: int) -> Dict[str, np.ndarray]:
@@ -647,17 +704,21 @@ class Trainer:
             # the replicated stream: owned by the producer (thread or this
             # loop); with several processes each keeps its own rows
             np_rng = np.random.default_rng(cfg.seed + start_step)
-            local = par.local_rows(self.task.batch_size)
-            rows = slice(par.batch_rank * local, (par.batch_rank + 1) * local)
+            lo, hi, _, _ = self._rows()
+            rows = slice(lo, hi)
         split = self.task.split_sequence or split_sequence_axis1
 
         def _rows_batch(step: int) -> Dict[str, np.ndarray]:
             if files_iter is not None:
-                return next(files_iter)
-            if mode == "per_host":
-                return self._make_shard_batch(step, shard_lo, shard_hi, num_shards)
-            batch = self.task.make_batch(np_rng, self.task.batch_size)
-            return batch if par.batch_world == 1 else {k: v[rows] for k, v in batch.items()}
+                batch, keep = next(files_iter), self._file_rows
+            elif mode == "per_host":
+                batch = self._make_shard_batch(step, shard_lo, shard_hi, num_shards)
+                keep = self._shard_rows
+            else:
+                batch, keep = self.task.make_batch(np_rng, self.task.batch_size), rows
+            if keep == slice(0, len(next(iter(batch.values())))):
+                return batch
+            return {k: v[keep] for k, v in batch.items()}
 
         def _make_host_batch(step: int) -> Dict[str, np.ndarray]:
             batch = _rows_batch(step)
@@ -701,13 +762,17 @@ class Trainer:
         first_step_s: Optional[float] = None
         input_wait_total, starved_steps = 0.0, 0
         finished = False
+        # with several ranks, a notice one rank sees is every rank's at the
+        # same step, so none enters a step whose collectives another left
+        signals = dist.new_group(backend="gloo") if stop is not None and par.world > 1 else None
         try:
             step = start_step
             while step < cfg.steps:
-                if stop is not None and getattr(stop, "is_set", lambda: False)():
+                stopping, draining = _signals(stop, signals)
+                if stopping:
                     log.info("%s: stop requested at step %d", self.task.name, step)
                     break
-                if stop is not None and getattr(stop, "drain_requested", False):
+                if draining:
                     self.drained_at = step
                     log.info("%s: reclaim notice at step %d; draining", self.task.name, step)
                     break
@@ -830,6 +895,19 @@ class Trainer:
         return state, history
 
 
+def _signals(stop: Optional[Any], group) -> Tuple[bool, bool]:
+    """``(stop, drain)``: the node agent's stop and reclaim notice, and
+    over the ranks' ``group`` (gloo, host tensors: no device sync) either
+    one any rank has seen."""
+    flags = [bool(stop is not None and getattr(stop, "is_set", lambda: False)()),
+             bool(getattr(stop, "drain_requested", False))]
+    if group is not None:
+        agreed = torch.tensor(flags, dtype=torch.int32)
+        dist.all_reduce(agreed, op=dist.ReduceOp.MAX, group=group)
+        flags = [bool(f) for f in agreed.tolist()]
+    return flags[0], flags[1]
+
+
 def _report_queue_depth(prefetcher: Optional[_BatchPrefetcher]) -> None:
     """The ``tfk8s_image_decode_queue_depth{mode="train"}`` gauge, where a
     metrics registry is installed (``data.images.set_metrics``)."""
@@ -868,6 +946,7 @@ def config_from_env(env: Dict[str, str], ctx: ProcessContext) -> TrainConfig:
         min_lr_ratio=float(env.get("TFK8S_MIN_LR_RATIO", "0.0")),
         profile_dir=env.get("TFK8S_PROFILE_DIR", ""),
         scan_steps=int(env.get("TFK8S_SCAN_STEPS", "1")),
+        pod_ranks=ctx.local_ranks,
     )
 
 
@@ -883,16 +962,16 @@ def join_mesh(env: Dict[str, str], device: Optional[torch.device] = None,
 def join_job(env: Dict[str, str], device: Optional[torch.device] = None,
              ) -> Tuple[ProcessContext, torch.device]:
     """Env -> process context, the process group (when the job has one)
-    and this rank's device: with several cards on the host, rank r takes
-    card ``r % cards``."""
+    and this rank's device: with several cards on the host, a pod's rank
+    ``l`` takes card ``l % cards`` (``launcher.rank_device``), over NCCL
+    when each rank has a card of its own and gloo when they share one.
+    Without a process group the process trains alone (replicas run as
+    threads of one process), on one device."""
     ctx = ProcessContext.from_env(env)
     device = select_device(env, device)
     if initialize_distributed(ctx, env, device=device) and device.type == "cuda":
-        device = torch.device("cuda", ctx.process_id % torch.cuda.device_count())
+        device = rank_device(ctx, device)
         torch.cuda.set_device(device)
-    # without a process group this process trains alone (replicas run as
-    # threads of one process), on one device
-    ctx.require_single_device(world_size())
     return ctx, device
 
 
@@ -972,7 +1051,8 @@ def run_eval(
             "(set the tfk8s.dev/checkpoint-dir job annotation)"
         )
     # the evaluator is a rank of the job's process group (the controller's
-    # TFK8S_NUM_PROCESSES counts every replica): the gang waits for it
+    # TFK8S_NUM_PROCESSES counts every replica): the gang waits for it. It
+    # runs one rank on one device whatever the mesh, and never spawns
     _ctx, device = join_job(env, device)
     final_step = int(env.get("TFK8S_TRAIN_STEPS", "0"))
     timeout = float(env.get("TFK8S_EVAL_TIMEOUT", "300"))
