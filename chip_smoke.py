@@ -258,8 +258,11 @@ must pass:
    heads a rank), the combined-axes gangs (a)-(c) of phase 15, and the
    pipelined BERT-MLM on the reference's ``{"pipeline": 2, "data": 2}``
    and on ``{"pipeline": 4}`` (3 layers a stage), and gangs (a) and (d)
-   of phase 18, all at full depth; with fewer cards, a line says what was
-   skipped and why;
+   of phase 18, all at full depth, and an ``h100-4`` TPUJob through the
+   port's operator (phase 24): one pod requesting ``nvidia.com/gpu: "4"``
+   whose entry point runs GPT-2-small on ``{"data": 4}`` as four NCCL
+   ranks, a card each; with fewer cards, a line says what was skipped and
+   why;
 17. pipeline: ``tfk8s_tpu_torch.models.pipelined.train(env)``, the
    ``pipelined:train`` entrypoint (GPipe over the ``pipeline`` axis), at
    BERT-base width (12 layers, 768 wide, 12 heads, vocab 30,522, bf16)
@@ -395,8 +398,25 @@ must pass:
    rank's peak memory. The entry point is ``chip_smoke.pod_entry``, a
    family's ``train`` at GANG_LAYERS depth with the families' first act
    (the depth cut patches the presets, so it must happen in each rank).
+24. operator: the port's own control plane (``tfk8s_tpu_torch.cmd.server.
+   Server``: store, clientset, gang allocator, TPUJob controller, local
+   kubelet) in this process with one ``h100-1`` host. (a)
+   ``manifests/examples/gpt-h100-torch.json``'s TPUJob, loaded with the
+   port's ``load_manifest``: GPT-2-small (bf16, flash, 12 layers, seq
+   1024, batch 8), 6 steps, must reach ``Succeeded`` with a pod requesting
+   ``nvidia.com/gpu: "1"`` whose status carries its training progress and
+   with 12 launches a step of every tensor-core flash kernel; (b) a second
+   ``h100-1`` job at GANG_LAYERS depth (``pod_entry``), submitted once (a)
+   runs, must be gang-pending with no pod until (a) ends, start after (a)
+   has ended and succeed. The manifest's entry point resolves to
+   ``gpt:train`` through a recorder the phase registers (the kubelet keeps
+   no return value), which keeps its history, launches, wall time and peak
+   memory. (a)'s losses are held to a direct ``gpt:train`` call on the
+   pod's env in this process: identical, or within OPERATOR["loss_atol"].
+   It prints the phase's seconds, each job's submission to first update,
+   wall time and peak memory.
 
-The launch counts are zeroed just before each path (phases 6-23) and
+The launch counts are zeroed just before each path (phases 6-24) and
 read just after it; the line's launches add up the paths'. Then it prints the card line, the ``kernels`` JSON
 line and, last, the ``ok`` line. It exits non-zero, printing no result,
 when a phase fails, when no card is visible, or when the port's package is
@@ -4194,6 +4214,8 @@ def phase_nccl(torch, gpt, fa, gn, root):
             "and pipeline)")
         return
     _pod_nccl(torch, fa, root, cards)
+    if cards >= 4:
+        _operator_nccl(torch, fa)
     _parallel_gangs(torch, gpt, fa, root, "nccl")
     fits = [g for g in PIPELINE_NCCL_GANGS if math.prod(g[1].values()) <= cards]
     _pipeline_gangs(torch, fa, gn, root, "nccl", fits, _pipeline_reference(torch, fa, gn)[0])
@@ -5112,7 +5134,7 @@ def pod_entry(env, stop=None):
     history = pod_ranks.ranks("chip_smoke:pod_entry", env, stop)
     if history is not None:
         return history
-    if env.get("POD_FAULT_RANK") == env.get("TFK8S_LOCAL_RANK"):
+    if "POD_FAULT_RANK" in env and env["POD_FAULT_RANK"] == env.get("TFK8S_LOCAL_RANK"):
         def planted(self, state, batch):
             raise RuntimeError(f"planted failure at step {state.step + 1}")
 
@@ -5343,6 +5365,247 @@ def _pod_nccl(torch, fa, root, cards):
     return total
 
 
+# phase operator: the port's own control plane on the card. (a) is the
+# example manifest's GPT-2-small job; (b), a second h100-1 job at
+# GANG_LAYERS depth, is submitted while (a) runs and must wait for its host
+OPERATOR = dict(manifest=os.path.join("manifests", "examples", "gpt-h100-torch.json"),
+                gang_steps=3, timeout_s=300.0, limit_s=90.0, loss_atol=2e-2)
+# job (b)'s entry point, a name the phase registers for pod_entry
+OPERATOR_GANG_ENTRY = "chip_smoke.operator_gang"
+
+
+def _operator_server(capacity):
+    """The port's operator in this process: store, clientset, gang
+    allocator over ``capacity``, TPUJob controller and local kubelet,
+    started; (server, its stop event)."""
+    import threading
+
+    from tfk8s_tpu_torch.cmd.options import Options
+    from tfk8s_tpu_torch.cmd.server import Server
+
+    server = Server(Options(capacity=capacity, workers=2))
+    stop = threading.Event()
+    server.run(stop, block=False)
+    return server, stop
+
+
+def _job_state(server, name):
+    """(condition types, event reasons, pods) of a job on ``server``."""
+    from tfk8s_tpu_torch.trainer import labels as L
+
+    status = server.clientset.tpujobs().get(name).status
+    pods, _ = server.clientset.pods().list(label_selector={L.JOB_NAME: name})
+    reasons = [e.reason for e in server.recorder.events(key=f"default/{name}")]
+    return [c.type.value for c in status.conditions if c.status], reasons, pods
+
+
+def _wait_jobs(server, names, timeout_s, each=None):
+    """Poll until every job of ``names`` has ended (``each()`` once a
+    poll); their final states."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        states = {n: _job_state(server, n) for n in names}
+        if each is not None:
+            each(states)
+        if all({"Succeeded", "Failed"} & set(st[0]) for st in states.values()):
+            return states
+        if time.monotonic() > deadline:
+            raise AssertionError(f"jobs {names} did not end within {timeout_s:.0f} s: "
+                                 f"{ {n: st[:2] for n, st in states.items()} }")
+        time.sleep(0.05)
+
+
+def _recorded(torch, fa, runs, name, fn):
+    """An entry point that runs ``fn(env, stop)`` and keeps in
+    ``runs[name]`` its env, history, start and end, its flash launches and
+    its peak device memory (jobs on one card never overlap, so the
+    process's counters, set to 0 just before ``fn``, are the job's)."""
+    import threading
+
+    def run(env, stop):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec = runs[name] = {"thread": threading.get_ident(), "env": dict(env),
+                            "start": time.perf_counter()}
+        fa.reset_launches()
+        rec["history"] = fn(env, stop)
+        launches = dict(fa.LAUNCHES)
+        torch.cuda.synchronize()
+        rec["end"] = time.perf_counter()
+        rec["launches"] = {k: launches[k] for k in fa.KERNELS}
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        return rec["history"]
+
+    return run
+
+
+def phase_operator(torch, gpt, fa, root):
+    """The example manifest's GPT-2-small TPUJob through the port's own
+    operator, a second job gang-pending behind it, and the first job's
+    history against a direct ``gpt:train`` call (docstring phase 24).
+    Returns the launches of the two jobs."""
+    import threading
+
+    from torch.optim.optimizer import register_optimizer_step_post_hook
+
+    from tfk8s_tpu_torch.api import serde
+    from tfk8s_tpu_torch.api.types import ReplicaType
+    from tfk8s_tpu_torch.cmd.main import load_manifest
+    from tfk8s_tpu_torch.runtime import registry
+
+    t_phase = time.perf_counter()
+    card = phase_card()
+    job_a = load_manifest(os.path.join(root, OPERATOR["manifest"]))
+    tmpl_a = job_a.spec.replica_specs[ReplicaType.WORKER].template
+    if DEVICE == "cpu":  # the CPU rehearsal
+        tmpl_a.env["TFK8S_DEVICE"] = "cpu"
+    steps = int(tmpl_a.env["TFK8S_TRAIN_STEPS"])
+    layers = family_layers(gpt, tmpl_a.env)
+    job_b = serde.decode_object(serde.to_wire(job_a))
+    job_b.metadata.name = "gpt-h100-gang"
+    tmpl_b = job_b.spec.replica_specs[ReplicaType.WORKER].template
+    tmpl_b.entrypoint = OPERATOR_GANG_ENTRY
+    tmpl_b.env = _pod_env("gpt", POD_GPT, None, OPERATOR["gang_steps"])
+    names = (job_a.metadata.name, job_b.metadata.name)
+
+    runs, first_step = {}, {}
+
+    def hook(opt, args, kwargs):  # each job's first finished update
+        ident = threading.get_ident()
+        if ident not in first_step:
+            torch.cuda.synchronize()
+            first_step[ident] = time.perf_counter()
+
+    # the manifest's entry point resolves to gpt:train through a recorder
+    registry.register(tmpl_a.entrypoint, _recorded(torch, fa, runs, "a", gpt.train))
+    registry.register(OPERATOR_GANG_ENTRY, _recorded(torch, fa, runs, "b", pod_entry))
+    handle = register_optimizer_step_post_hook(hook)
+    server, stop = _operator_server({"h100-1": 1})
+    pending = []
+
+    def watch(states):  # (b) waits, podless, while (a) has not ended
+        conds_a, _reasons_a, _pods_a = states[names[0]]
+        _conds_b, reasons_b, pods_b = states[names[1]]
+        if "GangPending" in reasons_b and not {"Succeeded", "Failed"} & set(conds_a):
+            pending.append(len(pods_b))
+
+    try:
+        submitted = {}
+        submitted["a"] = time.perf_counter()
+        server.clientset.tpujobs().create(job_a)
+        deadline = time.monotonic() + OPERATOR["timeout_s"]
+        while "a" not in runs and time.monotonic() < deadline:
+            time.sleep(0.01)
+        submitted["b"] = time.perf_counter()
+        server.clientset.tpujobs().create(job_b)
+        states = _wait_jobs(server, names, OPERATOR["timeout_s"], watch)
+    finally:
+        stop.set()
+        server.shutdown()
+        handle.remove()
+        for entry in (tmpl_a.entrypoint, OPERATOR_GANG_ENTRY):
+            registry._REGISTRY.pop(entry, None)
+    jobs_s = time.perf_counter() - t_phase
+
+    # the same env, called directly in this process
+    env = runs["a"]["env"]
+    direct = gpt.train(dict(env))
+    losses = [h["loss"] for h in runs["a"]["history"]]
+    direct_losses = [h["loss"] for h in direct]
+    diff = max(abs(a - b) for a, b in zip(losses, direct_losses)) if direct else float("inf")
+
+    summary = {"card": card, "phase_s": time.perf_counter() - t_phase, "jobs_s": jobs_s}
+    for key, name in zip("ab", names):
+        conds, reasons, pods = states[name]
+        rec = runs.get(key, {})
+        summary[name] = {
+            "conditions": conds, "reasons": list(dict.fromkeys(reasons)),
+            "pods": [{"name": p.metadata.name, "phase": p.status.phase.value,
+                      "resources": p.spec.containers[0].resources,
+                      "training_step": p.status.training.get("step")} for p in pods],
+            "submit_to_first_step_s": (first_step[rec["thread"]] - submitted[key]
+                                       if rec.get("thread") in first_step else None),
+            "wall_s": rec["end"] - rec["start"] if "end" in rec else None,
+            "peak_gib": rec.get("peak_gib"), "launches": rec.get("launches")}
+    summary.update(losses=losses, direct_losses=direct_losses, identical=losses == direct_losses,
+                   loss_max_abs_diff=diff, b_waited_podless=bool(pending) and max(pending) == 0)
+    log(f"operator: {json.dumps(summary)}")
+
+    for key, name in zip("ab", names):
+        conds, _reasons, pods = states[name]
+        if conds[-1:] != ["Succeeded"]:
+            raise AssertionError(f"job {name} ended {conds}")
+        if [p.spec.containers[0].resources for p in pods] != [{"nvidia.com/gpu": "1"}]:
+            raise AssertionError(f"job {name}'s pods request {summary[name]['pods']}")
+    if states[names[0]][2][0].status.training.get("step") != steps:
+        raise AssertionError(f"job {names[0]}'s pod status lacks its progress")
+    want = {"a": _flash(fa, 1, layers, steps),
+            "b": _flash(fa, 1, GANG_LAYERS, OPERATOR["gang_steps"])}
+    for key in "ab":
+        if runs[key]["launches"] != want[key]:
+            raise AssertionError(f"job {key} flash launches {runs[key]['launches']}, "
+                                 f"want {want[key]}")
+    if not (pending and max(pending) == 0) or runs["b"]["start"] < runs["a"]["end"]:
+        raise AssertionError("the second h100-1 job did not wait for the first one's host")
+    if len(direct_losses) != steps or not diff <= OPERATOR["loss_atol"]:
+        raise AssertionError(f"the operator's losses {losses} differ from a direct call's "
+                             f"{direct_losses} by {diff}")
+    if summary["phase_s"] > OPERATOR["limit_s"]:
+        raise AssertionError(f"the operator phase took {summary['phase_s']:.1f} s, over its "
+                             f"{OPERATOR['limit_s']:.0f} s limit")
+    return {k: runs["a"]["launches"][k] + runs["b"]["launches"][k] for k in fa.KERNELS}
+
+
+def _operator_nccl(torch, fa):
+    """An ``h100-4`` TPUJob through the port's operator: one pod requesting
+    four cards, whose entry point runs GPT-2-small at full depth on
+    ``{"data": 4}`` as four NCCL ranks, a card each."""
+    from tfk8s_tpu_torch.api.types import (ContainerSpec, ObjectMeta, ReplicaSpec, ReplicaType,
+                                           TPUJob, TPUJobSpec, TPUSpec)
+    from tfk8s_tpu_torch.runtime import pod_ranks, registry
+
+    runs = {}
+
+    def entry(env, stop):
+        runs["history"] = pod_entry(env, stop)
+        runs["pod"] = pod_ranks.last_run()
+
+    name, steps = "gpt-h100-4", POD["gang_steps"]
+    registry.register("chip_smoke.operator_nccl", entry)
+    job = TPUJob(metadata=ObjectMeta(name=name), spec=TPUJobSpec(
+        replica_specs={ReplicaType.WORKER: ReplicaSpec(replicas=1, template=ContainerSpec(
+            entrypoint="chip_smoke.operator_nccl",
+            env=_pod_env("gpt", POD_GPT, None, steps, layers=None)))},
+        tpu=TPUSpec(accelerator="h100-4")))
+    server, stop = _operator_server({"h100-4": 1})
+    t0 = time.perf_counter()
+    try:
+        server.clientset.tpujobs().create(job)
+        conds, _reasons, pods = _wait_jobs(server, [name], OPERATOR["timeout_s"])[name]
+    finally:
+        stop.set()
+        server.shutdown()
+        registry._REGISTRY.pop("chip_smoke.operator_nccl", None)
+    wall = time.perf_counter() - t0
+    run = runs.get("pod")
+    records = run.records if run is not None else []
+    backend = "gloo" if DEVICE == "cpu" else "nccl"
+    want = _flash(fa, 1, 12, steps) if DEVICE != "cpu" else None
+    log(f"nccl: operator {name}: {json.dumps({'conditions': conds, 'pods': [p.spec.containers[0].resources for p in pods], 'env_mesh': pods[0].spec.containers[0].env.get('TFK8S_MESH') if pods else None, 'wall_s': wall, 'losses': [h['loss'] for h in runs.get('history') or []], 'ranks': [{'device': r['device'], 'backend': r['backend'], 'peak_gib': (r['peak_memory_bytes'] or 0) / 2**30, 'launches': r['launches'].get('flash_attention')} for r in records]})}")
+    if conds[-1:] != ["Succeeded"]:
+        raise AssertionError(f"the h100-4 job ended {conds}")
+    if [p.spec.containers[0].resources for p in pods] != [{"nvidia.com/gpu": "4"}]:
+        raise AssertionError("the h100-4 job's pod does not request its four cards")
+    if len(records) != 4 or {r["backend"] for r in records} != {backend}:
+        raise AssertionError(f"the h100-4 pod ran {len(records)} ranks over "
+                             f"{ {r['backend'] for r in records} }, want 4 over {backend}")
+    if DEVICE != "cpu" and sorted(r["device"] for r in records) != [f"cuda:{i}" for i in range(4)]:
+        raise AssertionError("the h100-4 pod's ranks do not take a card each")
+    if want is not None and any(r["launches"]["flash_attention"] != want for r in records):
+        raise AssertionError(f"the h100-4 pod's ranks launched "
+                             f"{[r['launches']['flash_attention'] for r in records]}, want {want}")
+
+
 def main() -> int:
     import torch
 
@@ -5397,6 +5660,7 @@ def main() -> int:
         ("text", lambda: phase_text(torch, gpt, fa, root)),
         ("images", lambda: phase_images(torch, fa, gn, root)),
         ("pod_ranks", lambda: phase_pod_ranks(torch, fa, root)),
+        ("operator", lambda: phase_operator(torch, gpt, fa, root)),
     ]
     if only:
         phases = [p for p in phases if p[0] in ("card", "build", *only)]
@@ -5422,7 +5686,8 @@ def main() -> int:
                 line = value
             elif name in ("train", "resnet_train", "roofline", "generate", "distributed",
                           "families", "parallel", "tensor", "axes", "pipeline",
-                          "pipeline_axes", "profile", "text", "images", "pod_ranks"):
+                          "pipeline_axes", "profile", "text", "images", "pod_ranks",
+                          "operator"):
                 for kernel, count in value.items():  # each path's launches add up
                     launches[kernel] = launches.get(kernel, 0) + count
     finally:

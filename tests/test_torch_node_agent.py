@@ -6,7 +6,7 @@ Worker ends Drained with backoff untouched and resumes from its drain
 checkpoint; its progress (``step``, ``steps_per_sec``, ``compile_seconds``)
 reaches ``pod.status.training``; its trace carries ``trainer.run``,
 ``trainer.startup`` and ``trainer.first_step``. Outside a node agent the
-port keeps its own drain class, progress dict and a no-op tracer.
+port keeps its own drain class, progress dict and tracer.
 """
 
 import threading

@@ -314,6 +314,23 @@ def test_drain_and_stop_reach_every_rank(signal, pods):
     assert all(_gone(pid) for pid in run.pids)
 
 
+def test_a_stop_given_at_spawn_waits_for_slow_ranks_to_start(monkeypatch):
+    """The stop grace counts from the moment every rank has started: ranks
+    whose start takes longer than the grace still take a stop given at
+    spawn and end, and the pod returns their empty history."""
+    import _torch_pod_slow_entry as slow
+
+    monkeypatch.setattr(pod_ranks, "STOP_GRACE_S", slow.SLOW_START_S / 3)
+    stop = PodStopSignal()
+    stop.set()
+    assert slow.until_stopped(dict(CPU, TFK8S_MESH=json.dumps({"data": 2})), stop) == []
+    run = pod_ranks.last_run()
+    assert [sorted(r) for r in run.records] == [
+        sorted(["result", "wall_s", "device", "backend", "peak_memory_bytes", "launches"])] * 2
+    assert all(r["wall_s"] >= slow.SLOW_START_S for r in run.records)
+    assert all(_gone(pid) for pid in run.pids)
+
+
 def test_a_notice_one_rank_sees_drains_every_rank_at_one_step(pods):
     """Rank 1 alone takes the notice after its second step: both ranks
     drain there (one host all-reduce of the signals a step), where rank 0

@@ -1,0 +1,74 @@
+"""Operator options/flags — SURVEY.md C2 (`tf_operator/app/options/
+options.go`; 'Add flag' / 'Init flag and initlog' in images/tf2.png at
+k8s-operator.md:57).
+
+A copy of the JAX package's ``cmd/options.py`` for the job half of the
+operator: the reconcile workers, the client limits and the host
+inventory. The reference's ``--leader-elect`` (and its lease flags),
+``--kubeconfig``, ``--gateway-port``, ``--metrics-port`` and
+``--no-local-kubelet`` belong to later slices of the port (ROADMAP items
+18 and 19) and are not accepted yet: the in-process kubelet always runs,
+since without a remote store no other kubelet could run a pod.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import logging
+from typing import Dict
+
+from tfk8s_tpu_torch.controller.controller import DEFAULT_SYNC_WORKERS
+
+
+@dataclasses.dataclass
+class Options:
+    # controller
+    workers: int = DEFAULT_SYNC_WORKERS
+    resync_period_s: float = 0.0
+    namespace: str = "default"
+    # client rate limits (C10: token-bucket on the REST client)
+    qps: float = 50.0
+    burst: int = 100
+    # cluster inventory: accelerator type -> number of slices
+    capacity: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # logging
+    log_level: str = "info"
+
+    @staticmethod
+    def add_flags(parser: argparse.ArgumentParser) -> None:
+        g = parser.add_argument_group("operator")
+        g.add_argument("--workers", type=int, default=DEFAULT_SYNC_WORKERS,
+                       help="reconcile worker count (Controller.Run N; "
+                            "per-key in-flight exclusion makes raising "
+                            "this safe)")
+        g.add_argument("--resync-period", type=float, default=0.0, dest="resync_period_s",
+                       help="informer resync period in seconds (0 = disabled)")
+        g.add_argument("--namespace", default="default")
+        g.add_argument("--qps", type=float, default=50.0,
+                       help="client token-bucket refill rate")
+        g.add_argument("--burst", type=int, default=100,
+                       help="client token-bucket burst size")
+        g.add_argument("--capacity", default="{}",
+                       help='host inventory as JSON, e.g. \'{"h100-8": 4}\'')
+        g.add_argument("--log-level", default="info",
+                       choices=["debug", "info", "warning", "error"])
+
+    @classmethod
+    def from_args(cls, args: argparse.Namespace) -> "Options":
+        capacity = args.capacity
+        if isinstance(capacity, str):
+            capacity = json.loads(capacity or "{}")
+        return cls(
+            workers=args.workers,
+            resync_period_s=args.resync_period_s,
+            namespace=args.namespace,
+            qps=args.qps,
+            burst=args.burst,
+            capacity=capacity,
+            log_level=args.log_level,
+        )
+
+    def log_level_int(self) -> int:
+        return getattr(logging, self.log_level.upper(), logging.INFO)

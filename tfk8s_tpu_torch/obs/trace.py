@@ -1,27 +1,77 @@
-"""Tracing for the port: the node agent's tracer, reached through the pod's
-stop object (``runtime/node_agent``), so a port pod's spans land in the
-same process-wide ring as the control plane's and continue its trace.
+"""Causal tracing for the port: the JAX package's ``obs/trace.py`` (spans,
+the W3C ``traceparent`` form, the bounded ring), with one addition for
+pods that a foreign node agent runs. The reference's tail sampler, which
+only its request gateway uses, comes with the port's gateway.
 
-Outside a node agent there is no ring to export to, and
-:func:`get_tracer` returns a no-op tracer with the same surface
-(``start_span``, ``record_span``, ``current_span``). The W3C
-``traceparent`` helpers are copies of the JAX package's ``obs/trace.py``.
+One trace follows one piece of work across the control plane and the
+runtime: the controller opens a ``reconcile`` span per sync and stamps
+the pod env with ``TFK8S_TRACEPARENT``, the kubelet continues the trace
+around the entrypoint launch, and the trainer adds ``trainer.*`` spans.
+The module-level :class:`Tracer` is what the port's own operator, kubelet
+and trainer threads share (:func:`get_tracer`, :func:`set_tracer`).
+
+A port pod run by another node agent (the JAX package's kubelet) reaches
+that agent's tracer through its stop object (``runtime/node_agent``):
+while such an agent is attached, :func:`get_tracer` returns the agent's
+tracer, so the pod's spans land in the agent's ring and continue its
+trace. A disabled :class:`Tracer` records nothing (a pod's rank
+processes use one: their node agent is in the pod's process).
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
+import json
+import os
+import random
+import threading
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 from tfk8s_tpu_torch.runtime import node_agent
 
-# the pod-env key carrying the parent span across the control -> data
-# plane handoff (the reference's name)
+# Pod-env key carrying the parent span across the control->data plane
+# handoff (trainer/replicas.py renders env; the controller stamps this
+# one at pod creation because only the creating sync knows its span).
 TRACEPARENT_ENV = node_agent.TRACEPARENT_ENV
+
+_TRACEPARENT_VERSION = "00"
+
+# Span-ring capacity (spans, not traces).
+TRACE_RING_ENV = "TFK8S_TRACE_RING"
+DEFAULT_RING_CAPACITY = 4096
+MAX_EVENTS_PER_SPAN = 256
+
+
+def ring_capacity_from_env() -> int:
+    try:
+        n = int(os.environ.get(TRACE_RING_ENV, DEFAULT_RING_CAPACITY))
+    except ValueError:
+        return DEFAULT_RING_CAPACITY
+    return max(n, 16)
+
+
+# Span/trace ids are w3c-shaped random hex, NOT security material: a
+# PRNG seeded once from the OS is plenty unique. Calling os.urandom per
+# span was the controller's single biggest instrumented-sync cost on the
+# CI box (a getrandom(2) syscall per id — measured ~0.7 ms each there,
+# ~2.7 ms of the ~2 ms sync!); getrandbits is pure userspace. Seeded
+# per-process; fork safety doesn't matter more than it did (a forked
+# child re-imports or shares the parent's stream offset).
+_rng = random.Random(os.urandom(16))
+_rng_lock = threading.Lock()
+
+
+def _gen_id(nbytes: int) -> str:
+    with _rng_lock:
+        return _rng.getrandbits(nbytes * 8).to_bytes(nbytes, "big").hex()
 
 
 def parse_traceparent(header: Optional[str]) -> Optional[Tuple[str, str]]:
     """``00-<trace_id>-<span_id>-<flags>`` -> (trace_id, span_id), or None
-    for anything malformed."""
+    for anything malformed — a bad header must degrade to 'new trace',
+    never to a crash in the reconcile or training path."""
     if not header:
         return None
     parts = header.strip().split("-")
@@ -37,10 +87,100 @@ def parse_traceparent(header: Optional[str]) -> Optional[Tuple[str, str]]:
     return trace_id, span_id
 
 
+@dataclasses.dataclass
+class Span:
+    """One timed operation. Context-manager: ``with tracer.start_span(..)``
+    pops the thread-local stack and lands the span in the ring on exit."""
+
+    name: str
+    trace_id: str
+    span_id: str
+    parent_id: Optional[str] = None
+    start_time: float = 0.0
+    end_time: Optional[float] = None
+    attributes: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    status: str = "ok"
+    message: str = ""
+    events: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
+    _tracer: Optional["Tracer"] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
+
+    @property
+    def traceparent(self) -> str:
+        return f"{_TRACEPARENT_VERSION}-{self.trace_id}-{self.span_id}-01"
+
+    def set_attribute(self, key: str, value: Any) -> None:
+        self.attributes[key] = value
+
+    def set_status(self, status: str, message: str = "") -> None:
+        self.status = status
+        self.message = message
+
+    def add_event(
+        self,
+        name: str,
+        attributes: Optional[Dict[str, Any]] = None,
+        ts: Optional[float] = None,
+    ) -> None:
+        """Append one timestamped timeline entry (an OTel span event).
+        Bounded: past MAX_EVENTS_PER_SPAN the event is dropped and the
+        overflow counted in an ``events_dropped`` attribute — a retry
+        storm annotates, it never balloons a span."""
+        if len(self.events) >= MAX_EVENTS_PER_SPAN:
+            self.attributes["events_dropped"] = (
+                int(self.attributes.get("events_dropped", 0)) + 1
+            )
+            return
+        self.events.append({
+            "name": name,
+            "ts": time.time() if ts is None else ts,
+            "attributes": dict(attributes or {}),
+        })
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "name": self.name,
+            "trace_id": self.trace_id,
+            "span_id": self.span_id,
+            "parent_id": self.parent_id,
+            "start_time": self.start_time,
+            "end_time": self.end_time,
+            "duration_s": (
+                None if self.end_time is None
+                else self.end_time - self.start_time
+            ),
+            "attributes": dict(self.attributes),
+            "status": self.status,
+            "message": self.message,
+            "events": [dict(e) for e in self.events],
+        }
+
+    def __enter__(self) -> "Span":
+        return self
+
+    def __exit__(self, exc_type, exc, _tb) -> bool:
+        if exc is not None and self.status == "ok":
+            self.set_status("error", f"{getattr(exc_type, '__name__', exc_type)}: {exc}")
+        if self._tracer is not None:
+            self._tracer._finish(self)
+        return False
+
+
 class _NoopSpan:
+    """Returned by a disabled tracer: every operation is a no-op and the
+    span never touches a lock — the bench's 'instrumentation off' arm."""
+
+    name = ""
     trace_id = ""
     span_id = ""
+    parent_id = None
+    start_time = 0.0
+    end_time = 0.0
+    attributes: Dict[str, Any] = {}
+    status = "ok"
     traceparent = ""
+    events: List[Dict[str, Any]] = []
 
     def set_attribute(self, key: str, value: Any) -> None:
         pass
@@ -51,43 +191,262 @@ class _NoopSpan:
     def add_event(self, name: str, attributes=None, ts=None) -> None:
         pass
 
-    def __enter__(self) -> "_NoopSpan":
+    def to_dict(self) -> Dict[str, Any]:
+        return {}
+
+    def __enter__(self):
         return self
 
-    def __exit__(self, *exc) -> bool:
+    def __exit__(self, *a) -> bool:
         return False
 
 
 _NOOP_SPAN = _NoopSpan()
 
 
-class NoopTracer:
-    """The tracer outside a node agent: every span is a no-op."""
+class Tracer:
+    """Thread-safe span factory + bounded in-memory ring of finished
+    spans. ``capacity`` bounds memory: a long-lived operator keeps the
+    most recent ~capacity spans, oldest evicted (``None`` reads
+    ``TFK8S_TRACE_RING``, default 4096)."""
 
-    enabled = False
+    def __init__(self, capacity: Optional[int] = None, enabled: bool = True,
+                 metrics=None):
+        self.enabled = enabled
+        self._metrics = metrics
+        self._lock = threading.Lock()
+        # ring of (seq, span): the monotonically-increasing seq lets
+        # export_jsonl write each span exactly once across repeated calls
+        self._spans: "collections.deque" = collections.deque(
+            maxlen=ring_capacity_from_env() if capacity is None else capacity
+        )
+        self._next_seq = 0
+        self._exported_seq = -1
+        self._tls = threading.local()
+        # reason -> spans dropped (mirrors the exported counter so tests
+        # and /debug read pressure without a registry wired)
+        self.dropped: Dict[str, int] = {}
 
-    def start_span(self, name: str, parent: Any = None,
-                   traceparent: Optional[str] = None,
-                   attributes: Optional[Dict[str, Any]] = None,
-                   tail_sample: bool = False) -> _NoopSpan:
-        return _NOOP_SPAN
+    def set_metrics(self, metrics) -> None:
+        """Wire a Metrics registry: every dropped span counts in
+        ``tfk8s_trace_spans_dropped_total{reason}`` from here on."""
+        self._metrics = metrics
+        if metrics is not None:
+            metrics.describe(
+                "tfk8s_trace_spans_dropped_total",
+                "Spans the tracer dropped, by reason (ring_full).",
+            )
 
-    def record_span(self, name: str, start: float, end: float,
-                    parent: Any = None, traceparent: Optional[str] = None,
-                    attributes: Optional[Dict[str, Any]] = None,
-                    status: str = "ok",
-                    events: Optional[List[Dict[str, Any]]] = None) -> _NoopSpan:
-        return _NOOP_SPAN
+    # -- context -----------------------------------------------------------
 
-    def current_span(self) -> None:
-        return None
+    def _stack(self) -> List[Span]:
+        st = getattr(self._tls, "stack", None)
+        if st is None:
+            st = []
+            self._tls.stack = st
+        return st
+
+    def current_span(self) -> Optional[Span]:
+        st = self._stack()
+        return st[-1] if st else None
+
+    def current_traceparent(self) -> Optional[str]:
+        sp = self.current_span()
+        return sp.traceparent if sp is not None else None
+
+    # -- span lifecycle ----------------------------------------------------
+
+    def start_span(
+        self,
+        name: str,
+        parent: Optional[Span] = None,
+        traceparent: Optional[str] = None,
+        attributes: Optional[Dict[str, Any]] = None,
+    ) -> Span:
+        """Open a span. Parent resolution: explicit ``parent`` span >
+        the calling thread's current span > ``traceparent`` header > new
+        root (fresh trace_id). Thread context outranks the header on
+        purpose: in the hermetic deployment the pod thread's ambient span
+        (kubelet.launch) is already a continuation of the trace the
+        header names, one hop deeper — the header is the cross-PROCESS
+        fallback where no ambient context can exist."""
+        if not self.enabled:
+            return _NOOP_SPAN  # type: ignore[return-value]
+        parent_id: Optional[str] = None
+        trace_id: Optional[str] = None
+        if parent is not None and parent.trace_id:
+            trace_id, parent_id = parent.trace_id, parent.span_id
+        if trace_id is None:
+            cur = self.current_span()
+            if cur is not None:
+                trace_id, parent_id = cur.trace_id, cur.span_id
+        if trace_id is None and traceparent:
+            parsed = parse_traceparent(traceparent)
+            if parsed is not None:
+                trace_id, parent_id = parsed
+        if trace_id is None:
+            trace_id = _gen_id(16)
+        span = Span(
+            name=name,
+            trace_id=trace_id,
+            span_id=_gen_id(8),
+            parent_id=parent_id,
+            start_time=time.time(),
+            attributes=dict(attributes or {}),
+            _tracer=self,
+        )
+        self._stack().append(span)
+        return span
+
+    def _finish(self, span: Span) -> None:
+        if span.end_time is None:
+            span.end_time = time.time()
+        st = self._stack()
+        for i, s in enumerate(st):  # pop it and anything leaked above it
+            if s is span:
+                del st[i:]
+                break
+        self._append(span)
+
+    def _count_dropped(self, n: int, reason: str) -> None:
+        with self._lock:
+            self.dropped[reason] = self.dropped.get(reason, 0) + n
+        m = self._metrics
+        if m is not None:
+            m.inc(
+                "tfk8s_trace_spans_dropped_total", float(n),
+                {"reason": reason},
+            )
+
+    def _append(self, span: Span) -> None:
+        with self._lock:
+            evicted = (
+                self._spans.maxlen is not None
+                and len(self._spans) == self._spans.maxlen
+            )
+            self._spans.append((self._next_seq, span))
+            self._next_seq += 1
+        if evicted:
+            self._count_dropped(1, "ring_full")  # the evicted oldest span
+
+    def record_span(
+        self,
+        name: str,
+        start: float,
+        end: float,
+        parent: Optional[Span] = None,
+        traceparent: Optional[str] = None,
+        attributes: Optional[Dict[str, Any]] = None,
+        status: str = "ok",
+        events: Optional[List[Dict[str, Any]]] = None,
+    ) -> Span:
+        """Record an already-elapsed interval (e.g. the measured
+        time-in-queue before a reconcile span existed) without touching
+        the thread-local stack. ``events`` pre-loads the span's timeline
+        (the decode loop builds a request's token events off-span and
+        attaches them all at retirement)."""
+        if not self.enabled:
+            return _NOOP_SPAN  # type: ignore[return-value]
+        parent_id: Optional[str] = None
+        trace_id: Optional[str] = None
+        if parent is not None and parent.trace_id:
+            trace_id, parent_id = parent.trace_id, parent.span_id
+        elif traceparent:
+            parsed = parse_traceparent(traceparent)
+            if parsed is not None:
+                trace_id, parent_id = parsed
+        if trace_id is None:
+            trace_id = _gen_id(16)
+        span = Span(
+            name=name,
+            trace_id=trace_id,
+            span_id=_gen_id(8),
+            parent_id=parent_id,
+            start_time=start,
+            end_time=end,
+            attributes=dict(attributes or {}),
+            status=status,
+        )
+        for ev in events or []:
+            span.add_event(
+                str(ev.get("name", "")),
+                ev.get("attributes"),
+                ts=ev.get("ts"),
+            )
+        self._append(span)
+        return span
+
+    # -- read side ---------------------------------------------------------
+
+    def spans(self) -> List[Span]:
+        with self._lock:
+            return [s for _seq, s in self._spans]
+
+    def traces(self) -> Dict[str, List[Span]]:
+        """trace_id -> spans sorted by start time, traces ordered by their
+        earliest span (oldest trace first)."""
+        by_trace: Dict[str, List[Span]] = {}
+        for sp in self.spans():
+            by_trace.setdefault(sp.trace_id, []).append(sp)
+        out: Dict[str, List[Span]] = {}
+        for tid, sps in sorted(
+            by_trace.items(), key=lambda kv: min(s.start_time for s in kv[1])
+        ):
+            out[tid] = sorted(sps, key=lambda s: s.start_time)
+        return out
+
+    def trace(self, trace_id: str) -> List[Span]:
+        return sorted(
+            (s for s in self.spans() if s.trace_id == trace_id),
+            key=lambda s: s.start_time,
+        )
+
+    def find_spans(self, name: str) -> List[Span]:
+        return [s for s in self.spans() if s.name == name]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._spans.clear()
+
+    # -- export ------------------------------------------------------------
+
+    def to_jsonl(self) -> str:
+        return "".join(json.dumps(s.to_dict()) + "\n" for s in self.spans())
+
+    def export_jsonl(self, path: str) -> int:
+        """Append spans not yet exported to ``path`` (each span is written
+        exactly once across repeated calls — periodic exporters must not
+        duplicate the still-buffered ring); returns the count written."""
+        with self._lock:
+            fresh = [(seq, s) for seq, s in self._spans if seq > self._exported_seq]
+        if not fresh:
+            return 0
+        with open(path, "a") as f:
+            for _seq, s in fresh:
+                f.write(json.dumps(s.to_dict()) + "\n")
+        with self._lock:
+            self._exported_seq = max(self._exported_seq, fresh[-1][0])
+        return len(fresh)
 
 
-_NOOP_TRACER = NoopTracer()
+_default_tracer = Tracer()
 
 
 def get_tracer() -> Any:
-    """The node agent's process tracer once a pod has attached to one,
-    else the no-op tracer."""
+    """The tracer of the node agent attached to a pod of this process when
+    that agent is another package's (``node_agent.attach``), else the
+    process-wide tracer that the port's controller, kubelet and trainer
+    threads share (one ring, which makes the single e2e trace real)."""
     agent = node_agent.tracer_agent()
-    return agent.get_tracer() if agent is not None else _NOOP_TRACER
+    if agent is not None:
+        return agent.get_tracer()
+    return _default_tracer
+
+
+def set_tracer(tracer: Tracer) -> Tracer:
+    """Swap the process default (tests / bench isolation); returns the
+    previous one so callers can restore it."""
+    global _default_tracer
+    prev = _default_tracer
+    _default_tracer = tracer
+    return prev

@@ -15,12 +15,14 @@ stop object: ``sys.modules[type(stop).__module__]`` is the module that
 defines the stop signal's class, and the three are read from it by
 attribute. Outside a node agent (no stop object, or a plain
 ``threading.Event``) nothing is found and the port keeps its own
-``PodDrained``, its own progress dict and a no-op tracer.
+``PodDrained``, its own progress dict and its own tracer. The port's own
+kubelet (``runtime/kubelet.py``) reads those directly, so it is no node
+agent here: ``find`` returns None for its stop object.
 
 ``attach(stop)`` binds the agent's progress sink to the calling thread
 (the pod's entrypoint thread, which is the thread the node agent reads
 progress for) until the ``with`` block ends, and makes the agent's
-tracer the one ``obs.trace.get_tracer`` returns.
+tracer the one ``obs.trace.get_tracer`` returns until no pod is bound.
 
 The agent's serving table, where the gateway and the serve client look
 replicas up, is found the same way: the stop signal's module belongs to a
@@ -101,8 +103,9 @@ def pod_drained_class(stop: Any) -> type:
 _LOCK = threading.Lock()
 # entrypoint thread ident -> the node agent bound to it
 _BOUND: Dict[int, NodeAgent] = {}
-# the agent whose tracer obs.trace.get_tracer returns (the node agent's
-# tracer is process-wide, so the last one bound stands for all)
+# the agent whose tracer obs.trace.get_tracer returns while any pod is
+# bound (the node agent's tracer is process-wide, so the last one bound
+# stands for all)
 _TRACER_AGENT: Optional[NodeAgent] = None
 
 
@@ -140,3 +143,5 @@ def attach(stop: Any) -> Iterator[Optional[NodeAgent]]:
                 _BOUND.pop(ident, None)
             else:
                 _BOUND[ident] = prev
+            if not _BOUND:
+                _TRACER_AGENT = None

@@ -36,7 +36,13 @@ card each (``runtime/launcher.py``), so such a pod starts
   once after a failure, the ranks are terminated, then killed after
   :data:`TERM_GRACE_S`, and every one is joined on every path; a rank
   whose stdin closes (this process gone) stops, and exits after
-  :data:`STOP_GRACE_S` whatever it is doing.
+  :data:`STOP_GRACE_S` whatever it is doing. The grace counts from the
+  stop or from the moment every rank has said it started (its entry
+  point imported), whichever is later: a stop given at spawn must not
+  spend the grace on the ranks' interpreter start and torch import,
+  which on a loaded host take more than the grace itself. A rank that
+  has not started :data:`START_GRACE_S` after the spawn no longer holds
+  the grace back.
 
 In a rank process this module stands in for the node agent: the stop
 object is a :class:`RankStop`, whose module holds the three names
@@ -67,7 +73,7 @@ import time
 import traceback
 from typing import Any, Callable, Dict, List, Optional
 
-from tfk8s_tpu_torch.obs.trace import NoopTracer
+from tfk8s_tpu_torch.obs.trace import Tracer
 from tfk8s_tpu_torch.runtime import node_agent, progress
 from tfk8s_tpu_torch.runtime.launcher import (LOCAL_RANK_ENV, POD_RANKS_ENV, ProcessContext,
                                               requested_device)
@@ -79,6 +85,9 @@ log = get_logger("pod_ranks")
 # and after a terminate before they are killed
 STOP_GRACE_S = 30.0
 TERM_GRACE_S = 5.0
+# seconds from the spawn after which a rank that has not started counts
+# as started for the stop grace
+START_GRACE_S = 120.0
 # the op modules whose LAUNCHES a rank reports
 _KERNEL_MODULES = ("flash_attention", "group_norm", "block_copy")
 
@@ -246,10 +255,13 @@ def _relay(pod: PodRun, procs: List[subprocess.Popen], messages: "queue.Queue",
     """The pod's process while its ranks run: stop and drain out to every
     rank, rank 0's progress in to the agent's sink, each rank's last
     message kept; a failure ends the loop at once."""
-    d, ended = len(procs), set()
+    d, ended, started = len(procs), set(), set()
     drain_sent = stop_sent = False
     stop_at: Optional[float] = None
+    ready_at: Optional[float] = None  # every rank started or ended
     while len(ended) < d:
+        if ready_at is None and len(started | ended) == d:
+            ready_at = time.perf_counter()
         if stop is not None and not drain_sent and getattr(stop, "drain_requested", False):
             drain_sent = True
             for p in procs:
@@ -258,7 +270,8 @@ def _relay(pod: PodRun, procs: List[subprocess.Popen], messages: "queue.Queue",
             stop_sent, stop_at = True, time.perf_counter()
             for p in procs:
                 _send(p, "stop")
-        if stop_at is not None and time.perf_counter() - stop_at > STOP_GRACE_S:
+        ready = ready_at if ready_at is not None else t0 + START_GRACE_S
+        if stop_at is not None and time.perf_counter() - max(stop_at, ready) > STOP_GRACE_S:
             late = [l for l in range(d) if l not in ended]
             raise RankFailed(f"{pod.entrypoint}: ranks {late} did not stop within "
                              f"{STOP_GRACE_S:.0f} s", pod.first_rank + late[0], late[0])
@@ -272,6 +285,9 @@ def _relay(pod: PodRun, procs: List[subprocess.Popen], messages: "queue.Queue",
                 code = _wait(procs[l])
                 pod.records[l] = {"error": f"exited with code {code} and sent no result",
                                   "at": time.time()}
+        elif "started" in msg:
+            started.add(l)
+            continue
         elif "progress" in msg:
             progress.report(**msg["progress"])
             if pod.first_step_s is None and "first_step_seconds" in msg["progress"]:
@@ -396,10 +412,10 @@ class _Progress:
 
 
 _progress = _Progress()
-_TRACER = NoopTracer()
+_TRACER = Tracer(enabled=False)
 
 
-def get_tracer() -> NoopTracer:
+def get_tracer() -> Tracer:
     """A rank's spans go nowhere: the node agent's tracer is in the pod's
     process."""
     return _TRACER
@@ -475,7 +491,9 @@ def child_main(argv: List[str]) -> int:
     threading.Thread(target=_listen, args=(stop,), daemon=True, name="pod-commands").start()
     code = 0
     try:
-        result = _resolve(entrypoint)(env, stop)
+        fn = _resolve(entrypoint)
+        _emit({"started": True})
+        result = fn(env, stop)
         import torch.distributed as dist
 
         if dist.is_available() and dist.is_initialized():

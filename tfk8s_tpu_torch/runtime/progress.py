@@ -7,7 +7,8 @@ whoever runs the pod reads the values for that thread. When a node agent
 is bound to the calling thread (``runtime/node_agent.attach``), the
 values go to the agent's own progress sink, which is the one it copies
 into ``pod.status.training``. Otherwise reporting is a cheap write into
-this module's dict, which :func:`snapshot` reads."""
+this module's dict, which :func:`snapshot` reads (the port's own
+kubelet, ``runtime/kubelet.py``, reads it there)."""
 
 from __future__ import annotations
 

@@ -1,21 +1,152 @@
-"""Logging and metrics for the port.
+"""Logging, events and metrics for the port.
 
 ``get_logger`` keeps the JAX package's logger naming (``tfk8s.<name>``),
-so the port's logs read like the reference's. ``Metrics`` is a copy of
-the reference's labeled counter/gauge/histogram registry with Prometheus
-exposition, which the port's serving executor records its metric
-families into (the same names and labels as the reference's).
+so the port's logs read like the reference's. ``init_logging``, ``Event``
+and ``EventRecorder`` (the control plane's structured event log, mirrored
+into the cluster as Event objects) and ``Metrics`` (the labeled
+counter/gauge/histogram registry with Prometheus exposition, which the
+port's controller and serving executor record into under the reference's
+names and labels) are copies of the reference's ``utils/logging.py``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import threading
+import time
 from typing import Any, Dict, List, Optional, Tuple
+
+_FORMAT = "%(asctime)s %(levelname).1s %(name)s] %(message)s"
+_configured = False
+
+
+def init_logging(level: int = logging.INFO) -> None:
+    """The 'initlog' step of startup (images/tf2.png)."""
+    global _configured
+    if not _configured:
+        logging.basicConfig(level=level, format=_FORMAT)
+        _configured = True
 
 
 def get_logger(name: str) -> logging.Logger:
     return logging.getLogger(f"tfk8s.{name}")
+
+
+@dataclasses.dataclass
+class Event:
+    """One structured control-plane event (job created, gang admitted,
+    pod failed, ...)."""
+
+    timestamp: float
+    kind: str
+    key: str  # namespace/name of the involved object
+    reason: str
+    message: str = ""
+
+
+class EventRecorder:
+    """Append-only in-memory event log; tests and the CLI 'describe' read
+    it. With a ``sink`` clientset, every event is ALSO mirrored into the
+    cluster as a core/v1-style Event object (api/types.py Event),
+    k8s-aggregated — one object per (involved object, reason) with a
+    bumped count — so clients read event history through the apiserver
+    instead of the operator process. Best-effort: sink failures never
+    break the reconcile path that emitted the event."""
+
+    def __init__(self, capacity: int = 4096, sink=None):
+        self._lock = threading.Lock()
+        self._events: List[Event] = []
+        self._capacity = capacity
+        self._sink = sink
+        self._queue = None
+        if sink is not None:
+            # mirror ASYNCHRONOUSLY (k8s records events via a broadcaster
+            # for the same reason): the sink does REST round-trips through
+            # the operator's rate-limited client, and reconcile workers
+            # must never stall behind event bookkeeping
+            import queue
+
+            self._queue = queue.Queue(maxsize=4096)
+            threading.Thread(
+                target=self._mirror_loop, name="event-mirror", daemon=True
+            ).start()
+
+    def event(self, kind: str, key: str, reason: str, message: str = "") -> None:
+        ev = Event(time.time(), kind, key, reason, message)
+        with self._lock:
+            self._events.append(ev)
+            if len(self._events) > self._capacity:
+                self._events = self._events[-self._capacity :]
+        get_logger("events").info("%s %s %s %s", kind, key, reason, message)
+        if self._queue is not None:
+            try:
+                self._queue.put_nowait(ev)
+            except Exception:  # noqa: BLE001 — full queue: drop, best-effort
+                pass
+
+    def _mirror_loop(self) -> None:
+        while True:
+            ev = self._queue.get()
+            try:
+                self._mirror(ev)
+            except Exception as e:  # noqa: BLE001 — events are best-effort
+                get_logger("events").debug("event sink failed: %s", e)
+            finally:
+                self._queue.task_done()
+
+    def flush(self) -> None:
+        """Block until every queued event has been mirrored (tests)."""
+        if self._queue is not None:
+            self._queue.join()
+
+    def _mirror(self, ev: Event) -> None:
+        from tfk8s_tpu_torch.api import types as t
+        from tfk8s_tpu_torch.client.store import AlreadyExists, Conflict, NotFound
+
+        ns, _, obj_name = ev.key.partition("/")
+        ns = ns or "default"
+        # deterministic per (kind, object, reason): repeats aggregate. The
+        # kind is part of the identity — a Pod and a TPUJob sharing a name
+        # in one namespace must not merge into one Event.
+        name = f"{ev.kind.lower()}.{obj_name}.{ev.reason.lower()}"
+        client = self._sink.generic("Event", ns)
+        for _ in range(3):
+            try:
+                existing = client.get(name)
+            except NotFound:
+                try:
+                    client.create(
+                        t.Event(
+                            metadata=t.ObjectMeta(name=name, namespace=ns),
+                            involved_kind=ev.kind,
+                            involved_key=ev.key,
+                            reason=ev.reason,
+                            message=ev.message,
+                            count=1,
+                            first_timestamp=ev.timestamp,
+                            last_timestamp=ev.timestamp,
+                        )
+                    )
+                    return
+                except AlreadyExists:
+                    continue
+            existing.count += 1
+            existing.last_timestamp = ev.timestamp
+            existing.message = ev.message or existing.message
+            try:
+                client.update(existing)
+                return
+            except (Conflict, NotFound):
+                continue
+
+    def events(self, key: Optional[str] = None, reason: Optional[str] = None) -> List[Event]:
+        with self._lock:
+            return [
+                e
+                for e in self._events
+                if (key is None or e.key == key) and (reason is None or e.reason == reason)
+            ]
 
 
 _DEFAULT_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0)
