@@ -415,8 +415,36 @@ must pass:
    pod's env in this process: identical, or within OPERATOR["loss_atol"].
    It prints the phase's seconds, each job's submission to first update,
    wall time and peak memory.
+25. gateway: the port's serving control plane and front door in this
+   process: ``Server`` with one ``h100-1`` host and ``gateway_port`` set
+   (the TPUServe controller, the local kubelet and ``GatewayServer`` over
+   the port's replica table). ``manifests/examples/gpt-serve-h100-torch.
+   json``'s TPUServe, loaded with ``load_manifest`` (task ``gpt``,
+   ``seed:0``, 2 replicas of ``tfk8s_tpu_torch.runtime.server:serve`` at
+   GPT-2-small base width in bf16, 32 generated, 8 slots, 513 pages of 16,
+   surge 1, none unavailable): (a) both replicas Ready, the serve
+   ``Available`` with 2 ready, each pod requesting ``nvidia.com/gpu:
+   "1"``, each decoder on ``cuda:0``; (b) GATEWAY["requests"] of the serve
+   phase's mixed requests through ``GatewayClient`` over HTTP,
+   GATEWAY["concurrency"] at a time, after a warm-up request to each
+   replica and a timing baseline of as many other such requests submitted
+   directly (spread over both; neither set seen by the prefix caches),
+   each reply token for token a direct ``submit`` of the same payload to
+   a replica, and ``/debug/decode``
+   listing both replicas; (c) ``spec.checkpoint`` patched to ``seed:1``
+   while GATEWAY["roll_clients"] closed-loop clients send greedy requests
+   through the gateway: no request may fail, on every poll at least 2
+   replicas are Ready and at most 3 pods live, the old version's pods are
+   deleted and 2 are updated; then a greedy request through the gateway
+   equals a direct submit to a new replica and differs from the
+   ``seed:0`` answer; (d) no kernel of the port launches, and the
+   gateway's ``tfk8s_gateway_requests_total`` equals the requests sent.
+   It prints submission to Ready, peak memory, replica-reported TTFT and
+   client latency p50/p99 through the gateway beside the direct baseline, the
+   rollout's seconds and the requests served during it. The phase fails
+   above GATEWAY["limit_s"].
 
-The launch counts are zeroed just before each path (phases 6-24) and
+The launch counts are zeroed just before each path (phases 6-25) and
 read just after it; the line's launches add up the paths'. Then it prints the card line, the ``kernels`` JSON
 line and, last, the ``ok`` line. It exits non-zero, printing no result,
 when a phase fails, when no card is visible, or when the port's package is
@@ -5606,6 +5634,268 @@ def _operator_nccl(torch, fa):
                              f"{[r['launches']['flash_attention'] for r in records]}, want {want}")
 
 
+GATEWAY = dict(manifest=os.path.join("manifests", "examples", "gpt-serve-h100-torch.json"),
+               requests=16, concurrency=8, roll_clients=4, roll_prompt=64, roll_gen=16,
+               seed=5, ready_s=120.0, roll_s=120.0, timeout_s=120.0, limit_s=75.0)
+# the CPU rehearsal's template env (the card run overrides nothing)
+GATEWAY_CPU_ENV = {"TFK8S_DEVICE": "cpu"}
+
+
+def _serve_pods(server, name):
+    """(live pods, ready pods) of TPUServe ``name``: live as the serve
+    controller counts them (not deleting, not ended), ready by
+    ``replica_is_ready``."""
+    from tfk8s_tpu_torch.api.types import PodPhase
+    from tfk8s_tpu_torch.runtime.server import replica_is_ready
+    from tfk8s_tpu_torch.trainer import labels as L
+
+    pods, _ = server.clientset.pods().list(label_selector=L.serve_selector(name))
+    ended = (PodPhase.FAILED, PodPhase.SUCCEEDED, PodPhase.DRAINED)
+    live = [p for p in pods if p.metadata.deletion_timestamp is None
+            and p.status.phase not in ended]
+    return live, [p for p in live if replica_is_ready(p)]
+
+
+def _gateway_latency(results):
+    """p50/p99 of the replica-reported TTFT and of the caller's wall
+    latency over ``_run_each`` results."""
+    import numpy as np
+
+    ttft = np.array([r["ttft_s"] for r, _, _ in results])
+    lat = np.array([t1 - t0 for _, t0, t1 in results])
+    return {"ttft_p50_s": float(np.percentile(ttft, 50)),
+            "ttft_p99_s": float(np.percentile(ttft, 99)),
+            "latency_p50_s": float(np.percentile(lat, 50)),
+            "latency_p99_s": float(np.percentile(lat, 99))}
+
+
+def _in_waves(calls, width):
+    """``_run_each`` over ``calls``, ``width`` at a time."""
+    out = []
+    for i in range(0, len(calls), width):
+        out.extend(_run_each(calls[i:i + width]))
+    return out
+
+
+def phase_gateway(torch, kernel_modules, root):
+    """The example manifest's GPT-2-small TPUServe through the port's
+    serve controller and gateway: Ready, traffic over HTTP against direct
+    submits, a checkpoint rollout under traffic (docstring phase 25)."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from tfk8s_tpu_torch.api.types import ServeConditionType
+    from tfk8s_tpu_torch.cmd.main import load_manifest
+    from tfk8s_tpu_torch.cmd.options import Options
+    from tfk8s_tpu_torch.cmd.server import Server
+    from tfk8s_tpu_torch.gateway import GatewayClient
+    from tfk8s_tpu_torch.runtime import server as serving
+    from tfk8s_tpu_torch.runtime.pod_ranks import free_port
+    from tfk8s_tpu_torch.trainer import labels as L
+
+    t_phase = time.perf_counter()
+    card = phase_card()
+    serve = load_manifest(os.path.join(root, GATEWAY["manifest"]))
+    if DEVICE == "cpu":  # the CPU rehearsal
+        serve.spec.template.env.update(GATEWAY_CPU_ENV)
+    name = serve.metadata.name
+    gen = int(serve.spec.template.env["TFK8S_SERVE_GEN_TOKENS"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in kernel_modules:
+        mod.reset_launches()
+    port = free_port()
+    server = Server(Options(capacity={"h100-1": 1}, gateway_port=port, workers=2))
+    stop = threading.Event()
+    server.run(stop, block=False)
+    url = f"http://127.0.0.1:{port}"
+    client = GatewayClient(url, name)
+    sent, summary, failures = 0, {"card": card}, []
+    try:
+        # (a) Ready
+        t_sub = time.perf_counter()
+        server.clientset.tpuserves().create(serve)
+
+        def available():
+            st = server.clientset.tpuserves().get(name).status
+            return st.ready_replicas == 2 and any(
+                c.type == ServeConditionType.AVAILABLE and c.status for c in st.conditions)
+
+        if not _wait_until(available, GATEWAY["ready_s"]):
+            raise AssertionError(f"{name} was not Available with 2 ready replicas within "
+                                 f"{GATEWAY['ready_s']:.0f} s")
+        summary["submit_to_ready_s"] = time.perf_counter() - t_sub
+        live, ready = _serve_pods(server, name)
+        old_version = ready[0].metadata.labels[L.SERVE_VERSION]
+        replicas = [serving.lookup_replica(p.metadata.key) for p in ready]
+        summary["pods"] = [{"name": p.metadata.name,
+                            "resources": p.spec.containers[0].resources,
+                            "device": str(r.model.device) if r is not None else None}
+                           for p, r in zip(ready, replicas)]
+        if len(live) != 2 or any(r is None for r in replicas):
+            raise AssertionError(f"live pods {[p.metadata.name for p in live]}, "
+                                 f"registered {summary['pods']}")
+        if any(p["resources"] != {"nvidia.com/gpu": "1"} for p in summary["pods"]):
+            failures.append(f"replica pods request {summary['pods']}")
+        want_device = "cpu" if DEVICE == "cpu" else "cuda:0"
+        if any(p["device"] != want_device for p in summary["pods"]):
+            failures.append(f"replica decoders on {summary['pods']}, want {want_device}")
+
+        # (b) traffic through the wire against direct submits
+        vocab = replicas[0].model.vocab_size
+
+        def requests(seed):
+            return [dict(p, tokens=[int(t) for t in p["tokens"]], gen_tokens=gen)
+                    for p in _serve_requests(GATEWAY["requests"], vocab, seed=seed)]
+
+        payloads, baseline = requests(0), requests(1)
+        timeout = GATEWAY["timeout_s"]
+        # a short request warms each replica's loop; then, both on prompts
+        # the prefix caches have not seen, a timing baseline of direct
+        # submits spread over both replicas (as the gateway spreads them)
+        # and the requests through the gateway; last the same requests
+        # direct, whose replies the gateway's must equal
+        warm = {"tokens": list(range(1, 17)), "gen_tokens": 4}
+        _results(_run_each([lambda r=r: r.submit(warm, timeout=timeout) for r in replicas]),
+                 "warm-up")
+        direct_runs = _in_waves([lambda i=i, p=p: replicas[i % 2].submit(p, timeout=timeout)
+                                 for i, p in enumerate(baseline)], GATEWAY["concurrency"])
+        _results(direct_runs, "direct")
+        via = _in_waves([lambda p=p: client.request(p, timeout=timeout) for p in payloads],
+                        GATEWAY["concurrency"])
+        sent += len(payloads)
+        via_out = _results(via, "gateway")
+        direct = _results(_in_waves([lambda i=i, p=p: replicas[i % 2].submit(p, timeout=timeout)
+                                     for i, p in enumerate(payloads)], GATEWAY["concurrency"]),
+                          "direct")
+        differ = [i for i, (a, b) in enumerate(zip(via_out, direct))
+                  if a["tokens"] != b["tokens"]]
+        if differ:  # the gateway may have routed those to the other replica
+            other = {i: replicas[1 - i % 2].submit(payloads[i], timeout=timeout)
+                     for i in differ}
+            differ = [i for i in differ if other[i]["tokens"] != via_out[i]["tokens"]]
+        with urllib.request.urlopen(f"{url}/debug/decode", timeout=30) as resp:
+            decode_view = json.loads(resp.read())
+        listed = sorted(k for k in decode_view["replicas"] if k.startswith("default/" + name))
+        summary["traffic"] = {
+            "requests": len(payloads), "gateway": _gateway_latency(via),
+            "direct": _gateway_latency(direct_runs),
+            "differ_from_direct": differ, "debug_decode_replicas": listed}
+        if differ:
+            failures.append(f"gateway replies {differ} differ from direct submits")
+        if any(len(r["tokens"]) != gen for r in via_out):
+            failures.append(f"a gateway reply did not complete {gen} tokens")
+        if listed != sorted(p.metadata.key for p in ready):
+            failures.append(f"/debug/decode lists {listed}")
+
+        # (c) a rollout under closed-loop traffic
+        rng = np.random.default_rng(GATEWAY["seed"])
+        prompts = [[int(t) for t in rng.integers(1, vocab, GATEWAY["roll_prompt"])]
+                   for _ in range(GATEWAY["roll_clients"] + 1)]
+        probe = {"tokens": prompts[-1], "gen_tokens": GATEWAY["roll_gen"]}
+        before = replicas[0].submit(probe, timeout=timeout)["tokens"]
+        del replicas
+        errors, served, hammer_stop = [], [0] * GATEWAY["roll_clients"], threading.Event()
+
+        def hammer(i):
+            mine = GatewayClient(url, name)
+            try:
+                while not hammer_stop.is_set():
+                    try:
+                        mine.request({"tokens": prompts[i], "gen_tokens": GATEWAY["roll_gen"]},
+                                     timeout=timeout)
+                        served[i] += 1
+                    except Exception as e:  # noqa: BLE001 — any failure fails the phase
+                        errors.append(repr(e))
+            finally:
+                mine.close()
+
+        threads = [threading.Thread(target=hammer, args=(i,), daemon=True)
+                   for i in range(GATEWAY["roll_clients"])]
+        for t in threads:
+            t.start()
+        t_roll = time.perf_counter()
+        server.clientset.tpuserves().patch(name, {"spec": {"checkpoint": "seed:1"}})
+        min_ready, max_live, polls = 2, 0, 0
+        while True:
+            live, ready = _serve_pods(server, name)
+            polls += 1
+            min_ready, max_live = min(min_ready, len(ready)), max(max_live, len(live))
+            st = server.clientset.tpuserves().get(name).status
+            if (st.observed_version not in ("", old_version) and st.ready_replicas == 2
+                    and st.updated_replicas == 2
+                    and all(p.metadata.labels[L.SERVE_VERSION] != old_version for p in live)):
+                break
+            if time.perf_counter() - t_roll > GATEWAY["roll_s"]:
+                hammer_stop.set()
+                raise AssertionError(f"the rollout did not end within {GATEWAY['roll_s']:.0f} s")
+            time.sleep(0.01)
+        roll_s = time.perf_counter() - t_roll
+        hammer_stop.set()
+        for t in threads:
+            t.join(timeout=timeout)
+        sent += sum(served) + len(errors)
+        new_keys = [p.metadata.key for p in ready]
+        new_replica = serving.lookup_replica(new_keys[0])
+        after_direct = new_replica.submit(probe, timeout=timeout)["tokens"]
+        after_gw = client.request(probe, timeout=timeout)["tokens"]
+        sent += 1
+        old_left = _wait_until(lambda: not [
+            p for p in server.clientset.pods().list(
+                label_selector=L.serve_selector(name))[0]
+            if p.metadata.labels[L.SERVE_VERSION] == old_version], 30.0)
+        summary["rollout"] = {
+            "seconds": roll_s, "requests_served": sum(served), "failed": len(errors),
+            "errors": errors[:3], "polls": polls, "min_ready": min_ready, "max_live": max_live,
+            "updated": st.updated_replicas, "old_pods_deleted": old_left,
+            "after_equals_direct": after_gw == after_direct,
+            "after_differs_from_seed0": after_direct != before}
+        if errors:
+            failures.append(f"{len(errors)} requests failed during the rollout: {errors[:3]}")
+        if min_ready < 2 or max_live > 3:
+            failures.append(f"the rollout went to {min_ready} ready, {max_live} live")
+        if not old_left:
+            failures.append("the old version's pods were not deleted")
+        if after_gw != after_direct:
+            failures.append("after the rollout the gateway's reply differs from a new replica's")
+        if after_direct == before:
+            failures.append("the seed:1 replica answers as the seed:0 one did")
+        if sum(served) < 1:
+            failures.append("no request was served during the rollout")
+    finally:
+        # the serve's delete drains and stops its replicas; the kubelet's
+        # stop ends no pod
+        client.close()
+        with contextlib.suppress(Exception):
+            server.clientset.tpuserves().delete(name)
+        _wait_until(lambda: not [k for k in serving.replica_keys()
+                                 if k.startswith(f"default/{name}-")], 60.0)
+        stop.set()
+        server.shutdown()
+        server.gateway.server_close()
+
+    # (d) no kernel, every request counted
+    launches = {k: v for mod in kernel_modules for k, v in mod.LAUNCHES.items()}
+    counted = sum(v for k, v in server.metrics.snapshot()["counters"].items()
+                  if k.startswith("tfk8s_gateway_requests_total{"))
+    summary.update(peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   kernel_launches=launches, gateway_requests_total=counted,
+                   requests_sent=sent, phase_s=time.perf_counter() - t_phase)
+    log(f"gateway: {json.dumps(summary)}")
+    if any(launches.values()):
+        failures.append(f"the serving path launched port kernels: {launches}")
+    if counted != sent:
+        failures.append(f"the gateway counted {counted} requests, {sent} were sent")
+    if summary["phase_s"] > GATEWAY["limit_s"]:
+        failures.append(f"the gateway phase took {summary['phase_s']:.1f} s, over its "
+                        f"{GATEWAY['limit_s']:.0f} s limit")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {k: 0 for k in launches}
+
+
 def main() -> int:
     import torch
 
@@ -5661,6 +5951,7 @@ def main() -> int:
         ("images", lambda: phase_images(torch, fa, gn, root)),
         ("pod_ranks", lambda: phase_pod_ranks(torch, fa, root)),
         ("operator", lambda: phase_operator(torch, gpt, fa, root)),
+        ("gateway", lambda: phase_gateway(torch, (fa, gn, bc), root)),
     ]
     if only:
         phases = [p for p in phases if p[0] in ("card", "build", *only)]
@@ -5687,7 +5978,7 @@ def main() -> int:
             elif name in ("train", "resnet_train", "roofline", "generate", "distributed",
                           "families", "parallel", "tensor", "axes", "pipeline",
                           "pipeline_axes", "profile", "text", "images", "pod_ranks",
-                          "operator"):
+                          "operator", "gateway"):
                 for kernel, count in value.items():  # each path's launches add up
                     launches[kernel] = launches.get(kernel, 0) + count
     finally:

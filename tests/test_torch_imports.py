@@ -110,3 +110,43 @@ def test_no_source_line_names_jax_or_the_reference_package(path):
         bad = [f"{i}: {line.rstrip()}" for i, line in enumerate(f, 1)
                if _IMPORT_LINE.search(line)]
     assert not bad, bad
+
+
+_GATEWAY_RUN = _BLOCK + r'''
+import threading, time
+import tfk8s_tpu_torch.gateway
+from tfk8s_tpu_torch.api.types import BatchingPolicy, ObjectMeta, TPUServe, TPUServeSpec
+from tfk8s_tpu_torch.cmd.options import Options
+from tfk8s_tpu_torch.cmd.server import Server
+from tfk8s_tpu_torch.gateway import GatewayClient
+
+server = Server(Options(gateway_port=port_free(), workers=1))
+stop = threading.Event()
+server.run(stop, block=False)
+serve = TPUServe(metadata=ObjectMeta(name="echo"), spec=TPUServeSpec(
+    task="echo", checkpoint="v1", batching=BatchingPolicy(batch_timeout_ms=1.0)))
+server.clientset.tpuserves().create(serve)
+deadline = time.monotonic() + 60
+while server.clientset.tpuserves().get("echo").status.ready_replicas != 1:
+    assert time.monotonic() < deadline, "the echo replica never became Ready"
+    time.sleep(0.05)
+client = GatewayClient(server.gateway.url, "echo")
+assert client.request(3.0, timeout=20) == {"echo": 3.0, "version": "v1"}
+client.close()
+server.clientset.tpuserves().delete("echo")
+stop.set()
+server.shutdown()
+assert not [m for m in sys.modules if forbidden(m)]
+print("served")
+'''
+
+
+def test_the_gateway_and_the_operator_serve_with_jax_blocked():
+    """``tfk8s_tpu_torch.gateway`` and ``cmd.server`` import, and a TPUServe
+    answers through ``Server``'s own gateway (``gateway_port``), with JAX
+    and the reference unimportable."""
+    free = ("def port_free():\n    import socket\n    with socket.socket() as s:\n"
+            "        s.bind(('127.0.0.1', 0))\n        return s.getsockname()[1]\n")
+    proc = _run(free + _GATEWAY_RUN)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split()[-1] == "served"

@@ -15,8 +15,11 @@ from tfk8s_tpu_torch.api.types import (
     Condition,
     JobConditionType,
     ReplicaType,
+    ServeCondition,
+    ServeConditionType,
     TPUJob,
     TPUJobStatus,
+    TPUServeStatus,
 )
 
 # Stable ordering for process-id assignment: chief is always process 0.
@@ -143,6 +146,49 @@ def set_condition(
 # -- TPUServe conditions (same level-triggered bookkeeping, but serve
 #    conditions are NOT mutually exclusive: Available and Progressing can
 #    both be true mid-rollout, deployment-style) ---------------------------
+
+
+def get_serve_condition(
+    status: TPUServeStatus, ctype: ServeConditionType
+) -> Optional[ServeCondition]:
+    for c in status.conditions:
+        if c.type == ctype:
+            return c
+    return None
+
+
+def serve_condition_is(status: TPUServeStatus, ctype: ServeConditionType) -> bool:
+    c = get_serve_condition(status, ctype)
+    return c is not None and c.status
+
+
+def set_serve_condition(
+    status: TPUServeStatus,
+    ctype: ServeConditionType,
+    value: bool = True,
+    reason: str = "",
+    message: str = "",
+) -> bool:
+    """Set condition ``ctype`` to ``value``; returns True iff anything
+    changed (callers skip no-op status writes on False)."""
+    existing = get_serve_condition(status, ctype)
+    if (
+        existing is not None
+        and existing.status == value
+        and existing.reason == reason
+        and existing.message == message
+    ):
+        return False
+    if existing is None:
+        status.conditions.append(
+            ServeCondition(type=ctype, status=value, reason=reason, message=message)
+        )
+    else:
+        existing.status = value
+        existing.reason = reason
+        existing.message = message
+        existing.last_transition_time = time.time()
+    return True
 
 
 def is_succeeded(status: TPUJobStatus) -> bool:

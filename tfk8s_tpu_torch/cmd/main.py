@@ -4,10 +4,11 @@ Main → Option → flags → initlog → Run server, images/tf2.png).
 The job half of the JAX package's ``cmd/main.py``, on the port's control
 plane and entry points:
 
-- ``operator``  run the reconcile server (the reference's only mode). Its
-                store is in this process and nothing outside can reach
-                it, so it takes no jobs until the port's apiserver and
-                remote client (ROADMAP item 19)
+- ``operator``  run the reconcile server (the reference's only mode), with
+                ``--gateway-port`` the serving front door too. Its store
+                is in this process and nothing outside can reach it, so
+                it takes no jobs and no TPUServe until the port's
+                apiserver and remote client (ROADMAP item 19)
 - ``run``       end-to-end local run: operator + kubelet in-process,
                 submit one TPUJob, wait for a terminal condition
 - ``train``     run a model entrypoint directly in this process (the

@@ -2,13 +2,14 @@
 options.go`; 'Add flag' / 'Init flag and initlog' in images/tf2.png at
 k8s-operator.md:57).
 
-A copy of the JAX package's ``cmd/options.py`` for the job half of the
-operator: the reconcile workers, the client limits and the host
-inventory. The reference's ``--leader-elect`` (and its lease flags),
-``--kubeconfig``, ``--gateway-port``, ``--metrics-port`` and
-``--no-local-kubelet`` belong to later slices of the port (ROADMAP items
-18 and 19) and are not accepted yet: the in-process kubelet always runs,
-since without a remote store no other kubelet could run a pod.
+A copy of the JAX package's ``cmd/options.py`` for the in-process
+operator: the reconcile workers, the client limits, the host inventory
+and the serving front door (``--gateway-port``). The reference's
+``--leader-elect`` (and its lease flags), ``--kubeconfig``,
+``--metrics-port`` and ``--no-local-kubelet`` belong to the port's
+apiserver slice (ROADMAP item 19) and are not accepted yet: the
+in-process kubelet always runs, since without a remote store no other
+kubelet could run a pod.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ class Options:
     burst: int = 100
     # cluster inventory: accelerator type -> number of slices
     capacity: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # serving front door (gateway/server.py); 0 = off
+    gateway_port: int = 0
     # logging
     log_level: str = "info"
 
@@ -52,6 +55,9 @@ class Options:
                        help="client token-bucket burst size")
         g.add_argument("--capacity", default="{}",
                        help='host inventory as JSON, e.g. \'{"h100-8": 4}\'')
+        g.add_argument("--gateway-port", type=int, default=0, dest="gateway_port",
+                       help="serve the inference front door (POST "
+                            "/v1/serve/<ns>/<name>) on this port (0=off)")
         g.add_argument("--log-level", default="info",
                        choices=["debug", "info", "warning", "error"])
 
@@ -67,6 +73,7 @@ class Options:
             qps=args.qps,
             burst=args.burst,
             capacity=capacity,
+            gateway_port=getattr(args, "gateway_port", 0),
             log_level=args.log_level,
         )
 

@@ -1,12 +1,14 @@
 """Operator server — SURVEY.md C3 (`tf_operator/app/server.go`, 'Run
-server' in images/tf2.png): wires clients → informers → controller and
+server' in images/tf2.png): wires clients → informers → controllers and
 runs until stopped.
 
-A copy of the JAX package's ``cmd/server.py`` for the job half: the
+A copy of the JAX package's ``cmd/server.py`` for one process: the
 in-process store, the clientset, the gang allocator over the host
-inventory, the TPUJob controller and the local kubelet, which runs the
-port's entry points. The reference's leader election, remote store,
-serving controller, gateway and metrics endpoint belong to later slices.
+inventory, the TPUJob and TPUServe controllers, the local kubelet, which
+runs the port's entry points, and, with ``Options.gateway_port``, the
+serving front door (``gateway/server.py``) over the port's replica table.
+The reference's leader election, remote store and metrics endpoint
+belong to the port's apiserver slice.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from tfk8s_tpu_torch.cmd.options import Options
 from tfk8s_tpu_torch.obs.trace import get_tracer
 from tfk8s_tpu_torch.runtime.kubelet import LocalKubelet
 from tfk8s_tpu_torch.trainer.gang import SliceAllocator
+from tfk8s_tpu_torch.trainer.serve_controller import TPUServeController
 from tfk8s_tpu_torch.trainer.tpujob_controller import TPUJobController
 from tfk8s_tpu_torch.utils.logging import EventRecorder, Metrics, get_logger, init_logging
 
@@ -59,17 +62,47 @@ class Server:
             resync_period=opts.resync_period_s,
             tracer=self.tracer,
         )
+        # the serving control plane (TPUServe -> model-server replicas)
+        # shares the clientset/recorder/registry: the decode loop's
+        # tfk8s_serving_* series land on the same registry
+        from tfk8s_tpu_torch.runtime.server import set_metrics as _serve_set_metrics
+
+        _serve_set_metrics(self.metrics)
+        self.serve_controller = TPUServeController(
+            self.clientset,
+            recorder=self.recorder,
+            metrics=self.metrics,
+            resync_period=opts.resync_period_s,
+            tracer=self.tracer,
+        )
         self.kubelet = LocalKubelet(self.clientset)
+        self.gateway = None  # started in run() when opts.gateway_port
 
     def run(self, stop: threading.Event, block: bool = True) -> None:
-        """Start kubelet + controller. With ``block=False`` returns once
-        everything is started."""
+        """Start the gateway, the kubelet and both controllers. With
+        ``block=False`` returns once everything is started."""
         init_logging(self.opts.log_level_int())
+        if self.opts.gateway_port:
+            # the front door routes to whatever replicas the port's table
+            # holds, whichever controller reconciled them
+            from tfk8s_tpu_torch.gateway.server import GatewayServer
+
+            self.gateway = GatewayServer(
+                self.clientset,
+                port=self.opts.gateway_port,
+                metrics=self.metrics,
+            )
+            gw_port = self.gateway.serve_background()
+            log.info("gateway front door on 127.0.0.1:%d", gw_port)
         self.kubelet.run(stop)  # informer-driven; returns immediately
         log.info("starting controllers with %d workers", self.opts.workers)
+        self.serve_controller.run(self.opts.workers, stop, block=False)
         self.controller.run(self.opts.workers, stop, block=block)
         if block:
             stop.wait()
 
     def shutdown(self) -> None:
+        if self.gateway is not None:
+            self.gateway.shutdown()
         self.controller.controller.shutdown()
+        self.serve_controller.controller.shutdown()

@@ -1,7 +1,6 @@
 """Causal tracing for the port: the JAX package's ``obs/trace.py`` (spans,
-the W3C ``traceparent`` form, the bounded ring), with one addition for
-pods that a foreign node agent runs. The reference's tail sampler, which
-only its request gateway uses, comes with the port's gateway.
+the W3C ``traceparent`` form, the bounded ring, the request gateway's tail
+sampler), with one addition for pods that a foreign node agent runs.
 
 One trace follows one piece of work across the control plane and the
 runtime: the controller opens a ``reconcile`` span per sync and stamps
@@ -9,6 +8,22 @@ the pod env with ``TFK8S_TRACEPARENT``, the kubelet continues the trace
 around the entrypoint launch, and the trainer adds ``trainer.*`` spans.
 The module-level :class:`Tracer` is what the port's own operator, kubelet
 and trainer threads share (:func:`get_tracer`, :func:`set_tracer`).
+
+Request-scoped additions (the serving plane's layer):
+
+- ``Span.add_event`` records a timestamped timeline entry on a span (the
+  decode loop's per-token samples, the gateway's routing decisions, client
+  retries).
+- **Tail-based sampling** (:class:`TailSampler`): a request's keep/drop
+  decision waits for the END of its root span, when the outcome is known.
+  Errors, sheds (any ``http.status_code`` >= 400) and the slowest tail are
+  always kept; fast successes keep with probability ``TFK8S_TRACE_SAMPLE``
+  (default 0.05). Spans of an undecided trace buffer until the verdict;
+  late spans follow the recorded verdict. Spans of traces that never
+  opened a decision span (the whole control plane) bypass sampling.
+- Every span the tracer drops (sampled out, ring eviction, buffer
+  overflow) counts in ``tfk8s_trace_spans_dropped_total{reason}`` once a
+  metrics registry is wired via ``set_metrics``.
 
 A port pod run by another node agent (the JAX package's kubelet) reaches
 that agent's tracer through its stop object (``runtime/node_agent``):
@@ -38,9 +53,21 @@ TRACEPARENT_ENV = node_agent.TRACEPARENT_ENV
 
 _TRACEPARENT_VERSION = "00"
 
-# Span-ring capacity (spans, not traces).
+# Span-ring capacity (spans, not traces) — sized for the serving plane:
+# at the gateway bench's ~3 kept spans per sampled request and the
+# default 5% keep rate, 4096 spans holds minutes of saturation traffic.
 TRACE_RING_ENV = "TFK8S_TRACE_RING"
 DEFAULT_RING_CAPACITY = 4096
+# Probability a FAST, SUCCESSFUL request's trace is kept by the tail
+# sampler (errors/sheds/slow-tail are always kept regardless).
+TRACE_SAMPLE_ENV = "TFK8S_TRACE_SAMPLE"
+DEFAULT_KEEP_PROBABILITY = 0.05
+
+# Bounds on the tail-sampling bookkeeping so a leaked decision span or
+# a verdict-table pile-up can never grow without limit.
+MAX_PENDING_SPANS_PER_TRACE = 512
+MAX_PENDING_TRACES = 1024
+MAX_VERDICTS = 4096
 MAX_EVENTS_PER_SPAN = 256
 
 
@@ -102,6 +129,11 @@ class Span:
     status: str = "ok"
     message: str = ""
     events: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
+    # True on a tail-sampling DECISION span (the request's anchor): its
+    # end triggers the keep/drop verdict for the whole trace
+    tail_decision: bool = dataclasses.field(
+        default=False, repr=False, compare=False
+    )
     _tracer: Optional["Tracer"] = dataclasses.field(
         default=None, repr=False, compare=False
     )
@@ -181,6 +213,7 @@ class _NoopSpan:
     status = "ok"
     traceparent = ""
     events: List[Dict[str, Any]] = []
+    tail_decision = False
 
     def set_attribute(self, key: str, value: Any) -> None:
         pass
@@ -204,15 +237,98 @@ class _NoopSpan:
 _NOOP_SPAN = _NoopSpan()
 
 
+class TailSampler:
+    """OTel-style tail-based sampling policy: the keep/drop decision is
+    made at the END of a request's decision span, when the outcome is
+    known — the only sampling that can promise "every shed and every
+    deadline miss is retrievable" without keeping every fast success.
+
+    Keep rules, in order (the reason string lands in test assertions and
+    the drop counter's labels):
+
+    - ``error``: the decision span's status is not ``ok`` (a mapped
+      DeadlineExceeded/RequestFailed/Unavailable — always kept);
+    - ``status_code``: an ``http.status_code`` attribute >= 400 (the
+      429 sheds answer BEFORE the span errors — also always kept);
+    - ``slow``: the span's duration reaches the windowed ``quantile``
+      (default p99) of recent same-sampler durations — the latency tail
+      a histogram bucket can show but never explain;
+    - ``probabilistic``: a ``keep_probability`` coin for fast successes
+      (``TFK8S_TRACE_SAMPLE``, default 0.05) — enough exemplars to link
+      histograms to live traces without paying for every request.
+
+    Everything else drops with reason ``sampled``. The duration window
+    needs ``MIN_TAIL_SAMPLES`` observations before the slow-tail rule
+    arms (a cold sampler has no tail to speak of)."""
+
+    MIN_TAIL_SAMPLES = 50
+
+    def __init__(
+        self,
+        keep_probability: Optional[float] = None,
+        quantile: float = 0.99,
+        window: int = 256,
+        rng: Optional[random.Random] = None,
+    ):
+        if keep_probability is None:
+            try:
+                keep_probability = float(
+                    os.environ.get(TRACE_SAMPLE_ENV, DEFAULT_KEEP_PROBABILITY)
+                )
+            except ValueError:
+                keep_probability = DEFAULT_KEEP_PROBABILITY
+        self.keep_probability = min(max(keep_probability, 0.0), 1.0)
+        self.quantile = quantile
+        self._durations: "collections.deque" = collections.deque(maxlen=window)
+        self._rng = rng
+
+    def _tail_cut(self) -> Optional[float]:
+        if len(self._durations) < self.MIN_TAIL_SAMPLES:
+            return None
+        ranked = sorted(self._durations)
+        return ranked[min(len(ranked) - 1, int(self.quantile * len(ranked)))]
+
+    def decide(self, span: Span) -> Tuple[bool, str]:
+        """(keep, reason) for a finished decision span. Called with the
+        owning tracer's lock held — pure bookkeeping, no blocking."""
+        duration = (span.end_time or span.start_time) - span.start_time
+        cut = self._tail_cut()
+        self._durations.append(duration)
+        if span.status != "ok":
+            return True, "error"
+        code = span.attributes.get("http.status_code")
+        try:
+            if code is not None and int(code) >= 400:
+                return True, "status_code"
+        except (TypeError, ValueError):
+            pass
+        if cut is not None and duration >= cut:
+            return True, "slow"
+        if self.keep_probability >= 1.0:
+            return True, "probabilistic"
+        if self.keep_probability > 0.0:
+            if self._rng is not None:
+                r = self._rng.random()
+            else:
+                with _rng_lock:
+                    r = _rng.random()
+            if r < self.keep_probability:
+                return True, "probabilistic"
+        return False, "sampled"
+
+
 class Tracer:
     """Thread-safe span factory + bounded in-memory ring of finished
     spans. ``capacity`` bounds memory: a long-lived operator keeps the
     most recent ~capacity spans, oldest evicted (``None`` reads
-    ``TFK8S_TRACE_RING``, default 4096)."""
+    ``TFK8S_TRACE_RING``, default 4096). An optional :class:`TailSampler`
+    gates request traces (spans under a ``tail_sample=True`` decision
+    span); control-plane spans always land directly in the ring."""
 
     def __init__(self, capacity: Optional[int] = None, enabled: bool = True,
-                 metrics=None):
+                 sampler: Optional[TailSampler] = None, metrics=None):
         self.enabled = enabled
+        self.sampler = sampler
         self._metrics = metrics
         self._lock = threading.Lock()
         # ring of (seq, span): the monotonically-increasing seq lets
@@ -223,6 +339,14 @@ class Tracer:
         self._next_seq = 0
         self._exported_seq = -1
         self._tls = threading.local()
+        # tail-sampling state: trace_id -> spans buffered until the
+        # decision span ends; trace_id -> keep/drop for late finishers
+        self._pending: "collections.OrderedDict[str, List[Span]]" = (
+            collections.OrderedDict()
+        )
+        self._verdicts: "collections.OrderedDict[str, bool]" = (
+            collections.OrderedDict()
+        )
         # reason -> spans dropped (mirrors the exported counter so tests
         # and /debug read pressure without a registry wired)
         self.dropped: Dict[str, int] = {}
@@ -234,8 +358,12 @@ class Tracer:
         if metrics is not None:
             metrics.describe(
                 "tfk8s_trace_spans_dropped_total",
-                "Spans the tracer dropped, by reason (ring_full).",
+                "Spans the tracer dropped, by reason (sampled / ring_full "
+                "/ pending_overflow).",
             )
+
+    def set_sampler(self, sampler: Optional[TailSampler]) -> None:
+        self.sampler = sampler
 
     # -- context -----------------------------------------------------------
 
@@ -262,6 +390,7 @@ class Tracer:
         parent: Optional[Span] = None,
         traceparent: Optional[str] = None,
         attributes: Optional[Dict[str, Any]] = None,
+        tail_sample: bool = False,
     ) -> Span:
         """Open a span. Parent resolution: explicit ``parent`` span >
         the calling thread's current span > ``traceparent`` header > new
@@ -269,7 +398,12 @@ class Tracer:
         purpose: in the hermetic deployment the pod thread's ambient span
         (kubelet.launch) is already a continuation of the trace the
         header names, one hop deeper — the header is the cross-PROCESS
-        fallback where no ambient context can exist."""
+        fallback where no ambient context can exist.
+
+        ``tail_sample=True`` marks this span as the trace's tail-sampling
+        DECISION span (requires a sampler): every span of the trace
+        buffers until this one ends, then the sampler's verdict flushes
+        or drops them all — and binds late finishers the same way."""
         if not self.enabled:
             return _NOOP_SPAN  # type: ignore[return-value]
         parent_id: Optional[str] = None
@@ -295,6 +429,19 @@ class Tracer:
             attributes=dict(attributes or {}),
             _tracer=self,
         )
+        if tail_sample and self.sampler is not None:
+            span.tail_decision = True
+            overflow: List[Span] = []
+            with self._lock:
+                if span.trace_id not in self._pending:
+                    while len(self._pending) >= MAX_PENDING_TRACES:
+                        # a leaked decision span must not pin buffers
+                        # forever: evict the oldest undecided trace
+                        _tid, buf = self._pending.popitem(last=False)
+                        overflow.extend(buf)
+                    self._pending[span.trace_id] = []
+            if overflow:
+                self._count_dropped(len(overflow), "pending_overflow")
         self._stack().append(span)
         return span
 
@@ -308,6 +455,21 @@ class Tracer:
                 break
         self._append(span)
 
+    def _ring_locked(self, span: Span, dropped: List[Tuple[int, str]]) -> None:
+        if (
+            self._spans.maxlen is not None
+            and len(self._spans) == self._spans.maxlen
+        ):
+            dropped.append((1, "ring_full"))  # the evicted oldest span
+        self._spans.append((self._next_seq, span))
+        self._next_seq += 1
+
+    def _set_verdict_locked(self, trace_id: str, keep: bool) -> None:
+        self._verdicts[trace_id] = keep
+        self._verdicts.move_to_end(trace_id)
+        while len(self._verdicts) > MAX_VERDICTS:
+            self._verdicts.popitem(last=False)
+
     def _count_dropped(self, n: int, reason: str) -> None:
         with self._lock:
             self.dropped[reason] = self.dropped.get(reason, 0) + n
@@ -319,15 +481,48 @@ class Tracer:
             )
 
     def _append(self, span: Span) -> None:
+        dropped: List[Tuple[int, str]] = []
         with self._lock:
-            evicted = (
-                self._spans.maxlen is not None
-                and len(self._spans) == self._spans.maxlen
-            )
-            self._spans.append((self._next_seq, span))
-            self._next_seq += 1
-        if evicted:
-            self._count_dropped(1, "ring_full")  # the evicted oldest span
+            if self.sampler is None:
+                self._ring_locked(span, dropped)
+            elif span.tail_decision:
+                # the decision point: verdict covers the buffered spans,
+                # this span, and every late finisher of the trace
+                buffered = self._pending.pop(span.trace_id, [])
+                keep, reason = self.sampler.decide(span)
+                span.attributes.setdefault("sampling.reason", reason)
+                self._set_verdict_locked(span.trace_id, keep)
+                if keep:
+                    for s in buffered:
+                        self._ring_locked(s, dropped)
+                    self._ring_locked(span, dropped)
+                else:
+                    dropped.append((len(buffered) + 1, "sampled"))
+            elif span.trace_id in self._pending:
+                buf = self._pending[span.trace_id]
+                if len(buf) >= MAX_PENDING_SPANS_PER_TRACE:
+                    dropped.append((1, "pending_overflow"))
+                else:
+                    buf.append(span)
+            elif span.trace_id in self._verdicts:
+                if self._verdicts[span.trace_id]:
+                    self._ring_locked(span, dropped)
+                else:
+                    dropped.append((1, "sampled"))
+            else:
+                # no decision span ever opened for this trace (the whole
+                # control plane): unsampled, straight to the ring
+                self._ring_locked(span, dropped)
+        for n, reason in dropped:
+            self._count_dropped(n, reason)
+
+    def verdict(self, trace_id: str) -> Optional[bool]:
+        """The tail-sampling verdict for a trace: True kept, False
+        dropped, None undecided/unknown."""
+        if not trace_id:
+            return None
+        with self._lock:
+            return self._verdicts.get(trace_id)
 
     def record_span(
         self,
@@ -427,6 +622,40 @@ class Tracer:
         with self._lock:
             self._exported_seq = max(self._exported_seq, fresh[-1][0])
         return len(fresh)
+
+
+def recent_request_traces(
+    tracer: Tracer,
+    trace_id: Optional[str] = None,
+    limit: int = 32,
+) -> List[Dict[str, Any]]:
+    """The /debug/requests view: recently-kept REQUEST traces (those
+    anchored by a tail-sampling decision span), newest first. Each entry
+    is ``{"trace_id", "root", "spans"}`` with spans sorted by start time.
+    ``trace_id`` narrows to one trace; ``limit`` bounds the reply."""
+    by_trace: Dict[str, List[Span]] = {}
+    order: List[str] = []
+    for sp in tracer.spans():
+        if trace_id is not None and sp.trace_id != trace_id:
+            continue
+        if sp.trace_id not in by_trace:
+            by_trace[sp.trace_id] = []
+            order.append(sp.trace_id)
+        by_trace[sp.trace_id].append(sp)
+    out: List[Dict[str, Any]] = []
+    for tid in reversed(order):  # newest arrivals last in the ring
+        sps = sorted(by_trace[tid], key=lambda s: s.start_time)
+        root = next((s for s in sps if s.tail_decision), None)
+        if root is None:
+            continue  # control-plane trace, not a request
+        out.append({
+            "trace_id": tid,
+            "root": root.to_dict(),
+            "spans": [s.to_dict() for s in sps],
+        })
+        if len(out) >= limit:
+            break
+    return out
 
 
 _default_tracer = Tracer()

@@ -29,10 +29,15 @@ continuous-batching GPT path:
   notice (``runtime/node_agent``), so the control plane sees a port
   replica become Ready and drain like a reference one.
 
-Replicas register in this module's own table (:func:`lookup_replica`)
-and, under a node agent, in the agent's serving table, wrapped so that
-they speak its error and buffer types (``runtime/agent_replica``): the
-gateway and the serve client route to port replicas there.
+Replicas register in this module's own table (:func:`lookup_replica`),
+where the port's gateway (``gateway/server.py``) and :class:`ServeClient`
+route to them and whose drain hooks (:func:`add_drain_hook`) fire when
+one unregisters. Under a foreign node agent they register in the agent's
+serving table too, wrapped so that they speak its error and buffer types
+(``runtime/agent_replica``): that agent's gateway routes to them there,
+and its table fires its own gateway's hooks. The control-plane helpers
+(:func:`replica_is_ready`, :func:`template_hash`,
+:func:`jittered_backoff`) are the reference's.
 """
 
 from __future__ import annotations
@@ -2863,10 +2868,15 @@ def get_metrics() -> Metrics:
 # ---------------------------------------------------------------------------
 
 _registry_lock = threading.Lock()
-# the port's own replica table; under a node agent, ``serve`` registers
-# each replica in the agent's table as well, where the gateway and the
-# serve client look
+# the port's own replica table, where the port's gateway and serve client
+# look; under a foreign node agent, ``serve`` registers each replica in the
+# agent's table as well, where that agent's gateway looks
 _REPLICAS: Dict[str, Any] = {}
+# callbacks fired (outside the lock) when a replica unregisters: the
+# port's gateway route tables subscribe, so a Draining replica leaves the
+# routing set the instant its drain starts, before the kubelet flush
+# would publish it (the wire half of the zero-failed-request contract)
+_drain_hooks: List[Callable[[str], None]] = []
 
 
 def register_replica(key: str, server: Any) -> None:
@@ -2874,9 +2884,26 @@ def register_replica(key: str, server: Any) -> None:
         _REPLICAS[key] = server
 
 
+def add_drain_hook(fn: Callable[[str], None]) -> None:
+    with _registry_lock:
+        _drain_hooks.append(fn)
+
+
+def remove_drain_hook(fn: Callable[[str], None]) -> None:
+    with _registry_lock:
+        if fn in _drain_hooks:
+            _drain_hooks.remove(fn)
+
+
 def unregister_replica(key: str) -> None:
     with _registry_lock:
         _REPLICAS.pop(key, None)
+        hooks = list(_drain_hooks)
+    for fn in hooks:  # outside the lock: hooks may take their own locks
+        try:
+            fn(key)
+        except Exception:  # noqa: BLE001 - a bad subscriber can't block drain
+            log.exception("drain hook failed for %s", key)
 
 
 def lookup_replica(key: str) -> Optional[Any]:
@@ -2906,6 +2933,22 @@ def chaos_crash_replica(key: str, message: str = "chaos: replica host died") -> 
 # How often the serving entrypoint refreshes its progress report (the
 # node agent flushes progress into pod status on its own clock).
 PROGRESS_PERIOD_S = 0.2
+
+
+def replica_is_ready(pod) -> bool:
+    """THE replica-readiness predicate, shared by the serve controller's
+    rollout gating and the routing of ``ServeClient`` and the gateway (one
+    definition: the two must never disagree, or the zero-failed-request
+    rollout contract breaks): live, RUNNING, and the server reported
+    ``serving_ready`` after loading the checkpoint (published into pod
+    status by the kubelet flush)."""
+    from tfk8s_tpu_torch.api.types import PodPhase
+
+    return (
+        pod.metadata.deletion_timestamp is None
+        and pod.status.phase == PodPhase.RUNNING
+        and pod.status.training.get("serving_ready") == 1.0
+    )
 
 
 def serve(env: Dict[str, str], stop: Optional[threading.Event] = None) -> None:
@@ -3045,3 +3088,146 @@ def serve(env: Dict[str, str], stop: Optional[threading.Event] = None) -> None:
         raise node_agent.pod_drained_class(stop)(
             f"{key}: replica drained on reclaim notice"
         )
+
+
+# ---------------------------------------------------------------------------
+# Client
+# ---------------------------------------------------------------------------
+
+
+class ServeClient:
+    """Round-robin client over a TPUServe's Ready replicas (a copy of the
+    reference's). Discovery is a pod list through the clientset (the
+    port's serve labels); dispatch goes through this module's replica
+    table. Draining and vanished replicas are retried on another replica
+    (the zero-failed-requests rollout contract). ``Overloaded`` is
+    backpressure and is honored: the client backs off for the shedder's
+    ``retry_after_s`` hint (jittered) and retries inside the caller's
+    deadline; only when the deadline can't absorb the backoff does it
+    propagate."""
+
+    #: base backoff when a shed carries no retry_after_s hint
+    OVERLOAD_BACKOFF_S = 0.05
+
+    def __init__(self, clientset, name: str, namespace: str = "default",
+                 cache_ttl_s: float = 0.25):
+        self._cs = clientset
+        self.name = name
+        self.namespace = namespace
+        self._rr = 0
+        self._cache: Tuple[float, List[str]] = (0.0, [])
+        self._cache_ttl = cache_ttl_s
+        self._lock = threading.Lock()
+
+    def ready_replica_keys(self, refresh: bool = False) -> List[str]:
+        from tfk8s_tpu_torch.trainer import labels as L
+
+        with self._lock:
+            ts, cached = self._cache
+            if not refresh and cached and time.monotonic() - ts < self._cache_ttl:
+                return list(cached)
+        pods, _rv = self._cs.pods(self.namespace).list(
+            label_selector=L.serve_selector(self.name)
+        )
+        keys = sorted(p.metadata.key for p in pods if replica_is_ready(p))
+        with self._lock:
+            self._cache = (time.monotonic(), keys)
+        return keys
+
+    def request(self, payload: Any, timeout: float = 30.0,
+                traceparent: Optional[str] = None, tenant: str = "",
+                priority: int = 0) -> Any:
+        deadline = time.monotonic() + timeout
+        refresh = False
+        backoff = 0.02
+        shed_backoff = self.OVERLOAD_BACKOFF_S
+        attempt = 0
+        # the ambient span (or the one the traceparent continues) carries
+        # the retry timeline
+        span = _trace.get_tracer().current_span()
+        if traceparent is None and span is not None:
+            traceparent = span.traceparent
+        while True:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                raise DeadlineExceeded(
+                    f"no replica of {self.namespace}/{self.name} served the "
+                    f"request within {timeout}s"
+                )
+            keys = self.ready_replica_keys(refresh=refresh)
+            refresh = False
+            targets = [k for k in keys if lookup_replica(k) is not None]
+            if not targets:
+                # exponential backoff while no replica is routable
+                time.sleep(min(backoff, max(remaining, 0.0)))
+                backoff = min(backoff * 2, 0.5)
+                refresh = True
+                continue
+            backoff = 0.02
+            with self._lock:
+                self._rr += 1
+                key = targets[self._rr % len(targets)]
+            server = lookup_replica(key)
+            if server is None:
+                refresh = True
+                continue
+            attempt += 1
+            try:
+                return server.submit(
+                    payload, timeout=remaining, traceparent=traceparent,
+                    tenant=tenant, priority=priority,
+                )
+            except Draining:
+                # replica is rolling out from under us: retry elsewhere
+                if span is not None:
+                    span.add_event("retry", {
+                        "attempt": attempt, "reason": "Draining",
+                        "replica": key, "backoff_s": 0.0,
+                    })
+                refresh = True
+                continue
+            except ReplicaUnavailable:
+                # the replica died holding the request: idempotent serve,
+                # safe to re-dispatch to a survivor inside the deadline
+                if span is not None:
+                    span.add_event("retry", {
+                        "attempt": attempt, "reason": "ReplicaUnavailable",
+                        "replica": key, "backoff_s": 0.0,
+                    })
+                refresh = True
+                continue
+            except Overloaded as exc:
+                delay = jittered_backoff(exc.retry_after_s, shed_backoff)
+                if delay >= deadline - time.monotonic():
+                    # the deadline can't absorb the backoff: surface the
+                    # shed rather than burn the wait and time out anyway
+                    raise
+                if span is not None:
+                    span.add_event("retry", {
+                        "attempt": attempt, "reason": "Overloaded",
+                        "replica": key, "backoff_s": delay,
+                    })
+                time.sleep(delay)
+                shed_backoff = min(shed_backoff * 2, 1.0)
+                refresh = True
+
+
+def jittered_backoff(retry_after_s: Optional[float], fallback_s: float) -> float:
+    """Turn a shedder's Retry-After hint (or a client-side fallback) into
+    an actual sleep: uniformly jittered over [0.5x, 1.5x] so shed callers
+    decorrelate instead of re-arriving in lockstep at the hinted instant."""
+    import random
+
+    base = retry_after_s if retry_after_s and retry_after_s > 0 else fallback_s
+    return base * (0.5 + random.random())
+
+
+def template_hash(wire_fragment: Any) -> str:
+    """Stable short hash of a wire-form spec fragment: the pod-template
+    version identity rolling updates key off (the reference's, so one
+    manifest hashes alike in both packages)."""
+    import hashlib
+    import json
+
+    blob = json.dumps(wire_fragment, sort_keys=True).encode()
+    return hashlib.sha256(blob).hexdigest()[:10]
