@@ -398,17 +398,33 @@ must pass:
    rank's peak memory. The entry point is ``chip_smoke.pod_entry``, a
    family's ``train`` at GANG_LAYERS depth with the families' first act
    (the depth cut patches the presets, so it must happen in each rank).
-24. operator: the port's own control plane (``tfk8s_tpu_torch.cmd.server.
-   Server``: store, clientset, gang allocator, TPUJob controller, local
-   kubelet) in this process with one ``h100-1`` host. (a)
+24. operator: the port's own control plane over the wire. ``python -m
+   tfk8s_tpu_torch.cmd.main apiserver`` runs in a process of its own on a
+   free port with a journal (``--journal-dir``) and writes a kubeconfig;
+   where ``cryptography`` imports it serves HTTPS (``--self-signed``, one
+   read-write token in ``--token-file``), else plain HTTP (a line says which,
+   and the seconds to ``/healthz``). The operator (``tfk8s_tpu_torch.
+   cmd.server.Server`` with that kubeconfig: a ``RemoteStore``,
+   clientset, gang allocator, TPUJob controller, local kubelet) runs in
+   this process with one ``h100-1`` host; both jobs are submitted through a
+   second client, ``clientset_from_kubeconfig``. After (a)'s first
+   finished update the apiserver is killed with SIGKILL and started again
+   on the same port from the same journal and certificates: both jobs must
+   end ``Succeeded`` with no restart, (a) must not have ended before the
+   kill, and the restarted apiserver's resource_version must be at least
+   the one read before the kill. It prints the start and restart seconds
+   (to ``/healthz``, to the apiserver's own "listening" line, and its
+   imports under ``-X importtime``), the outage (kill to ``/healthz``)
+   and the informers' relists. (a)
    ``manifests/examples/gpt-h100-torch.json``'s TPUJob, loaded with the
    port's ``load_manifest``: GPT-2-small (bf16, flash, 12 layers, seq
    1024, batch 8), 6 steps, must reach ``Succeeded`` with a pod requesting
    ``nvidia.com/gpu: "1"`` whose status carries its training progress and
    with 12 launches a step of every tensor-core flash kernel; (b) a second
    ``h100-1`` job at GANG_LAYERS depth (``pod_entry``), submitted once (a)
-   runs, must be gang-pending with no pod until (a) ends, start after (a)
-   has ended and succeed. The manifest's entry point resolves to
+   runs, must be gang-pending with no pod until (a) ends (polled until the
+   kill; after it, (b)'s pod must be no older than (a)'s completion time),
+   start after (a) has ended and succeed. The manifest's entry point resolves to
    ``gpt:train`` through a recorder the phase registers (the kubelet keeps
    no return value), which keeps its history, launches, wall time and peak
    memory. (a)'s losses are held to a direct ``gpt:train`` call on the
@@ -5397,24 +5413,131 @@ def _pod_nccl(torch, fa, root, cards):
 # example manifest's GPT-2-small job; (b), a second h100-1 job at
 # GANG_LAYERS depth, is submitted while (a) runs and must wait for its host
 OPERATOR = dict(manifest=os.path.join("manifests", "examples", "gpt-h100-torch.json"),
-                gang_steps=3, timeout_s=300.0, limit_s=90.0, loss_atol=2e-2)
+                gang_steps=3, timeout_s=300.0, limit_s=90.0, loss_atol=2e-2,
+                apiserver_start_s=60.0)
 # job (b)'s entry point, a name the phase registers for pod_entry
 OPERATOR_GANG_ENTRY = "chip_smoke.operator_gang"
 
 
-def _operator_server(capacity):
-    """The port's operator in this process: store, clientset, gang
-    allocator over ``capacity``, TPUJob controller and local kubelet,
-    started; (server, its stop event)."""
+def _operator_server(capacity, kubeconfig=""):
+    """The port's operator in this process: store (with ``kubeconfig``, a
+    ``RemoteStore`` to that apiserver), clientset, gang allocator over
+    ``capacity``, TPUJob controller and local kubelet, started; (server,
+    its stop event)."""
     import threading
 
     from tfk8s_tpu_torch.cmd.options import Options
     from tfk8s_tpu_torch.cmd.server import Server
 
-    server = Server(Options(capacity=capacity, workers=2))
+    server = Server(Options(capacity=capacity, workers=2, kubeconfig=kubeconfig))
     stop = threading.Event()
     server.run(stop, block=False)
     return server, stop
+
+
+class _APIServerProcess:
+    """``python -m tfk8s_tpu_torch.cmd.main apiserver`` in its own process
+    on a free port, journaled to ``work/journal``; with ``tls``, HTTPS from
+    a self-signed CA and one read-write bearer token. The first ``start``
+    writes ``work/kc.json``; a later one starts it again on the same port,
+    from the same journal and with the same certificates."""
+
+    def __init__(self, root, work, tls):
+        import socket
+
+        self.root, self.work, self.tls = root, work, tls
+        self.kubeconfig = os.path.join(work, "kc.json")
+        self.journal = os.path.join(work, "journal")
+        self.pki = os.path.join(work, "pki")
+        self.tokens = os.path.join(work, "tokens")
+        sock = socket.socket()
+        sock.bind(("127.0.0.1", 0))
+        self.port = sock.getsockname()[1]
+        sock.close()
+        self.proc, self.starts = None, 0
+        if tls:
+            import secrets
+
+            with open(self.tokens, "w") as f:
+                f.write(f"{secrets.token_hex(16)},chip-smoke\n")
+
+    def _args(self):
+        args = ["apiserver", "--port", str(self.port), "--journal-dir", self.journal]
+        if self.starts == 0:
+            args += ["--write-kubeconfig", self.kubeconfig]
+            if self.tls:
+                args += ["--self-signed", self.pki, "--token-file", self.tokens]
+        elif self.tls:  # the first start's CA and certificate
+            args += ["--tls-cert", os.path.join(self.pki, "apiserver.crt"),
+                     "--tls-key", os.path.join(self.pki, "apiserver.key"),
+                     "--client-ca", os.path.join(self.pki, "ca.crt"),
+                     "--token-file", self.tokens]
+        return args
+
+    def start(self):
+        """Start it and wait for ``/healthz``; the seconds that took."""
+        from tfk8s_tpu_torch.client.remote import load_kubeconfig, store_from_kubeconfig
+
+        t0, self.t_wall = time.perf_counter(), time.time()
+        self.log_path = os.path.join(self.work, f"apiserver-{self.starts}.log")
+        with open(self.log_path, "wb") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-X", "importtime", "-m", "tfk8s_tpu_torch.cmd.main"]
+                + self._args(),
+                cwd=self.root, env=dict(os.environ, PYTHONPATH=self.root),
+                stdout=out, stderr=subprocess.STDOUT)
+        self.starts += 1
+        deadline = time.monotonic() + OPERATOR["apiserver_start_s"]
+        while time.monotonic() < deadline and self.proc.poll() is None:
+            if os.path.exists(self.kubeconfig) and os.path.getsize(self.kubeconfig):
+                if store_from_kubeconfig(load_kubeconfig(self.kubeconfig)).healthz():
+                    return time.perf_counter() - t0
+            time.sleep(0.05)
+        raise AssertionError(f"the apiserver did not answer /healthz (rc {self.proc.poll()}):\n"
+                             + self.tail())
+
+    def listening_s(self):
+        """Seconds from the last start to the process's own "listening"
+        log line: its imports, the journal's replay and the bind."""
+        import datetime
+
+        with open(self.log_path, errors="replace") as f:
+            for line in f:
+                if "apiserver listening on" in line:
+                    stamp = datetime.datetime.strptime(line[:23], "%Y-%m-%d %H:%M:%S,%f")
+                    return stamp.timestamp() - self.t_wall
+        return None
+
+    def imports(self):
+        """Seconds the last start spent importing (``-X importtime``'s
+        top-level modules) and, of those, in torch."""
+        total = torch_s = 0.0
+        with open(self.log_path, errors="replace") as f:
+            for line in f:
+                if not line.startswith("import time:") or "cumulative" in line:
+                    continue
+                _self, cum, name = line[len("import time:"):].split("|")
+                if not name[1:].startswith(" "):  # a top-level import
+                    total += int(cum) / 1e6
+                if name.strip() == "torch":  # at whatever depth it came first
+                    torch_s = int(cum) / 1e6
+        return {"total_s": round(total, 3), "torch_s": round(torch_s, 3)}
+
+    def kill(self):
+        """SIGKILL, as a crash would end it."""
+        import signal
+
+        self.proc.send_signal(signal.SIGKILL)
+        self.proc.wait(30)
+
+    def stop(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+
+    def tail(self):
+        with open(self.log_path, errors="replace") as f:
+            return f.read()[-3000:]
 
 
 def _job_state(server, name):
@@ -5483,6 +5606,15 @@ def phase_operator(torch, gpt, fa, root):
 
     t_phase = time.perf_counter()
     card = phase_card()
+    try:
+        import cryptography
+
+        tls = True
+        log(f"operator: cryptography {cryptography.__version__} imports: the apiserver "
+            "serves HTTPS")
+    except ImportError as e:
+        tls = False
+        log(f"operator: cryptography does not import ({e}): the apiserver serves plain HTTP")
     job_a = load_manifest(os.path.join(root, OPERATOR["manifest"]))
     tmpl_a = job_a.spec.replica_specs[ReplicaType.WORKER].template
     if DEVICE == "cpu":  # the CPU rehearsal
@@ -5507,8 +5639,13 @@ def phase_operator(torch, gpt, fa, root):
     # the manifest's entry point resolves to gpt:train through a recorder
     registry.register(tmpl_a.entrypoint, _recorded(torch, fa, runs, "a", gpt.train))
     registry.register(OPERATOR_GANG_ENTRY, _recorded(torch, fa, runs, "b", pod_entry))
+    work = os.path.join(root, "build", "chip_smoke_operator")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    api = _APIServerProcess(root, work, tls)
+    wire = {"scheme": "https" if tls else "http"}
     handle = register_optimizer_step_post_hook(hook)
-    server, stop = _operator_server({"h100-1": 1})
+    server = None
     pending = []
 
     def watch(states):  # (b) waits, podless, while (a) has not ended
@@ -5518,18 +5655,57 @@ def phase_operator(torch, gpt, fa, root):
             pending.append(len(pods_b))
 
     try:
+        from tfk8s_tpu_torch.client.remote import (clientset_from_kubeconfig, load_kubeconfig,
+                                                   store_from_kubeconfig)
+
+        wire["start_s"] = api.start()
+        wire["start_listening_s"] = api.listening_s()
+        wire["start_imports"] = api.imports()
+        server, stop = _operator_server({"h100-1": 1}, kubeconfig=api.kubeconfig)
+        if type(server.store).__name__ != "RemoteStore":
+            raise AssertionError(f"the operator's store is a {type(server.store).__name__}")
+        # the jobs go over the wire through a client of their own
+        client = clientset_from_kubeconfig(api.kubeconfig)
+        raw = store_from_kubeconfig(load_kubeconfig(api.kubeconfig))
         submitted = {}
         submitted["a"] = time.perf_counter()
-        server.clientset.tpujobs().create(job_a)
+        client.tpujobs().create(job_a)
         deadline = time.monotonic() + OPERATOR["timeout_s"]
         while "a" not in runs and time.monotonic() < deadline:
             time.sleep(0.01)
         submitted["b"] = time.perf_counter()
-        server.clientset.tpujobs().create(job_b)
+        client.tpujobs().create(job_b)
+        # kill -9 after (a)'s first finished update; restart from the journal
+        polled = 0.0
+        while (runs.get("a", {}).get("thread") not in first_step
+               and "end" not in runs.get("a", {}) and time.monotonic() < deadline):
+            if time.monotonic() - polled > 0.1:
+                polled = time.monotonic()
+                watch({n: _job_state(server, n) for n in names})
+            time.sleep(0.005)
+        wire["rv_before_kill"] = raw.list("TPUJob")[1]
+        relists = _relists(server)
+        t_kill = time.perf_counter()
+        api.kill()
+        wire["a_ended_before_kill"] = "end" in runs.get("a", {})
+        wire["restart_s"] = api.start()
+        wire["outage_s"] = time.perf_counter() - t_kill
+        wire["restart_listening_s"] = api.listening_s()
+        wire["restart_imports"] = api.imports()
+        wire["rv_after_restart"] = raw.list("TPUJob")[1]
         states = _wait_jobs(server, names, OPERATOR["timeout_s"], watch)
+        wire["relists"] = _relists(server) - relists
+        wire["gang_restarts"] = {n: client.tpujobs().get(n).status.gang_restarts for n in names}
+        # (b)'s pod, from the store: made only once (a) had completed
+        a_done = client.tpujobs().get(names[0]).status.completion_time
+        b_pods = states[names[1]][2]
+        wire["b_pod_after_a_s"] = (b_pods[0].metadata.creation_timestamp - a_done
+                                   if b_pods and a_done else None)
     finally:
-        stop.set()
-        server.shutdown()
+        if server is not None:
+            stop.set()
+            server.shutdown()
+        api.stop()
         handle.remove()
         for entry in (tmpl_a.entrypoint, OPERATOR_GANG_ENTRY):
             registry._REGISTRY.pop(entry, None)
@@ -5542,7 +5718,8 @@ def phase_operator(torch, gpt, fa, root):
     direct_losses = [h["loss"] for h in direct]
     diff = max(abs(a - b) for a, b in zip(losses, direct_losses)) if direct else float("inf")
 
-    summary = {"card": card, "phase_s": time.perf_counter() - t_phase, "jobs_s": jobs_s}
+    summary = {"card": card, "phase_s": time.perf_counter() - t_phase, "jobs_s": jobs_s,
+               "wire": wire}
     for key, name in zip("ab", names):
         conds, reasons, pods = states[name]
         rec = runs.get(key, {})
@@ -5555,8 +5732,11 @@ def phase_operator(torch, gpt, fa, root):
                                        if rec.get("thread") in first_step else None),
             "wall_s": rec["end"] - rec["start"] if "end" in rec else None,
             "peak_gib": rec.get("peak_gib"), "launches": rec.get("launches")}
+    b_after = wire["b_pod_after_a_s"]
+    b_waited = (not pending or max(pending) == 0) and b_after is not None and b_after >= 0
     summary.update(losses=losses, direct_losses=direct_losses, identical=losses == direct_losses,
-                   loss_max_abs_diff=diff, b_waited_podless=bool(pending) and max(pending) == 0)
+                   loss_max_abs_diff=diff, b_waited_podless=b_waited,
+                   b_polled_pending=len(pending))
     log(f"operator: {json.dumps(summary)}")
 
     for key, name in zip("ab", names):
@@ -5567,13 +5747,20 @@ def phase_operator(torch, gpt, fa, root):
             raise AssertionError(f"job {name}'s pods request {summary[name]['pods']}")
     if states[names[0]][2][0].status.training.get("step") != steps:
         raise AssertionError(f"job {names[0]}'s pod status lacks its progress")
+    if wire["gang_restarts"] != dict.fromkeys(names, 0):
+        raise AssertionError(f"the jobs restarted across the apiserver's kill: {wire}")
+    if wire["a_ended_before_kill"]:
+        raise AssertionError("job (a) had ended before the apiserver was killed")
+    if not wire["rv_after_restart"] >= wire["rv_before_kill"]:
+        raise AssertionError(f"the restarted apiserver's resource_version went back: {wire}")
     want = {"a": _flash(fa, 1, layers, steps),
             "b": _flash(fa, 1, GANG_LAYERS, OPERATOR["gang_steps"])}
     for key in "ab":
         if runs[key]["launches"] != want[key]:
             raise AssertionError(f"job {key} flash launches {runs[key]['launches']}, "
                                  f"want {want[key]}")
-    if not (pending and max(pending) == 0) or runs["b"]["start"] < runs["a"]["end"]:
+    if (not b_waited or "GangPending" not in states[names[1]][1]
+            or runs["b"]["start"] < runs["a"]["end"]):
         raise AssertionError("the second h100-1 job did not wait for the first one's host")
     if len(direct_losses) != steps or not diff <= OPERATOR["loss_atol"]:
         raise AssertionError(f"the operator's losses {losses} differ from a direct call's "
@@ -5582,6 +5769,13 @@ def phase_operator(torch, gpt, fa, root):
         raise AssertionError(f"the operator phase took {summary['phase_s']:.1f} s, over its "
                              f"{OPERATOR['limit_s']:.0f} s limit")
     return {k: runs["a"]["launches"][k] + runs["b"]["launches"][k] for k in fa.KERNELS}
+
+
+def _relists(server):
+    """The relists the operator's informers have begun so far (a failed
+    attempt during an outage counts too)."""
+    return sum(v for k, v in server.metrics.snapshot()["counters"].items()
+               if k.startswith("informer.relists_total"))
 
 
 def _operator_nccl(torch, fa):

@@ -150,3 +150,21 @@ def test_the_gateway_and_the_operator_serve_with_jax_blocked():
     proc = _run(free + _GATEWAY_RUN)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.split()[-1] == "served"
+
+
+@pytest.mark.parametrize("verb,flag", [("apiserver", "--journal-dir"), ("kubelet", "--kubeconfig")])
+def test_the_process_verbs_start_with_jax_blocked(verb, flag):
+    """``python -m tfk8s_tpu_torch.cmd.main apiserver|kubelet --help``
+    parses and exits 0 with JAX and the reference unimportable."""
+    code = _BLOCK + (
+        "import runpy\n"
+        f"sys.argv = ['tfk8s_tpu_torch.cmd.main', {verb!r}, '--help']\n"
+        "try:\n"
+        "    runpy.run_module('tfk8s_tpu_torch.cmd.main', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert not [m for m in sys.modules if forbidden(m)]\n"
+        "    raise\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert f"usage: tfk8s-tpu-torch {verb}" in proc.stdout
+    assert flag in proc.stdout

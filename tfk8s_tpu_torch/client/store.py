@@ -17,10 +17,22 @@ documents for the real apiserver:
 - **Finalizer-gated deletion**: deleting an object with finalizers only sets
   ``metadata.deletion_timestamp``; the object is removed when a controller
   strips the last finalizer (k8s-operator.md:36-43).
-
-The reference's durable journal (``journal_dir``: a write-ahead log and
-snapshots) serves its HTTP apiserver and comes with the port's (ROADMAP
-item 19); this store lives and dies with its process.
+- **Durability** (``journal_dir``): every mutation appends one JSONL record
+  to a write-ahead log before it is acknowledged; a snapshot compacts the
+  log periodically. The WAL is **segmented per kind**
+  (``wal-<Kind>.jsonl``): each record carries its resource_version, and
+  replay merges every segment (plus a legacy single-stream ``wal.jsonl``
+  if present) in rv order — so concurrent writers of DIFFERENT kinds
+  serialize+append in parallel under their own kind locks instead of all
+  funnelling one append stream through the store-wide commit lock (the
+  durable-store counterpart of the per-kind-lock read/write split). A
+  restarted store replays snapshot+segments and resumes the SAME
+  resource_version sequence — the etcd-backed persistence the reference's
+  REST contract presupposes (k8s-operator.md:33-43: deletion timestamps
+  and finalizers only make sense on objects that survive a control-plane
+  restart). Watchers reconnecting from a pre-restart rv that the replayed
+  WAL no longer covers get :class:`Gone` and relist — the same recovery
+  path as a compacted etcd.
 
 **Copy-on-write** (client-go's shared-informer discipline, enforced via
 ``api/frozen.py``): every stored object is FROZEN once at the write
@@ -36,8 +48,8 @@ and send it back as the next update). Mutating clients go through
 **Locking** is two-level: one lock per kind serializes that kind's
 bucket (so TPUJob status patches stop contending with Pod creates — the
 expensive merge/encode/decode work runs under the kind lock only), and a
-short store-wide commit lock orders rv assignment, history, and watch
-fanout.
+short store-wide commit lock orders rv assignment, the WAL append,
+history, and watch fanout.
 """
 
 from __future__ import annotations
@@ -45,6 +57,9 @@ from __future__ import annotations
 import copy
 import enum
 import itertools
+import json
+import logging
+import os
 import threading
 import time
 import uuid
@@ -53,6 +68,8 @@ from dataclasses import dataclass
 from typing import Any, Deque, Dict, Iterator, List, Optional, Tuple
 
 from tfk8s_tpu_torch.api.frozen import FrozenObjectError, freeze, thaw  # noqa: F401
+
+log = logging.getLogger(__name__)
 
 
 class StoreError(Exception):
@@ -90,6 +107,22 @@ class Unavailable(StoreError):
     terminal phase writes) retry these, and ONLY these."""
 
 
+class JournalCorrupt(StoreError):
+    """A complete (newline-terminated) WAL record failed to decode —
+    mid-file corruption or a schema break. Refusing to start is the only
+    safe response: truncating would destroy acked records written after
+    the bad one."""
+
+
+class Unauthorized(StoreError):
+    """No/invalid credentials against a secured apiserver (HTTP 401)."""
+
+
+class Forbidden(StoreError):
+    """Authenticated but not permitted — e.g. a read-only credential
+    attempting a write (HTTP 403)."""
+
+
 class EventType(str, enum.Enum):
     ADDED = "ADDED"
     MODIFIED = "MODIFIED"
@@ -112,6 +145,14 @@ class WatchEvent:
 # (the slow-watcher policy below) so one stalled consumer's backlog is
 # bounded by the number of DISTINCT live objects, not by event rate.
 DEFAULT_WATCH_QUEUE = 1024
+
+# Compaction normally runs opportunistically when a commit applies with no
+# other commit in its journal window (_inflight == 0). Under sustained
+# overlapping writes that moment may never come; once the WAL reaches this
+# multiple of compact_every, new commits stall until the in-flight set
+# drains and the compaction runs, bounding WAL growth.
+FORCE_COMPACT_FACTOR = 2
+
 
 def _coalesce_type(pending: EventType, new: EventType) -> EventType:
     """Merge two pending event types for one object so the consumer still
@@ -238,6 +279,60 @@ class Watch:
             return out
 
 
+class _Segment:
+    """One kind's WAL segment file. Appends are serialized by a private
+    IO mutex (NOT the kind lock — compaction must be able to truncate a
+    segment it couldn't take the kind lock for without deadlocking the
+    kind→commit lock order). A failed append rolls the file back to its
+    last good byte (the write-AHEAD contract: nothing half-written may
+    survive to fuse with the next record)."""
+
+    def __init__(self, path: str, fsync: bool):
+        self.path = path
+        self._fsync = fsync
+        self._lock = threading.Lock()
+        self._f = open(path, "ab")
+
+    def append(self, line: bytes) -> None:
+        """Append one complete record line, or raise leaving the file
+        byte-identical to its pre-call state. OSError on unrecoverable
+        rollback failure carries ``.rollback_failed = True``."""
+        with self._lock:
+            start = self._f.tell()
+            try:
+                self._f.write(line)
+                self._f.flush()
+                if self._fsync:
+                    os.fsync(self._f.fileno())
+            # ValueError = closed handle (an append racing close() past
+            # the _closed check): same rollback treatment — the on-disk
+            # bytes are already consistent, the reopen restores a handle
+            except (OSError, ValueError) as e:
+                try:
+                    self._f.close()  # may raise re-flushing; superseded below
+                except OSError:
+                    pass
+                try:
+                    with open(self.path, "ab") as fix:
+                        fix.truncate(start)
+                    self._f = open(self.path, "ab")
+                except OSError:
+                    e.rollback_failed = True
+                raise
+
+    def truncate(self) -> None:
+        with self._lock:
+            self._f.truncate(0)
+            self._f.seek(0)
+
+    def close(self) -> None:
+        with self._lock:
+            try:
+                self._f.close()
+            except OSError:
+                pass
+
+
 def _key(namespace: str, name: str) -> str:
     return f"{namespace}/{name}"
 
@@ -260,8 +355,51 @@ def merge_patch(target: Any, patch: Any) -> Any:
     return result
 
 
+_MISSING = object()
+
+
+def replace_patch(current: Any, desired: Any) -> Dict[str, Any]:
+    """The inverse of :func:`merge_patch`: the smallest merge-patch that
+    transforms ``current`` into exactly ``desired`` — keys present in
+    current but absent from desired become explicit ``null`` deletions.
+    This is how `apply` gets REPLACE semantics (a field removed from the
+    manifest really goes away) over the merge-patch wire verb. Returns
+    ``{}`` when nothing differs."""
+    p = _replace_patch(current, desired)
+    return {} if p is _MISSING else p
+
+
+def _replace_patch(current: Any, desired: Any) -> Any:
+    if isinstance(desired, dict) and isinstance(current, dict):
+        patch = {}
+        for k, v in desired.items():
+            cv = current.get(k, _MISSING)
+            if cv is _MISSING:
+                patch[k] = copy.deepcopy(v)
+            else:
+                sub = _replace_patch(cv, v)
+                if sub is not _MISSING:
+                    patch[k] = sub
+        for k in current:
+            if k not in desired:
+                patch[k] = None
+        return patch if patch else _MISSING
+    if current == desired:
+        return _MISSING
+    return copy.deepcopy(desired)
+
+
 class ClusterStore:
     """Thread-safe object store keyed by (kind, namespace/name).
+
+    With ``journal_dir`` set, the store is durable: ``snapshot.json`` holds
+    a compacted full state, per-kind ``wal-<Kind>.jsonl`` segments the
+    event log since; construction replays snapshot + segments (merged by
+    rv; a legacy single-stream ``wal.jsonl`` is honored and retired at
+    the next compaction) and resumes the rv sequence. ``fsync=False``
+    trades power-loss durability for write latency (kill -9 survival only
+    needs the page cache, so tests and the control-plane bench may
+    disable it).
 
     Read contract (copy-on-write, module docstring): ``get``/``list``
     return the SHARED frozen stored instance; mutating it raises
@@ -275,10 +413,13 @@ class ClusterStore:
     def __init__(
         self,
         history_limit: int = 4096,
+        journal_dir: Optional[str] = None,
+        compact_every: int = 4096,
+        fsync: bool = True,
         metrics=None,
         watch_queue_limit: int = DEFAULT_WATCH_QUEUE,
     ) -> None:
-        # Store-wide commit lock: rv sequence, history ring, watcher
+        # Store-wide commit lock: rv sequence, WAL, history ring, watcher
         # registry, fanout. Held only for the (cheap) commit step; the
         # expensive per-object work runs under the kind lock.
         self._lock = threading.RLock()
@@ -293,8 +434,35 @@ class ClusterStore:
         # ring buffer of (rv, WatchEvent) for replay
         self._history: "deque[Tuple[int, WatchEvent]]" = deque(maxlen=history_limit)
         self._watchers: List[Tuple[str, Watch]] = []
+        self._journal_dir = journal_dir
+        self._compact_every = compact_every
+        self._fsync = fsync
         self._metrics = metrics
         self._watch_queue_limit = watch_queue_limit
+        # per-kind WAL segments (wal-<Kind>.jsonl), opened lazily on the
+        # kind's first journaled write; replay merges them all by rv
+        self._segments: Dict[str, _Segment] = {}
+        self._wal_records = 0  # total records across all segments
+        # commits between rv-assign and bucket-apply: compaction must not
+        # run (and truncate a journaled-but-unapplied record) while any
+        # are in flight
+        self._inflight = 0
+        # Set when the WAL outgrows FORCE_COMPACT_FACTOR x compact_every
+        # while commits kept overlapping (the opportunistic
+        # ``_inflight == 0`` check alone can starve forever under
+        # sustained concurrent multi-kind writes). New commits then stall
+        # at rv-assign until the last in-flight commit compacts, so WAL
+        # growth is bounded at ~FORCE_COMPACT_FACTOR x the threshold.
+        self._compact_pending = False
+        self._compact_cv = threading.Condition(self._lock)
+        # events at/below this rv are unreplayable (compacted away before
+        # this process started); watchers older than it must relist
+        self._base_rv = 0
+        self._poisoned = False
+        # close() flips this (under the commit lock): later writes skip
+        # journaling instead of lazily re-opening a segment past close —
+        # the pre-segment `_wal = None` semantics
+        self._closed = False
         if metrics is not None:
             metrics.describe(
                 "tfk8s_watch_coalesced_total",
@@ -302,6 +470,8 @@ class ClusterStore:
                 "backlog (latest state wins) instead of delivered "
                 "individually.",
             )
+        if journal_dir is not None:
+            self._open_journal()
 
     def _kind_lock(self, kind: str) -> threading.RLock:
         lock = self._kind_locks.get(kind)
@@ -309,6 +479,215 @@ class ClusterStore:
             with self._lock:
                 lock = self._kind_locks.setdefault(kind, threading.RLock())
         return lock
+
+    # -- journal ------------------------------------------------------------
+
+    @property
+    def _snapshot_path(self) -> str:
+        return os.path.join(self._journal_dir, "snapshot.json")
+
+    # single-stream WAL from pre-segment builds: replayed (merged by rv)
+    # and removed at the next compaction
+    @property
+    def _legacy_wal_path(self) -> str:
+        return os.path.join(self._journal_dir, "wal.jsonl")
+
+    def _segment_path(self, kind: str) -> str:
+        return os.path.join(self._journal_dir, f"wal-{kind}.jsonl")
+
+    def _segment_paths_on_disk(self) -> List[str]:
+        out = []
+        for n in sorted(os.listdir(self._journal_dir)):
+            if n == "wal.jsonl" or (n.startswith("wal-") and n.endswith(".jsonl")):
+                out.append(os.path.join(self._journal_dir, n))
+        return out
+
+    def _read_segment(self, path: str) -> List[Tuple[int, EventType, Any]]:
+        """Parse one WAL file into (rv, type, frozen obj) records. A torn
+        FINAL line (kill -9 mid-write) is truncated away — everything
+        before it was acknowledged with a complete line, so nothing acked
+        is lost. A COMPLETE line that fails to decode is mid-file
+        corruption (or a schema break); acked records may follow it, so
+        refuse to start instead of truncating them away (etcd does the
+        same)."""
+        from tfk8s_tpu_torch.api import serde  # api layer; no import cycle
+
+        records: List[Tuple[int, EventType, Any]] = []
+        good_end = 0
+        with open(path, "rb") as f:
+            for line in f:
+                if not line.endswith(b"\n"):
+                    log.warning(
+                        "journal: truncating torn WAL tail of %s (%d bytes)",
+                        os.path.basename(path), len(line),
+                    )
+                    break
+                try:
+                    rec = json.loads(line)
+                    obj = freeze(serde.decode_object(rec["obj"]))
+                    records.append((rec["rv"], EventType(rec["type"]), obj))
+                except (ValueError, KeyError) as e:
+                    raise JournalCorrupt(
+                        f"{path} byte {good_end}: undecodable complete "
+                        f"record: {e}"
+                    ) from e
+                good_end += len(line)
+        with open(path, "ab") as fix:  # drop the torn tail on disk too
+            fix.truncate(good_end)
+        return records
+
+    def _open_journal(self) -> None:
+        """Replay snapshot + every WAL segment (merged by rv), then open
+        segments for append lazily. Records at/below the snapshot rv are
+        skipped — a legacy or straggler file can never roll applied state
+        backwards."""
+        from tfk8s_tpu_torch.api import serde  # api layer; no import cycle
+
+        os.makedirs(self._journal_dir, exist_ok=True)
+        snap_rv = 0
+        if os.path.exists(self._snapshot_path):
+            with open(self._snapshot_path) as f:
+                snap = json.load(f)
+            snap_rv = snap["rv"]
+            self._last_rv = snap_rv
+            for data in snap["objects"]:
+                obj = freeze(serde.decode_object(data))
+                self._bucket(obj.kind)[obj.metadata.key] = obj
+        self._base_rv = snap_rv
+        records: List[Tuple[int, EventType, Any]] = []
+        for path in self._segment_paths_on_disk():
+            records.extend(self._read_segment(path))
+        records.sort(key=lambda r: r[0])
+        for rv, etype, obj in records:
+            if rv <= snap_rv:
+                continue  # already folded into the snapshot
+            bucket = self._bucket(obj.kind)
+            if etype == EventType.DELETED:
+                bucket.pop(obj.metadata.key, None)
+            else:
+                bucket[obj.metadata.key] = obj
+            self._last_rv = max(self._last_rv, rv)
+            self._history.append((rv, WatchEvent(etype, obj)))
+            self._wal_records += 1
+        self._rv = itertools.count(self._last_rv + 1)
+
+    def _segment(self, kind: str) -> _Segment:
+        seg = self._segments.get(kind)
+        if seg is None:
+            with self._lock:
+                if self._closed:
+                    # a commit that captured journaling=True just before
+                    # close() must fail loudly, not lazily re-create a
+                    # segment file in a directory the owner believes dead
+                    raise StoreError("store closed; refusing journal append")
+                seg = self._segments.get(kind)
+                if seg is None:
+                    seg = _Segment(self._segment_path(kind), self._fsync)
+                    self._segments[kind] = seg
+        return seg
+
+    def _journal(self, etype: EventType, obj: Any) -> None:
+        """Append one event record to the object's KIND segment — called
+        under the kind lock (not the store-wide commit lock), BEFORE the
+        mutation is applied or fanned out, so nothing observable ever
+        precedes the WAL. Per-kind segments mean two kinds' writers
+        serialize and append concurrently; within a segment rv order holds
+        because the kind lock covers the whole write.
+
+        A failed append leaves the segment byte-identical to its last good
+        state (see :class:`_Segment`). If even the rollback fails, the
+        journal is poisoned and every further mutation is refused —
+        availability is the right thing to sacrifice for a store whose
+        point is durability."""
+        from tfk8s_tpu_torch.api import serde
+
+        if self._poisoned:
+            raise StoreError(
+                "journal poisoned by an earlier unrecoverable write error; "
+                "refusing mutations (restart the apiserver to re-replay)"
+            )
+        rec = {
+            "rv": obj.metadata.resource_version,
+            "type": etype.value,
+            "obj": serde.to_dict(obj),
+        }
+        try:
+            self._segment(obj.kind).append((json.dumps(rec) + "\n").encode())
+        except (OSError, ValueError) as e:
+            if getattr(e, "rollback_failed", False):
+                self._poisoned = True
+                log.error(
+                    "journal: could not roll back failed append; poisoning "
+                    "the store (segments intact through rv %d)", self._last_rv,
+                )
+            raise
+        with self._lock:
+            self._wal_records += 1
+
+    def _compact(self) -> None:
+        """Atomic snapshot of full state, then truncate every segment (and
+        drop a legacy single-stream WAL). Watchers holding pre-snapshot
+        rvs will relist via Gone after a restart — exactly etcd compaction
+        semantics.
+
+        Ordering matters: the snapshot (and, under fsync, its directory
+        entry) must be durable BEFORE any segment is truncated, or a power
+        cut between the two could leave the old snapshot + empty segments
+        — losing everything since the previous compaction.
+
+        Runs synchronously under the store lock with ``_inflight == 0``
+        (enforced by the caller): a commit that journaled but has not yet
+        applied would otherwise have its record truncated while missing
+        from the snapshot — an acked-write hole. The pause is single-digit
+        ms at this store's scale every ``compact_every`` writes."""
+        from tfk8s_tpu_torch.api import serde
+
+        snap = {
+            "rv": self._last_rv,
+            "objects": [
+                serde.to_dict(obj)
+                for bucket in self._objects.values()
+                for obj in bucket.values()
+            ],
+        }
+        tmp = self._snapshot_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(snap, f)
+            f.flush()
+            if self._fsync:
+                os.fsync(f.fileno())
+        os.replace(tmp, self._snapshot_path)
+        if self._fsync:
+            # persist the rename itself before dropping the segments
+            dir_fd = os.open(self._journal_dir, os.O_RDONLY)
+            try:
+                os.fsync(dir_fd)
+            finally:
+                os.close(dir_fd)
+        # truncate through the live handles — no close/reopen window in
+        # which a failure could leave the store without a WAL handle
+        for seg in self._segments.values():
+            seg.truncate()
+        # stale on-disk files with no live handle (a kind not written
+        # since restart, or the legacy single-stream WAL): their records
+        # are all <= the snapshot rv now — remove them so replay never
+        # re-reads them
+        open_paths = {seg.path for seg in self._segments.values()}
+        for path in self._segment_paths_on_disk():
+            if path not in open_paths:
+                try:
+                    os.remove(path)
+                except OSError:
+                    pass  # replay skips <=snapshot-rv records anyway
+        self._wal_records = 0
+
+    def close(self) -> None:
+        with self._lock:
+            self._closed = True
+            for seg in self._segments.values():
+                seg.close()  # takes each segment's IO mutex: in-flight
+                # appends finish before their handle closes
+            self._segments = {}
 
     # -- internals ----------------------------------------------------------
 
@@ -319,8 +698,8 @@ class ClusterStore:
     def _insert_history(self, rv: int, ev: WatchEvent) -> None:
         """Keep the replay ring rv-ascending. Commits of DIFFERENT kinds
         can reach the apply step out of rv order (rv assignment and apply
-        are separate commit-lock sections, with the kind-parallel freeze
-        between them); a short bubble from the tail restores order.
+        are separate commit-lock sections, with the kind-parallel journal
+        append between them); a short bubble from the tail restores order.
         Called under the commit lock."""
         h = self._history
         h.append((rv, ev))
@@ -332,14 +711,73 @@ class ClusterStore:
     def _commit(self, etype: EventType, stored: Any, apply) -> Any:
         """The write barrier: assign the rv (commit lock), FREEZE the
         object (the one structural walk per write — every read after this
-        shares the frozen instance; only the kind lock is held), then
-        apply the bucket mutation + history + watch fanout (commit lock
-        again). Returns the frozen stored object."""
+        shares the frozen instance), journal to the kind's WAL segment
+        (kind-parallel: only the kind lock is held), then apply the bucket
+        mutation + history + watch fanout (commit lock again).
+        Journal-before-apply keeps the log write-AHEAD: a failed append
+        (ENOSPC, dead disk) raises to the client with NO state change, so
+        readers can never observe an object that a restart would forget.
+        Returns the frozen stored object."""
         with self._lock:
+            # a forced compaction is waiting for in-flight commits to
+            # drain: don't start a new journal window until it has run
+            # (in-flight commits themselves never wait here, so the
+            # drain — and this stall — is bounded)
+            while self._compact_pending:
+                self._compact_cv.wait()
+            journaling = self._journal_dir is not None and not self._closed
             stored.metadata.resource_version = self._bump()
+            if journaling:
+                self._inflight += 1
         frozen_obj = freeze(stored)
+        if journaling:
+            try:
+                self._journal(etype, frozen_obj)
+            except BaseException:
+                with self._lock:
+                    self._inflight -= 1
+                    if self._inflight == 0 and self._compact_pending:
+                        # the commit this forced compaction was waiting on
+                        # failed its append: unstall writers; the next
+                        # successful write re-triggers compaction
+                        # (_wal_records is still over threshold)
+                        self._compact_pending = False
+                        self._compact_cv.notify_all()
+                raise
         with self._lock:
             apply()
+            if journaling:
+                self._inflight -= 1
+                # compact only AFTER the mutation is applied, and only
+                # with no other commit mid-flight — a snapshot taken while
+                # a journaled-but-unapplied record exists would miss it
+                # and the truncation would destroy its only copy. A
+                # compaction failure must NOT fail the (already committed
+                # and journaled) mutation: log it and retry at the next
+                # write, when _wal_records will still be over threshold.
+                if self._wal_records >= self._compact_every:
+                    if self._inflight == 0:
+                        try:
+                            self._compact()
+                        except OSError as e:
+                            log.warning(
+                                "journal: compaction failed (will retry): %s",
+                                e,
+                            )
+                        finally:
+                            if self._compact_pending:
+                                self._compact_pending = False
+                                self._compact_cv.notify_all()
+                    elif self._wal_records >= (
+                        self._compact_every * FORCE_COMPACT_FACTOR
+                    ):
+                        # overlapping commits have starved the
+                        # opportunistic check past FORCE_COMPACT_FACTOR x
+                        # the threshold: stall new commits at rv-assign so
+                        # the in-flight set drains; the last one to apply
+                        # takes the _inflight == 0 branch above and
+                        # releases the waiters
+                        self._compact_pending = True
             self._insert_history(
                 stored.metadata.resource_version, WatchEvent(etype, frozen_obj)
             )
@@ -638,13 +1076,17 @@ class ClusterStore:
             )
             if since_rv is not None and since_rv < self._last_rv:
                 oldest_buffered = self._history[0][0] if self._history else None
-                # Unreplayable when the bookmark fell off the history ring
-                # — the client must relist (410), the same contract as a
-                # compacted etcd. An empty ring is NOT Gone: the only
-                # missing events are commits still mid-flight, and this
-                # watcher (registered under the commit lock) receives them
-                # at their fanout.
-                if oldest_buffered is not None and since_rv < oldest_buffered - 1:
+                # Unreplayable when the bookmark predates the compaction
+                # floor (_base_rv: events folded into the snapshot before
+                # this process started) or fell off the history ring — the
+                # client must relist (410), the same contract as a
+                # compacted etcd. An empty ring above the floor is NOT
+                # Gone: the only missing events are commits still
+                # mid-flight, and this watcher (registered under the
+                # commit lock) receives them at their fanout.
+                if since_rv < self._base_rv or (
+                    oldest_buffered is not None and since_rv < oldest_buffered - 1
+                ):
                     raise Gone(
                         f"resource_version {since_rv} is too old "
                         f"(oldest buffered: {oldest_buffered})"

@@ -5,20 +5,30 @@ The job half of the JAX package's ``cmd/main.py``, on the port's control
 plane and entry points:
 
 - ``operator``  run the reconcile server (the reference's only mode), with
-                ``--gateway-port`` the serving front door too. Its store
-                is in this process and nothing outside can reach it, so
-                it takes no jobs and no TPUServe until the port's
-                apiserver and remote client (ROADMAP item 19)
+                ``--gateway-port`` the serving front door too; with
+                ``--kubeconfig`` it reconciles against a remote apiserver
+                across a process boundary (``--no-local-kubelet`` leaves
+                the pods to a ``kubelet`` process)
 - ``run``       end-to-end local run: operator + kubelet in-process,
                 submit one TPUJob, wait for a terminal condition
 - ``train``     run a model entrypoint directly in this process (the
                 data-plane launcher, no control plane — for debugging)
+- ``apiserver`` serve the cluster store over HTTP(S)
+                (client/apiserver.py), with ``--journal-dir`` durable
+                across restarts — the L0 substrate as its own process
+- ``kubelet``   run the pod executor as its own process against a remote
+                apiserver (the node-agent half of the process split)
 
 ``python -m tfk8s_tpu_torch.cmd.main run --entrypoint
 tfk8s_tpu_torch.models.mlp:train --accelerator cpu-1 --env
 '{"TFK8S_DEVICE": "cpu"}'`` runs a job on the CPU; ``--accelerator
-h100-1`` and no ``TFK8S_DEVICE`` run it on the card. The reference's
-``apiserver``, ``kubelet`` and kubectl-like verbs are later slices.
+h100-1`` and no ``TFK8S_DEVICE`` run it on the card. A pod's entry point
+runs on the card unless its own env says ``TFK8S_DEVICE=cpu``; the
+``kubelet`` verb sets no device for it (the reference's kubelet honours
+``TFK8S_JAX_PLATFORM``, which the port has no counterpart of). The
+reference's kubectl-like verbs (``submit``, ``get``, ...) are a later
+slice: until then a job is submitted with
+``client.remote.clientset_from_kubeconfig(path).tpujobs().create(job)``.
 """
 
 from __future__ import annotations
@@ -42,8 +52,7 @@ def _build_parser() -> argparse.ArgumentParser:
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
-    p_op = sub.add_parser("operator", help="run the operator server (its store is in this "
-                          "process, so no job reaches it yet: use run)")
+    p_op = sub.add_parser("operator", help="run the operator server")
     Options.add_flags(p_op)
 
     p_run = sub.add_parser("run", help="run one TPUJob end-to-end locally")
@@ -62,6 +71,37 @@ def _build_parser() -> argparse.ArgumentParser:
     p_tr = sub.add_parser("train", help="run a model entrypoint in-process")
     p_tr.add_argument("--entrypoint", required=True)
     p_tr.add_argument("--env", default="{}")
+
+    p_api = sub.add_parser("apiserver", help="serve the cluster store over HTTP(S)")
+    p_api.add_argument("--host", default="127.0.0.1")
+    p_api.add_argument("--port", type=int, default=8443)
+    p_api.add_argument("--write-kubeconfig", default="", dest="write_kubeconfig",
+                       help="write a kubeconfig JSON for the bound address "
+                       "(use with --port 0 to discover the ephemeral port); "
+                       "with --self-signed/--token-file it embeds the CA "
+                       "and first token")
+    p_api.add_argument("--tls-cert", default="", help="server certificate (PEM)")
+    p_api.add_argument("--tls-key", default="", help="server private key (PEM)")
+    p_api.add_argument("--client-ca", default="",
+                       help="CA bundle for verifying client certs (mTLS)")
+    p_api.add_argument("--self-signed", default="", metavar="DIR",
+                       help="mint a CA + server cert into DIR and serve TLS "
+                       "(dev/test; overrides --tls-cert/--tls-key)")
+    p_api.add_argument("--journal-dir", default="", dest="journal_dir",
+                       help="directory for the write-ahead log + snapshot; "
+                            "cluster state survives apiserver restarts "
+                            "(empty = in-memory only)")
+    p_api.add_argument("--no-fsync", action="store_true", dest="no_fsync",
+                       help="journal without fsync (kill-9 safe via page "
+                            "cache, not power-loss safe)")
+    p_api.add_argument("--token-file", default="",
+                       help="static token file 'token,user[,readonly]' per "
+                       "line; enables authentication (anonymous -> 401)")
+
+    p_kl = sub.add_parser("kubelet", help="run the pod executor against a remote apiserver")
+    p_kl.add_argument("--kubeconfig", required=True)
+    p_kl.add_argument("--name", default="kubelet-0",
+                      help="node name recorded in pod status")
     return parser
 
 
@@ -182,11 +222,123 @@ def _cmd_train(args: argparse.Namespace) -> int:
     return 0
 
 
+def _cmd_apiserver(args: argparse.Namespace) -> int:
+    from tfk8s_tpu_torch.client.apiserver import APIServer, AuthConfig, TLSServerConfig
+    from tfk8s_tpu_torch.client.store import ClusterStore
+
+    tls = None
+    ca_pem = ""
+    if args.self_signed:
+        # dev PKI: mint CA + server cert (SANs cover the bind host) so a
+        # secured cluster comes up with one flag
+        from tfk8s_tpu_torch.client.tlsutil import generate_ca, issue_cert
+
+        ca = generate_ca()
+        sans = [args.host] if args.host not in ("127.0.0.1", "localhost") else []
+        sans += ["127.0.0.1", "localhost"]
+        server_pair = issue_cert(ca, "tfk8s-apiserver", sans=sans)
+        ca_cert_path, _ = ca.write(args.self_signed, "ca")
+        cert_path, key_path = server_pair.write(args.self_signed, "apiserver")
+        tls = TLSServerConfig(cert_path, key_path, client_ca_file=ca_cert_path)
+        ca_pem = ca.cert_pem.decode()
+    elif args.tls_cert or args.tls_key or args.client_ca:
+        # half a TLS config must be a startup error, never a silent
+        # downgrade to plaintext (tokens would go over the wire in clear)
+        if not (args.tls_cert and args.tls_key):
+            log.error("--tls-cert and --tls-key must be given together "
+                      "(got cert=%r key=%r)", args.tls_cert, args.tls_key)
+            return 2
+        tls = TLSServerConfig(
+            args.tls_cert, args.tls_key, client_ca_file=args.client_ca or None
+        )
+        if args.client_ca:
+            with open(args.client_ca) as f:
+                ca_pem = f.read()
+    auth = AuthConfig.from_token_file(args.token_file) if args.token_file else None
+    if auth is not None and tls is None:
+        # bearer tokens over plaintext HTTP are sniffable: a silent
+        # downgrade must be a startup error
+        log.error("--token-file requires TLS (--tls-cert/--tls-key or "
+                  "--self-signed): refusing to accept bearer tokens over "
+                  "plaintext HTTP")
+        return 2
+
+    # the embedded credential must be able to WRITE (a kubelet or
+    # operator bootstrapped from this kubeconfig creates pods); resolve
+    # it BEFORE binding the listener so the error path leaks no socket
+    rw_token = None
+    if args.write_kubeconfig and auth and auth.tokens:
+        rw_token = next(
+            (t for t, u in auth.tokens.items() if not u.readonly), None
+        )
+        if rw_token is None:
+            log.error("--write-kubeconfig: token file has only "
+                      "readonly credentials; nothing usable to embed")
+            return 2
+
+    from tfk8s_tpu_torch.utils.logging import Metrics
+
+    metrics = Metrics()
+    store = ClusterStore(
+        journal_dir=args.journal_dir or None,
+        fsync=not args.no_fsync,
+        metrics=metrics,
+    )
+    if args.journal_dir:
+        log.info(
+            "journal: %s (replayed to rv %d)", args.journal_dir, store.resource_version
+        )
+    server = APIServer(
+        store, host=args.host, port=args.port, tls=tls, auth=auth,
+        metrics=metrics,
+    )
+    if args.write_kubeconfig:
+        kc: dict = {"server": server.url}
+        if ca_pem:
+            kc["certificate_authority_data"] = ca_pem
+        if rw_token is not None:
+            kc["token"] = rw_token
+        with open(args.write_kubeconfig, "w") as f:
+            json.dump(kc, f)
+    log.info("apiserver listening on %s", server.url)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        log.info("interrupted; shutting down")
+    finally:
+        server.shutdown()
+    return 0
+
+
+def _cmd_kubelet(args: argparse.Namespace) -> int:
+    from tfk8s_tpu_torch.client.remote import clientset_from_kubeconfig
+    from tfk8s_tpu_torch.runtime.kubelet import LocalKubelet
+
+    cs = clientset_from_kubeconfig(args.kubeconfig)
+    kubelet = LocalKubelet(cs, name=args.name)
+    stop = threading.Event()
+    log.info("kubelet %s watching pods via %s", args.name, args.kubeconfig)
+    try:
+        kubelet.run(stop)
+        stop.wait()
+    except KeyboardInterrupt:
+        log.info("interrupted; shutting down")
+    finally:
+        stop.set()
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = _build_parser().parse_args(argv)
     if args.command == "train":
         init_logging()
         return _cmd_train(args)
+    if args.command == "apiserver":
+        init_logging()
+        return _cmd_apiserver(args)
+    if args.command == "kubelet":
+        init_logging()
+        return _cmd_kubelet(args)
     opts = Options.from_args(args)
     init_logging(opts.log_level_int())
     if args.command == "operator":

@@ -2,14 +2,13 @@
 options.go`; 'Add flag' / 'Init flag and initlog' in images/tf2.png at
 k8s-operator.md:57).
 
-A copy of the JAX package's ``cmd/options.py`` for the in-process
-operator: the reconcile workers, the client limits, the host inventory
-and the serving front door (``--gateway-port``). The reference's
-``--leader-elect`` (and its lease flags), ``--kubeconfig``,
-``--metrics-port`` and ``--no-local-kubelet`` belong to the port's
-apiserver slice (ROADMAP item 19) and are not accepted yet: the
-in-process kubelet always runs, since without a remote store no other
-kubelet could run a pod.
+A copy of the JAX package's ``cmd/options.py``: the reconcile workers,
+the client limits, the host inventory, the serving front door
+(``--gateway-port``), the remote apiserver (``--kubeconfig``) and whether
+the in-process kubelet runs (``--no-local-kubelet``, for an operator
+whose pods a ``kubelet`` process runs). The reference's
+``--leader-elect`` (and its lease flags) and ``--metrics-port`` are not
+accepted yet (ROADMAP item 19b).
 """
 
 from __future__ import annotations
@@ -34,6 +33,12 @@ class Options:
     burst: int = 100
     # cluster inventory: accelerator type -> number of slices
     capacity: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # run the in-process kubelet (hermetic/local backend)
+    local_kubelet: bool = True
+    # path to a kubeconfig ({"server": "http://host:port", ...}); when
+    # set, the operator talks to that remote apiserver instead of an
+    # in-process store
+    kubeconfig: str = ""
     # serving front door (gateway/server.py); 0 = off
     gateway_port: int = 0
     # logging
@@ -55,6 +60,12 @@ class Options:
                        help="client token-bucket burst size")
         g.add_argument("--capacity", default="{}",
                        help='host inventory as JSON, e.g. \'{"h100-8": 4}\'')
+        g.add_argument("--no-local-kubelet", action="store_false",
+                       dest="local_kubelet",
+                       help="do not run the in-process pod executor")
+        g.add_argument("--kubeconfig", default="",
+                       help="kubeconfig path; talk to a remote "
+                       "apiserver instead of the in-process store")
         g.add_argument("--gateway-port", type=int, default=0, dest="gateway_port",
                        help="serve the inference front door (POST "
                             "/v1/serve/<ns>/<name>) on this port (0=off)")
@@ -73,6 +84,8 @@ class Options:
             qps=args.qps,
             burst=args.burst,
             capacity=capacity,
+            local_kubelet=args.local_kubelet,
+            kubeconfig=getattr(args, "kubeconfig", ""),
             gateway_port=getattr(args, "gateway_port", 0),
             log_level=args.log_level,
         )

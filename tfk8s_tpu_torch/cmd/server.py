@@ -2,13 +2,15 @@
 server' in images/tf2.png): wires clients → informers → controllers and
 runs until stopped.
 
-A copy of the JAX package's ``cmd/server.py`` for one process: the
-in-process store, the clientset, the gang allocator over the host
-inventory, the TPUJob and TPUServe controllers, the local kubelet, which
-runs the port's entry points, and, with ``Options.gateway_port``, the
-serving front door (``gateway/server.py``) over the port's replica table.
-The reference's leader election, remote store and metrics endpoint
-belong to the port's apiserver slice.
+A copy of the JAX package's ``cmd/server.py``: the store (in this
+process, or with ``Options.kubeconfig`` a remote apiserver reached
+through ``client/remote.py``), the clientset, the gang allocator over the
+host inventory, the TPUJob and TPUServe controllers, the local kubelet,
+which runs the port's entry points (unless ``Options.local_kubelet`` is
+off and a ``kubelet`` process runs them), and, with
+``Options.gateway_port``, the serving front door (``gateway/server.py``)
+over the port's replica table. The reference's leader election and
+metrics endpoint are not ported yet (ROADMAP item 19b).
 """
 
 from __future__ import annotations
@@ -42,9 +44,23 @@ class Server:
         self.tracer = get_tracer()
         self.metrics = Metrics()
         self.tracer.set_metrics(self.metrics)
-        self.store = store if store is not None else ClusterStore(metrics=self.metrics)
+        qps, burst = opts.qps, opts.burst
+        if store is not None:
+            self.store = store
+        elif opts.kubeconfig:
+            # remote backend: kubeconfig -> RemoteStore; credentials (CA
+            # pin, bearer token, client cert) ride along like rest.Config.
+            # The kubeconfig's client limits take precedence: they
+            # describe the server being talked to.
+            from tfk8s_tpu_torch.client.remote import load_kubeconfig, store_from_kubeconfig
+
+            cfg = load_kubeconfig(opts.kubeconfig)
+            self.store = store_from_kubeconfig(cfg)
+            qps, burst = cfg.qps, cfg.burst
+        else:
+            self.store = ClusterStore(metrics=self.metrics)
         self.clientset = Clientset.new_for_config(
-            self.store, RESTConfig(qps=opts.qps, burst=opts.burst)
+            self.store, RESTConfig(qps=qps, burst=burst)
         )
         self.allocator = SliceAllocator(opts.capacity or None)
         self.recorder = EventRecorder(sink=self.clientset)
@@ -75,7 +91,7 @@ class Server:
             resync_period=opts.resync_period_s,
             tracer=self.tracer,
         )
-        self.kubelet = LocalKubelet(self.clientset)
+        self.kubelet = LocalKubelet(self.clientset) if opts.local_kubelet else None
         self.gateway = None  # started in run() when opts.gateway_port
 
     def run(self, stop: threading.Event, block: bool = True) -> None:
@@ -94,7 +110,8 @@ class Server:
             )
             gw_port = self.gateway.serve_background()
             log.info("gateway front door on 127.0.0.1:%d", gw_port)
-        self.kubelet.run(stop)  # informer-driven; returns immediately
+        if self.kubelet:
+            self.kubelet.run(stop)  # informer-driven; returns immediately
         log.info("starting controllers with %d workers", self.opts.workers)
         self.serve_controller.run(self.opts.workers, stop, block=False)
         self.controller.run(self.opts.workers, stop, block=block)
