@@ -403,19 +403,39 @@ must pass:
    free port with a journal (``--journal-dir``) and writes a kubeconfig;
    where ``cryptography`` imports it serves HTTPS (``--self-signed``, one
    read-write token in ``--token-file``), else plain HTTP (a line says which,
-   and the seconds to ``/healthz``). The operator (``tfk8s_tpu_torch.
-   cmd.server.Server`` with that kubeconfig: a ``RemoteStore``,
-   clientset, gang allocator, TPUJob controller, local kubelet) runs in
-   this process with one ``h100-1`` host; both jobs are submitted through a
-   second client, ``clientset_from_kubeconfig``. After (a)'s first
-   finished update the apiserver is killed with SIGKILL and started again
-   on the same port from the same journal and certificates: both jobs must
-   end ``Succeeded`` with no restart, (a) must not have ended before the
-   kill, and the restarted apiserver's resource_version must be at least
-   the one read before the kill. It prints the start and restart seconds
-   (to ``/healthz``, to the apiserver's own "listening" line, and its
-   imports under ``-X importtime``), the outage (kill to ``/healthz``)
-   and the informers' relists. (a)
+   and the seconds to ``/healthz``). Two operators (``tfk8s_tpu_torch.
+   cmd.server.Server`` with that kubeconfig, ``leader_elect`` as ``op-a``
+   and ``op-b``, OPERATOR["lease_s"] leases, no local kubelet: a
+   ``RemoteStore``, clientset, gang allocator, TPUJob controller behind the
+   lease) and one standalone ``LocalKubelet`` on a clientset of its own run
+   in this process with one ``h100-1`` host; op-a takes the lease first.
+   Both jobs are sent with the port's verb, ``cmd.main.main(["submit",
+   "--kubeconfig", ..., "--file", <the job as a JSON manifest>])``. (a)
+   is held at its first finished update (an optimizer post-hook) while op-a
+   stops gracefully (its stop event, then ``shutdown()``, which releases
+   the lease): ``failover_s``, from that stop to op-b's ``elector.
+   is_leader``, must be at most OPERATOR["failover_limit_s"]; every poll
+   samples both electors, and before the stop only op-a may lead, after it
+   only op-b, never both. Then the apiserver is killed with SIGKILL, (a)
+   goes on, and the apiserver is started again on the same port from the
+   same journal and certificates (the hand-over comes before the kill:
+   both packages' electors end their threads on the outage's transport
+   error, so none could hand over after it). Both jobs must end
+   ``Succeeded`` with no restart, (a) must be running at the hand-over and
+   the kill, and the restarted apiserver's resource_version must be at
+   least the one read before the kill. Then, through ``main`` with its
+   standard output captured: ``get`` (a table and ``-o json``: (a)
+   ``Succeeded``), ``describe`` (listing (a)'s event reasons), ``logs
+   --job`` (``==> default/<pod> (Succeeded) <==`` and a tail); and op-b's
+   ``start_metrics_server(0)``: ``/healthz`` ``ok``, ``/metrics`` holding
+   ``tpujob_succeeded_total`` at 2 or more, which only op-b's reconciles of (a) and
+   (b) can have counted on op-b's registry (op-a stopped before (a) ended),
+   and
+   ``/events?key=default/<a>`` (a)'s events. It prints the start and
+   restart seconds (to ``/healthz``, to the apiserver's own "listening"
+   line, and its imports under ``-X importtime``), the outage (kill to
+   ``/healthz``), the informers' relists, ``failover_s`` and the verbs'
+   and the endpoint's replies. (a)
    ``manifests/examples/gpt-h100-torch.json``'s TPUJob, loaded with the
    port's ``load_manifest``: GPT-2-small (bf16, flash, 12 layers, seq
    1024, batch 8), 6 steps, must reach ``Succeeded`` with a pod requesting
@@ -430,7 +450,8 @@ must pass:
    memory. (a)'s losses are held to a direct ``gpt:train`` call on the
    pod's env in this process: identical, or within OPERATOR["loss_atol"].
    It prints the phase's seconds, each job's submission to first update,
-   wall time and peak memory.
+   wall time (the hold at its first update included, and printed apart)
+   and peak memory.
 25. gateway: the port's serving control plane and front door in this
    process: ``Server`` with one ``h100-1`` host and ``gateway_port`` set
    (the TPUServe controller, the local kubelet and ``GatewayServer`` over
@@ -5414,22 +5435,23 @@ def _pod_nccl(torch, fa, root, cards):
 # GANG_LAYERS depth, is submitted while (a) runs and must wait for its host
 OPERATOR = dict(manifest=os.path.join("manifests", "examples", "gpt-h100-torch.json"),
                 gang_steps=3, timeout_s=300.0, limit_s=90.0, loss_atol=2e-2,
-                apiserver_start_s=60.0)
+                apiserver_start_s=60.0, lease_s=8.0, failover_limit_s=8.0, hold_s=60.0)
 # job (b)'s entry point, a name the phase registers for pod_entry
 OPERATOR_GANG_ENTRY = "chip_smoke.operator_gang"
 
 
-def _operator_server(capacity, kubeconfig=""):
+def _operator_server(capacity, kubeconfig="", **opts):
     """The port's operator in this process: store (with ``kubeconfig``, a
     ``RemoteStore`` to that apiserver), clientset, gang allocator over
-    ``capacity``, TPUJob controller and local kubelet, started; (server,
-    its stop event)."""
+    ``capacity``, TPUJob controller and local kubelet, started, with
+    ``opts`` further ``Options`` (a lease, no local kubelet); (server, its
+    stop event)."""
     import threading
 
     from tfk8s_tpu_torch.cmd.options import Options
     from tfk8s_tpu_torch.cmd.server import Server
 
-    server = Server(Options(capacity=capacity, workers=2, kubeconfig=kubeconfig))
+    server = Server(Options(capacity=capacity, workers=2, kubeconfig=kubeconfig, **opts))
     stop = threading.Event()
     server.run(stop, block=False)
     return server, stop
@@ -5540,22 +5562,26 @@ class _APIServerProcess:
             return f.read()[-3000:]
 
 
-def _job_state(server, name):
-    """(condition types, event reasons, pods) of a job on ``server``."""
+def _job_state(server, name, recorders=None):
+    """(condition types, event reasons, pods) of a job on ``server``; the
+    reasons those of ``recorders`` (default: the server's)."""
     from tfk8s_tpu_torch.trainer import labels as L
 
     status = server.clientset.tpujobs().get(name).status
     pods, _ = server.clientset.pods().list(label_selector={L.JOB_NAME: name})
-    reasons = [e.reason for e in server.recorder.events(key=f"default/{name}")]
+    reasons = [e.reason for r in (recorders or [server.recorder])
+               for e in r.events(key=f"default/{name}")]
     return [c.type.value for c in status.conditions if c.status], reasons, pods
 
 
-def _wait_jobs(server, names, timeout_s, each=None):
+def _wait_jobs(server, names, timeout_s, each=None, recorders=None):
     """Poll until every job of ``names`` has ended (``each()`` once a
     poll); their final states."""
     deadline = time.monotonic() + timeout_s
     while True:
-        states = {n: _job_state(server, n) for n in names}
+        # the last job first: a later job's pod seen beside an earlier job
+        # that has not ended is then no artefact of the two reads' order
+        states = {n: _job_state(server, n, recorders) for n in reversed(names)}
         if each is not None:
             each(states)
         if all({"Succeeded", "Failed"} & set(st[0]) for st in states.values()):
@@ -5590,11 +5616,34 @@ def _recorded(torch, fa, runs, name, fn):
     return run
 
 
+def _verb(argv):
+    """``tfk8s_tpu_torch.cmd.main.main(argv)`` in this process: (exit code,
+    standard output)."""
+    import contextlib
+    import io
+
+    from tfk8s_tpu_torch.cmd.main import main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, out.getvalue()
+
+
+def _get(port, path):
+    """(status, content type, body) of a GET on ``127.0.0.1:port``."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as resp:
+        return resp.status, resp.headers.get("Content-Type"), resp.read().decode()
+
+
 def phase_operator(torch, gpt, fa, root):
-    """The example manifest's GPT-2-small TPUJob through the port's own
-    operator, a second job gang-pending behind it, and the first job's
-    history against a direct ``gpt:train`` call (docstring phase 24).
-    Returns the launches of the two jobs."""
+    """The example manifest's GPT-2-small TPUJob sent with the port's
+    ``submit`` verb to two leader-elected operators, handed over mid-job,
+    a second job gang-pending behind it, the verbs and the endpoint after,
+    and the first job's history against a direct ``gpt:train`` call
+    (docstring phase 24). Returns the launches of the two jobs."""
     import threading
 
     from torch.optim.optimizer import register_optimizer_step_post_hook
@@ -5603,6 +5652,7 @@ def phase_operator(torch, gpt, fa, root):
     from tfk8s_tpu_torch.api.types import ReplicaType
     from tfk8s_tpu_torch.cmd.main import load_manifest
     from tfk8s_tpu_torch.runtime import registry
+    from tfk8s_tpu_torch.runtime.kubelet import LocalKubelet
 
     t_phase = time.perf_counter()
     card = phase_card()
@@ -5629,12 +5679,18 @@ def phase_operator(torch, gpt, fa, root):
     names = (job_a.metadata.name, job_b.metadata.name)
 
     runs, first_step = {}, {}
+    resume = threading.Event()  # set once (a) may go on after its first update
+    held = {}
 
     def hook(opt, args, kwargs):  # each job's first finished update
         ident = threading.get_ident()
         if ident not in first_step:
             torch.cuda.synchronize()
             first_step[ident] = time.perf_counter()
+            if ident == runs.get("a", {}).get("thread"):
+                # (a) stays mid-job until the hand-over and the kill are done
+                held["ok"] = resume.wait(OPERATOR["hold_s"])
+                held["s"] = time.perf_counter() - first_step[ident]
 
     # the manifest's entry point resolves to gpt:train through a recorder
     registry.register(tmpl_a.entrypoint, _recorded(torch, fa, runs, "a", gpt.train))
@@ -5642,17 +5698,33 @@ def phase_operator(torch, gpt, fa, root):
     work = os.path.join(root, "build", "chip_smoke_operator")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
+    manifests = {}
+    for key, job in zip("ab", (job_a, job_b)):
+        manifests[key] = os.path.join(work, f"{job.metadata.name}.json")
+        with open(manifests[key], "w") as f:
+            json.dump(serde.to_wire(job), f)
     api = _APIServerProcess(root, work, tls)
     wire = {"scheme": "https" if tls else "http"}
     handle = register_optimizer_step_post_hook(hook)
-    server = None
-    pending = []
+    ops, kubelet_stop = {}, threading.Event()
+    pending, leaders, verbs, endpoint = [], [], {}, {}
+    handed = {"over": False}
 
-    def watch(states):  # (b) waits, podless, while (a) has not ended
+    def leads(ident):
+        elector = getattr(ops[ident][0], "elector", None) if ident in ops else None
+        return bool(elector and elector.is_leader)
+
+    def watch(states):  # (b) waits, podless, while (a) has not ended; who leads
+        leaders.append((handed["over"], leads("op-a"), leads("op-b")))
         conds_a, _reasons_a, _pods_a = states[names[0]]
         _conds_b, reasons_b, pods_b = states[names[1]]
         if "GangPending" in reasons_b and not {"Succeeded", "Failed"} & set(conds_a):
             pending.append(len(pods_b))
+
+    def poll():
+        lead = ops["op-b" if handed["over"] else "op-a"][0]
+        recorders = [server.recorder for server, _stop in ops.values()]
+        return {n: _job_state(lead, n, recorders) for n in reversed(names)}
 
     try:
         from tfk8s_tpu_torch.client.remote import (clientset_from_kubeconfig, load_kubeconfig,
@@ -5661,39 +5733,74 @@ def phase_operator(torch, gpt, fa, root):
         wire["start_s"] = api.start()
         wire["start_listening_s"] = api.listening_s()
         wire["start_imports"] = api.imports()
-        server, stop = _operator_server({"h100-1": 1}, kubeconfig=api.kubeconfig)
-        if type(server.store).__name__ != "RemoteStore":
-            raise AssertionError(f"the operator's store is a {type(server.store).__name__}")
-        # the jobs go over the wire through a client of their own
-        client = clientset_from_kubeconfig(api.kubeconfig)
+        # one node agent of its own, so that stopping an operator leaves the pods
+        LocalKubelet(clientset_from_kubeconfig(api.kubeconfig), name="node-0").run(kubelet_stop)
+        for ident in ("op-a", "op-b"):
+            ops[ident] = _operator_server(
+                {"h100-1": 1}, kubeconfig=api.kubeconfig, leader_elect=True, identity=ident,
+                lease_duration_s=OPERATOR["lease_s"], local_kubelet=False)
+            if ident == "op-a":
+                deadline = time.monotonic() + 30
+                while not leads("op-a") and time.monotonic() < deadline:
+                    time.sleep(0.01)
+                if not leads("op-a"):
+                    raise AssertionError("op-a did not take the lease within 30 s")
+        for server, _stop in ops.values():
+            if type(server.store).__name__ != "RemoteStore":
+                raise AssertionError(f"the operator's store is a {type(server.store).__name__}")
+        # the jobs go over the wire through the port's submit verb
         raw = store_from_kubeconfig(load_kubeconfig(api.kubeconfig))
+        client = clientset_from_kubeconfig(api.kubeconfig)
         submitted = {}
         submitted["a"] = time.perf_counter()
-        client.tpujobs().create(job_a)
+        verbs["submit_a"] = _verb(["submit", "--kubeconfig", api.kubeconfig,
+                                   "--file", manifests["a"]])
         deadline = time.monotonic() + OPERATOR["timeout_s"]
         while "a" not in runs and time.monotonic() < deadline:
             time.sleep(0.01)
         submitted["b"] = time.perf_counter()
-        client.tpujobs().create(job_b)
-        # kill -9 after (a)'s first finished update; restart from the journal
+        verbs["submit_b"] = _verb(["submit", "--kubeconfig", api.kubeconfig,
+                                   "--file", manifests["b"]])
+        for key in "ab":
+            want = f"tpujob default/{names['ab'.index(key)]} created\n"
+            if verbs[f"submit_{key}"] != (0, want):
+                raise AssertionError(f"submit of ({key}): {verbs[f'submit_{key}']}")
+        # (a)'s first finished update holds it mid-job
         polled = 0.0
         while (runs.get("a", {}).get("thread") not in first_step
                and "end" not in runs.get("a", {}) and time.monotonic() < deadline):
             if time.monotonic() - polled > 0.1:
                 polled = time.monotonic()
-                watch({n: _job_state(server, n) for n in names})
+                watch(poll())
             time.sleep(0.005)
+        watch(poll())
+        # the leader stops gracefully: it releases the lease to the standby
+        wire["a_running_at_handover"] = (
+            "end" not in runs.get("a", {})
+            and "Running" in _job_state(ops["op-a"][0], names[0])[0])
+        t_stop = time.perf_counter()
+        handed["over"] = True
+        ops["op-a"][1].set()
+        ops["op-a"][0].shutdown()
+        deadline_lead = time.monotonic() + 30
+        while not leads("op-b") and time.monotonic() < deadline_lead:
+            time.sleep(0.005)
+        wire["failover_s"] = time.perf_counter() - t_stop if leads("op-b") else None
+        # kill -9 while (a) is held after its first update; restart from the journal
         wire["rv_before_kill"] = raw.list("TPUJob")[1]
+        server = ops["op-b"][0]
         relists = _relists(server)
         t_kill = time.perf_counter()
         api.kill()
+        resume.set()
         wire["a_ended_before_kill"] = "end" in runs.get("a", {})
         wire["restart_s"] = api.start()
         wire["outage_s"] = time.perf_counter() - t_kill
         wire["restart_listening_s"] = api.listening_s()
         wire["restart_imports"] = api.imports()
         wire["rv_after_restart"] = raw.list("TPUJob")[1]
-        states = _wait_jobs(server, names, OPERATOR["timeout_s"], watch)
+        states = _wait_jobs(server, names, OPERATOR["timeout_s"], watch,
+                            [srv.recorder for srv, _stop in ops.values()])
         wire["relists"] = _relists(server) - relists
         wire["gang_restarts"] = {n: client.tpujobs().get(n).status.gang_restarts for n in names}
         # (b)'s pod, from the store: made only once (a) had completed
@@ -5701,10 +5808,28 @@ def phase_operator(torch, gpt, fa, root):
         b_pods = states[names[1]][2]
         wire["b_pod_after_a_s"] = (b_pods[0].metadata.creation_timestamp - a_done
                                    if b_pods and a_done else None)
+        # lease threads left once the apiserver is back (both packages' electors
+        # end on a transport error: ROADMAP queue 3)
+        wire["renewers_alive"] = sum(t.name == "lease-renewer" for t in threading.enumerate())
+        # the verbs, as a user reads the jobs, and the new leader's endpoint
+        for srv, _stop in ops.values():
+            srv.recorder.flush()
+        kc = ["--kubeconfig", api.kubeconfig]
+        verbs["get"] = _verb(["get"] + kc)
+        verbs["get_json"] = _verb(["get", names[0], "-o", "json"] + kc)
+        verbs["describe"] = _verb(["describe", names[0]] + kc)
+        verbs["logs"] = _verb(["logs", "--job", names[0]] + kc)
+        port = server.start_metrics_server(0)
+        for path in ("/healthz", "/metrics", f"/events?key=default/{names[0]}"):
+            endpoint[path.split("?")[0]] = _get(port, path)
     finally:
-        if server is not None:
+        resume.set()
+        kubelet_stop.set()
+        for server, stop in ops.values():
             stop.set()
             server.shutdown()
+            for t in server._threads:
+                t.join(10)
         api.stop()
         handle.remove()
         for entry in (tmpl_a.entrypoint, OPERATOR_GANG_ENTRY):
@@ -5719,7 +5844,7 @@ def phase_operator(torch, gpt, fa, root):
     diff = max(abs(a - b) for a, b in zip(losses, direct_losses)) if direct else float("inf")
 
     summary = {"card": card, "phase_s": time.perf_counter() - t_phase, "jobs_s": jobs_s,
-               "wire": wire}
+               "wire": wire, "a_held_s": held.get("s")}
     for key, name in zip("ab", names):
         conds, reasons, pods = states[name]
         rec = runs.get(key, {})
@@ -5734,10 +5859,22 @@ def phase_operator(torch, gpt, fa, root):
             "peak_gib": rec.get("peak_gib"), "launches": rec.get("launches")}
     b_after = wire["b_pod_after_a_s"]
     b_waited = (not pending or max(pending) == 0) and b_after is not None and b_after >= 0
+    before = [(a, b) for over, a, b in leaders if not over]
+    after = [(a, b) for over, a, b in leaders if over]
     summary.update(losses=losses, direct_losses=direct_losses, identical=losses == direct_losses,
                    loss_max_abs_diff=diff, b_waited_podless=b_waited,
-                   b_polled_pending=len(pending))
+                   b_polled_pending=len(pending),
+                   leader_samples={"before": len(before), "after": len(after),
+                                   "both": sum(a and b for a, b in before + after)})
     log(f"operator: {json.dumps(summary)}")
+    # op-a stopped before (a) ended: only op-b's reconciles can have
+    # counted (a)'s success and (b)'s on op-b's registry
+    metrics = endpoint.get("/metrics", (None, None, ""))[2]
+    series = "tpujob_succeeded_total"
+    value = _series(metrics, series)
+    log(f"operator: verbs {json.dumps({k: [rc, len(out)] for k, (rc, out) in verbs.items()})}, "
+        f"endpoint {json.dumps({k: [v[0], v[1], len(v[2])] for k, v in endpoint.items()})}, "
+        f"{series} {value}")
 
     for key, name in zip("ab", names):
         conds, _reasons, pods = states[name]
@@ -5748,11 +5885,20 @@ def phase_operator(torch, gpt, fa, root):
     if states[names[0]][2][0].status.training.get("step") != steps:
         raise AssertionError(f"job {names[0]}'s pod status lacks its progress")
     if wire["gang_restarts"] != dict.fromkeys(names, 0):
-        raise AssertionError(f"the jobs restarted across the apiserver's kill: {wire}")
-    if wire["a_ended_before_kill"]:
-        raise AssertionError("job (a) had ended before the apiserver was killed")
+        raise AssertionError(f"the jobs restarted across the hand-over or the kill: {wire}")
+    if wire["a_ended_before_kill"] or not wire["a_running_at_handover"] or not held.get("ok"):
+        raise AssertionError(f"job (a) was not mid-job at the hand-over and the kill: {wire}, "
+                             f"held {held}")
     if not wire["rv_after_restart"] >= wire["rv_before_kill"]:
         raise AssertionError(f"the restarted apiserver's resource_version went back: {wire}")
+    if wire["failover_s"] is None or wire["failover_s"] > OPERATOR["failover_limit_s"]:
+        raise AssertionError(f"op-b took the lease {wire['failover_s']} s after op-a stopped, "
+                             f"limit {OPERATOR['failover_limit_s']} s")
+    if (not before or any(s != (True, False) for s in before)
+            or any(a and b for a, b in after) or not after or after[-1] != (False, True)):
+        raise AssertionError(f"not one leader at a time: before {before}, after {after}")
+    _check_verbs(verbs, endpoint, names[0], series,
+                 [r for r in summary[names[0]]["reasons"]])
     want = {"a": _flash(fa, 1, layers, steps),
             "b": _flash(fa, 1, GANG_LAYERS, OPERATOR["gang_steps"])}
     for key in "ab":
@@ -5769,6 +5915,54 @@ def phase_operator(torch, gpt, fa, root):
         raise AssertionError(f"the operator phase took {summary['phase_s']:.1f} s, over its "
                              f"{OPERATOR['limit_s']:.0f} s limit")
     return {k: runs["a"]["launches"][k] + runs["b"]["launches"][k] for k in fa.KERNELS}
+
+
+def _series(text, name):
+    """The value of the unlabelled series ``name`` in a Prometheus
+    exposition, or None."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    return None
+
+
+def _check_verbs(verbs, endpoint, name, series, reasons):
+    """The verbs' and the endpoint's outputs for job ``name``, ended
+    ``Succeeded``: ``get`` (table and JSON), ``describe`` listing its event
+    reasons, ``logs --job`` with a header and a tail; ``/healthz``,
+    ``/metrics`` counting both jobs in ``series``, ``/events`` holding its
+    events."""
+    bad = [k for k, (rc, _out) in verbs.items() if rc != 0]
+    rows = [line.split() for line in verbs["get"][1].splitlines()]
+    row = next((r for r in rows if r and r[0] == name), None)
+    if row is None or row[1:3] != ["Succeeded", "0"]:
+        bad.append(f"get: {verbs['get'][1]!r}")
+    wire = json.loads(verbs["get_json"][1])
+    conds = [c["type"] for c in wire[0]["status"]["conditions"] if c["status"]]
+    if conds[-1:] != ["Succeeded"]:
+        bad.append(f"get -o json: {conds}")
+    described = verbs["describe"][1].split("\nEvents:\n")
+    listed = [line.split()[1] for line in described[-1].splitlines()] if len(described) == 2 else []
+    # the operators mirror their events into the cluster best-effort: one
+    # recorded while the apiserver was down may be missing
+    if not {"JobCreated", "JobSucceeded"} <= set(listed) <= set(reasons):
+        bad.append(f"describe lists {listed}, the operators recorded {reasons}")
+    out = verbs["logs"][1].splitlines()
+    header = [i for i, line in enumerate(out) if line.startswith("==> default/")
+              and line.endswith("(Succeeded) <==")]
+    if len(header) != 1 or len(out) <= header[0] + 1:
+        bad.append(f"logs --job: {out[:3]} ... ({len(out)} lines)")
+    if endpoint.get("/healthz", (None,))[:3] != (200, "text/plain", "ok"):
+        bad.append(f"/healthz: {endpoint.get('/healthz')}")
+    code, ctype, metrics = endpoint.get("/metrics", (None, None, ""))
+    if (code, ctype) != (200, "text/plain; version=0.0.4") or not _series(metrics, series) >= 2:
+        bad.append(f"/metrics ({code}, {ctype}): {series} {_series(metrics, series)}, want >= 2")
+    code, _ctype, body = endpoint.get("/events", (None, None, "[]"))
+    evs = json.loads(body)
+    if code != 200 or not evs or {e["key"] for e in evs} != {f"default/{name}"}:
+        bad.append(f"/events?key=default/{name}: {code} {evs[:3]}")
+    if bad:
+        raise AssertionError(f"the verbs or the endpoint: {bad}")
 
 
 def _relists(server):

@@ -49,6 +49,7 @@ from tfk8s_tpu_torch.client import remote as tremote
 from tfk8s_tpu_torch.client import store as tstore
 
 from test_wire_conformance import full_job
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 PACKAGES = {

@@ -24,6 +24,7 @@ import torch
 
 import _torch_gangs as tg
 from test_torch_tensor_parallel import _history, _resumable
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 FSDP_EXPERT = ("gpt_moe", "bert_moe", "t5_moe")
 FSDP_SEQUENCE = ("gpt", "bert63", "t5", "vit", "gpt_ring")

@@ -53,6 +53,7 @@ import _torch_gangs as tg
 from test_torch_tensor_parallel import _history, _resumable
 from _torch_parity import assert_trees_close, numpy_tree
 from test_torch_sequence_parallel import CASES, _case_arrays
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 ATOL = 1e-4
 FSDP_TENSOR = ("gpt", "bert63", "t5", "vit", "mlp")

@@ -31,6 +31,7 @@ from tfk8s_tpu.runtime import LocalKubelet
 from tfk8s_tpu.utils.logging import Metrics
 from tfk8s_tpu_torch.runtime import server as tserver
 from tfk8s_tpu_torch.runtime.agent_replica import AgentReplica
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 PORT_ENTRY = "tfk8s_tpu_torch.runtime.server:serve"
 

@@ -37,6 +37,7 @@ from tfk8s_tpu_torch.runtime.checkpoint import Checkpointer, resolve_directory
 from tfk8s_tpu_torch.runtime.launcher import ProcessContext
 
 from conftest import wait_for
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 FIRST_ATTEMPT_STEPS, FULL_STEPS = 25, 300  # the reference test's
 OBS = {}

@@ -35,6 +35,7 @@ from tfk8s_tpu_torch.models import gpt as tgpt
 from tfk8s_tpu_torch.models.bert import make_chain_tokens
 from tfk8s_tpu_torch.ops import flash_attention as tfa
 from tfk8s_tpu_torch.runtime import train as ttrain
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 SEQ, BATCH, RTOL = 32, 8, 1e-4
 

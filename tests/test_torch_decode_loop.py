@@ -45,6 +45,7 @@ from tfk8s_tpu_torch.runtime.server import (
     ServeError,
 )
 from tfk8s_tpu_torch.utils.logging import Metrics
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 # the reference's overflow case: page 16, chunk 32, 16 pages, 2 slots
 OVERFLOW = dict(slots=2, page_size=16, max_pages=16, gen_tokens=4, prefill_chunk=32)

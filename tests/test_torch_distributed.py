@@ -49,6 +49,7 @@ from tfk8s_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 from tfk8s_tpu_torch.runtime import launcher, pod_ranks
 from tfk8s_tpu_torch.runtime import train as ttrain
 from tfk8s_tpu_torch.runtime.launcher import ProcessContext, initialize_distributed
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GANG_TIMEOUT = 120

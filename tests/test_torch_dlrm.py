@@ -31,6 +31,7 @@ from tfk8s_tpu_torch.models import dlrm as tdlrm
 from tfk8s_tpu_torch.parallel.collectives import vocab_parallel_lookup
 
 from _torch_parity import assert_trees_equal, flat, numpy_tree, trajectories
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 VOCAB, EMBED, DENSE, BATCH = (101, 64, 37), 16, 13, 32
 LOGIT_ATOL, LOSS_ATOL, GRAD_REL, NORM_RTOL = 2e-2, 1e-2, 5e-2, 5e-2

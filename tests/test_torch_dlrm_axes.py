@@ -30,6 +30,7 @@ import torch
 
 import _torch_gangs as tg
 from test_torch_tensor_parallel import BF16_GRAD_RTOL, BF16_LOSS_ATOL, _history
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 LAYOUTS = {"fsdp_tensor": {"fsdp": 2, "tensor": 2},
            "expert_tensor": {"expert": 2, "tensor": 2},

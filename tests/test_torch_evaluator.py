@@ -51,6 +51,7 @@ from tfk8s_tpu_torch.runtime import train as ttrain
 from tfk8s_tpu_torch.runtime.checkpoint import Checkpointer
 
 from conftest import wait_for
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 ATOL = 1e-4
 FINAL = 5

@@ -42,6 +42,7 @@ from tfk8s_tpu_torch.runtime import server as tserver
 from tfk8s_tpu_torch.runtime.paging import PageAllocator
 from tfk8s_tpu_torch.runtime.server import PagedGptDecoder, ReplicaUnavailable, RowFault
 from tfk8s_tpu_torch.utils.logging import Metrics
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 
 class TestQuarantine:

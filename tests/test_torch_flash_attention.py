@@ -25,6 +25,7 @@ from tfk8s_tpu.ops.flash_attention import (
 )
 from tfk8s_tpu_torch.models.transformer import dot_product_attention as torch_dpa
 from tfk8s_tpu_torch.ops import flash_attention as tfa
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 OUT_ATOL, GRAD_ATOL = 1e-5, 1e-4
 BLOCK = 16  # Pallas blocks for the interpret-mode reference

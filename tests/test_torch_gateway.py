@@ -47,6 +47,7 @@ from tfk8s_tpu_torch.runtime import server as tserver
 from tfk8s_tpu_torch.runtime.agent_replica import AgentReplica
 
 from conftest import wait_for
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 PORT_ENTRY = "tfk8s_tpu_torch.runtime.server:serve"
 

@@ -41,10 +41,12 @@ from tfk8s_tpu_torch.cmd.options import Options
 from tfk8s_tpu_torch.cmd.server import Server
 from tfk8s_tpu_torch.gateway import GatewayClient, GatewayServer
 from tfk8s_tpu_torch.obs import trace as obstrace
+from tfk8s_tpu_torch.runtime import node_agent
 from tfk8s_tpu_torch.runtime import server as serving
 from tfk8s_tpu_torch.trainer import labels as L
 
 from conftest import wait_for
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 PORT_SERVE = "tfk8s_tpu_torch.runtime.server:serve"
 GPT_PAYLOADS = [
@@ -257,7 +259,8 @@ def test_a_crash_mid_flight_reroutes_and_a_spent_budget_names_the_replicas(plane
         rep.submit = lambda payload, _k=key, _s=submit, **kw: (held.append(_k), _s(payload, **kw))[1]
     client = GatewayClient(gw.url, "chaos-gw")
     out = {}
-    t = threading.Thread(target=lambda: out.update(r=client.request(7.0, timeout=20)))
+    t = threading.Thread(target=lambda: out.update(r=client.request(7.0, timeout=20)),
+                         daemon=True)
     t.start()
     assert wait_for(lambda: held, timeout=10, interval=0.005)
     victim = held[0]
@@ -371,6 +374,10 @@ def test_a_disaggregated_serve_gives_the_single_pool_tokens(plane):
 
 @pytest.fixture
 def tracer():
+    # while a port pod runs under the reference's kubelet anywhere in this
+    # process (the reference plane's replica, draining), get_tracer() is the
+    # reference's; the trace below must go to the port's own
+    assert wait_for(lambda: node_agent.tracer_agent() is None, timeout=30)
     t = obstrace.Tracer(sampler=obstrace.TailSampler(keep_probability=1.0))
     prev = obstrace.set_tracer(t)
     yield t

@@ -47,6 +47,7 @@ import tfk8s_tpu_torch.runtime.paging as t_paging
 import tfk8s_tpu_torch.runtime.server as t_server
 import tfk8s_tpu_torch.trainer.serve_controller as t_sc
 import tfk8s_tpu_torch.utils.logging as t_logging
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 
 def _pkg(types_, ratelimit, store, admission, affinity, client, health, router, gwserver,

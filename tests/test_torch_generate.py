@@ -25,6 +25,7 @@ from tfk8s_tpu.parallel.sharding import unbox
 from tfk8s_tpu_torch import bridge
 from tfk8s_tpu_torch.models import gpt as tgpt
 from tfk8s_tpu_torch.models.transformer import decode_attention
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 CACHE_ATOL, LOGIT_ATOL, SCORE_ATOL = 1e-5, 1e-4, 1e-5
 MAX_LEN = 64

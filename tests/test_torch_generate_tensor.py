@@ -32,6 +32,7 @@ from tfk8s_tpu_torch.models import t5 as tt5
 from tfk8s_tpu_torch.models.transformer import init_params
 
 import _torch_gangs as tg
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 BATCH, PROMPT, TOKENS = 4, 12, 6
 SCORE_ATOL = CACHE_ATOL = 1e-5

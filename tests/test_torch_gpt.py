@@ -18,6 +18,7 @@ from tfk8s_tpu.parallel.sharding import unbox
 from tfk8s_tpu_torch import bridge
 from tfk8s_tpu_torch.models import gpt as tgpt
 from tfk8s_tpu_torch.ops import flash_attention as tfa
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 ATOL = 1e-4
 SEQ, BATCH = 16, 2

@@ -21,6 +21,7 @@ import torch
 
 from tfk8s_tpu.ops.group_norm import fused_group_norm_interpret, reference_group_norm
 from tfk8s_tpu_torch.ops import group_norm as tgn
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 OUT_ATOL, GRAD_ATOL = 1e-5, 1e-4
 BF16_STEP = 2.0 ** -7

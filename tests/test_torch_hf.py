@@ -10,6 +10,7 @@ HF runs to the same logits and that imports back exactly.
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 transformers = pytest.importorskip("transformers")
 

@@ -35,6 +35,7 @@ from tfk8s_tpu_torch.models import resnet as tresnet
 from tfk8s_tpu_torch.models import vit as tvit
 from tfk8s_tpu_torch.runtime import train as ttrain
 from tfk8s_tpu_torch.runtime.checkpoint import Checkpointer
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 RTOL, EVAL_ATOL = 1e-4, 1e-4
 CLASSES, IMAGE, PATCH, BATCH, STEPS = 8, 16, 4, 8, 3

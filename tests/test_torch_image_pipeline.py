@@ -59,6 +59,7 @@ from tfk8s_tpu_torch.data.images.transforms import (
     train_crop_params,
 )
 from tfk8s_tpu_torch.utils.logging import Metrics
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -8,12 +8,14 @@ module of ``tfk8s_tpu_torch`` and ``chip_smoke.py``. The finder matches
 catch ``tfk8s_tpu_torch``.
 """
 
+import json
 import os
 import re
 import subprocess
 import sys
 
 import pytest
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "tfk8s_tpu_torch")
@@ -152,19 +154,58 @@ def test_the_gateway_and_the_operator_serve_with_jax_blocked():
     assert proc.stdout.split()[-1] == "served"
 
 
-@pytest.mark.parametrize("verb,flag", [("apiserver", "--journal-dir"), ("kubelet", "--kubeconfig")])
-def test_the_process_verbs_start_with_jax_blocked(verb, flag):
-    """``python -m tfk8s_tpu_torch.cmd.main apiserver|kubelet --help``
-    parses and exits 0 with JAX and the reference unimportable."""
+def test_the_apiserver_verb_imports_no_torch():
+    """The ``apiserver`` verb's modules need none of torch: the ``cmd``
+    package imports its ``Server`` (and with it torch) on first use."""
     code = _BLOCK + (
-        "import runpy\n"
-        f"sys.argv = ['tfk8s_tpu_torch.cmd.main', {verb!r}, '--help']\n"
-        "try:\n"
-        "    runpy.run_module('tfk8s_tpu_torch.cmd.main', run_name='__main__')\n"
-        "except SystemExit as e:\n"
-        "    assert not [m for m in sys.modules if forbidden(m)]\n"
-        "    raise\n")
+        "import tfk8s_tpu_torch.cmd.main, tfk8s_tpu_torch.client.apiserver\n"
+        "import tfk8s_tpu_torch.client.remote, tfk8s_tpu_torch.client.tlsutil\n"
+        "assert 'torch' not in sys.modules\n"
+        "from tfk8s_tpu_torch.cmd import Server\n"
+        "assert Server.__module__ == 'tfk8s_tpu_torch.cmd.server' and 'torch' in sys.modules\n"
+        "print('ok')\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert f"usage: tfk8s-tpu-torch {verb}" in proc.stdout
-    assert flag in proc.stdout
+    assert proc.stdout.split()[-1] == "ok"
+
+
+VERBS = [("apiserver", "--journal-dir"), ("kubelet", "--kubeconfig"),
+         ("operator --leader-elect", "--lease-duration"), ("operator", "--metrics-port"),
+         ("submit", "--file"), ("get", "--watch-timeout"), ("patch", "--subresource"),
+         ("describe", "--kind"), ("delete", "--kind"), ("logs", "--follow-timeout"),
+         ("scale", "--replica-type"), ("apply", "--file"), ("suspend", "--namespace"),
+         ("resume", "--namespace")]
+
+_HELPS = _BLOCK + r'''
+import contextlib, io, json, runpy
+out = {}
+for verb, _flag in VERBS:
+    buf = io.StringIO()
+    sys.argv = ['tfk8s_tpu_torch.cmd.main'] + verb.split() + ['--help']
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_module('tfk8s_tpu_torch.cmd.main', run_name='__main__')
+    except SystemExit as e:
+        out[verb] = (e.code, buf.getvalue(), sorted(m for m in sys.modules if forbidden(m)))
+print(json.dumps(out))
+'''
+
+
+@pytest.fixture(scope="module")
+def helps():
+    """Every verb's ``--help`` in one process with JAX and the reference
+    unimportable: {verb: (exit code, stdout, forbidden modules loaded)}."""
+    proc = _run(f"VERBS = {VERBS!r}\n" + _HELPS)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
+@pytest.mark.parametrize("verb,flag", VERBS)
+def test_the_process_verbs_start_with_jax_blocked(verb, flag, helps):
+    """``python -m tfk8s_tpu_torch.cmd.main <verb> --help`` parses and exits
+    0 with JAX and the reference unimportable: the process verbs, the
+    operator behind a lease, and the kubectl-like verbs."""
+    code, stdout, leaked = helps[verb]
+    assert (code, leaked) == (0, [])
+    assert f"usage: tfk8s-tpu-torch {verb.split()[0]}" in stdout
+    assert flag in stdout

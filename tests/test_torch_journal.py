@@ -22,6 +22,7 @@ from tfk8s_tpu_torch.api import frozen as tfrozen
 from tfk8s_tpu_torch.api import serde as tserde
 from tfk8s_tpu_torch.api import types as ttypes
 from tfk8s_tpu_torch.client import store as tstore
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 PACKAGES = {
     "reference": types.SimpleNamespace(t=rtypes, s=rstore, thaw=rfrozen.thaw, serde=rserde),
@@ -216,7 +217,7 @@ def test_forced_compaction_bounds_wal_under_overlapping_commits(P, tmp_path):
         orig_append(line)
 
     seg.append = gated_append
-    t = threading.Thread(target=s.create, args=(make_pod(P, "p1"),))
+    t = threading.Thread(target=s.create, args=(make_pod(P, "p1"),), daemon=True)
     t.start()
     assert entered.wait(10)
 
@@ -229,7 +230,7 @@ def test_forced_compaction_bounds_wal_under_overlapping_commits(P, tmp_path):
 
     stalled_done = threading.Event()
     t2 = threading.Thread(
-        target=lambda: (s.create(make_job(P, "stalled")), stalled_done.set()))
+        target=lambda: (s.create(make_job(P, "stalled")), stalled_done.set()), daemon=True)
     t2.start()
     assert not stalled_done.wait(0.3)
 

@@ -30,6 +30,7 @@ import torch
 from tfk8s_tpu_torch.ops import block_copy as tbc
 from tfk8s_tpu_torch.ops import flash_attention as tfa
 from tfk8s_tpu_torch.ops import group_norm as tgn
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 OUT_ATOL, GRAD_ATOL = 1e-5, 1e-4
 BF16_TOL = dict(atol=2e-2, rtol=2 ** -7)

@@ -35,6 +35,7 @@ from _torch_serving import (
     tokens,
 )
 from tfk8s_tpu.api.types import KVTierPolicy
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 PEER_FETCH = "tfk8s_serving_kv_peer_fetches_total"
 

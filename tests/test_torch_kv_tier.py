@@ -26,6 +26,7 @@ from _torch_serving import PAGE, jax_exec, port_exec, tokens
 from tfk8s_tpu_torch.runtime import kvtier as tkvtier
 from tfk8s_tpu_torch.runtime.handoff import HandoffError, KVHandoffBuffer
 from tfk8s_tpu_torch.runtime.paging import prefix_digest_chain
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 
 def _port_exec(max_pages=64, **kw):

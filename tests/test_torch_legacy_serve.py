@@ -40,6 +40,7 @@ from tfk8s_tpu_torch.runtime.server import (
     ServedModel,
 )
 from tfk8s_tpu_torch.utils.logging import Metrics
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 
 class RecordingModel(ServedModel):

@@ -20,6 +20,7 @@ import torch
 
 import _torch_gangs as tg
 from test_torch_tensor_parallel import _history
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 MESHES = {"data": {"data": 2}, "fsdp": {"fsdp": 2}, "hsdp": {"data": 2, "fsdp": 2}}
 FAMILIES = ("bert", "t5")

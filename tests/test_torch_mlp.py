@@ -36,6 +36,7 @@ from tfk8s_tpu_torch.models import mlp as tmlp
 from tfk8s_tpu_torch.runtime import train as ttrain
 
 from conftest import wait_for
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 ATOL = 1e-4
 

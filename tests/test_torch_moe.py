@@ -42,6 +42,7 @@ from tfk8s_tpu_torch.models.transformer import MlpBlock, apply_with_aux
 from tfk8s_tpu_torch.parallel import moe as tmoe
 
 from _torch_parity import assert_trees_close, numpy_tree, trajectories
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 ATOL, RTOL = 1e-4, 1e-4
 BLOCK_ATOL = 1e-5

@@ -29,6 +29,7 @@ from tfk8s_tpu_torch.runtime.launcher import ProcessContext
 
 from test_torch_distributed import _lines
 from test_torch_pipeline import _gang
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 RTOL = 1e-5  # a gang against one process, the reference's bound
 STEPS = 3

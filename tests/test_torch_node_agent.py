@@ -42,6 +42,7 @@ from tfk8s_tpu_torch.runtime import train as ttrain
 from tfk8s_tpu_torch.runtime.checkpoint import Checkpointer
 
 from conftest import wait_for
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 ENTRY = "tfk8s_tpu_torch.models.gpt:train"
 

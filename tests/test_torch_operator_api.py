@@ -51,6 +51,7 @@ from tfk8s_tpu_torch.trainer.gang import SliceAllocator
 from tfk8s_tpu_torch.utils import topology as ttopo
 
 from conftest import wait_for
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = os.path.join(REPO, "manifests", "examples")
@@ -367,7 +368,7 @@ def test_a_port_replica_registers_once_in_its_own_table():
     assert node_agent.serving_module(stop) is None
     env = {"TFK8S_DEVICE": "cpu", "TFK8S_SERVE_TASK": "echo", "TFK8S_POD_NAME": "echo-0"}
     done = []
-    t = threading.Thread(target=lambda: done.append(server.serve(env, stop)))
+    t = threading.Thread(target=lambda: done.append(server.serve(env, stop)), daemon=True)
     t.start()
     try:
         assert wait_for(lambda: server.lookup_replica("default/echo-0") is not None, timeout=30)

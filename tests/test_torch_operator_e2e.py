@@ -51,6 +51,7 @@ from tfk8s_tpu_torch.trainer import replicas as R
 
 from conftest import wait_for
 from test_torch_imports import _BLOCK
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PLANES = {

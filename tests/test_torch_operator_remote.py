@@ -10,7 +10,8 @@
     and the reference package unimportable (``tests/test_torch_imports.py``'s
     finder): ``apiserver`` with a journal, ``operator --no-local-kubelet``
     and ``kubelet``. An MLP TPUJob on ``cpu-1`` with ``backoffLimit: 0`` is
-    submitted over the wire; the apiserver is killed with SIGKILL while the
+    submitted over the wire with the port's ``submit`` verb (``cmd.main.main``
+    in this process); the apiserver is killed with SIGKILL while the
     pod runs and restarted on the same port from its journal; the job ends
     ``Succeeded`` with no restart.
 """
@@ -32,6 +33,7 @@ from tfk8s_tpu_torch.api import serde as tserde
 from tfk8s_tpu_torch.client.apiserver import APIServer
 from tfk8s_tpu_torch.client.remote import clientset_from_kubeconfig
 from tfk8s_tpu_torch.client.store import ClusterStore
+from tfk8s_tpu_torch.cmd.main import main as tmain
 from tfk8s_tpu_torch.cmd.options import Options
 from tfk8s_tpu_torch.cmd.server import Server
 from tfk8s_tpu_torch.models import mlp
@@ -41,6 +43,7 @@ from tfk8s_tpu_torch.trainer import labels as L
 from conftest import wait_for
 from test_torch_imports import _BLOCK
 from test_torch_operator_e2e import _stripped_pod
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MLP_ENV = {"TFK8S_DEVICE": "cpu", "TFK8S_LOG_EVERY": "100"}
@@ -175,8 +178,10 @@ def test_a_job_survives_a_kill_9_of_the_apiserver_across_three_processes(tmp_pat
                               "--workers", "2"], logs["op"])
         procs["kl"] = _start(["kubelet", "--kubeconfig", kc, "--name", "node-0"], logs["kl"])
         cs = clientset_from_kubeconfig(kc)
-        cs.tpujobs().create(make_job("mnist", "tfk8s_tpu_torch.models.mlp:train", MLP_ENV,
-                                     backoff_limit=0))
+        manifest = tmp_path / "mnist.json"
+        manifest.write_text(json.dumps(tserde.to_wire(make_job(
+            "mnist", "tfk8s_tpu_torch.models.mlp:train", MLP_ENV, backoff_limit=0))))
+        assert tmain(["submit", "--kubeconfig", kc, "--file", str(manifest)]) == 0
 
         def pod_phase():
             pods, _ = cs.pods().list(label_selector={L.JOB_NAME: "mnist"})

@@ -26,6 +26,7 @@ from tfk8s_tpu.parallel.sharding import unbox
 from tfk8s_tpu_torch import bridge
 from tfk8s_tpu_torch.models import gpt as tgpt
 from tfk8s_tpu_torch.models import transformer as ttr
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 POOL_ATOL = 1e-5
 LOGIT_ATOL = 1e-4

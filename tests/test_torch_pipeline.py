@@ -60,6 +60,7 @@ from tfk8s_tpu_torch.runtime.checkpoint import Checkpointer
 
 from _torch_parity import assert_trees_close, numpy_tree
 from test_torch_distributed import _free_port, _lines
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GANG_TIMEOUT = 150

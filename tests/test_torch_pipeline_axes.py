@@ -55,6 +55,7 @@ from tfk8s_tpu_torch.runtime.checkpoint import Checkpointer
 import _torch_gangs as tg
 from _torch_parity import numpy_tree
 from test_torch_tensor_parallel import _history, _resumable
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 LAYOUTS = {"pipeline_tensor": {"pipeline": 2, "tensor": 2},
            "pipeline_fsdp": {"pipeline": 2, "fsdp": 2},

@@ -55,6 +55,7 @@ from tfk8s_tpu_torch.runtime import train as ttrain
 import _torch_pod_entry as entry
 from conftest import wait_for
 from test_torch_pod_ranks import ATOL, CPU, RTOL, STEPS, _gone, _joined, _run_all, _trajectory
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -49,6 +49,7 @@ from tfk8s_tpu_torch.runtime import pod_ranks
 from tfk8s_tpu_torch.runtime import train as ttrain
 
 import _torch_pod_entry as entry
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTS = os.path.join(REPO, "tests")
@@ -85,7 +86,8 @@ def _run_all(runs):
             value = e
         out[name] = (value, pod_ranks.last_run())
 
-    out["_threads"] = [threading.Thread(target=one, args=item) for item in runs.items()]
+    out["_threads"] = [threading.Thread(target=one, args=item, daemon=True)
+                       for item in runs.items()]
     for t in out["_threads"]:
         t.start()
     return out
@@ -128,7 +130,7 @@ def _two_pods():
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.wait()
+                p.wait(30)
     histories = []
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out[-4000:]

@@ -42,6 +42,7 @@ from tfk8s_tpu_torch.models import resnet as tres
 from tfk8s_tpu_torch.ops import group_norm as tgn
 from tfk8s_tpu_torch.parallel.mesh import MeshConfig
 from tfk8s_tpu_torch.runtime import train as ttrain
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 PAD_ATOL = 1e-5
 LOGIT_ATOL, LOSS_ATOL, GRAD_REL = 2e-2, 1e-2, 5e-2

@@ -12,6 +12,7 @@ import torch
 
 from tfk8s_tpu_torch.ops import block_copy as tbc
 from tfk8s_tpu_torch.tools import roofline
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 PROBES = ("matmul_tflops", "stream_bf16_gbps", "stream_f32_gbps", "copy_gbps",
           "resnet_fwd_ms", "resnet_gn_ablated_step_ms", "resnet_step_ms")

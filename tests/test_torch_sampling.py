@@ -18,6 +18,7 @@ import torch
 from tfk8s_tpu.models import gpt as jgpt
 from tfk8s_tpu_torch.models import gpt as tgpt
 from tfk8s_tpu_torch.ops import jax_random as jr
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 
 def _pairs(n, seed):

@@ -52,6 +52,7 @@ from tfk8s_tpu_torch.parallel.mesh import Mesh, MeshConfig
 from tfk8s_tpu_torch.runtime import train as ttrain
 
 from test_torch_distributed import _free_port, _lines
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GANG_TIMEOUT = 150

@@ -41,6 +41,7 @@ from tfk8s_tpu_torch.runtime.checkpoint import Checkpointer
 from tfk8s_tpu_torch.utils.logging import Metrics as TMetrics
 
 from conftest import wait_for
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 SLOTS, PAGE, PAGES, CHUNK = 4, 8, 64, 16
 VERSION = "seed:0"
@@ -88,7 +89,8 @@ def _requests(n, seed=0):
 
 def _serve_all(loop, payloads):
     with ThreadPoolExecutor(len(payloads)) as ex:
-        return [f.result() for f in [ex.submit(loop.submit, p, 120) for p in payloads]]
+        return [f.result(timeout=180)
+                for f in [ex.submit(loop.submit, p, 120) for p in payloads]]
 
 
 def test_executor_streams_equal_the_reference_executor(decoders):

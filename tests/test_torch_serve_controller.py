@@ -34,6 +34,7 @@ from tfk8s_tpu_torch.client import FakeClientset as TFakeClientset
 from tfk8s_tpu_torch.trainer import labels as L
 
 from conftest import wait_for
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 PORT_SERVE = "tfk8s_tpu_torch.runtime.server:serve"
 PLANES = {

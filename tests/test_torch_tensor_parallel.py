@@ -52,6 +52,7 @@ from tfk8s_tpu_torch.runtime import train as ttrain
 from _torch_parity import assert_trees_close, numpy_tree
 from test_torch_distributed import _lines
 from test_torch_sequence_parallel import _gang
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL, ATOL = 1e-5, 1e-4

@@ -22,6 +22,7 @@ import threading
 import types
 
 import pytest
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 pytest.importorskip("cryptography")
 

@@ -41,6 +41,7 @@ from tfk8s_tpu_torch.data.recordio import RecordFile
 from tfk8s_tpu_torch.models import gpt as tgpt
 from tfk8s_tpu_torch.runtime import train as ttrain
 from tfk8s_tpu_torch.runtime.checkpoint import Checkpointer
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-4
@@ -156,7 +157,8 @@ def _cli(tok, corpus, tmp):
         [sys.executable, "-m", corpus.__name__, "--input", str(cdir / "*.txt"),
          "--out-dir", str(tmp / "shards"), "--seq-len", "33", "--vocab-size", "400",
          "--num-shards", "2", "--tokenizer-dir", str(tmp / "tok")],
-        capture_output=True, text=True, cwd=REPO, env={**os.environ, "JAX_PLATFORMS": "cpu"})
+        capture_output=True, text=True, cwd=REPO, env={**os.environ, "JAX_PLATFORMS": "cpu"},
+        timeout=180)
     assert out.returncode == 0, out.stderr
     shards = sorted((tmp / "shards").glob("part-*.rio"))
     assert len(shards) == 2

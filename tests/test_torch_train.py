@@ -28,6 +28,7 @@ from tfk8s_tpu_torch.ops import flash_attention as tfa
 from tfk8s_tpu_torch.parallel.mesh import MeshConfig
 from tfk8s_tpu_torch.runtime import train as ttrain
 from tfk8s_tpu_torch.runtime.checkpoint import Checkpointer
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 SEQ, BATCH, STEPS = 16, 4, 3
 RTOL = 1e-4

@@ -40,6 +40,7 @@ from tfk8s_tpu_torch.models import mlp as tmlp
 from tfk8s_tpu_torch.runtime import train as ttrain
 from tfk8s_tpu_torch.runtime.checkpoint import Checkpointer
 from tfk8s_tpu_torch.runtime.launcher import ProcessContext
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-4  # the port against the reference Trainer

@@ -31,6 +31,7 @@ from tfk8s_tpu_torch.models import vit as tvit
 from tfk8s_tpu_torch.ops import flash_attention as tfa
 
 from _torch_parity import assert_trees_close, assert_trees_equal, numpy_tree, trajectories
+import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 ATOL, RTOL = 1e-4, 1e-4
 CLASSES, PATCH, BATCH = 8, 4, 2
