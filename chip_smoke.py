@@ -451,7 +451,34 @@ must pass:
    pod's env in this process: identical, or within OPERATOR["loss_atol"].
    It prints the phase's seconds, each job's submission to first update,
    wall time (the hold at its first update included, and printed apart)
-   and peak memory.
+   and peak memory. Then, on op-b (``_operator_priority``), two more
+   ``h100-1`` jobs sent with ``submit``, each ``pod_entry`` at GANG_LAYERS
+   depth (GPT-2-small widths, seq 1024, batch 8, bf16, flash): (c)
+   ``gpt-h100-low`` at ``scheduling.priority`` 1 with a checkpoint
+   directory, ``TFK8S_CHECKPOINT_EVERY`` OPERATOR["ckpt_every"] and
+   OPERATOR["low_steps"] steps, held at its OPERATOR["preempt_at"]th update
+   (an optimizer post-hook) until its pod's stop signal is set; (d)
+   ``gpt-h100-high`` at priority 10 for OPERATOR["high_steps"] steps,
+   submitted while (c) is held. (d) must take the host and succeed, (c)'s
+   pod end (its phase printed: ``deleted`` once gone from the store) with
+   ``preemptions`` 1 and ``gang_restarts`` 0, ``Preempted`` on (c) and
+   ``PreemptedOther`` on (d); (c) must come back rendered with
+   ``TFK8S_GANG_RESTARTS=1`` and its first step be one past the checkpoint
+   its last run ended at (not 0). Held again at its
+   OPERATOR["suspend_after"]th update, (c) is parked by the ``suspend``
+   verb (``Suspended``, no live pod, ``preemptions`` 2, ``JobSuspended``),
+   then the ``resume`` verb brings it back (``TFK8S_GANG_RESTARTS=2``) from
+   its checkpoint to ``Succeeded`` at its last step. Each run of (c) must
+   start after its predecessor's entry point has ended (the port's kubelet
+   holds a pod recreated under a live pod's name until that pod's thread
+   ends, so the resumed run restores the final save). The first loss of
+   each resumed run must lie within OPERATOR["loss_atol"] of a direct
+   ``pod_entry`` call on its env from a copy of the checkpoint it found,
+   and (c)'s and (d)'s flash launches must be GANG_LAYERS x the steps all
+   their runs took. It prints (d)'s submission to (c)'s stop signal, to
+   (c)'s pod's end and to (d)'s first update, each resume to (c)'s next
+   first update, (d)'s entry after (c)'s preempted run ended, and every
+   run's checkpoint step, steps, first loss and seconds.
 25. gateway: the port's serving control plane and front door in this
    process: ``Server`` with one ``h100-1`` host and ``gateway_port`` set
    (the TPUServe controller, the local kubelet and ``GatewayServer`` over
@@ -503,6 +530,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -5435,9 +5463,14 @@ def _pod_nccl(torch, fa, root, cards):
 # GANG_LAYERS depth, is submitted while (a) runs and must wait for its host
 OPERATOR = dict(manifest=os.path.join("manifests", "examples", "gpt-h100-torch.json"),
                 gang_steps=3, timeout_s=300.0, limit_s=90.0, loss_atol=2e-2,
-                apiserver_start_s=60.0, lease_s=8.0, failover_limit_s=8.0, hold_s=60.0)
+                apiserver_start_s=60.0, lease_s=8.0, failover_limit_s=8.0, hold_s=60.0,
+                low_steps=12, high_steps=4, preempt_at=4, suspend_after=2, ckpt_every=2)
 # job (b)'s entry point, a name the phase registers for pod_entry
 OPERATOR_GANG_ENTRY = "chip_smoke.operator_gang"
+# jobs (c) and (d): (c) at priority 1 is preempted by (d) at priority 10,
+# then suspended and resumed; both pod_entry at GANG_LAYERS depth
+OPERATOR_LOW = ("gpt-h100-low", "chip_smoke.operator_low", 1)
+OPERATOR_HIGH = ("gpt-h100-high", "chip_smoke.operator_high", 10)
 
 
 def _operator_server(capacity, kubeconfig="", **opts):
@@ -5446,7 +5479,6 @@ def _operator_server(capacity, kubeconfig="", **opts):
     ``capacity``, TPUJob controller and local kubelet, started, with
     ``opts`` further ``Options`` (a lease, no local kubelet); (server, its
     stop event)."""
-    import threading
 
     from tfk8s_tpu_torch.cmd.options import Options
     from tfk8s_tpu_torch.cmd.server import Server
@@ -5592,28 +5624,65 @@ def _wait_jobs(server, names, timeout_s, each=None, recorders=None):
         time.sleep(0.05)
 
 
-def _recorded(torch, fa, runs, name, fn):
-    """An entry point that runs ``fn(env, stop)`` and keeps in
-    ``runs[name]`` its env, history, start and end, its flash launches and
-    its peak device memory (jobs on one card never overlap, so the
-    process's counters, set to 0 just before ``fn``, are the job's)."""
-    import threading
+# the record of the _recorded run on this thread, which _update_hook reads
+_RUN = threading.local()
+
+
+def _recorded(torch, fa, runs, name, fn, extra=None):
+    """An entry point that runs ``fn(env, stop)`` and appends to
+    ``runs[name]`` one record per run: its index, env, stop signal, entry
+    into the wrapper, start and end, history, finished updates, peak device memory and the flash
+    launches made in the process while it ran (its own while no other
+    job's pod runs on the card). ``extra(rec)``, called before the start,
+    adds fields: ``hold_at`` and ``hold`` make ``_update_hook`` wait on the
+    event ``hold`` after that many updates."""
 
     def run(env, stop):
+        entered = time.perf_counter()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        rec = runs[name] = {"thread": threading.get_ident(), "env": dict(env),
-                            "start": time.perf_counter()}
-        fa.reset_launches()
-        rec["history"] = fn(env, stop)
-        launches = dict(fa.LAUNCHES)
-        torch.cuda.synchronize()
-        rec["end"] = time.perf_counter()
-        rec["launches"] = {k: launches[k] for k in fa.KERNELS}
-        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        rec = {"index": len(runs[name]), "thread": threading.get_ident(), "env": dict(env),
+               "stop": stop, "updates": 0, "entered": entered}
+        if extra is not None:
+            extra(rec)
+        rec["start"] = time.perf_counter()
+        before = dict(fa.LAUNCHES)
+        runs[name].append(rec)
+        _RUN.rec = rec
+        try:
+            rec["history"] = fn(env, stop)
+        finally:
+            _RUN.rec = None
+            torch.cuda.synchronize()
+            rec["end"] = time.perf_counter()
+            rec["launches"] = {k: fa.LAUNCHES[k] - before[k] for k in fa.KERNELS}
+            rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         return rec["history"]
 
     return run
+
+
+def _update_hook(torch):
+    """An optimizer post-step hook for ``_recorded`` runs: it counts the
+    run's finished updates, stamps the first, and at update ``hold_at``
+    waits on the run's ``hold`` event (``OPERATOR["hold_s"]`` at most). The
+    step torch's state-dict loader takes at lr 0 to build a resumed run's
+    optimizer state is no update."""
+
+    def hook(opt, args, kwargs):
+        rec = getattr(_RUN, "rec", None)
+        if rec is None or all(float(g.get("lr", 1.0)) == 0.0 for g in opt.param_groups):
+            return
+        rec["updates"] += 1
+        if rec["updates"] == 1:
+            torch.cuda.synchronize()
+            rec["first_step"] = time.perf_counter()
+        if rec["updates"] == rec.get("hold_at"):
+            rec["held"] = time.perf_counter()
+            rec["hold_seen"] = rec["hold"].wait(OPERATOR["hold_s"])
+            rec["stopped"] = time.perf_counter()
+
+    return hook
 
 
 def _verb(argv):
@@ -5638,14 +5707,226 @@ def _get(port, path):
         return resp.status, resp.headers.get("Content-Type"), resp.read().decode()
 
 
+def _copy_checkpoint(src, step, dst):
+    """Checkpoint ``step`` of directory ``src`` (its state and its commit
+    marker) alone in a new directory ``dst``."""
+    from tfk8s_tpu_torch.runtime.checkpoint import _COMMITS_DIRNAME
+
+    shutil.copytree(os.path.join(src, str(step)), os.path.join(dst, str(step)))
+    os.makedirs(os.path.join(dst, _COMMITS_DIRNAME))
+    shutil.copy(os.path.join(src, _COMMITS_DIRNAME, str(step)),
+                os.path.join(dst, _COMMITS_DIRNAME, str(step)))
+
+
+def _operator_priority(torch, fa, server, kubeconfig, work):
+    """Jobs (c) and (d) of phase operator on ``server``, the leader after
+    the hand-over and the kill (docstring phase 24): (c) is preempted by
+    (d), resumes from its checkpoint, is suspended and resumed through the
+    verbs and succeeds. Each pod run of either job is one ``_recorded``
+    record, with the checkpoint step it found; ``_update_hook`` counts its
+    updates. Returns (the summary, the two jobs' flash launches)."""
+    from tfk8s_tpu_torch.api import helpers, serde
+    from tfk8s_tpu_torch.api.types import (ContainerSpec, JobConditionType, ObjectMeta,
+                                           ReplicaSpec, ReplicaType, RunPolicy,
+                                           SchedulingPolicy, TPUJob, TPUJobSpec, TPUSpec)
+    from tfk8s_tpu_torch.client.remote import clientset_from_kubeconfig
+    from tfk8s_tpu_torch.runtime import registry
+    from tfk8s_tpu_torch.runtime.checkpoint import Checkpointer
+    from tfk8s_tpu_torch.trainer import labels as L
+    from tfk8s_tpu_torch.trainer.replicas import CHECKPOINT_DIR_ANNOTATION
+
+    cfg = OPERATOR
+    low, high = OPERATOR_LOW[0], OPERATOR_HIGH[0]
+    ckpt_dir = os.path.join(work, "low-ckpt")
+    runs = {low: [], high: []}
+    # (c)'s first run waits after update preempt_at, its second after
+    # suspend_after, each until its pod's stop signal is set
+    holds = {(low, 0): cfg["preempt_at"], (low, 1): cfg["suspend_after"]}
+
+    def probe(name):
+        def extra(rec):  # the checkpoint a run finds, copied for the direct call
+            ckpt = Checkpointer(rec["env"].get("TFK8S_CHECKPOINT_DIR", ""))
+            at = rec["ckpt_step_at_start"] = ckpt.latest_step() if ckpt.enabled else None
+            ckpt.close()
+            if (name, rec["index"]) in holds:
+                rec["hold_at"], rec["hold"] = holds[name, rec["index"]], rec["stop"]
+            if at:
+                rec["ckpt_copy"] = os.path.join(work, f"{name}-resume-{rec['index']}")
+                _copy_checkpoint(ckpt_dir, at, rec["ckpt_copy"])
+        return extra
+
+    manifests = {}
+    for name, entrypoint, priority in (OPERATOR_LOW, OPERATOR_HIGH):
+        steps = cfg["low_steps"] if name == low else cfg["high_steps"]
+        env = _pod_env("gpt", POD_GPT, None, steps)
+        annotations = {}
+        if name == low:
+            env["TFK8S_CHECKPOINT_EVERY"] = str(cfg["ckpt_every"])
+            annotations[CHECKPOINT_DIR_ANNOTATION] = ckpt_dir
+        job = TPUJob(
+            metadata=ObjectMeta(name=name, annotations=annotations),
+            spec=TPUJobSpec(
+                replica_specs={ReplicaType.WORKER: ReplicaSpec(
+                    replicas=1, template=ContainerSpec(entrypoint=entrypoint, env=env))},
+                tpu=TPUSpec(accelerator="h100-1"),
+                run_policy=RunPolicy(backoff_limit=0, scheduling=SchedulingPolicy(
+                    gang=True, priority=priority))))
+        manifests[name] = os.path.join(work, f"{name}.json")
+        with open(manifests[name], "w") as f:
+            json.dump(serde.to_wire(job), f)
+        registry.register(entrypoint, _recorded(torch, fa, runs, name, pod_entry, probe(name)))
+    client = clientset_from_kubeconfig(kubeconfig)
+    kc = ["--kubeconfig", kubeconfig]
+
+    def status(name):
+        return client.tpujobs().get(name).status
+
+    def live_pods(name):
+        pods, _ = client.pods().list(label_selector={L.JOB_NAME: name})
+        return [p for p in pods if p.metadata.deletion_timestamp is None
+                and p.status.phase.value in ("Pending", "Running")]
+
+    def until(pred, what):
+        deadline = time.monotonic() + cfg["timeout_s"]
+        while not pred():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{what} within {cfg['timeout_s']:.0f} s: "
+                                     f"{ {n: len(r) for n, r in runs.items()} } runs, "
+                                     f"(c) {status(low)}")
+            time.sleep(0.01)
+
+    def ran(name, i, key):
+        return len(runs[name]) > i and key in runs[name][i]
+
+    def succeeded(name):
+        return helpers.has_condition(status(name), JobConditionType.SUCCEEDED)
+
+    verbs, t, out = {}, {}, {}
+    try:
+        # the section's launches, not each run's: (d) starts while (c)'s
+        # preempted run still drains (the kubelet counts no devices)
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        verbs["submit_c"] = _verb(["submit", "--file", manifests[low]] + kc)
+        until(lambda: ran(low, 0, "held"), "(c) did not reach its update "
+              f"{cfg['preempt_at']}")
+        c_pod = client.pods().get(f"{low}-worker-0")
+        t["submit_d"] = time.perf_counter()
+        verbs["submit_d"] = _verb(["submit", "--file", manifests[high]] + kc)
+        until(lambda: ran(low, 0, "end"), "(c)'s pod did not end after (d) came")
+        pods, _ = client.pods().list(label_selector={L.JOB_NAME: low})
+        out["c_pod_phase"] = next((p.status.phase.value for p in pods
+                                   if p.metadata.uid == c_pod.metadata.uid), "deleted")
+        st = status(low)
+        out["preempted"] = {"preemptions": st.preemptions, "gang_restarts": st.gang_restarts}
+        until(lambda: ran(high, 0, "end") and succeeded(high), "(d) did not succeed")
+        until(lambda: ran(low, 1, "held"), f"(c) did not resume to {cfg['suspend_after']} "
+              "updates")
+        t["suspend"] = time.perf_counter()
+        verbs["suspend"] = _verb(["suspend", low] + kc)
+        until(lambda: ran(low, 1, "end")
+              and helpers.has_condition(status(low), JobConditionType.SUSPENDED)
+              and not live_pods(low), "(c) did not park")
+        st = status(low)
+        out["suspended"] = {"preemptions": st.preemptions, "gang_restarts": st.gang_restarts,
+                            "conditions": [c.type.value for c in st.conditions if c.status],
+                            "live_pods": len(live_pods(low))}
+        t["resume"] = time.perf_counter()
+        verbs["resume"] = _verb(["resume", low] + kc)
+        until(lambda: ran(low, 2, "end") and succeeded(low), "(c) did not succeed")
+        torch.cuda.synchronize()
+        launches = {k: fa.LAUNCHES[k] for k in fa.KERNELS}
+        out["final"] = {n: {"conditions": [c.type.value for c in status(n).conditions
+                                           if c.status],
+                            "preemptions": status(n).preemptions,
+                            "gang_restarts": status(n).gang_restarts} for n in (low, high)}
+        out["reasons"] = {n: list(dict.fromkeys(e.reason for e in server.recorder.events(
+            key=f"default/{n}"))) for n in (low, high)}
+    finally:
+        for _name, entrypoint, _priority in (OPERATOR_LOW, OPERATOR_HIGH):
+            registry._REGISTRY.pop(entrypoint, None)
+
+    c_runs, (d_run,) = runs[low], runs[high]
+    out["runs"] = [{"gang_restarts": r["env"].get("TFK8S_GANG_RESTARTS"),
+                    "ckpt_step_at_start": r["ckpt_step_at_start"],
+                    "steps": [h["step"] for h in r["history"]],
+                    "first_loss": r["history"][0]["loss"] if r["history"] else None,
+                    "start_to_first_step_s": r["first_step"] - r["start"],
+                    "wall_s": r["end"] - r["start"]} for r in c_runs + [d_run]]
+    out["preemption_s"] = {"to_c_stop": c_runs[0]["stopped"] - t["submit_d"],
+                           "to_c_pod_end": c_runs[0]["end"] - t["submit_d"],
+                           "to_d_first_update": d_run["first_step"] - t["submit_d"]}
+    # (c) goes on once (d) has ended and released the host; once resumed
+    out["resume_s"] = {"after_preemption": c_runs[1]["first_step"] - d_run["end"],
+                       "after_resume_verb": c_runs[2]["first_step"] - t["resume"]}
+    out["suspend_to_end_s"] = c_runs[1]["end"] - t["suspend"]
+    # each (c) run's entry after its predecessor's end: the kubelet holds a
+    # pod recreated under a live pod's name until that pod's thread ends
+    out["c_entry_after_previous_end_s"] = [b["entered"] - a["end"]
+                                           for a, b in zip(c_runs, c_runs[1:])]
+    # (d)'s entry after (c)'s preempted run ended (< 0: they overlapped on
+    # the card; the kubelet counts no devices, ROADMAP queue 3)
+    out["d_entry_after_c_end_s"] = d_run["entered"] - c_runs[0]["end"]    # each resumed run's first loss against a direct call on its env, resumed
+    # from a copy of the same checkpoint
+    out["direct"] = []
+    for r in c_runs[1:]:
+        env = dict(r["env"], TFK8S_CHECKPOINT_DIR=r["ckpt_copy"],
+                   TFK8S_TRAIN_STEPS=str(r["ckpt_step_at_start"] + 1))
+        direct = pod_entry(env)
+        out["direct"].append({"step": direct[0]["step"], "loss": direct[0]["loss"],
+                              "diff": abs(direct[0]["loss"] - r["history"][0]["loss"])})
+    out["launches"] = launches
+    log(f"operator: preemption and suspend {json.dumps(out)}")
+
+    bad = []
+    if [v for v in verbs.values() if v[0] != 0]:
+        bad.append(f"verbs {verbs}")
+    if out["final"][low]["conditions"][-1:] != ["Succeeded"] or out["final"][high][
+            "conditions"][-1:] != ["Succeeded"]:
+        bad.append(f"the jobs ended {out['final']}")
+    if out["preempted"] != {"preemptions": 1, "gang_restarts": 0}:
+        bad.append(f"(c) after (d) came: {out['preempted']}, want one preemption, no restart")
+    if ("Preempted" not in out["reasons"][low] or "PreemptedOther" not in out["reasons"][high]
+            or "JobSuspended" not in out["reasons"][low]):
+        bad.append(f"event reasons {out['reasons']}")
+    if [r["gang_restarts"] for r in out["runs"][:3]] != ["0", "1", "2"]:
+        bad.append(f"(c)'s runs were rendered with TFK8S_GANG_RESTARTS "
+                   f"{[r['gang_restarts'] for r in out['runs'][:3]]}, want 0, 1, 2")
+    for prev, r in zip(c_runs, c_runs[1:]):
+        at = r["ckpt_step_at_start"]
+        if not at or at != prev["history"][-1]["step"] or r["history"][0]["step"] != at + 1:
+            bad.append(f"(c) resumed at step {r['history'][0]['step']} from checkpoint {at}, "
+                       f"its last run ended at {prev['history'][-1]['step']}")
+    if any(s < 0 for s in out["c_entry_after_previous_end_s"]):
+        bad.append("a run of (c) started before its predecessor ended: "
+                   f"{out['c_entry_after_previous_end_s']} s")
+    if not all(r.get("hold_seen") for r in c_runs[:2]):
+        bad.append("(c)'s pod was not stopped while it waited at its update")
+    if out["suspended"]["preemptions"] != 2 or out["suspended"]["live_pods"] or (
+            "Suspended" not in out["suspended"]["conditions"]):
+        bad.append(f"(c) after the suspend verb: {out['suspended']}")
+    if c_runs[-1]["history"][-1]["step"] != cfg["low_steps"] or len(d_run["history"]) != cfg[
+            "high_steps"]:
+        bad.append(f"(c) ended at {c_runs[-1]['history'][-1]['step']}, (d) ran "
+                   f"{len(d_run['history'])} steps")
+    if any(not d["diff"] <= cfg["loss_atol"] for d in out["direct"]):
+        bad.append(f"resumed first losses against direct calls: {out['direct']}")
+    steps = sum(len(r["history"]) for r in c_runs + [d_run])
+    if launches != _flash(fa, 1, GANG_LAYERS, steps):
+        bad.append(f"(c) and (d) flash launches {launches}, want {GANG_LAYERS} layers x "
+                   f"{steps} steps")
+    if bad:
+        raise AssertionError(f"jobs (c) and (d): {bad}")
+    return out, launches
+
+
 def phase_operator(torch, gpt, fa, root):
     """The example manifest's GPT-2-small TPUJob sent with the port's
     ``submit`` verb to two leader-elected operators, handed over mid-job,
     a second job gang-pending behind it, the verbs and the endpoint after,
     and the first job's history against a direct ``gpt:train`` call
-    (docstring phase 24). Returns the launches of the two jobs."""
-    import threading
-
+    (docstring phase 24), then jobs (c) and (d) on the new leader
+    (``_operator_priority``). Returns the launches of the four jobs."""
     from torch.optim.optimizer import register_optimizer_step_post_hook
 
     from tfk8s_tpu_torch.api import serde
@@ -5678,22 +5959,17 @@ def phase_operator(torch, gpt, fa, root):
     tmpl_b.env = _pod_env("gpt", POD_GPT, None, OPERATOR["gang_steps"])
     names = (job_a.metadata.name, job_b.metadata.name)
 
-    runs, first_step = {}, {}
+    runs = {"a": [], "b": []}
     resume = threading.Event()  # set once (a) may go on after its first update
-    held = {}
 
-    def hook(opt, args, kwargs):  # each job's first finished update
-        ident = threading.get_ident()
-        if ident not in first_step:
-            torch.cuda.synchronize()
-            first_step[ident] = time.perf_counter()
-            if ident == runs.get("a", {}).get("thread"):
-                # (a) stays mid-job until the hand-over and the kill are done
-                held["ok"] = resume.wait(OPERATOR["hold_s"])
-                held["s"] = time.perf_counter() - first_step[ident]
+    def hold_a(rec):  # (a) stays mid-job until the hand-over and the kill are done
+        rec["hold_at"], rec["hold"] = 1, resume
+
+    def run_a():  # (a)'s one run, once it has started
+        return runs["a"][0] if runs["a"] else {}
 
     # the manifest's entry point resolves to gpt:train through a recorder
-    registry.register(tmpl_a.entrypoint, _recorded(torch, fa, runs, "a", gpt.train))
+    registry.register(tmpl_a.entrypoint, _recorded(torch, fa, runs, "a", gpt.train, hold_a))
     registry.register(OPERATOR_GANG_ENTRY, _recorded(torch, fa, runs, "b", pod_entry))
     work = os.path.join(root, "build", "chip_smoke_operator")
     shutil.rmtree(work, ignore_errors=True)
@@ -5705,7 +5981,7 @@ def phase_operator(torch, gpt, fa, root):
             json.dump(serde.to_wire(job), f)
     api = _APIServerProcess(root, work, tls)
     wire = {"scheme": "https" if tls else "http"}
-    handle = register_optimizer_step_post_hook(hook)
+    handle = register_optimizer_step_post_hook(_update_hook(torch))
     ops, kubelet_stop = {}, threading.Event()
     pending, leaders, verbs, endpoint = [], [], {}, {}
     handed = {"over": False}
@@ -5756,7 +6032,7 @@ def phase_operator(torch, gpt, fa, root):
         verbs["submit_a"] = _verb(["submit", "--kubeconfig", api.kubeconfig,
                                    "--file", manifests["a"]])
         deadline = time.monotonic() + OPERATOR["timeout_s"]
-        while "a" not in runs and time.monotonic() < deadline:
+        while not runs["a"] and time.monotonic() < deadline:
             time.sleep(0.01)
         submitted["b"] = time.perf_counter()
         verbs["submit_b"] = _verb(["submit", "--kubeconfig", api.kubeconfig,
@@ -5767,8 +6043,8 @@ def phase_operator(torch, gpt, fa, root):
                 raise AssertionError(f"submit of ({key}): {verbs[f'submit_{key}']}")
         # (a)'s first finished update holds it mid-job
         polled = 0.0
-        while (runs.get("a", {}).get("thread") not in first_step
-               and "end" not in runs.get("a", {}) and time.monotonic() < deadline):
+        while ("first_step" not in run_a() and "end" not in run_a()
+               and time.monotonic() < deadline):
             if time.monotonic() - polled > 0.1:
                 polled = time.monotonic()
                 watch(poll())
@@ -5776,7 +6052,7 @@ def phase_operator(torch, gpt, fa, root):
         watch(poll())
         # the leader stops gracefully: it releases the lease to the standby
         wire["a_running_at_handover"] = (
-            "end" not in runs.get("a", {})
+            "end" not in run_a()
             and "Running" in _job_state(ops["op-a"][0], names[0])[0])
         t_stop = time.perf_counter()
         handed["over"] = True
@@ -5793,7 +6069,7 @@ def phase_operator(torch, gpt, fa, root):
         t_kill = time.perf_counter()
         api.kill()
         resume.set()
-        wire["a_ended_before_kill"] = "end" in runs.get("a", {})
+        wire["a_ended_before_kill"] = "end" in run_a()
         wire["restart_s"] = api.start()
         wire["outage_s"] = time.perf_counter() - t_kill
         wire["restart_listening_s"] = api.listening_s()
@@ -5811,6 +6087,11 @@ def phase_operator(torch, gpt, fa, root):
         # lease threads left once the apiserver is back (both packages' electors
         # end on a transport error: ROADMAP queue 3)
         wire["renewers_alive"] = sum(t.name == "lease-renewer" for t in threading.enumerate())
+        # (c) and (d) on the new leader: a preemption, a suspend and two resumes
+        t_priority = time.perf_counter()
+        _, priority_launches = _operator_priority(torch, fa, server, api.kubeconfig,
+                                                          work)
+        wire["priority_s"] = time.perf_counter() - t_priority
         # the verbs, as a user reads the jobs, and the new leader's endpoint
         for srv, _stop in ops.values():
             srv.recorder.flush()
@@ -5837,24 +6118,23 @@ def phase_operator(torch, gpt, fa, root):
     jobs_s = time.perf_counter() - t_phase
 
     # the same env, called directly in this process
-    env = runs["a"]["env"]
-    direct = gpt.train(dict(env))
-    losses = [h["loss"] for h in runs["a"]["history"]]
+    rec_a, rec_b = run_a(), (runs["b"][0] if runs["b"] else {})
+    direct = gpt.train(dict(rec_a["env"]))
+    losses = [h["loss"] for h in rec_a["history"]]
     direct_losses = [h["loss"] for h in direct]
     diff = max(abs(a - b) for a, b in zip(losses, direct_losses)) if direct else float("inf")
 
     summary = {"card": card, "phase_s": time.perf_counter() - t_phase, "jobs_s": jobs_s,
-               "wire": wire, "a_held_s": held.get("s")}
-    for key, name in zip("ab", names):
+               "wire": wire, "a_held_s": rec_a.get("stopped", 0) - rec_a.get("held", 0)}
+    for rec, key, name in zip((rec_a, rec_b), "ab", names):
         conds, reasons, pods = states[name]
-        rec = runs.get(key, {})
         summary[name] = {
             "conditions": conds, "reasons": list(dict.fromkeys(reasons)),
             "pods": [{"name": p.metadata.name, "phase": p.status.phase.value,
                       "resources": p.spec.containers[0].resources,
                       "training_step": p.status.training.get("step")} for p in pods],
-            "submit_to_first_step_s": (first_step[rec["thread"]] - submitted[key]
-                                       if rec.get("thread") in first_step else None),
+            "submit_to_first_step_s": (rec["first_step"] - submitted[key]
+                                       if "first_step" in rec else None),
             "wall_s": rec["end"] - rec["start"] if "end" in rec else None,
             "peak_gib": rec.get("peak_gib"), "launches": rec.get("launches")}
     b_after = wire["b_pod_after_a_s"]
@@ -5886,9 +6166,10 @@ def phase_operator(torch, gpt, fa, root):
         raise AssertionError(f"job {names[0]}'s pod status lacks its progress")
     if wire["gang_restarts"] != dict.fromkeys(names, 0):
         raise AssertionError(f"the jobs restarted across the hand-over or the kill: {wire}")
-    if wire["a_ended_before_kill"] or not wire["a_running_at_handover"] or not held.get("ok"):
+    if (wire["a_ended_before_kill"] or not wire["a_running_at_handover"]
+            or not rec_a.get("hold_seen")):
         raise AssertionError(f"job (a) was not mid-job at the hand-over and the kill: {wire}, "
-                             f"held {held}")
+                             f"held {summary['a_held_s']} s")
     if not wire["rv_after_restart"] >= wire["rv_before_kill"]:
         raise AssertionError(f"the restarted apiserver's resource_version went back: {wire}")
     if wire["failover_s"] is None or wire["failover_s"] > OPERATOR["failover_limit_s"]:
@@ -5901,12 +6182,12 @@ def phase_operator(torch, gpt, fa, root):
                  [r for r in summary[names[0]]["reasons"]])
     want = {"a": _flash(fa, 1, layers, steps),
             "b": _flash(fa, 1, GANG_LAYERS, OPERATOR["gang_steps"])}
-    for key in "ab":
-        if runs[key]["launches"] != want[key]:
-            raise AssertionError(f"job {key} flash launches {runs[key]['launches']}, "
+    for key, rec in zip("ab", (rec_a, rec_b)):
+        if rec["launches"] != want[key]:
+            raise AssertionError(f"job {key} flash launches {rec['launches']}, "
                                  f"want {want[key]}")
     if (not b_waited or "GangPending" not in states[names[1]][1]
-            or runs["b"]["start"] < runs["a"]["end"]):
+            or rec_b["start"] < rec_a["end"]):
         raise AssertionError("the second h100-1 job did not wait for the first one's host")
     if len(direct_losses) != steps or not diff <= OPERATOR["loss_atol"]:
         raise AssertionError(f"the operator's losses {losses} differ from a direct call's "
@@ -5914,7 +6195,8 @@ def phase_operator(torch, gpt, fa, root):
     if summary["phase_s"] > OPERATOR["limit_s"]:
         raise AssertionError(f"the operator phase took {summary['phase_s']:.1f} s, over its "
                              f"{OPERATOR['limit_s']:.0f} s limit")
-    return {k: runs["a"]["launches"][k] + runs["b"]["launches"][k] for k in fa.KERNELS}
+    return {k: rec_a["launches"][k] + rec_b["launches"][k] + priority_launches[k]
+            for k in fa.KERNELS}
 
 
 def _series(text, name):

@@ -2,9 +2,10 @@
 one flow through the reference and through the port and hold the records
 equal: ``PACKAGES[name]`` holds the api types, serde, the apiserver, the
 remote client, the stores, the operator's ``Options``/``Server``, the
-kubelet, the entry-point registry, ``cmd.main`` and ``LeaderElector``.
-``masked`` blanks what differs between two runs of one flow: uids,
-resource versions and times."""
+kubelet, the entry-point registry, ``cmd.main``, ``LeaderElector``, the
+controllers and the checkpointer. ``masked`` blanks what differs between
+two runs of one flow: uids, resource versions and times. ``Cluster`` is
+one package's fake cluster with its controller and kubelet running."""
 
 import contextlib
 import importlib
@@ -13,6 +14,8 @@ import json
 import re
 import threading
 import types
+
+from conftest import wait_for
 
 NAMES = ("reference", "port")
 ROOTS = {"reference": "tfk8s_tpu", "port": "tfk8s_tpu_torch"}
@@ -28,7 +31,9 @@ def _load(root):
         LocalKubelet=m("runtime.kubelet").LocalKubelet, registry=m("runtime.registry"),
         main=m("cmd.main"),
         LeaderElector=m("controller").LeaderElector, labels=m("trainer.labels"),
-        trace=m("obs.trace"), progress=m("runtime.progress"))
+        trace=m("obs.trace"), progress=m("runtime.progress"), trainer=m("trainer"),
+        kubelet=m("runtime.kubelet"), checkpoint=m("runtime.checkpoint"),
+        launcher=m("runtime.launcher"))
 
 
 PACKAGES = {name: _load(root) for name, root in ROOTS.items()}
@@ -131,3 +136,116 @@ def run_side_by_side(flows, timeout=60.0):
     for name, e in errors.items():
         raise AssertionError(f"the {name} flow failed: {e!r}") from e
     return results
+
+
+def wait(pred, timeout=90.0):
+    """``conftest.wait_for``, failing the test when ``pred`` stays false."""
+    assert wait_for(pred, timeout=timeout)
+
+
+class Cluster:
+    """One package's fake cluster running in this process: its clientset, a
+    ``TPUJobController`` over a ``SliceAllocator`` of ``capacity`` (or,
+    with ``serves``, a ``TPUServeController``) and its ``LocalKubelet``. On
+    exit every job and serve is deleted and the kubelet's pod threads are
+    waited for: the kubelet's stop ends no pod, and a pod that outlives its
+    test runs on in the process."""
+
+    def __init__(self, name, capacity=None, serves=False):
+        self.name = name
+        self.P = P = PACKAGES[name]
+        self.cs = P.FakeClientset()
+        self.ctrl = (P.trainer.TPUServeController(self.cs) if serves else
+                     P.trainer.TPUJobController(
+                         self.cs, allocator=P.trainer.SliceAllocator(capacity)))
+        self.kubelet = P.LocalKubelet(self.cs)
+        self.stop = threading.Event()
+
+    def __enter__(self):
+        self.kubelet.run(self.stop)
+        assert self.ctrl.run(workers=2, stop=self.stop, block=False)
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            for kind in (self.cs.tpujobs, self.cs.tpuserves):
+                objs, _ = kind().list()
+                for obj in objs:
+                    try:
+                        kind().delete(obj.metadata.name)
+                    except self.P.store.NotFound:
+                        pass
+            wait_for(lambda: not self.kubelet._claimed, timeout=60)
+        finally:
+            self.stop.set()
+            self.ctrl.controller.shutdown()
+
+    def status(self, name):
+        try:
+            return self.cs.tpujobs().get(name).status
+        except self.P.store.NotFound:
+            return None
+
+    def has(self, name, cond):
+        st = self.status(name)
+        return st is not None and has(self.P, st, cond)
+
+    def live_pods(self, name, replica_type=None):
+        """The job's pods not being deleted, by name; with ``replica_type``
+        only that type's."""
+        pods, _ = self.cs.pods().list(label_selector=self.P.labels.job_selector(name))
+        return sorted((p for p in pods if p.metadata.deletion_timestamp is None
+                       and replica_type in (None, p.metadata.labels.get(
+                           self.P.labels.REPLICA_TYPE))),
+                      key=lambda p: p.metadata.name)
+
+    def reasons(self, name=None):
+        """Each event reason once, in first-seen order (how often a sync
+        records one depends on reconcile timing in either package), but
+        ``PodReplaced``: a sync whose pod cache still shows a pod of the
+        gang that a restart just deleted re-renders it, in either package,
+        or does not."""
+        key = None if name is None else f"default/{name}"
+        return list(dict.fromkeys(e.reason for e in self.ctrl.recorder.events(key=key)
+                                  if e.reason != "PodReplaced"))
+
+    def counter(self, name, labels=None):
+        return self.ctrl.metrics.get_counter(name, labels)
+
+    def record(self, name):
+        """A job's status fields, as the flows hold them equal, with the
+        conditions that hold (a false one's presence is history that a
+        sync racing its own status write can rewrite, in either package)."""
+        st = self.status(name)
+        return {"world_version": st.world_version, "elastic_replicas": st.elastic_replicas,
+                "gang_restarts": st.gang_restarts, "preemptions": st.preemptions,
+                "conditions": sorted(c.type.value for c in st.conditions if c.status)}
+
+
+def side_by_side(flow, capacity, port_only=()):
+    """``flow(cluster)`` on both packages' ``Cluster``s at once, each over
+    ``capacity[name]``; the two results held equal but for the keys
+    ``port_only`` (records a known fault of the reference's can change),
+    and the port's returned."""
+    def go(name):
+        def run():
+            with Cluster(name, capacity=capacity[name]) as c:
+                return flow(c)
+        return run
+
+    out = run_side_by_side({n: go(n) for n in PACKAGES}, timeout=150)
+    held = {n: {k: v for k, v in rec.items() if k not in port_only} if port_only else rec
+            for n, rec in out.items()}
+    assert held["port"] == held["reference"], out
+    return out["port"]
+
+
+# the pod env of the rendering contract the elastic, preemption and
+# suspend flows hold equal (trainer/replicas.py)
+CONTRACT_ENV = ("TFK8S_WORLD_VERSION", "TFK8S_NUM_PROCESSES", "TFK8S_GANG_RESTARTS",
+                "TFK8S_PROCESS_ID", "TFK8S_NUM_SLICES", "TFK8S_CLUSTER_SPEC")
+
+
+def contract_env(pod):
+    env = pod.spec.containers[0].env
+    return {k: env.get(k) for k in CONTRACT_ENV}

@@ -376,6 +376,10 @@ def test_disagg_serve_of_port_pods_e2e_with_sticky_session(monkeypatch):
             conn.close()
         assert len(body["serves"]["default/tdge2e"]["prefill"]["ring"]["members"]) == 1
     finally:
+        # the kubelet's stop ends no pod: delete the serve so both replicas
+        # drain, or they stay bound to this kubelet for the rest of the process
+        cs.tpuserves().delete("tdge2e")
+        wait_for(lambda: not kubelet._claimed, timeout=60)
         stop.set()
         gw.shutdown()
         gw.server_close()

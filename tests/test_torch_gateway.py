@@ -81,10 +81,18 @@ def cluster(monkeypatch):
     gw = GatewayServer(cs, port=0, metrics=Metrics())
     gw.serve_background()
     yield cs, gw
-    stop.set()
-    gw.shutdown()
-    gw.server_close()
-    ctrl.controller.shutdown()
+    try:
+        # the kubelet's stop ends no pod: delete the serves so their replicas
+        # drain, or a port replica stays bound to the reference's node agent
+        # (and its tracer) for the rest of the process
+        for serve in cs.tpuserves().list()[0]:
+            cs.tpuserves().delete(serve.metadata.name)
+        assert wait_for(lambda: not kubelet._claimed, timeout=60)
+    finally:
+        stop.set()
+        gw.shutdown()
+        gw.server_close()
+        ctrl.controller.shutdown()
 
 
 def _ready(cs, name):

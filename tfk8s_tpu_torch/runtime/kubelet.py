@@ -21,6 +21,14 @@ and records Succeeded/Failed with the exit message — which flows back
 through the watch into the controller's reconcile, closing the loop of
 SURVEY.md §3.5.
 
+One difference in behaviour: a pod recreated under the name of a pod
+whose thread is still running (a gang restart, a preemption, a suspension:
+the old incarnation drains and commits its last checkpoint) is claimed at
+once but starts its entry point only when that thread has ended, so two
+incarnations of one pod never share its card and its checkpoint directory,
+and the successor restores the predecessor's final save. The reference's
+kubelet starts it at once.
+
 Failure injection for tests: an env of ``TFK8S_TEST_FAIL_TIMES=n`` makes a
 pod raise on its first n attempts per pod name (counted in-process), which
 exercises restart policies end-to-end.
@@ -214,7 +222,15 @@ class LocalKubelet:
             )
         )
         self._claimed: Dict[Tuple[str, str], PodStopSignal] = {}
+        # (pod key, uid) -> the pod's thread, which a successor of the same
+        # key waits for (_maybe_run)
+        self._threads: Dict[Tuple[str, str], threading.Thread] = {}
         self._lock = threading.Lock()
+        # chaos-harness hook (tests/chaos.py): (key, uid) -> failure
+        # message. A poisoned pod's thread raises when its entrypoint
+        # returns — the hermetic simulation of the host dying out from
+        # under the process (dropped/late reclaim notice).
+        self._chaos_fail: Dict[Tuple[str, str], str] = {}
         # Always a real Event (run() swaps in the caller's): every retry
         # wait in this file can be a stop-aware _stop.wait, so shutdown
         # never stalls behind a fixed sleep. _started gates the loops
@@ -400,7 +416,7 @@ class LocalKubelet:
         for ev in evs:
             ev.request_drain(deadline)
 
-    # -- reclaim hooks ---------------------------------------------------
+    # -- reclaim / chaos hooks ---------------------------------------------
 
     def deliver_reclaim(self, pod_key: str, grace_s: float) -> float:
         """Deliver a reclaim notice to one pod: stamp the deadline
@@ -439,26 +455,47 @@ class LocalKubelet:
             self.deliver_reclaim(key, grace_s)
         return keys
 
+    def chaos_fail(self, pod_key: str, message: str = "chaos: node died") -> None:
+        """Chaos-harness hook: kill a pod's host WITHOUT (or after) a
+        notice — the entrypoint is hard-stopped and its exit is recorded
+        as FAILED with ``message``, even if it was mid-drain. This is how
+        tests/chaos.py simulates a dropped or late reclaim notice."""
+        with self._lock:
+            targets = [
+                (claim, ev) for claim, ev in self._claimed.items()
+                if claim[0] == pod_key
+            ]
+            for claim, _ev in targets:
+                self._chaos_fail[claim] = message
+        for _claim, ev in targets:
+            ev.set()
+
     def _maybe_run(self, pod: Pod) -> None:
         if pod.status.phase != PodPhase.PENDING:
             return
         # Claims are keyed by (key, uid): a recreated pod reuses its name but
         # gets a fresh uid, so it is a new claim even if the old thread is
-        # still draining.
+        # still draining. Its thread waits for the old ones to end before it
+        # starts the entry point: both would hold the pod's card and write
+        # its checkpoint directory, and the successor's restore would race
+        # the predecessor's final save.
         claim = (pod.metadata.key, pod.metadata.uid)
+        reclaim_at = parse_reclaim_at(pod)
         with self._lock:
             if claim in self._claimed:
                 return
+            before = [t for (k, _uid), t in self._threads.items() if k == claim[0]]
             pod_stop = PodStopSignal()
+            if reclaim_at is not None:
+                pod_stop.request_drain(reclaim_at)
             self._claimed[claim] = pod_stop
-        reclaim_at = parse_reclaim_at(pod)
-        if reclaim_at is not None:
-            pod_stop.request_drain(reclaim_at)
-        t = threading.Thread(
-            target=self._run_pod, args=(pod, pod_stop), name=f"pod-{pod.metadata.name}",
-            daemon=True,
-        )
-        t.start()
+            # started under the lock: a successor never finds it unstarted
+            t = threading.Thread(
+                target=self._run_pod, args=(pod, pod_stop, before),
+                name=f"pod-{pod.metadata.name}", daemon=True,
+            )
+            self._threads[claim] = t
+            t.start()
 
     def _set_phase(
         self, pod_key: str, uid: str, phase: PodPhase, message: str = "",
@@ -533,8 +570,12 @@ class LocalKubelet:
                 # next loop iteration sees the stop and drops cleanly)
                 self._stop.wait(1.0)
 
-    def _run_pod(self, pod: Pod, pod_stop: threading.Event) -> None:
+    def _run_pod(
+        self, pod: Pod, pod_stop: threading.Event, before: List[threading.Thread],
+    ) -> None:
         key, uid = pod.metadata.key, pod.metadata.uid
+        for predecessor in before:
+            predecessor.join()
         ident = threading.get_ident()
         buf = self._log_router.register(ident)
         # Thread idents are REUSED by the OS: a progress slot leaked by a
@@ -584,6 +625,11 @@ class LocalKubelet:
                     # step finished, drain checkpoint committed — a
                     # GRACEFUL terminal phase, not a failure
                     phase, message, code = PodPhase.DRAINED, str(e), 0
+                # chaos poison outranks the entrypoint's own exit: the
+                # "host" died, so even a drained result never made it out
+                poison = self._chaos_fail.pop((key, uid), None)
+                if poison is not None:
+                    raise RuntimeError(poison)
                 # the terminal write carries the FINAL progress report too
                 # — the 1s flusher usually misses the report fired right
                 # before the entrypoint returns (the step==steps boundary)
@@ -608,6 +654,8 @@ class LocalKubelet:
             pod_progress.clear(ident)
             with self._lock:
                 self._claimed.pop((key, uid), None)
+                self._threads.pop((key, uid), None)
+                self._chaos_fail.pop((key, uid), None)
                 self._log_bufs.pop((key, uid), None)
                 self._log_published.pop((key, uid), None)
                 self._progress_idents.pop((key, uid), None)

@@ -491,6 +491,15 @@ class TPUJobController:
             self.allocator.release(job.metadata.uid)
             self._export_capacity_gauges()
             return
+        if job.status.preemptions < self._preemptions_floor.get(key, 0):
+            # The cache lags this controller's own eviction write: an event
+            # of the evicted pods re-enqueued the job before the status
+            # event carrying the Suspended condition (or the preemption
+            # count) arrived. Suspending again from this copy would count
+            # the suspension twice and patch the stale count back over
+            # the written one (the status patch carries no
+            # resourceVersion). The status event re-enqueues the job.
+            return
         live = [
             p for p in self._observed_pods(job)
             if p.metadata.deletion_timestamp is None
@@ -500,7 +509,6 @@ class TPUJobController:
         # incarnation — counting them would inflate the resume lineage
         if had_gang or live:
             job.status.preemptions += 1
-            self._preemptions_floor[key] = job.status.preemptions
         helpers.set_condition(
             job.status, JobConditionType.SUSPENDED,
             reason="JobSuspended",
@@ -512,6 +520,10 @@ class TPUJobController:
         job.status.start_time = None
         if not self._write_status(job):
             return  # conflict: re-enqueued sync redoes the accounting
+        # the floor rises only once the count is stored: were it raised
+        # before a write that raised, no status event would ever lift the
+        # cached count to it, and every later sync would return above
+        self._preemptions_floor[key] = job.status.preemptions
         self.recorder.event("TPUJob", key, "JobSuspended")
         self.metrics.inc("tpujob.suspensions_total")
         self._delete_job_pods(job, only_phases=None)
