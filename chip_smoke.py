@@ -478,7 +478,32 @@ must pass:
    their runs took. It prints (d)'s submission to (c)'s stop signal, to
    (c)'s pod's end and to (d)'s first update, each resume to (c)'s next
    first update, (d)'s entry after (c)'s preempted run ended, and every
-   run's checkpoint step, steps, first loss and seconds.
+   run's checkpoint step, steps, first loss and seconds. Then job (e),
+   ``gpt-h100-lost`` (``node_loss_entry``: ``pod_entry`` at GANG_LAYERS
+   depth, OPERATOR["lost_steps"] steps, a checkpoint every
+   OPERATOR["ckpt_every"]), on node agents in processes of their own: the
+   ``kubelet --name node-a`` and ``--name node-b`` verbs, each in a process
+   whose runtime warms while (c) and (d) run (torch, the card's context and
+   what a training pod's first update and save import), node-a with an
+   OPERATOR["node_lease_s"] node lease renewed every
+   OPERATOR["node_renew_s"] (``TFK8S_NODE_LEASE_DURATION_S``,
+   ``TFK8S_NODE_LEASE_RENEW_S``). Once (c) and (d) have succeeded the
+   phase's in-process kubelet stops, node-a joins (its kubelet starts) and
+   (e) is sent with ``submit``, so its pod is node-a's (the entry point
+   resolved by ``module:attr``); node-b joins once that pod runs. After
+   its OPERATOR["lost_hold_at"]th update (e) waits with step k's data
+   written and its marker absent (k the last checkpoint step before the
+   hold; k - 2 committed), and node-a is killed with SIGKILL. The leader must record ``NodeLost`` once (its
+   ``/metrics``: ``tpujob_node_lost_pods_total`` 1), restart the gang
+   once, and (e) must run again on node-b from step k - 2, every step from
+   k - 1 to its last, and succeed; nothing in the checkpoint directory may
+   change between the kill and node-b's entry, and node-a's run must not
+   end. The resumed run's first loss must lie within
+   OPERATOR["loss_atol"] of a direct ``pod_entry`` call from a copy of
+   that checkpoint, and its flash launches be GANG_LAYERS x its steps.
+   It prints kill to ``NodeLost``, kill to the first resumed update, the
+   steps lost, node-b's start (its joining to its first lease) and each
+   node's warm-up.
 25. gateway: the port's serving control plane and front door in this
    process: ``Server`` with one ``h100-1`` host and ``gateway_port`` set
    (the TPUServe controller, the local kubelet and ``GatewayServer`` over
@@ -5464,13 +5489,105 @@ def _pod_nccl(torch, fa, root, cards):
 OPERATOR = dict(manifest=os.path.join("manifests", "examples", "gpt-h100-torch.json"),
                 gang_steps=3, timeout_s=300.0, limit_s=90.0, loss_atol=2e-2,
                 apiserver_start_s=60.0, lease_s=8.0, failover_limit_s=8.0, hold_s=60.0,
-                low_steps=12, high_steps=4, preempt_at=4, suspend_after=2, ckpt_every=2)
+                low_steps=12, high_steps=4, preempt_at=4, suspend_after=2, ckpt_every=2,
+                lost_steps=6, lost_hold_at=5, node_lease_s=2.0, node_renew_s=0.5)
 # job (b)'s entry point, a name the phase registers for pod_entry
 OPERATOR_GANG_ENTRY = "chip_smoke.operator_gang"
 # jobs (c) and (d): (c) at priority 1 is preempted by (d) at priority 10,
 # then suspended and resumed; both pod_entry at GANG_LAYERS depth
 OPERATOR_LOW = ("gpt-h100-low", "chip_smoke.operator_low", 1)
 OPERATOR_HIGH = ("gpt-h100-high", "chip_smoke.operator_high", 10)
+# job (e): its pod runs in the kubelet processes node-a, then node-b, which
+# resolve the entry point by module:attr
+OPERATOR_LOST = ("gpt-h100-lost", "chip_smoke:node_loss_entry")
+
+
+def _write_json(path, record):
+    with open(path + ".tmp", "w") as f:
+        json.dump(record, f)
+    os.replace(path + ".tmp", path)
+
+
+def _listing(directory):
+    """Every path under ``directory`` with its size and modification time
+    in nanoseconds."""
+    out = {}
+    for top, dirs, files in os.walk(directory):
+        for name in dirs + files:
+            path = os.path.join(top, name)
+            try:
+                st = os.lstat(path)
+            except FileNotFoundError:
+                continue
+            out[os.path.relpath(path, directory)] = [st.st_size, st.st_mtime_ns]
+    return out
+
+
+def node_loss_entry(env, stop=None):
+    """Job (e)'s entry point in a ``kubelet`` verb process: ``pod_entry``,
+    recorded into the directory ``env["NODE_LOSS_RECORDS"]``. At its start
+    it writes ``start-<TFK8S_GANG_RESTARTS>.json``: the wall time, the
+    checkpoint directory's listing and the committed step it finds. In the
+    first run, after update
+    ``NODE_LOSS_HOLD_AT`` it writes ``held.json`` and waits for its stop
+    (its node is killed meanwhile). A run that ends writes
+    ``run-<TFK8S_GANG_RESTARTS>.json``: its history, the wall times at
+    which its model and optimizer were built and its first update ended,
+    its flash launches and its peak memory."""
+    import torch
+    from torch.optim.optimizer import register_optimizer_step_post_hook
+
+    from tfk8s_tpu_torch.ops import flash_attention as fa
+    from tfk8s_tpu_torch.runtime import train as ttrain
+    from tfk8s_tpu_torch.runtime.checkpoint import Checkpointer
+
+    records, run = env["NODE_LOSS_RECORDS"], env.get("TFK8S_GANG_RESTARTS", "0")
+    ckpt_dir = env["TFK8S_CHECKPOINT_DIR"]
+    card = env.get("TFK8S_DEVICE") != "cpu"
+    start = {"entered": time.time(), "env": dict(env), "listing": _listing(ckpt_dir)}
+    ckpt = Checkpointer(ckpt_dir)
+    start["ckpt_step"] = ckpt.latest_step()
+    ckpt.close()
+    _write_json(os.path.join(records, f"start-{run}.json"), start)
+    rec = {"updates": 0}
+
+    def hook(opt, args, kwargs):
+        # torch's state-dict loader steps a resumed optimizer once at lr 0
+        if all(float(g.get("lr", 1.0)) == 0.0 for g in opt.param_groups):
+            return
+        rec["updates"] += 1
+        if rec["updates"] == 1:
+            if card:
+                torch.cuda.synchronize()
+            rec["first_update"] = time.time()
+        if run == "0" and rec["updates"] == int(env["NODE_LOSS_HOLD_AT"]):
+            _write_json(os.path.join(records, "held.json"), {"at": time.time()})
+            stop.wait(OPERATOR["hold_s"])
+
+    init_state = ttrain.Trainer.init_state
+
+    def timed(self):  # the model and optimizer on the card, before the restore
+        state = init_state(self)
+        rec.setdefault("state_built", time.time())
+        return state
+
+    ttrain.Trainer.init_state = timed
+    handle = register_optimizer_step_post_hook(hook)
+    before = dict(fa.LAUNCHES)
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        history = pod_entry(env, stop)
+    finally:
+        handle.remove()
+        ttrain.Trainer.init_state = init_state
+    if card:
+        torch.cuda.synchronize()
+    rec.update(history=history, end=time.time(),
+               launches={k: fa.LAUNCHES[k] - before[k] for k in fa.KERNELS},
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30 if card else None)
+    _write_json(os.path.join(records, f"run-{run}.json"), rec)
+    return history
 
 
 def _operator_server(capacity, kubeconfig="", **opts):
@@ -5718,13 +5835,14 @@ def _copy_checkpoint(src, step, dst):
                 os.path.join(dst, _COMMITS_DIRNAME, str(step)))
 
 
-def _operator_priority(torch, fa, server, kubeconfig, work):
+def _operator_priority(torch, fa, server, kubeconfig, work, then=None):
     """Jobs (c) and (d) of phase operator on ``server``, the leader after
     the hand-over and the kill (docstring phase 24): (c) is preempted by
     (d), resumes from its checkpoint, is suspended and resumed through the
     verbs and succeeds. Each pod run of either job is one ``_recorded``
     record, with the checkpoint step it found; ``_update_hook`` counts its
-    updates. Returns (the summary, the two jobs' flash launches)."""
+    updates. ``then()`` is called once both jobs have succeeded, before the
+    direct calls. Returns (the summary, the two jobs' flash launches)."""
     from tfk8s_tpu_torch.api import helpers, serde
     from tfk8s_tpu_torch.api.types import (ContainerSpec, JobConditionType, ObjectMeta,
                                            ReplicaSpec, ReplicaType, RunPolicy,
@@ -5836,6 +5954,8 @@ def _operator_priority(torch, fa, server, kubeconfig, work):
         until(lambda: ran(low, 2, "end") and succeeded(low), "(c) did not succeed")
         torch.cuda.synchronize()
         launches = {k: fa.LAUNCHES[k] for k in fa.KERNELS}
+        if then is not None:
+            then()
         out["final"] = {n: {"conditions": [c.type.value for c in status(n).conditions
                                            if c.status],
                             "preemptions": status(n).preemptions,
@@ -5920,13 +6040,263 @@ def _operator_priority(torch, fa, server, kubeconfig, work):
     return out, launches
 
 
+# a node agent's process: its runtime warmed (torch imported, the card's
+# context made, job (e)'s modules imported, and what a training pod's first
+# update and first save import: torch's AdamW imports torch._dynamo, the
+# port's state_dicts the DCP state-dict helpers), then, once the file
+# NODE_JOIN names exists, the ``kubelet`` verb through the ``main`` that
+# ``python -m tfk8s_tpu_torch.cmd.main`` runs
+_NODE_MAIN = """\
+import os, sys, time
+t0 = time.perf_counter()
+import torch
+if torch.cuda.is_available():
+    torch.cuda.init()
+import torch._dynamo
+import torch.distributed.checkpoint.state_dict
+import chip_smoke
+from tfk8s_tpu_torch.models import gpt
+from tfk8s_tpu_torch.ops import flash_attention
+from tfk8s_tpu_torch.cmd.main import main
+print(f"node warmed in {time.perf_counter() - t0:.2f} s", flush=True)
+while not os.path.exists(os.environ["NODE_JOIN"]):
+    time.sleep(0.02)
+sys.exit(main(sys.argv[1:]))
+"""
+
+
+class _KubeletProcess:
+    """The ``kubelet --kubeconfig ... --name <name>`` verb in a process of
+    its own (``_NODE_MAIN``), from the root of the checkout (so its pods
+    resolve ``chip_smoke:...``), with ``env`` added to its environment; its
+    log in ``work/<name>.log``. The node joins the cluster (its kubelet
+    starts) at ``join()``, once its runtime has warmed."""
+
+    def __init__(self, root, work, kubeconfig, name, env=None):
+        self.name, self.log_path = name, os.path.join(work, f"{name}.log")
+        self.gate, self.joined = os.path.join(work, f"{name}.join"), None
+        with open(self.log_path, "wb") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", _NODE_MAIN, "kubelet",
+                 "--kubeconfig", kubeconfig, "--name", name],
+                cwd=root, env=dict(os.environ, PYTHONPATH=root, NODE_JOIN=self.gate,
+                                   **(env or {})),
+                stdout=out, stderr=subprocess.STDOUT)
+
+    def join(self):
+        self.joined = time.perf_counter()
+        open(self.gate, "w").close()
+
+    def warmed_s(self):
+        """The seconds its runtime took to warm, from its log."""
+        found = re.search(r"node warmed in ([0-9.]+) s", self.tail())
+        return float(found.group(1)) if found else None
+
+    def kill(self):
+        """SIGKILL, as the node's loss would end it."""
+        import signal
+
+        self.proc.send_signal(signal.SIGKILL)
+        self.proc.wait(30)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.kill()
+
+    def tail(self):
+        with open(self.log_path, errors="replace") as f:
+            return f"--- {self.name}\n" + f.read()[-3000:]
+
+
+def _operator_nodes(root, work, kubeconfig):
+    """Job (e)'s node agents, warming while (c) and (d) run: node-a with
+    a short node lease (``TFK8S_NODE_LEASE_*``), node-b with the default
+    one."""
+    cfg = OPERATOR
+    return {"node-a": _KubeletProcess(root, work, kubeconfig, "node-a", {
+                "TFK8S_NODE_LEASE_DURATION_S": str(cfg["node_lease_s"]),
+                "TFK8S_NODE_LEASE_RENEW_S": str(cfg["node_renew_s"])}),
+            "node-b": _KubeletProcess(root, work, kubeconfig, "node-b")}
+
+
+def _operator_lost_start(work, kubeconfig, lost):
+    """Job (e)'s start, once (c) and (d) have succeeded and the phase's
+    in-process kubelet has stopped: node-a joins (``lost["nodes"]``), then
+    (e) is sent with ``submit``, so its pod is node-a's. Adds to ``lost``
+    what ``_operator_node_loss`` goes on from."""
+    from tfk8s_tpu_torch.api import serde
+    from tfk8s_tpu_torch.api.types import (ContainerSpec, ObjectMeta, ReplicaSpec,
+                                           ReplicaType, RunPolicy, SchedulingPolicy, TPUJob,
+                                           TPUJobSpec, TPUSpec)
+    from tfk8s_tpu_torch.trainer.replicas import CHECKPOINT_DIR_ANNOTATION
+
+    cfg = OPERATOR
+    name, entrypoint = OPERATOR_LOST
+    lost.update(records=os.path.join(work, "lost-records"),
+                ckpt=os.path.join(work, "lost-ckpt"))
+    os.makedirs(lost["records"])
+    env = _pod_env("gpt", POD_GPT, None, cfg["lost_steps"])
+    env.update(TFK8S_CHECKPOINT_EVERY=str(cfg["ckpt_every"]), NODE_LOSS_RECORDS=lost["records"],
+               NODE_LOSS_HOLD_AT=str(cfg["lost_hold_at"]))
+    job = TPUJob(
+        metadata=ObjectMeta(name=name, annotations={CHECKPOINT_DIR_ANNOTATION: lost["ckpt"]}),
+        spec=TPUJobSpec(
+            replica_specs={ReplicaType.WORKER: ReplicaSpec(
+                replicas=1, template=ContainerSpec(entrypoint=entrypoint, env=env))},
+            tpu=TPUSpec(accelerator="h100-1"),
+            run_policy=RunPolicy(backoff_limit=1, scheduling=SchedulingPolicy(gang=True))))
+    manifest = os.path.join(work, f"{name}.json")
+    with open(manifest, "w") as f:
+        json.dump(serde.to_wire(job), f)
+    lost["nodes"]["node-a"].join()
+    lost["submit"] = _verb(["submit", "--file", manifest, "--kubeconfig", kubeconfig])
+
+
+def _operator_node_loss(torch, fa, server, kubeconfig, lost):
+    """Job (e) of phase operator (docstring phase 24) on ``server``, the
+    leader, from ``_operator_lost_start``: node-b joins once (e)'s pod runs
+    on node-a; node-a is killed with SIGKILL while (e) waits after update
+    OPERATOR["lost_hold_at"] with step k's data written and its commit
+    marker absent; (e) must resume on node-b from step k - 2. Returns (the
+    summary, the resumed run's flash launches)."""
+    from tfk8s_tpu_torch.client.remote import clientset_from_kubeconfig
+    from tfk8s_tpu_torch.client.store import NotFound
+    from tfk8s_tpu_torch.runtime.checkpoint import _COMMITS_DIRNAME
+    from tfk8s_tpu_torch.runtime.kubelet import NODE_LEASE_PREFIX
+    from tfk8s_tpu_torch.trainer import labels as L
+
+    cfg, (name, _entry) = OPERATOR, OPERATOR_LOST
+    records, ckpt, nodes = lost["records"], lost["ckpt"], lost["nodes"]
+    # the newest checkpoint step at the hold: its save started, none committed it
+    k = (cfg["lost_hold_at"] - 1) // cfg["ckpt_every"] * cfg["ckpt_every"]
+    client = clientset_from_kubeconfig(kubeconfig)
+    leases = client.generic("Lease", "default")
+    t, out = {}, {"submit": lost["submit"]}
+
+    def pods():
+        return client.pods().list(label_selector={L.JOB_NAME: name})[0]
+
+    def watch():  # node-b's start: its joining to its first lease
+        if nodes["node-b"].joined is not None and "node_b_lease" not in t:
+            try:
+                leases.get(NODE_LEASE_PREFIX + "node-b")
+                t["node_b_lease"] = time.perf_counter()
+            except NotFound:
+                pass
+
+    def until(pred, what):
+        deadline = time.monotonic() + cfg["timeout_s"]
+        while not pred():
+            watch()
+            dead = [n for n, p in nodes.items() if p.proc.poll() is not None and n not in t]
+            if time.monotonic() > deadline or dead:
+                raise AssertionError(f"(e): {what} within {cfg['timeout_s']:.0f} s (ended: "
+                                     f"{dead})\n" + "\n".join(p.tail() for p in nodes.values()))
+            time.sleep(0.05)
+
+    def record(stem):
+        with open(os.path.join(records, f"{stem}.json")) as f:
+            return json.load(f)
+
+    def marked(step):
+        return os.path.exists(os.path.join(ckpt, _COMMITS_DIRNAME, str(step)))
+
+    until(lambda: any(p.status.phase.value == "Running" and p.status.host == "node-a"
+                      for p in pods()), "its pod did not run on node-a")
+    nodes["node-b"].join()
+    until(lambda: os.path.exists(os.path.join(records, "held.json"))
+          and os.path.exists(os.path.join(ckpt, str(k), "state.pt")),
+          f"it was not held with step {k}'s data written")
+    out["at_kill"] = {"k": k, "k_marked": marked(k), "k_minus_2_marked": marked(k - 2)}
+    listing = _listing(ckpt)
+    t["node-a"], wall_kill = time.perf_counter(), time.time()  # node-a's end is expected
+    nodes["node-a"].kill()
+    # the committed step the job must resume from, copied for the direct call
+    # while the operator finds the node lost
+    resume_copy = os.path.join(records, "resume")
+    _copy_checkpoint(ckpt, k - 2, resume_copy)
+
+    def ended():
+        conds = {c.type.value for c in client.tpujobs().get(name).status.conditions
+                 if c.status}
+        return conds & {"Succeeded", "Failed"}
+
+    until(ended, "it did not end")
+    st = client.tpujobs().get(name).status
+    out["final"] = {"conditions": [c.type.value for c in st.conditions if c.status],
+                    "gang_restarts": st.gang_restarts}
+    out["pods"] = [[p.status.phase.value, p.status.host] for p in pods()]
+    node_lost = [e for e in server.recorder.events(key=f"default/{name}")
+                 if e.reason == "NodeLost"]
+    out["node_lost"] = len(node_lost)
+    held, start_b, run_b = record("held"), record("start-1"), record("run-1")
+    out["node_a_ended_a_run"] = os.path.exists(os.path.join(records, "run-0.json"))
+    out["written_after_kill"] = sorted(
+        p for p in set(listing) | set(start_b["listing"])
+        if listing.get(p) != start_b["listing"].get(p))
+    history = run_b["history"]
+    out["resumed"] = {"ckpt_step": start_b["ckpt_step"],
+                      "steps": [h["step"] for h in history],
+                      "first_loss": history[0]["loss"] if history else None}
+    out["steps_lost"] = cfg["lost_hold_at"] - (start_b["ckpt_step"] or 0)
+    out["seconds"] = {
+        "hold_to_kill": wall_kill - held["at"],
+        "kill_to_node_lost": node_lost[0].timestamp - wall_kill if node_lost else None,
+        "kill_to_node_b_entry": start_b["entered"] - wall_kill,
+        "node_b_entry_to_state_built": run_b["state_built"] - start_b["entered"],
+        "state_built_to_first_update": run_b["first_update"] - run_b["state_built"],
+        "kill_to_first_resumed_update": run_b["first_update"] - wall_kill,
+        "node_b_start": t["node_b_lease"] - nodes["node-b"].joined if "node_b_lease" in t else None,
+        "nodes_warmed": {n: p.warmed_s() for n, p in nodes.items()},
+        "resumed_run": run_b["end"] - start_b["entered"]}
+    out["peak_gib"] = run_b["peak_gib"]
+    # the resumed run's first loss against a direct call on its env, resumed
+    # from a copy of the same checkpoint
+    direct = pod_entry(dict(start_b["env"], TFK8S_CHECKPOINT_DIR=resume_copy,
+                            TFK8S_TRAIN_STEPS=str(k - 1)))
+    out["direct"] = {"step": direct[0]["step"] if direct else None,
+                     "diff": abs(direct[0]["loss"] - history[0]["loss"])
+                     if direct and history else None}
+    out["launches"] = run_b["launches"]
+    log(f"operator: node loss {json.dumps(out)}")
+
+    bad = []
+    if out["submit"] != (0, f"tpujob default/{name} created\n"):
+        bad.append(f"submit {out['submit']}")
+    if out["at_kill"] != {"k": k, "k_marked": False, "k_minus_2_marked": True}:
+        bad.append(f"at the kill {out['at_kill']}, want step {k} written and unmarked, "
+                   f"{k - 2} committed")
+    if out["final"]["conditions"][-1:] != ["Succeeded"] or out["final"]["gang_restarts"] != 1:
+        bad.append(f"it ended {out['final']}, want Succeeded after one gang restart")
+    if out["node_lost"] != 1:
+        bad.append(f"NodeLost recorded {out['node_lost']} times, want once")
+    if out["pods"] != [["Succeeded", "node-b"]]:
+        bad.append(f"its pods {out['pods']}, want one Succeeded on node-b")
+    if out["node_a_ended_a_run"] or out["written_after_kill"]:
+        bad.append(f"node-a ended a run or wrote {out['written_after_kill']} after the kill")
+    if out["resumed"]["ckpt_step"] != k - 2 or out["resumed"]["steps"] != list(
+            range(k - 1, cfg["lost_steps"] + 1)):
+        bad.append(f"resumed {out['resumed']}, want steps {k - 1}-{cfg['lost_steps']} from "
+                   f"checkpoint {k - 2}")
+    if out["direct"]["diff"] is None or not out["direct"]["diff"] <= cfg["loss_atol"]:
+        bad.append(f"resumed first loss against the direct call: {out['direct']}")
+    if run_b["launches"] != _flash(fa, 1, GANG_LAYERS, len(history)):
+        bad.append(f"the resumed run's flash launches {run_b['launches']}, want "
+                   f"{GANG_LAYERS} layers x {len(history)} steps")
+    if bad:
+        raise AssertionError(f"job (e): {bad}\n" + "\n".join(p.tail() for p in nodes.values()))
+    return out, run_b["launches"]
+
+
 def phase_operator(torch, gpt, fa, root):
     """The example manifest's GPT-2-small TPUJob sent with the port's
     ``submit`` verb to two leader-elected operators, handed over mid-job,
     a second job gang-pending behind it, the verbs and the endpoint after,
     and the first job's history against a direct ``gpt:train`` call
     (docstring phase 24), then jobs (c) and (d) on the new leader
-    (``_operator_priority``). Returns the launches of the four jobs."""
+    (``_operator_priority``) and (e) through two kubelet processes, the
+    first killed with SIGKILL mid-job (``_operator_node_loss``). Returns
+    the launches of the five jobs (of (e), its resumed run's)."""
     from torch.optim.optimizer import register_optimizer_step_post_hook
 
     from tfk8s_tpu_torch.api import serde
@@ -5983,7 +6353,7 @@ def phase_operator(torch, gpt, fa, root):
     wire = {"scheme": "https" if tls else "http"}
     handle = register_optimizer_step_post_hook(_update_hook(torch))
     ops, kubelet_stop = {}, threading.Event()
-    pending, leaders, verbs, endpoint = [], [], {}, {}
+    pending, leaders, verbs, endpoint, lost = [], [], {}, {}, {}
     handed = {"over": False}
 
     def leads(ident):
@@ -6010,7 +6380,8 @@ def phase_operator(torch, gpt, fa, root):
         wire["start_listening_s"] = api.listening_s()
         wire["start_imports"] = api.imports()
         # one node agent of its own, so that stopping an operator leaves the pods
-        LocalKubelet(clientset_from_kubeconfig(api.kubeconfig), name="node-0").run(kubelet_stop)
+        node0 = LocalKubelet(clientset_from_kubeconfig(api.kubeconfig), name="node-0")
+        node0.run(kubelet_stop)
         for ident in ("op-a", "op-b"):
             ops[ident] = _operator_server(
                 {"h100-1": 1}, kubeconfig=api.kubeconfig, leader_elect=True, identity=ident,
@@ -6087,11 +6458,25 @@ def phase_operator(torch, gpt, fa, root):
         # lease threads left once the apiserver is back (both packages' electors
         # end on a transport error: ROADMAP queue 3)
         wire["renewers_alive"] = sum(t.name == "lease-renewer" for t in threading.enumerate())
-        # (c) and (d) on the new leader: a preemption, a suspend and two resumes
+        # (c) and (d) on the new leader: a preemption, a suspend and two resumes;
+        # once both succeeded the phase's kubelet stops and (e) starts on node-a
+        def start_lost():
+            # a stopped kubelet's informer still hands on what its watch
+            # delivers within its next poll (both packages): joined, it
+            # takes no pod
+            kubelet_stop.set()
+            node0.informer.join(10)
+            _operator_lost_start(work, api.kubeconfig, lost)
+            wire["lost_started"] = time.perf_counter()
+
         t_priority = time.perf_counter()
+        lost["nodes"] = _operator_nodes(root, work, api.kubeconfig)
         _, priority_launches = _operator_priority(torch, fa, server, api.kubeconfig,
-                                                          work)
+                                                  work, then=start_lost)
         wire["priority_s"] = time.perf_counter() - t_priority
+        # (e): node-a killed with SIGKILL mid-save, the job resumed on node-b
+        _, lost_launches = _operator_node_loss(torch, fa, server, api.kubeconfig, lost)
+        wire["lost_s"] = time.perf_counter() - wire.pop("lost_started")
         # the verbs, as a user reads the jobs, and the new leader's endpoint
         for srv, _stop in ops.values():
             srv.recorder.flush()
@@ -6106,6 +6491,8 @@ def phase_operator(torch, gpt, fa, root):
     finally:
         resume.set()
         kubelet_stop.set()
+        for node in lost.get("nodes", {}).values():
+            node.stop()
         for server, stop in ops.values():
             stop.set()
             server.shutdown()
@@ -6180,6 +6567,9 @@ def phase_operator(torch, gpt, fa, root):
         raise AssertionError(f"not one leader at a time: before {before}, after {after}")
     _check_verbs(verbs, endpoint, names[0], series,
                  [r for r in summary[names[0]]["reasons"]])
+    if _series(metrics, "tpujob_node_lost_pods_total") != 1:
+        raise AssertionError("the leader's /metrics counts tpujob_node_lost_pods_total "
+                             f"{_series(metrics, 'tpujob_node_lost_pods_total')}, want 1")
     want = {"a": _flash(fa, 1, layers, steps),
             "b": _flash(fa, 1, GANG_LAYERS, OPERATOR["gang_steps"])}
     for key, rec in zip("ab", (rec_a, rec_b)):
@@ -6196,7 +6586,7 @@ def phase_operator(torch, gpt, fa, root):
         raise AssertionError(f"the operator phase took {summary['phase_s']:.1f} s, over its "
                              f"{OPERATOR['limit_s']:.0f} s limit")
     return {k: rec_a["launches"][k] + rec_b["launches"][k] + priority_launches[k]
-            for k in fa.KERNELS}
+            + lost_launches[k] for k in fa.KERNELS}
 
 
 def _series(text, name):

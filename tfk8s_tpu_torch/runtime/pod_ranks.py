@@ -35,14 +35,15 @@ card each (``runtime/launcher.py``), so such a pod starts
 - no rank outlives its pod: after a stop and :data:`STOP_GRACE_S`, or at
   once after a failure, the ranks are terminated, then killed after
   :data:`TERM_GRACE_S`, and every one is joined on every path; a rank
-  whose stdin closes (this process gone) stops, and exits after
-  :data:`STOP_GRACE_S` whatever it is doing. The grace counts from the
-  stop or from the moment every rank has said it started (its entry
-  point imported), whichever is later: a stop given at spawn must not
-  spend the grace on the ranks' interpreter start and torch import,
-  which on a loaded host take more than the grace itself. A rank that
-  has not started :data:`START_GRACE_S` after the spawn no longer holds
-  the grace back.
+  whose stdin closes (this process gone) exits at once with no final save
+  (its node is lost, as the reference's one process a host would be), or,
+  once told to stop, :data:`STOP_GRACE_S` later whatever it is doing. The
+  grace counts from the stop or from the moment every rank has said it
+  started (its entry point imported), whichever is later: a stop given
+  at spawn must not spend the grace on the ranks' interpreter start and
+  torch import, which on a loaded host take more than the grace itself.
+  A rank that has not started :data:`START_GRACE_S` after the spawn no
+  longer holds the grace back.
 
 In a rank process this module stands in for the node agent: the stop
 object is a :class:`RankStop`, whose module holds the three names
@@ -386,8 +387,8 @@ _RELAY_PROGRESS = False
 
 
 class RankStop(threading.Event):
-    """A rank's stop signal: set on the pod's stop (or when the pod's
-    process is gone), with the drain notice as ``drain_requested``."""
+    """A rank's stop signal: set on the pod's stop, with the drain notice
+    as ``drain_requested``."""
 
     def __init__(self) -> None:
         super().__init__()
@@ -429,15 +430,20 @@ def _emit(msg: Dict[str, Any]) -> None:
 
 
 def _listen(stop: RankStop) -> None:
-    """The pod's commands on stdin; at its end the pod's process is gone,
-    so the rank stops, and exits STOP_GRACE_S later if still running."""
+    """The pod's commands on stdin. At its end the pod's process is gone.
+    A rank told ``stop`` before that keeps its graceful end (the final
+    save), and exits STOP_GRACE_S later if still running. A rank never
+    told ``stop`` lost its node with the pod's process: it ends at once and
+    writes nothing more, as the node's one process would have (a final
+    save would commit a later step than the job's last one)."""
     for line in sys.stdin:
         cmd = line.strip()
         if cmd == "drain":
             stop.request_drain()
         elif cmd == "stop":
             stop.set()
-    stop.set()
+    if not stop.is_set():
+        os._exit(1)
     time.sleep(STOP_GRACE_S)
     os._exit(1)
 

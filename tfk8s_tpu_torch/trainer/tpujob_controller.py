@@ -714,9 +714,6 @@ class TPUJobController:
                 f"NodeLost: node {pod.status.host} lease stale for "
                 f"{age:.1f}s (duration {duration}s)"
             )
-            self.recorder.event("TPUJob", key, "NodeLost",
-                                f"{pod.metadata.name}: {msg}")
-            self.metrics.inc("tpujob.node_lost_pods_total")
             try:
                 cur = self.cs.pods(ns).get(pod.metadata.name)
                 if (
@@ -742,6 +739,11 @@ class TPUJobController:
                 )
             except (Conflict, NotFound):
                 continue
+            # recorded once the mark lands: a sync that read a stale cache
+            # (the pod already marked) must not count the pod again
+            self.recorder.event("TPUJob", key, "NodeLost",
+                                f"{pod.metadata.name}: {msg}")
+            self.metrics.inc("tpujob.node_lost_pods_total")
         if running:
             self.controller.enqueue_after(key, NODE_CHECK_PERIOD_S)
 
