@@ -430,7 +430,8 @@ must pass:
    ``start_metrics_server(0)``: ``/healthz`` ``ok``, ``/metrics`` holding
    ``tpujob_succeeded_total`` at 2 or more, which only op-b's reconciles of (a) and
    (b) can have counted on op-b's registry (op-a stopped before (a) ended),
-   and
+   (the two hot-path counters, OPERATOR_HOT_PATH, are printed, None where
+   not exposed), and
    ``/events?key=default/<a>`` (a)'s events. It prints the start and
    restart seconds (to ``/healthz``, to the apiserver's own "listening"
    line, and its imports under ``-X importtime``), the outage (kill to
@@ -526,12 +527,24 @@ must pass:
    replicas are Ready and at most 3 pods live, the old version's pods are
    deleted and 2 are updated; then a greedy request through the gateway
    equals a direct submit to a new replica and differs from the
-   ``seed:0`` answer; (d) no kernel of the port launches, and the
-   gateway's ``tfk8s_gateway_requests_total`` equals the requests sent.
-   It prints submission to Ready, peak memory, replica-reported TTFT and
-   client latency p50/p99 through the gateway beside the direct baseline, the
-   rollout's seconds and the requests served during it. The phase fails
-   above GATEWAY["limit_s"].
+   ``seed:0`` answer; (d) GATEWAY["crash_requests"] greedy requests of
+   GATEWAY["crash_prompt"] tokens, GATEWAY["crash_gen"] generated, sent
+   through ``GatewayClient`` at once, and a new replica crashed with
+   ``chaos_crash_replica`` as soon as its decode loop holds one of them:
+   every reply must come with all its tokens, each request the crashed
+   replica held (it fails them ``ReplicaUnavailable``) must equal a direct
+   greedy submit to the survivor, ``tfk8s_gateway_retries_total`` must
+   count at least one ``transport`` retry for each, the gateway's route
+   table must no longer hold the crashed replica ``HEALTHY``, and the step
+   must end within GATEWAY["crash_limit_s"]; the failed pod's replacement
+   ends with the serve's deletion. Last, no kernel of the port launches,
+   and the gateway's ``tfk8s_gateway_requests_total`` equals the requests
+   sent. It prints submission to Ready, peak memory, replica-reported TTFT
+   and client latency p50/p99 through the gateway beside the direct
+   baseline, the rollout's seconds and the requests served during it, and
+   for (d) the requests the crashed replica held, the crash to the last
+   reply, and the rerouted replies' latency beside the others'. The phase
+   fails above GATEWAY["limit_s"].
 
 The launch counts are zeroed just before each path (phases 6-25) and
 read just after it; the line's launches add up the paths'. Then it prints the card line, the ``kernels`` JSON
@@ -5493,6 +5506,12 @@ OPERATOR = dict(manifest=os.path.join("manifests", "examples", "gpt-h100-torch.j
                 lost_steps=6, lost_hold_at=5, node_lease_s=2.0, node_renew_s=0.5)
 # job (b)'s entry point, a name the phase registers for pod_entry
 OPERATOR_GANG_ENTRY = "chip_smoke.operator_gang"
+# the control plane's hot-path counters the phase reads from the leader's
+# /metrics and prints: the status writes its controller skipped, and the
+# watch events a ClusterStore merged for a slow watcher. Neither need show:
+# a series is exposed once counted, the phase's syncs each change their
+# job's status, and over the wire the store is the apiserver process's
+OPERATOR_HOT_PATH = ("tfk8s_watch_coalesced_total", "tfk8s_status_patches_skipped_total")
 # jobs (c) and (d): (c) at priority 1 is preempted by (d) at priority 10,
 # then suspended and resumed; both pod_entry at GANG_LAYERS depth
 OPERATOR_LOW = ("gpt-h100-low", "chip_smoke.operator_low", 1)
@@ -6539,9 +6558,10 @@ def phase_operator(torch, gpt, fa, root):
     metrics = endpoint.get("/metrics", (None, None, ""))[2]
     series = "tpujob_succeeded_total"
     value = _series(metrics, series)
+    hot_path = {n: _counter_sum(metrics, n) for n in OPERATOR_HOT_PATH}
     log(f"operator: verbs {json.dumps({k: [rc, len(out)] for k, (rc, out) in verbs.items()})}, "
         f"endpoint {json.dumps({k: [v[0], v[1], len(v[2])] for k, v in endpoint.items()})}, "
-        f"{series} {value}")
+        f"{series} {value}, hot path {json.dumps(hot_path)}")
 
     for key, name in zip("ab", names):
         conds, _reasons, pods = states[name]
@@ -6596,6 +6616,14 @@ def _series(text, name):
         if line.startswith(name + " "):
             return float(line.split()[1])
     return None
+
+
+def _counter_sum(text, name):
+    """The sum of every sample of counter family ``name`` in a Prometheus
+    exposition, or None when it has no sample."""
+    values = [float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+              if line.startswith((name + " ", name + "{"))]
+    return sum(values) if values else None
 
 
 def _check_verbs(verbs, endpoint, name, series, reasons):
@@ -6696,7 +6724,9 @@ def _operator_nccl(torch, fa):
 
 GATEWAY = dict(manifest=os.path.join("manifests", "examples", "gpt-serve-h100-torch.json"),
                requests=16, concurrency=8, roll_clients=4, roll_prompt=64, roll_gen=16,
-               seed=5, ready_s=120.0, roll_s=120.0, timeout_s=120.0, limit_s=75.0)
+               seed=5, ready_s=120.0, roll_s=120.0, timeout_s=120.0, limit_s=75.0,
+               crash_requests=8, crash_prompt=64, crash_gen=64, crash_hold_s=10.0,
+               crash_limit_s=10.0)
 # the CPU rehearsal's template env (the card run overrides nothing)
 GATEWAY_CPU_ENV = {"TFK8S_DEVICE": "cpu"}
 
@@ -6735,6 +6765,100 @@ def _in_waves(calls, width):
     for i in range(0, len(calls), width):
         out.extend(_run_each(calls[i:i + width]))
     return out
+
+
+def _transport_retries(metrics):
+    """The gateway's ``tfk8s_gateway_retries_total`` over every series
+    whose reason is ``transport``."""
+    return sum(v for k, v in metrics.snapshot()["counters"].items()
+               if k.startswith("tfk8s_gateway_retries_total{") and 'reason="transport"' in k)
+
+
+def _gateway_crash(server, client, name, keys, vocab, failures):
+    """(d): GATEWAY["crash_requests"] greedy requests through the gateway at
+    once, and the replica ``keys[0]`` crashed (``chaos_crash_replica``) as
+    soon as it decodes one of them. Every reply must come with all its
+    tokens; those the crashed replica held, rerouted by the gateway, must
+    equal direct submits to the survivor ``keys[1]``; the gateway must count
+    a transport retry for each and no longer hold the crashed replica
+    healthy. Returns the step's record."""
+    import threading
+
+    import numpy as np
+
+    from tfk8s_tpu_torch.gateway import health as H
+    from tfk8s_tpu_torch.runtime import server as serving
+
+    t0 = time.perf_counter()
+    victim_key, survivor_key = keys
+    victim, survivor = (serving.lookup_replica(k) for k in keys)
+    gen, timeout = GATEWAY["crash_gen"], GATEWAY["timeout_s"]
+    rng = np.random.default_rng(GATEWAY["seed"] + 1)
+    payloads = [{"tokens": [int(t) for t in rng.integers(1, vocab, GATEWAY["crash_prompt"])],
+                 "gen_tokens": gen} for _ in range(GATEWAY["crash_requests"])]
+    index = {tuple(p["tokens"]): i for i, p in enumerate(payloads)}
+    # the requests the gateway gave the replica to be crashed, and those it
+    # failed: its submit, wrapped on this one instance
+    given, lost, lock = [], [], threading.Lock()
+    submit = victim.submit
+
+    def watched(payload, *args, **kwargs):
+        i = index.get(tuple(payload.get("tokens", ())))
+        with lock:
+            given.append(i)
+        try:
+            return submit(payload, *args, **kwargs)
+        except serving.ReplicaUnavailable:
+            with lock:
+                lost.append(i)
+            raise
+
+    victim.submit = watched
+    retries_before = _transport_retries(server.metrics)
+    runs = []
+    sender = threading.Thread(target=lambda: runs.extend(_run_each(
+        [lambda p=p: client.request(p, timeout=timeout) for p in payloads])), daemon=True)
+    sender.start()
+    if not _wait_until(lambda: victim.live_slots >= 1, GATEWAY["crash_hold_s"]):
+        sender.join(timeout)
+        raise AssertionError(f"{victim_key} held none of the {len(payloads)} requests "
+                             f"within {GATEWAY['crash_hold_s']:.0f} s")
+    t_crash = time.perf_counter()
+    if not serving.chaos_crash_replica(victim_key, message="chip_smoke: replica crashed"):
+        raise AssertionError(f"{victim_key} is not registered")
+    sender.join(timeout)
+    if sender.is_alive() or len(runs) != len(payloads):
+        raise AssertionError(f"the crash step's requests did not end within {timeout:.0f} s")
+    replies = _results(runs, "crash")
+    rerouted = sorted(set(lost))
+    direct = _results(_run_each([lambda i=i: survivor.submit(payloads[i], timeout=timeout)
+                                 for i in rerouted]), "direct to the survivor") if rerouted else []
+    differ = [i for i, d in zip(rerouted, direct) if replies[i]["tokens"] != d["tokens"]]
+    retries = _transport_retries(server.metrics) - retries_before
+    health = server.gateway.state_for("default", name).table.health_state(victim_key)
+    lat = [end - start for _, start, end in runs]
+    record = {
+        "crashed": victim_key, "survivor": survivor_key, "given": len(given),
+        "held": len(rerouted), "rerouted": rerouted, "transport_retries": retries,
+        "crashed_health": health, "crash_after_send_s": t_crash - min(t for _, t, _ in runs),
+        "crash_to_last_reply_s": max(t1 for _, _, t1 in runs) - t_crash,
+        "latency_rerouted_s": [lat[i] for i in rerouted],
+        "latency_others_s": [lat[i] for i in range(len(runs)) if i not in rerouted],
+        "differ_from_survivor": differ, "seconds": time.perf_counter() - t0}
+    if not rerouted:
+        failures.append(f"crash: {victim_key} failed none of the requests it held")
+    if any(len(r["tokens"]) != gen for r in replies):
+        failures.append(f"crash: a reply did not complete {gen} tokens")
+    if differ:
+        failures.append(f"crash: rerouted replies {differ} differ from the survivor's")
+    if retries < len(rerouted):
+        failures.append(f"crash: {retries} transport retries for {len(rerouted)} held requests")
+    if health == H.HEALTHY:
+        failures.append(f"crash: the gateway still holds {victim_key} healthy")
+    if record["seconds"] > GATEWAY["crash_limit_s"]:
+        failures.append(f"crash: the step took {record['seconds']:.1f} s, over its "
+                        f"{GATEWAY['crash_limit_s']:.0f} s limit")
+    return record
 
 
 def phase_gateway(torch, kernel_modules, root):
@@ -6924,6 +7048,10 @@ def phase_gateway(torch, kernel_modules, root):
             failures.append("the seed:1 replica answers as the seed:0 one did")
         if sum(served) < 1:
             failures.append("no request was served during the rollout")
+
+        # (d) a replica crashed while it holds requests through the gateway
+        sent += GATEWAY["crash_requests"]
+        summary["crash"] = _gateway_crash(server, client, name, new_keys, vocab, failures)
     finally:
         # the serve's delete drains and stops its replicas; the kubelet's
         # stop ends no pod
@@ -6936,7 +7064,7 @@ def phase_gateway(torch, kernel_modules, root):
         server.shutdown()
         server.gateway.server_close()
 
-    # (d) no kernel, every request counted
+    # no kernel, every request counted
     launches = {k: v for mod in kernel_modules for k, v in mod.LAUNCHES.items()}
     counted = sum(v for k, v in server.metrics.snapshot()["counters"].items()
                   if k.startswith("tfk8s_gateway_requests_total{"))

@@ -249,3 +249,35 @@ CONTRACT_ENV = ("TFK8S_WORLD_VERSION", "TFK8S_NUM_PROCESSES", "TFK8S_GANG_RESTAR
 def contract_env(pod):
     env = pod.spec.containers[0].env
     return {k: env.get(k) for k in CONTRACT_ENV}
+
+
+_HELD = {}
+
+
+def held(flow, name, *args):
+    """``flow(PACKAGES[name], *args)``, one package's case of a flow that
+    runs through both: the reference's record is kept, the port's held
+    equal to it (the reference's flow is run here too when its case has
+    not run first in this process). Returns the record."""
+    key = f"{flow.__module__}.{flow.__qualname__}"
+    record = flow(PACKAGES[name], *args)
+    if name == "reference":
+        _HELD[key] = record
+    else:
+        want = _HELD[key] if key in _HELD else flow(PACKAGES["reference"], *args)
+        assert record == want, f"port {record!r}\nreference {want!r}"
+    return record
+
+
+def raised(P, fn, *args, **kwargs):
+    """The class ``fn(*args, **kwargs)`` raised, as ``module.Class`` with
+    the port's package name written as the reference's; None when it
+    returned. The class must be ``P``'s own or a builtin."""
+    try:
+        fn(*args, **kwargs)
+    except Exception as e:  # noqa: BLE001 — the record is the class
+        cls = type(e)
+        assert cls.__module__ == "builtins" or cls.__module__.startswith(P.root + "."), (
+            f"{cls.__module__}.{cls.__name__} is not {P.root}'s")
+        return f"{cls.__module__.replace(ROOTS['port'], ROOTS['reference'])}.{cls.__name__}"
+    return None

@@ -25,7 +25,11 @@ import _torch_threads  # noqa: F401  (torch's threads under xdist)
 
 
 def _echo(env):
-    pass
+    """Hold the pod Running for a second, so that in either package a sync
+    sees it Running (``JobRunning``) before it succeeds: an entry point that
+    returns at once lets a loaded host's informer fold Running into
+    Succeeded, and which package records ``JobRunning`` is then timing."""
+    time.sleep(1.0)
 
 
 def _progress(name):

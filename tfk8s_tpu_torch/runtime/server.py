@@ -181,57 +181,6 @@ class Preempted(RequestFailed):
 # ---------------------------------------------------------------------------
 
 
-@dataclass
-class SamplingParams:
-    """Per-request token sampling knobs: a copy of the JAX package's
-    ``api.types.SamplingParams``, the wire contract of a request's
-    ``sampling`` block. ``temperature`` 0 means greedy; ``top_k`` 0 and
-    ``top_p`` 1.0 disable their cuts; ``seed`` plus the absolute-position
-    PRNG fold make a sampled stream deterministic under resume."""
-
-    temperature: float = 0.0
-    top_k: int = 0
-    top_p: float = 1.0
-    seed: int = 0
-
-    @classmethod
-    def from_payload(cls, raw: Any) -> "SamplingParams":
-        """Normalize a payload's ``sampling`` block (``topK``/``top_k``
-        casings both accepted). Raises ``ValueError`` on malformed blocks
-        and out-of-range knobs."""
-        if not isinstance(raw, dict):
-            raise ValueError(
-                f"sampling must be a dict, got {type(raw).__name__}"
-            )
-
-        def _get(snake: str, camel: str, default):
-            return raw.get(snake, raw.get(camel, default))
-
-        try:
-            params = cls(
-                temperature=float(_get("temperature", "temperature", 0.0)),
-                top_k=int(_get("top_k", "topK", 0)),
-                top_p=float(_get("top_p", "topP", 1.0)),
-                seed=int(_get("seed", "seed", 0)),
-            )
-        except (TypeError, ValueError):
-            raise ValueError(f"malformed sampling block: {raw!r}") from None
-        if params.temperature < 0:
-            raise ValueError(
-                f"temperature must be >= 0, got {params.temperature}"
-            )
-        if params.top_k < 0:
-            raise ValueError(f"top_k must be >= 0, got {params.top_k}")
-        if not 0.0 < params.top_p <= 1.0:
-            raise ValueError(f"top_p must be in (0, 1], got {params.top_p}")
-        return params
-
-    def as_tuple(self) -> "tuple":
-        """The (temperature, top_k, top_p, seed) form the decode loop
-        threads through the packed device step."""
-        return (self.temperature, self.top_k, self.top_p, self.seed)
-
-
 # (temperature, top_k, top_p, seed) — the normalized per-request
 # sampling tuple threaded from validate() through the packed device
 # step. temperature <= 0 pins the row to the greedy argmax path.
@@ -240,9 +189,11 @@ _SamplingTuple = Tuple[float, int, float, int]
 
 def _parse_sampling(raw: Any) -> Optional[_SamplingTuple]:
     """Normalize a payload's ``sampling`` block into ``(temperature,
-    top_k, top_p, seed)`` via :class:`SamplingParams`. Raises
-    :class:`InvalidRequest` on malformed blocks and out-of-range knobs;
-    None for greedy."""
+    top_k, top_p, seed)`` via :class:`api.types.SamplingParams`, the one
+    wire schema of the block. Raises :class:`InvalidRequest` on malformed
+    blocks and out-of-range knobs; None for greedy."""
+    from tfk8s_tpu_torch.api.types import SamplingParams
+
     if raw is None:
         return None
     try:
